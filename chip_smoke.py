@@ -7,12 +7,24 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      offset-stencil SpMV kernel (foamtpu_torch/csrc/spmv_stencil.cu).
   2. kernel: the kernel against its plain torch version on the card, at
      the shapes of tests/test_pallas_spmv.py plus a [160000, 3] operand
-     and a no-diagonal call, in float32 and float64, with timings.
+     and a no-diagonal call, in float32 and float64, with timings; and
+     at pitzDaily's own stencil (its st_deltas with the pressure matrix
+     [n] and the relaxed momentum matrix [n, 3] that the first SIMPLE
+     iteration hands to its linear solves).
   3. physics: the 20^2 icoFoam cavity, 100 steps, against the goldens of
      tests/test_cavity.py.
   4. headline: the 400^2 cavity with the GAMG pressure controls of
      bench.py, one 10-step warm-up chunk and three timed 10-step chunks;
      the SpMV launch count shows the main path ran through the kernel.
+  5. pitz: simpleFoam on the unmodified pitzDaily tutorial (blockMesh,
+     Case, kEpsilon with wall functions, GAMG p): a 50-iteration warm-up
+     chunk, three timed 50-iteration chunks (bench.py's bench_pitz), and
+     on to 1000 iterations, held to the oracles of
+     tests/test_pitzdaily.py; then one 20-iteration chunk with each
+     linear solve fenced by torch.cuda.synchronize for the time share
+     per solve, and one 10-iteration chunk under torch.profiler for the
+     device time per iteration, per solve and per kernel, with the SpMV
+     launches of that chunk.
 Then the kernel table and the final `{"ok": true, ...}` line.
 
 It needs a CUDA card and the repository's foamtpu_torch package beside
@@ -21,11 +33,14 @@ it; without either it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -33,6 +48,10 @@ import torch
 
 KERNEL_SOURCE = "foamtpu_torch/csrc/spmv_stencil.cu"
 KERNEL_REPLACES = "openfoam-2.2.x_tpu/ops/pallas_spmv.py:109"
+PITZ_CASE = os.path.join("tutorials", "incompressible", "simpleFoam",
+                         "pitzDaily")
+PITZ_CHUNK = 50       # iterations per chunk (bench.py's BENCH_PITZ_ITERS)
+PITZ_CHUNKS = 20      # 1000 iterations, the horizon of test_pitzdaily.py
 
 # tests/test_cavity.py:120-134 (f32, 20x20, 100 steps of dt=0.005)
 GOLDEN_UCL = np.array([
@@ -118,7 +137,105 @@ def time_ms(fn, reps=5, inner=200) -> float:
     return statistics.median(out)
 
 
-def phase_kernel(spmv):
+def pitz_setup(here, root):
+    """The pitzDaily tutorial copied under `root`, meshed by the port's
+    blockMesh, loaded as a Case on the card with its kEpsilon model and
+    fvSolution controls (bench.py:300-326). Returns (mesh, cfg, state)."""
+    from foamtpu_torch.apps.cli import main as cli
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.core.dictionary import dimensioned_scalar
+    from foamtpu_torch.solvers import piso, simple
+    from foamtpu_torch.solvers.apps import _load_turbulence, _relaxation
+
+    dst = os.path.join(root, "pitzDaily")
+    shutil.copytree(os.path.join(here, PITZ_CASE), dst)
+    with contextlib.redirect_stdout(sys.stderr):
+        check(cli(["blockMesh", "-case", dst]) == 0, "blockMesh failed")
+    case = Case(dst, device="cuda")
+    mesh = case.mesh
+    _, nu = dimensioned_scalar(case.transport_properties()["nu"])
+    model, tstate = _load_turbulence(case, nu)
+    relax = _relaxation(case)
+    cfg = simple.SimpleConfig(
+        nu=nu, div_scheme=case.div_scheme("div(phi,U)"),
+        corrected=case.laplacian_corrected(),
+        grad_scheme=case.grad_scheme("grad(p)"),
+        alpha_u=relax.get("U", 0.7), alpha_p=relax.get("p", 0.3),
+        p_controls=case.solver_controls("p"),
+        u_controls=case.solver_controls("U"),
+        turb=model, turb_relax=relax.get("k", 0.7))
+    state = piso.initial_state(mesh, case.read_field("U"),
+                               case.read_field("p"), turb_state=tstate)
+    return mesh, cfg, state
+
+
+class SolveLog:
+    """The one wrapper around foamtpu_torch.solvers.linear.solve that the
+    pitzDaily runs use. Each call is named by its equation's dimensions
+    (FvMatrix.dims: U, p, k and epsilon differ; an equation of other
+    dimensions fails the run), counted, and its first matrix per name
+    kept; with `fence` it is timed between two torch.cuda.synchronize,
+    with `ranges` it runs in a torch.profiler range solve_<name>."""
+
+    def __init__(self, state, fence=False, ranges=False):
+        from foamtpu_torch.core.dimensions import dimFlux, dimLength, dimTime
+
+        turb = state["turb"]
+        self.names = {dimFlux * state["U"].dims: "U",
+                      dimTime * state["p"].dims * dimLength: "p",
+                      dimFlux * turb["epsilon"].dims: "epsilon",
+                      dimFlux * turb["k"].dims: "k"}
+        check(len(self.names) == 4, f"equation dimensions collide: "
+              f"{self.names}")
+        self.fence, self.ranges = fence, ranges
+        self.calls = dict.fromkeys(self.names.values(), 0)
+        self.seconds = dict.fromkeys(self.names.values(), 0.0)
+        self.matrices = {}
+
+    def __enter__(self):
+        from foamtpu_torch.solvers import linear
+
+        self._linear, self._orig = linear, linear.solve
+        linear.solve = self._solve
+        return self
+
+    def __exit__(self, *exc):
+        self._linear.solve = self._orig
+
+    def _solve(self, mesh, mat, psi, controls):
+        from torch.profiler import record_function
+
+        name = self.names.get(mat.dims)
+        check(name is not None, f"a solve of unnamed dimensions {mat.dims}")
+        self.calls[name] += 1
+        self.matrices.setdefault(name, mat)
+        with (record_function(f"solve_{name}") if self.ranges
+              else contextlib.nullcontext()):
+            if self.fence:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out = self._orig(mesh, mat, psi, controls)
+            if self.fence:
+                torch.cuda.synchronize()
+                self.seconds[name] += time.perf_counter() - t0
+        return out
+
+
+def pitz_operands(mesh, cfg, state):
+    """The SpMV operands of pitzDaily's first SIMPLE iteration, taken
+    from the matrices that iteration hands to the linear solves: the
+    pressure matrix (diag_eff [n]) and the relaxed momentum matrix
+    (diag_eff [n,3]), with their slot coefficients over st_deltas."""
+    from foamtpu_torch.solvers import simple
+
+    with SolveLog(state) as log:
+        simple.make_step(mesh, cfg)(state)
+    p, u = log.matrices["p"], log.matrices["U"]
+    return [("pitz_p", p.soff, p.diag_eff(mesh)),
+            ("pitz_Ux3", u.soff, u.diag_eff(mesh))]
+
+
+def phase_kernel(spmv, pitz_ops, deltas_pitz):
     max_err = 0.0
     cases = []
     timing = {}
@@ -144,10 +261,43 @@ def phase_kernel(spmv):
                      time_ms(lambda: spmv.plain(diag, x, soff, deltas))]
                 timing = {"kernel_ms": min(t[1], t[2]),
                           "plain_ms": min(t[0], t[3]), "runs_ms": t}
+        # pitzDaily's own stencil: the assembled coefficients with
+        # seeded O(1) x; atol is taken relative to max|plain| because
+        # the matrices' scale is far from 1
+        rng = np.random.default_rng(1)
+        for name, soff, diag in pitz_ops:
+            soff = soff.to(dtype).contiguous()
+            diag = diag.to(dtype).contiguous()
+            x = torch.tensor(rng.standard_normal(tuple(diag.shape)),
+                             dtype=dtype, device="cuda")
+            got = spmv.spmv(diag, x, soff, deltas_pitz)
+            torch.cuda.synchronize()
+            ref = spmv.plain(diag, x, soff, deltas_pitz)
+            scale = float(torch.max(torch.abs(ref)))
+            err = float(torch.max(torch.abs(got - ref)))
+            ok = bool(torch.allclose(got, ref, rtol=rtol,
+                                     atol=atol * scale))
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+            cases.append({"case": name, "dtype": str(dtype), "ok": ok,
+                          "n": int(x.shape[0]),
+                          "ncols": 1 if x.ndim == 1 else int(x.shape[1]),
+                          "offsets": len(deltas_pitz),
+                          "max_abs_err": err, "scale": scale})
+            check(ok, f"spmv kernel disagrees with plain: {name} {dtype}")
+            if dtype == torch.float32 and name == "pitz_p":
+                t = [time_ms(lambda: spmv.plain(diag, x, soff, deltas_pitz)),
+                     time_ms(lambda: spmv.spmv(diag, x, soff, deltas_pitz)),
+                     time_ms(lambda: spmv.spmv(diag, x, soff, deltas_pitz)),
+                     time_ms(lambda: spmv.plain(diag, x, soff, deltas_pitz))]
+                timing_pitz = {"kernel_ms": min(t[1], t[2]),
+                               "plain_ms": min(t[0], t[3]), "runs_ms": t}
     emit({"phase": "kernel", "cases": cases, "max_abs_err_f32": max_err,
-          "n160000_f32": timing,
+          "n160000_f32": timing, "n4160_pitz_p_f32": timing_pitz,
           "kernel_us": timing["kernel_ms"] * 1e3,
-          "plain_us": timing["plain_ms"] * 1e3})
+          "plain_us": timing["plain_ms"] * 1e3,
+          "pitz_kernel_us": timing_pitz["kernel_ms"] * 1e3,
+          "pitz_plain_us": timing_pitz["plain_ms"] * 1e3})
     return max_err, timing
 
 
@@ -245,6 +395,169 @@ def phase_headline(spmv, n=400, nsteps=10, trials=3):
     return out
 
 
+def pitz_oracles(mesh, state, min_ux_seen, ux_res):
+    """tests/test_pitzdaily.py:79-102 on the port's state."""
+    c = mesh.c.cpu().numpy()
+    u = state["U"].data.cpu().numpy()
+    k = state["turb"]["k"].data.cpu().numpy()
+    nut = state["turb"]["nut"].data.cpu().numpy()
+    wall = (c[:, 1] < -0.02) & (c[:, 0] > 0)
+    xs = c[wall, 0]
+    neg = xs[u[wall, 0] < 0]
+    x_r = float(neg.max()) if neg.size else 0.0
+    out = {"finite": bool(np.isfinite(u).all() and np.isfinite(k).all()
+                          and np.isfinite(nut).all()),
+           "k_min": float(k.min()), "nut_min": float(nut.min()),
+           "u_max": float(np.abs(u).max()), "k_max": float(k.max()),
+           "min_ux_behind_step": min_ux_seen,
+           "ux_res_last": ux_res[-1], "ux_res_early_max": max(ux_res[:3]),
+           "x_reattach": x_r, "nut_max": float(nut.max())}
+    checks = {"finite": out["finite"], "k>0": out["k_min"] > 0,
+              "nut>=0": out["nut_min"] >= 0, "|U|<15": out["u_max"] < 15.0,
+              "k<15": out["k_max"] < 15.0,
+              "recirculation": min_ux_seen < -0.05,
+              "residual halves": ux_res[-1] < max(ux_res[:3]) / 2,
+              "residual<8e-3": ux_res[-1] < 8e-3,
+              "x_r in [0.10,0.23]": 0.10 < x_r < 0.23,
+              "nut_max>2e-4": out["nut_max"] > 20 * 1e-5}
+    return out, checks
+
+
+def phase_pitz(spmv, here, root, trials=3):
+    from foamtpu_torch.solvers import simple
+
+    torch.cuda.reset_peak_memory_stats()
+    spmv.LAUNCHES = 0
+    t0 = time.perf_counter()
+    mesh, cfg, state = pitz_setup(here, root)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    chunk = simple.make_chunk(mesh, cfg, PITZ_CHUNK)
+    c = mesh.c
+    behind = (c[:, 0] > 0.0) & (c[:, 0] < 0.06) & (c[:, 1] < -0.005)
+    min_ux, ux_res, times = 1e9, [], []
+    launches0 = None
+    t_run = time.perf_counter()
+    for i in range(PITZ_CHUNKS):
+        t0 = time.perf_counter()
+        state, diag = chunk(state)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / PITZ_CHUNK
+        if i == 0:
+            launches0 = spmv.LAUNCHES
+        elif i <= trials:
+            times.append(dt)
+        if i == trials:
+            launches_timed = spmv.LAUNCHES - launches0
+        ux = state["U"].data
+        check(bool(torch.isfinite(ux).all()), f"diverged in chunk {i}")
+        min_ux = min(min_ux, float(ux[behind, 0].min()))
+        ux_res.append(float(diag["Ux"].initial_residual.max()))
+    run_s = time.perf_counter() - t_run
+    launches = spmv.LAUNCHES
+    oracles, checks = pitz_oracles(mesh, state, min_ux, ux_res)
+    iters = {"p": int(diag["p_iters"]),
+             "U": int(diag["Ux"].n_iterations),
+             "k": int(diag["turb_k"].n_iterations),
+             "epsilon": int(diag["turb_epsilon"].n_iterations)}
+    # the time share per solve: one more chunk, each solve fenced
+    n_share = 20
+    with SolveLog(state, fence=True) as log:
+        t0 = time.perf_counter()
+        state, _ = simple.make_chunk(mesh, cfg, n_share)(state)
+        torch.cuda.synchronize()
+        fenced_s = time.perf_counter() - t0
+    out = {"phase": "pitz",
+           "case": "simpleFoam pitzDaily, kEpsilon + wall functions, "
+                   "unmodified tutorial files",
+           "n_cells": mesh.n_cells, "n_faces": mesh.n_faces,
+           "st_deltas": list(mesh.st_deltas),
+           "n_fallback": int(mesh.fb_cells.shape[0]),
+           "dtype": str(mesh.v.dtype),
+           "gamg_levels": len(cfg.p_controls["_gamg"].levels),
+           "setup_s": setup_s,
+           "iterations": PITZ_CHUNK * PITZ_CHUNKS, "run_s": run_s,
+           "simple_sec_per_iter": statistics.median(times),
+           "trial_sec_per_iter": times,
+           "last_iter_solver_iterations": iters,
+           "spmv_launches_per_iter": launches_timed / (PITZ_CHUNK * trials),
+           "spmv_launches_total": launches,
+           "p_initial": float(diag["p_initial"]),
+           "continuity": float(diag["continuity"]),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "solve_share_fenced": {k: v / fenced_s
+                                  for k, v in log.seconds.items()},
+           "solve_calls_fenced": log.calls,
+           "fenced_sec_per_iter": fenced_s / n_share,
+           "oracles": oracles, "checks": checks}
+    emit(out)
+    for name, ok in checks.items():
+        check(ok, f"pitzDaily oracle {name}: {oracles}")
+    check(launches > 0 and out["spmv_launches_per_iter"] > 0,
+          "the pitzDaily path did not launch the SpMV kernel")
+    return out, (mesh, cfg, state)
+
+
+def profile_pitz(spmv, pitz_run, sec_per_iter, n=10, top=12):
+    """One n-iteration pitzDaily chunk under torch.profiler (CPU + CUDA),
+    each linear solve in a record_function range named after its field,
+    with the SpMV launches counted over the same chunk. Device time is
+    the sum over device-side events (the GPU copies of the
+    record_function ranges are spans, not work, and are left out); the
+    busy share divides it by the unprofiled time per iteration."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from foamtpu_torch.solvers import simple
+
+    mesh, cfg, state = pitz_run
+    chunk = simple.make_chunk(mesh, cfg, n)
+    launches0 = spmv.LAUNCHES
+    with SolveLog(state, ranges=True) as log:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, diag = chunk(state)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spmv_launches = spmv.LAUNCHES - launches0
+    ka = prof.key_averages()
+
+    def dev(e, attr):
+        return float(getattr(e, attr, getattr(e, attr.replace(
+            "device", "cuda"), 0.0)))
+
+    # device-side events (kernels, copies, memsets); the CPU ops carry
+    # the same time again as their children's
+    work = [e for e in ka
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("solve_")]
+    device_ms = sum(dev(e, "self_device_time_total") for e in work) / 1e3
+    solves = {e.key[len("solve_"):]: {
+        "cpu_ms_per_call": e.cpu_time_total / 1e3 / e.count,
+        "device_ms_per_call": dev(e, "device_time_total") / 1e3 / e.count}
+        for e in ka if e.key.startswith("solve_") and e.cpu_time_total > 0}
+    spmv_device_ms = sum(dev(e, "self_device_time_total") for e in work
+                         if e.key.startswith("void spmv_stencil_kernel"))
+    kernels = sorted(((dev(e, "self_device_time_total") / 1e3 / n,
+                      e.count / n, e.key[:70]) for e in work),
+                     reverse=True)[:top]
+    launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
+    emit({"phase": "pitz_profile", "iterations": n,
+          "profiled_wall_s": wall,
+          "device_ms_per_iter": device_ms / n,
+          "device_busy_share_unprofiled": device_ms / n / 1e3 / sec_per_iter,
+          "cuda_launch_kernel_per_iter": launches / n,
+          "spmv_launches_per_iter": spmv_launches / n,
+          "spmv_device_ms_per_iter": spmv_device_ms / 1e3 / n,
+          "solver_iterations": {
+              "p": int(diag["p_iters"]), "U": int(diag["Ux"].n_iterations),
+              "epsilon": int(diag["turb_epsilon"].n_iterations),
+              "k": int(diag["turb_k"].n_iterations)},
+          "solve_calls": log.calls, "solves": solves,
+          "top_kernels_ms_per_iter": kernels})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -265,13 +578,23 @@ def main() -> int:
           "library": os.path.relpath(built["path"], here),
           "ptxas": built["log"][-1500:]})
 
-    max_err, timing = phase_kernel(spmv)
-    phase_physics()
-    head = phase_headline(spmv)
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        mesh, cfg, state = pitz_setup(here, os.path.join(root, "ops"))
+        ops = pitz_operands(mesh, cfg, state)
+        max_err, timing = phase_kernel(spmv, ops, tuple(mesh.st_deltas))
+        del mesh, cfg, state, ops
+        phase_physics()
+        head = phase_headline(spmv)
+        pitz, pitz_run = phase_pitz(spmv, here, os.path.join(root, "run"))
+        profile_pitz(spmv, pitz_run, pitz["simple_sec_per_iter"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     emit({"kernels": [{
         "name": "spmv_stencil", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": head["spmv_launches_total"],
+        "replaces": KERNEL_REPLACES,
+        "launches": head["spmv_launches_total"] + pitz["spmv_launches_total"],
         "max_abs_err": max_err, "ms": timing["kernel_ms"],
         "plain_ms": timing["plain_ms"]}]})
     print(smi, flush=True)

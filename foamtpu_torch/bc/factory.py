@@ -1,0 +1,70 @@
+"""BC factory: boundaryField dictionary entries -> PatchField (port of
+openfoam-2.2.x_tpu/bc/factory.py: `parse_value` and the part of
+`from_dict` that builds the kinds of the ported slice).
+
+Ported kinds: fixedValue, zeroGradient, calculated, empty, inletOutlet,
+nutkWallFunction, kqRWallFunction and epsilonWallFunction. Any other
+`type` raises NotImplementedError naming it (the reference degrades
+unknown types to calculated/zeroGradient; the port refuses instead).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..core.dictionary import FoamDict, Word
+from .patchfields import PatchField, make
+
+KINDS = ("fixedValue", "zeroGradient", "calculated", "empty", "inletOutlet",
+         "nutkWallFunction", "kqRWallFunction", "epsilonWallFunction")
+
+
+def parse_value(entry: Any, size: int, rank: int, dtype, device="cpu"):
+    """Parse `uniform v` / `uniform (x y z)` / `nonuniform List<..> N (..)`
+    into a tensor of `dtype` on `device` (None when absent)."""
+    if entry is None:
+        return None
+    items = entry if isinstance(entry, list) else [entry]
+    mode = None
+    payload = None
+    for x in items:
+        if isinstance(x, (Word, str)) and str(x) in ("uniform", "nonuniform"):
+            mode = str(x)
+        elif isinstance(x, (int, float, np.ndarray)):
+            payload = x
+    if payload is None:
+        return None
+    arr = np.asarray(payload, dtype=np.float64)
+    if mode == "uniform" or arr.ndim == 0 or (rank == 1 and arr.ndim == 1):
+        if rank == 0:
+            arr = np.full(size, float(arr))
+        else:
+            arr = np.broadcast_to(arr.reshape(-1)[:3], (size, 3))
+    return torch.tensor(np.asarray(arr), dtype=dtype, device=device)
+
+
+def from_dict(spec: FoamDict, patch, rank: int, dtype, device="cpu"
+              ) -> PatchField:
+    kind = str(spec["type"])
+    if kind not in KINDS:
+        raise NotImplementedError(
+            f"boundary condition kind {kind!r} is not ported to "
+            "foamtpu_torch yet")
+    size = patch.size
+    val = parse_value(spec.get("value"), size, rank, dtype, device)
+
+    kw = {}
+    if kind in ("fixedValue", "calculated", "nutkWallFunction",
+                "epsilonWallFunction"):
+        kw["ref_value"] = val if val is not None else 0.0
+        kw["vfrac"] = 1.0
+    elif kind == "inletOutlet":
+        iv = parse_value(spec.get("inletValue"), size, rank, dtype, device)
+        if iv is None:
+            iv = val
+        kw["ref_value"] = iv if iv is not None else 0.0
+        kw["vfrac"] = 1.0
+    return make(kind, **kw)

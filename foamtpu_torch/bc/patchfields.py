@@ -3,9 +3,13 @@ openfoam-2.2.x_tpu/bc/patchfields.py).
 
 Each BC kind supplies value coefficients (vf = vic*psi_c + vbc); the
 gradient coefficients and evaluation follow from them exactly as in the
-reference module. The ported slice covers the kinds the icoFoam cavity
-uses: fixedValue, zeroGradient, empty and calculated. Any other kind
-raises NotImplementedError naming it.
+reference module. The ported slice covers the kinds of the icoFoam
+cavity and the simpleFoam pitzDaily case: fixedValue, zeroGradient,
+empty, calculated, mixed, inletOutlet and the nutk/kqR/epsilon wall
+functions. Derived kinds re-evaluate their mixed triple through the
+update registry (`update` / `register_update`; the turbulence models
+register their wall-function rules). Any other kind raises
+NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -50,6 +54,24 @@ def _bcast(x, like):
     return torch.broadcast_to(x, like.shape)
 
 
+def _col(x, like):
+    """Broadcast a per-face scalar [n] against [n,3] values if needed."""
+    x = torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    if like.ndim == 2 and x.ndim == 1:
+        return x[:, None]
+    return x
+
+
+def _vc_mixed(bc, mesh, patch, vi):
+    dc = _col(mesh.delta_coeffs[patch.slice], vi)
+    f = _col(_bcast(bc.vfrac, vi[..., 0] if vi.ndim == 2 else vi), vi)
+    rv = _bcast(bc.ref_value, vi)
+    rg = _bcast(bc.ref_grad, vi)
+    vic = 1.0 - f
+    vbc = f * rv + (1.0 - f) * rg / dc
+    return vic, vbc
+
+
 def _vc_fixed_value(bc, mesh, patch, vi):
     return torch.zeros_like(vi), _bcast(bc.ref_value, vi)
 
@@ -59,10 +81,19 @@ def _vc_zero_gradient(bc, mesh, patch, vi):
 
 
 _VALUE_COEFFS: Dict[str, Callable] = {
+    "mixed": _vc_mixed,
     "fixedValue": _vc_fixed_value,
     "zeroGradient": _vc_zero_gradient,
     "calculated": _vc_fixed_value,
     "empty": _vc_zero_gradient,
+    "inletOutlet": _vc_mixed,
+    # wall functions: fixed-value-like on nut (the value comes from the
+    # update rule), zero-gradient-like on k; epsilon's wall function
+    # fixes the wall-adjacent CELL value through the matrix constraint
+    # (models/turbulence/ras.py), the face itself is flux-free
+    "nutkWallFunction": _vc_fixed_value,
+    "kqRWallFunction": _vc_zero_gradient,
+    "epsilonWallFunction": _vc_zero_gradient,
 }
 
 
@@ -118,11 +149,33 @@ def is_value_bc(bc: PatchField) -> bool:
     return bc.kind in ("fixedValue", "noSlip", "calculated")
 
 
+# ---------------------------------------------------------------------------
+# Update rules for derived BCs (lagged re-evaluation of the mixed triple)
+# ---------------------------------------------------------------------------
+
+
+def _up_inlet_outlet(bc, mesh, patch, internal, *, phi=None, **ctx):
+    """zeroGradient on outflow, fixedValue(inletValue) on inflow."""
+    if phi is None:
+        return bc
+    phib = phi[patch.slice]
+    return bc.replace(vfrac=(phib < 0.0).to(phib.dtype))
+
+
+_UPDATE: Dict[str, Callable] = {
+    "inletOutlet": _up_inlet_outlet,
+}
+
+
 def update(bc: PatchField, mesh, patch, internal, **ctx) -> PatchField:
-    """Derived-BC update rule. The ported kinds have none (the reference's
-    _UPDATE table holds no entry for them)."""
     _value_fn(bc)
-    return bc
+    fn = _UPDATE.get(bc.kind)
+    return fn(bc, mesh, patch, internal, **ctx) if fn else bc
+
+
+def register_update(kind: str, fn: Callable) -> None:
+    """Extension point for model libraries (e.g. wall functions)."""
+    _UPDATE[kind] = fn
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +191,19 @@ def fixed_value(value, **opts) -> PatchField:
 def zero_gradient(**opts) -> PatchField:
     return PatchField(ref_value=0.0, ref_grad=0.0, vfrac=0.0,
                       kind="zeroGradient", opts=tuple(opts.items()))
+
+
+def make(kind: str, **kw) -> PatchField:
+    opts = {k: v for k, v in kw.items()
+            if k not in ("ref_value", "ref_grad", "vfrac")}
+    value_kinds = ("fixedValue", "calculated")
+    return PatchField(
+        ref_value=kw.get("ref_value", 0.0),
+        ref_grad=kw.get("ref_grad", 0.0),
+        vfrac=kw.get("vfrac", 1.0 if kind in value_kinds else 0.0),
+        kind=kind,
+        opts=tuple(opts.items()),
+    )
 
 
 def normalize_bcs(mesh, bcs, rank: int,

@@ -122,12 +122,11 @@ def field_from_numpy(field, device="cpu") -> VolField:
 
 def matrix_from_numpy(mat, device="cpu") -> FvMatrix:
     """The port's FvMatrix from the reference's (slot and flat
-    coefficients; cyclicAMI and deferred-correction terms are outside
-    the slice and raise)."""
-    if (_get(mat, "ami_coef") is not None
-            or _get(mat, "fcorr") is not None):
+    coefficients and the non-orthogonal flux correction; cyclicAMI
+    terms are outside the slice and raise)."""
+    if _get(mat, "ami_coef") is not None:
         raise NotImplementedError(
-            "ami_coef/fcorr matrices are not ported to foamtpu_torch yet")
+            "ami_coef matrices are not ported to foamtpu_torch yet")
 
     def t(name):
         v = _get(mat, name)
@@ -135,17 +134,23 @@ def matrix_from_numpy(mat, device="cpu") -> FvMatrix:
 
     return FvMatrix(diag=t("diag"), lower=t("lower"), upper=t("upper"),
                     source=t("source"), ic=t("ic"), bc=t("bc"),
-                    soff=t("soff"), sfb=t("sfb"), dims=_dims(mat.dims),
+                    fcorr=t("fcorr"), soff=t("soff"), sfb=t("sfb"),
+                    dims=_dims(mat.dims),
                     symmetric=bool(mat.symmetric))
 
 
 def state_from_numpy(state, device="cpu") -> Dict[str, Any]:
-    """The port's PISO state from the reference's: U, p, phi, phi_slot
-    and U0."""
-    return {
+    """The port's PISO/SIMPLE state from the reference's: U, p, phi,
+    phi_slot and U0, plus the turbulence fields (k, epsilon, nut, ...
+    with their wall BCs) under 'turb' when present."""
+    out = {
         "U": field_from_numpy(state["U"], device),
         "p": field_from_numpy(state["p"], device),
         "phi": tensor(state["phi"], device),
         "phi_slot": tuple(tensor(a, device) for a in state["phi_slot"]),
         "U0": tensor(state["U0"], device),
     }
+    if state.get("turb") is not None:
+        out["turb"] = {name: field_from_numpy(f, device)
+                       for name, f in state["turb"].items()}
+    return out

@@ -1,0 +1,152 @@
+"""Field file reader (port of the read path of
+openfoam-2.2.x_tpu/io/fields.py: `load_field_dict`, `_debinarize`,
+`_fast_internal_field` and `read_field`).
+
+A field file is a FoamFile header + dimensions + internalField +
+boundaryField, ascii or `format binary` (raw little-endian float64
+List payloads), plain or gzipped. Writing fields is outside the ported
+slice.
+"""
+
+from __future__ import annotations
+
+import gzip
+import os
+import re
+from typing import Optional
+
+import numpy as np
+
+from ..bc import factory
+from ..bc.patchfields import normalize_bcs
+from ..core.dictionary import FoamDict, Word, parse_string
+from ..core.dimensions import DimensionSet
+from ..core.fields import VolField
+
+_NCOMP = {"scalar": 1, "vector": 3, "symmTensor": 6, "tensor": 9, "label": 1}
+_BLOB_RE = re.compile(rb"List<(scalar|vector|symmTensor|tensor)>\s*(\d+)\s*\(")
+
+
+def _debinarize(raw: bytes):
+    """Replace binary List payloads with placeholder words; returns
+    (ascii_text, arrays)."""
+    parts = []
+    arrays = []
+    i = 0
+    while True:
+        m = _BLOB_RE.search(raw, i)
+        if not m:
+            break
+        kind = m.group(1).decode()
+        n = int(m.group(2))
+        nc = _NCOMP[kind]
+        start = m.end()
+        nbytes = n * nc * 8
+        arr = np.frombuffer(raw[start:start + nbytes], dtype="<f8",
+                            count=n * nc)
+        if nc > 1:
+            arr = arr.reshape(n, nc)
+        if raw[start + nbytes:start + nbytes + 1] != b")":
+            raise ValueError(
+                f"binary List<{kind}> {n}: expected ')' after payload")
+        parts.append(raw[i:m.start()].decode("latin-1"))
+        parts.append(f"List<{kind}> {n} __BLOB{len(arrays)}__")
+        arrays.append(arr)
+        i = start + nbytes + 1
+    parts.append(raw[i:].decode("latin-1"))
+    return "".join(parts), arrays
+
+
+_BLOB_WORD = re.compile(r"__BLOB(\d+)__$")
+
+
+def _subst_blobs(node, arrays):
+    if isinstance(node, FoamDict):
+        for k in list(node.keys()):
+            node[k] = _subst_blobs(node[k], arrays)
+        return node
+    if isinstance(node, list):
+        return [_subst_blobs(x, arrays) for x in node]
+    if isinstance(node, (Word, str)):
+        m = _BLOB_WORD.match(str(node))
+        if m:
+            return arrays[int(m.group(1))]
+    return node
+
+
+def load_field_dict(path: str) -> FoamDict:
+    """parse_file that also understands `format binary` field files
+    (plain or gzipped)."""
+    if not os.path.exists(path) and os.path.exists(str(path) + ".gz"):
+        path = str(path) + ".gz"
+    opener = gzip.open if str(path).endswith(".gz") else open
+    with opener(path, "rb") as f:
+        raw = f.read()
+    src_dir = os.path.dirname(os.path.abspath(path))
+    if re.search(rb"format\s+binary", raw[:4096]):
+        text, arrays = _debinarize(raw)
+        return _subst_blobs(parse_string(text, src_dir=src_dir), arrays)
+    text = raw.decode("latin-1")
+    # big ASCII fields: cut the internalField list out of the text and
+    # parse its numbers in one pass instead of through the dictionary
+    # tokenizer
+    if len(text) > 1 << 20:
+        fast = _fast_internal_field(text)
+        if fast is not None:
+            text2, arr = fast
+            d = parse_string(text2, src_dir=src_dir)
+            d["internalField"] = [Word("nonuniform"), arr]
+            return d
+    return parse_string(text, src_dir=src_dir)
+
+
+_IF_RE = re.compile(
+    r"internalField\s+nonuniform\s+List<(scalar|vector)>"
+    r"\s*(\d+)\s*\(", re.S)
+
+
+def _fast_internal_field(text):
+    """-> (text with the internalField list replaced, np array) or None
+    when the format is unexpected. The reference parses the numbers
+    with its native helper; this copy uses numpy on the same text."""
+    m = _IF_RE.search(text)
+    if m is None:
+        return None
+    kind, n = m.group(1), int(m.group(2))
+    per = 3 if kind == "vector" else 1
+    # the entry terminates at the first ';' after the list body
+    end = text.find(";", m.end())
+    if end < 0:
+        return None
+    body = text[m.end():end]
+    body = body[:body.rfind(")")]
+    vals = np.array(body.replace("(", " ").replace(")", " ").split(),
+                    dtype=np.float64)
+    if vals.shape[0] != n * per:
+        return None
+    arr = vals.reshape(-1, 3) if per == 3 else vals
+    return (text[:m.start()] + "internalField uniform 0;"
+            + text[end + 1:], arr)
+
+
+def read_field(path: str, mesh, name: Optional[str] = None) -> VolField:
+    d = load_field_dict(path)
+    name = name or os.path.basename(path)
+    dims = d.get("dimensions", DimensionSet.of())
+    if not isinstance(dims, DimensionSet):
+        dims = DimensionSet.of()
+    cls = str(d.get("FoamFile", {}).get("class", "volScalarField"))
+    rank = 1 if "Vector" in cls else 0
+    dtype, device = mesh.v.dtype, mesh.device
+
+    internal = factory.parse_value(d["internalField"], mesh.n_cells, rank,
+                                   dtype, device)
+    if internal.ndim == 1 and rank == 1:
+        internal = internal[None, :].expand(mesh.n_cells, 3).clone()
+
+    bf = d["boundaryField"]
+    bcs = [factory.from_dict(bf.match(p.name), p, rank, dtype, device)
+           for p in mesh.patches]
+    return VolField(data=internal, bcs=normalize_bcs(mesh, tuple(bcs), rank),
+                    name=name, dims=dims)
+

@@ -1,0 +1,221 @@
+"""RAS turbulence models (port of the kEpsilon part of
+openfoam-2.2.x_tpu/models/turbulence/ras.py: the nutkWallFunction
+update, the wall-function helpers and `KEpsilon`).
+
+Wall functions: nut's wall value comes from the log law through the BC
+update registry; epsilon's wall function fixes the wall-adjacent cell
+values by exact row replacement (FvMatrix.set_values), and the wall
+production G takes the log-law shear with the wall-face nut. The
+closures are the standard published ones (Launder-Spalding 1974). The
+other RAS models of the reference are outside the ported slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...bc import patchfields as pf
+from ...core.dimensions import dimViscosity
+from ...core.fields import VolField
+from ...ops import fvm, schemes
+from ...ops import slot as slot_mod
+from ...solvers import linear
+from .base import TurbulenceModel, bound_below, production, register
+
+_KAPPA = 0.41
+_E = 9.8
+_CMU = 0.09
+
+K_MIN = 1e-10
+EPS_MIN = 1e-10
+
+
+# ---------------------------------------------------------------------------
+# Wall-function nut BC update (registered into the BC update registry)
+# ---------------------------------------------------------------------------
+
+
+def _nutk_wall(bc, mesh, patch, internal, *, k=None, nu=None, **ctx):
+    """nutkWallFunction: nut from the log law using k at the wall cell
+    (nutkWallFunctionFvPatchScalarField). nu may be per cell [nC]."""
+    if k is None or nu is None:
+        return bc
+    cells = mesh.owner[patch.slice]
+    if getattr(nu, "ndim", 0) == 1:
+        nu = nu[cells]
+    y = 1.0 / torch.clamp(mesh.delta_coeffs[patch.slice], min=1e-30)
+    kc = torch.clamp(k[cells], min=K_MIN)
+    ypl = (_CMU ** 0.25) * torch.sqrt(kc) * y / nu
+    ypl_lam = 11.0  # intersection of linear/log laws for kappa=0.41, E=9.8
+    nutw = nu * (ypl * _KAPPA / torch.log(torch.clamp(_E * ypl, min=1.001))
+                 - 1.0)
+    nutw = torch.where(ypl > ypl_lam, torch.clamp(nutw, min=0.0),
+                       torch.zeros_like(nutw))
+    return bc.replace(ref_value=nutw, vfrac=torch.ones_like(nutw))
+
+
+pf.register_update("nutkWallFunction", _nutk_wall)
+
+
+def _wall_data(mesh):
+    """Wall-adjacency arrays (mask [nC], average wall distance y [nC]),
+    precomputed on the mesh at load."""
+    return mesh.wall_mask, mesh.wall_y
+
+
+def _has_wall_fn(field: VolField, kinds) -> bool:
+    return any(bc.kind in kinds for bc in field.bcs)
+
+
+def _wall_face_nut(mesh, nut_field: VolField):
+    """Per-cell wall-FACE nut (averaged over a cell's wall faces): the
+    G override uses the wall-function value, not the cell nut
+    (epsilonWallFunctionFvPatchScalarField::calculate). mesh.wall_cnt is
+    clamped to >= 1 at load, and non-wall cells are masked by the caller."""
+    acc = mesh.v.new_zeros((mesh.n_cells,))
+    for p, bc in zip(mesh.patches, nut_field.bcs):
+        if p.type != "wall":
+            continue
+        vals = pf.evaluate(bc, mesh, p, nut_field.data)
+        acc = acc.index_add(0, mesh.owner[p.slice], vals)
+    return acc / mesh.wall_cnt
+
+
+def _phi_slotform(mesh, phi, phi_slot):
+    """Slot-form flux: reuse the solver's, else derive it."""
+    if phi_slot is not None:
+        return phi_slot
+    return slot_mod.from_flat(mesh, phi)
+
+
+def _gamma_forms(mesh, nu, nut_f: VolField, sigma=1.0):
+    """Effective diffusivity nu + nut/sigma as (flat [nF], SlotFace)."""
+    bv = nu + nut_f.boundary_values(mesh) / sigma
+    f = slot_mod.interpolate(mesh, nut_f.data / sigma)
+    gs = slot_mod.SlotFace(nu + f.sv, nu + f.fb, bv)
+    return slot_mod.to_flat(mesh, gs), gs
+
+
+def _transport_ops(mesh, phi, phi_sl, field, div_scheme, gamma_flat,
+                   gamma_slot, corrected, corr_limit):
+    """div(phi, psi) - laplacian(gammaEff, psi) with slot assembly."""
+    ws = schemes.weights_slot(mesh, phi_sl, div_scheme, field)
+    return (fvm.div(mesh, phi, field, phi_slot=phi_sl, slot_weights=ws)
+            - fvm.laplacian(mesh, gamma_flat, field, corrected=corrected,
+                            gamma_dims=dimViscosity, limit=corr_limit,
+                            gamma_slot=gamma_slot))
+
+
+def _solve_transport(mesh, field, mat, controls, default_tol=1e-8):
+    ctl = dict(controls or {})
+    ctl.setdefault("solver", "PBiCGStab")
+    ctl.setdefault("tolerance", default_tol)
+    ctl.setdefault("relTol", 0.1)
+    ctl.setdefault("maxIter", 200)
+    return linear.solve(mesh, mat, field.data, ctl)
+
+
+class KEpsilon(TurbulenceModel):
+    """Standard k-epsilon (RAS/kEpsilon/kEpsilon.C)."""
+
+    name = "kEpsilon"
+    field_names = ("k", "epsilon", "nut")
+
+    Cmu = _CMU
+    C1 = 1.44
+    C2 = 1.92
+    sigma_k = 1.0
+    sigma_eps = 1.3
+    prod_limit = 10.0   # G <= prod_limit*eps (stagnation-point fix)
+
+    def __init__(self, nu, coeffs=None):
+        super().__init__(nu, coeffs)
+        c = self.coeffs or {}
+        self.Cmu = float(c.get("Cmu", self.Cmu))
+        self.C1 = float(c.get("C1", self.C1))
+        self.C2 = float(c.get("C2", self.C2))
+        self.sigma_k = float(c.get("sigmak", self.sigma_k))
+        self.sigma_eps = float(c.get("sigmaEps", self.sigma_eps))
+
+    def nut(self, mesh, tstate):
+        return tstate["nut"].data
+
+    def _nut_from(self, k, eps):
+        return self.Cmu * k * k / torch.clamp(eps, min=EPS_MIN)
+
+    def correct(self, mesh, tstate, U, phi, dt, steady=False, relax=1.0,
+                controls=None, phi_slot=None):
+        k_f: VolField = tstate["k"]
+        eps_f: VolField = tstate["epsilon"]
+        nut_f: VolField = tstate["nut"]
+        k, eps, nut = k_f.data, eps_f.data, nut_f.data
+        rdt = 1.0 / dt
+        diag = {}
+        phi_sl = _phi_slotform(mesh, phi, phi_slot)
+
+        G, _ = production(mesh, nut, U)
+        # production limiter (the reference's documented deviation from
+        # plain kEpsilon): bounds the spike at singular corners and
+        # stagnation points, inactive where G ~= eps
+        G = torch.minimum(G, self.prod_limit * torch.clamp(eps, min=EPS_MIN))
+        wall_fn = _has_wall_fn(eps_f, ("epsilonWallFunction",))
+        if wall_fn:
+            mask, y = _wall_data(mesh)
+            sqrtk = torch.sqrt(torch.clamp(k, min=K_MIN))
+            eps_wall = (self.Cmu ** 0.75) * sqrtk ** 3 / (_KAPPA * y)
+            # wall production from the log-law shear with the wall-FACE
+            # nut (the wall-function value)
+            nutw = _wall_face_nut(mesh, nut_f)
+            magUp = torch.linalg.norm(U.data, dim=1) / y
+            G_wall = ((nutw + self.nu) * magUp
+                      * (self.Cmu ** 0.25) * sqrtk / (_KAPPA * y))
+            G = torch.where(mask > 0, G_wall, G)
+
+        eps_flat, eps_slot = _gamma_forms(mesh, self.nu, nut_f,
+                                          self.sigma_eps)
+        ddt_op = (fvm.ddt(mesh, eps_f, eps, rdt) if not steady
+                  else fvm.ddt_steady(mesh, eps_f))
+        eps_eqn = (
+            ddt_op
+            + _transport_ops(mesh, phi, phi_sl, eps_f, self.div_scheme,
+                             eps_flat, eps_slot, self.corrected,
+                             self.corr_limit)
+            + fvm.Sp(mesh, self.C2 * eps / torch.clamp(k, min=K_MIN), eps_f)
+        )
+        eps_eqn = eps_eqn.add_source(
+            self.C1 * G * eps / torch.clamp(k, min=K_MIN), mesh)
+        if steady and relax < 1.0:
+            eps_eqn = eps_eqn.relax(mesh, relax, eps)
+        if wall_fn:
+            eps_eqn = eps_eqn.set_values(mask, eps_wall, mesh)
+        eps_new, perf_e = _solve_transport(mesh, eps_f, eps_eqn, controls)
+        eps_new = bound_below(eps_new, EPS_MIN)
+        diag["epsilon"] = perf_e
+
+        k_flat, k_slot = _gamma_forms(mesh, self.nu, nut_f, self.sigma_k)
+        ddt_op = (fvm.ddt(mesh, k_f, k, rdt) if not steady
+                  else fvm.ddt_steady(mesh, k_f))
+        k_eqn = (
+            ddt_op
+            + _transport_ops(mesh, phi, phi_sl, k_f, self.div_scheme,
+                             k_flat, k_slot, self.corrected,
+                             self.corr_limit)
+            + fvm.Sp(mesh, eps_new / torch.clamp(k, min=K_MIN), k_f)
+        )
+        k_eqn = k_eqn.add_source(G, mesh)
+        if steady and relax < 1.0:
+            k_eqn = k_eqn.relax(mesh, relax, k)
+        k_new, perf_k = _solve_transport(mesh, k_f, k_eqn, controls)
+        k_new = bound_below(k_new, K_MIN)
+        diag["k"] = perf_k
+
+        nut_new = self._nut_from(k_new, eps_new)
+        new_nut_f = nut_f.with_data(nut_new).correct_boundary_conditions(
+            mesh, k=k_new, nu=self.nu, U=U.data)
+        new = dict(tstate)
+        new.update(k=k_f.with_data(k_new), epsilon=eps_f.with_data(eps_new),
+                   nut=new_nut_f)
+        return new, diag
+
+
+register("kEpsilon", KEpsilon)

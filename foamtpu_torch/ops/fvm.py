@@ -1,6 +1,7 @@
 """fvm — implicit finite-volume operators returning FvMatrix (port of
-openfoam-2.2.x_tpu/ops/fvm.py: Euler `ddt`, Gauss linear `div` on the
-slot-form flux, and Gauss `laplacian` on slot and flat coefficients).
+openfoam-2.2.x_tpu/ops/fvm.py: Euler and steadyState `ddt`, Gauss `div`
+with scheme weights on the slot-form flux, the Gauss `laplacian` with
+its non-orthogonal correction, and the `Sp`/`SuSp`/`Su` sources).
 
 Coefficients follow the reference's assembly + negSumDiag:
   convection (face flux phi, owner weight w):
@@ -8,8 +9,11 @@ Coefficients follow the reference's assembly + negSumDiag:
   diffusion (coef = gamma_f |Sf| deltaCoeff):
       upper = lower = coef;  diag[own] -= coef; diag[nei] -= coef
 Boundary faces fold the BC linearisation into internalCoeffs (ic) and
-boundaryCoeffs (bc). The explicit non-orthogonal correction is outside
-the ported slice and raises.
+boundaryCoeffs (bc). A corrected laplacian on a non-orthogonal mesh
+moves the explicit correction to the source and stashes its face flux
+in `fcorr` (unless the caller defers the correction, as the pressure
+equations do). The second-order ddt schemes and coupled-interface
+(cyclicAMI/jump) laplacian terms are outside the ported slice.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from ..bc import patchfields as pf
 from ..core.dimensions import (DimensionSet, dimFlux, dimLength, dimless,
                                dimTime, dimVolume)
 from ..core.fields import VolField
+from . import fvc, surface
+from . import slot as slot_mod
 from .matrix import FvMatrix, zero_matrix
 
 
@@ -41,19 +47,30 @@ def ddt(mesh, field: VolField, old_data: Any, rdt: Any) -> FvMatrix:
     return m.replace_fields(diag=vdt, source=_colv(vdt, field.data) * old_data)
 
 
-def div(mesh, phi: Any, field: VolField, phi_slot: Any) -> FvMatrix:
-    """Implicit Gauss convection div(phi, psi) with linear weights
-    (gaussConvectionScheme::fvmDiv), slot path: the diagonal and the slot
-    off-diagonals assemble elementwise over [nC,M] from the slot-form
-    flux `phi_slot`."""
+def ddt_steady(mesh, field: VolField) -> FvMatrix:
+    """steadyState ddt: zero contribution."""
+    return zero_matrix(mesh, _ncmp(field),
+                       dims=field.dims * dimVolume / dimTime)
+
+
+def div(mesh, phi: Any, field: VolField, phi_slot: Any,
+        slot_weights: Any = None) -> FvMatrix:
+    """Implicit Gauss convection div(phi, psi)
+    (gaussConvectionScheme::fvmDiv) on the slot-form flux `phi_slot`:
+    the diagonal and the slot off-diagonals assemble elementwise over
+    [nC,M]. `slot_weights` = (wself [nC,M], fb_wself [nfb]) are the
+    self-side scheme weights (ops/schemes.py; default linear)."""
     nif = mesh.n_internal_faces
     act = mesh.face_active
     phi_i = phi[:nif]
-    w = mesh.weights[:nif]
-    lower = -phi_i * w
-    upper = phi_i * (1.0 - w)
 
-    wself, fb_wself = mesh.st_wself, mesh.fb_wself
+    if slot_weights is None:
+        wself, fb_wself = mesh.st_wself, mesh.fb_wself
+        w = mesh.weights[:nif]
+    else:
+        wself, fb_wself = slot_weights
+        w = slot_mod.to_flat_internal(mesh,
+                                      slot_mod.SlotFace(wself, fb_wself))
     phi_out = mesh.st_sign * phi_slot.sv
     soff = phi_out * (1.0 - wself) * mesh.st_valid
     diag = torch.sum(phi_out * wself * mesh.st_valid, dim=1)
@@ -63,6 +80,8 @@ def div(mesh, phi: Any, field: VolField, phi_slot: Any) -> FvMatrix:
         diag = diag.index_add(0, mesh.fb_cells, phi_ofb * fb_wself)
     else:
         sfb = diag.new_zeros((0,))
+    lower = -phi_i * w
+    upper = phi_i * (1.0 - w)
 
     # boundary: term phi_b * (vic*psi_c + vbc)
     ics, bcs = [], []
@@ -81,6 +100,41 @@ def div(mesh, phi: Any, field: VolField, phi_slot: Any) -> FvMatrix:
                     bc=bcc, soff=soff, sfb=sfb, dims=dims, symmetric=False)
 
 
+def laplacian_correction(mesh, gamma_f: Any, field: VolField,
+                         limit: float = 1.0, coef_i: Any = None):
+    """Explicit non-orthogonal deferred correction of the Gauss
+    laplacian (correctedSnGrad::correction). Returns (corr_full
+    [nF,(C)], corr_cell [nC,(C)]): the per-face correction flux (for
+    FvMatrix.flux) and its cell integral (subtracted from the source).
+    limit < 1 clips the correction to limit/(1-limit) * |orthogonal
+    part| per face (limitedSnGrad)."""
+    nif = mesh.n_internal_faces
+    act = mesh.face_active
+    gamma_f = torch.broadcast_to(
+        torch.as_tensor(gamma_f, dtype=mesh.v.dtype, device=mesh.device),
+        (mesh.n_faces,))
+    g = fvc.grad(mesh, field)
+    gf = surface.interpolate_internal(mesh, g)
+    gamsf_i = (gamma_f * mesh.mag_sf * act)[:nif]
+    if field.data.ndim == 1:
+        corr_f = gamsf_i * torch.sum(mesh.correction_vecs[:nif] * gf, dim=1)
+    else:
+        corr_f = gamsf_i[:, None] * torch.sum(
+            mesh.correction_vecs[:nif, :, None] * gf, dim=1)
+    if limit < 1.0:
+        if coef_i is None:
+            coef_i = (gamma_f * mesh.mag_sf * act
+                      * mesh.non_orth_delta_coeffs)[:nif]
+        d = surface.delta(mesh, field.data)
+        orth = coef_i[:, None] * d if d.ndim == 2 else coef_i * d
+        cap = (limit / (1.0 - limit)) * torch.abs(orth)
+        corr_f = torch.clamp(corr_f, -cap, cap)
+    corr_full = corr_f.new_zeros((mesh.n_faces,) + tuple(corr_f.shape[1:]))
+    corr_full[:nif] = corr_f
+    corr_cell = surface.surface_sum(mesh, corr_full)
+    return corr_full, corr_cell
+
+
 def laplacian(
     mesh,
     gamma_f: Any,
@@ -93,15 +147,13 @@ def laplacian(
 ) -> FvMatrix:
     """Implicit Gauss Laplacian laplacian(gamma, psi)
     (gaussLaplacianScheme::fvmLaplacian). gamma_f is a face field [nF]
-    or a scalar. corrected=True on an orthogonal mesh is exact without
-    the correction; on a non-orthogonal mesh it is not ported and raises
-    (unless the caller defers the correction)."""
+    or a scalar. corrected=True adds the explicit non-orthogonal
+    correction to the source and stashes its face flux in fcorr (the
+    correction is identically zero on an orthogonal mesh and skipped);
+    defer_correction leaves it to the caller. limit < 1 clips it
+    (limitedSnGrad)."""
     if corrected and getattr(mesh, "orthogonal", False):
         corrected = False
-    if corrected and not defer_correction:
-        raise NotImplementedError(
-            "non-orthogonal laplacian correction is not ported to "
-            "foamtpu_torch yet")
     nif = mesh.n_internal_faces
     act = mesh.face_active
     gamma_scalar = not torch.is_tensor(gamma_f) or gamma_f.ndim == 0
@@ -135,6 +187,14 @@ def laplacian(
         diag = -torch.sum(coef_i[mesh.cface_i] * mesh.cnbr_valid, dim=1)
 
     src = diag.new_zeros(tuple(field.data.shape))
+    fcorr = None
+    if corrected and not defer_correction:
+        corr_full, corr_cell = laplacian_correction(
+            mesh, gamma_f, field, limit=limit, coef_i=coef_i)
+        # the explicit part moves to the source with a minus sign; its
+        # face flux keeps FvMatrix.flux consistent with the operator
+        src = src - corr_cell
+        fcorr = corr_full
 
     gb = gamma_f * mesh.mag_sf * act
     ics, bcs = [], []
@@ -149,4 +209,31 @@ def laplacian(
     gdims = gamma_dims if gamma_dims is not None else dimless
     dims = gdims * field.dims * dimLength
     return FvMatrix(diag=diag, lower=lower, upper=upper, source=src, ic=ic,
-                    bc=bcc, soff=soff, sfb=sfb, dims=dims, symmetric=True)
+                    bc=bcc, fcorr=fcorr, soff=soff, sfb=sfb, dims=dims,
+                    symmetric=True)
+
+
+def Sp(mesh, sp: Any, field: VolField, sp_dims=None) -> FvMatrix:
+    """Implicit source sp*psi (fvm::Sp): diag += V*sp. sp_dims: the
+    dimensions of sp (default 1/s)."""
+    d = DimensionSet.of(0, 0, -1) if sp_dims is None else sp_dims
+    m = zero_matrix(mesh, _ncmp(field), dims=field.dims * dimVolume * d)
+    return m.replace_fields(diag=mesh.v * sp)
+
+
+def SuSp(mesh, susp: Any, field: VolField, susp_dims=None) -> FvMatrix:
+    """Implicit/explicit split source (fvm::SuSp): the positive part goes
+    on the diagonal, the negative part is explicit."""
+    d = DimensionSet.of(0, 0, -1) if susp_dims is None else susp_dims
+    m = zero_matrix(mesh, _ncmp(field), dims=field.dims * dimVolume * d)
+    diag = mesh.v * torch.clamp(susp, min=0.0)
+    src = -_colv(mesh.v * torch.clamp(susp, max=0.0), field.data) * field.data
+    return m.replace_fields(diag=diag, source=src)
+
+
+def Su(mesh, su: Any, field: VolField) -> FvMatrix:
+    """Explicit source inside the operator (fvm::Su): source -= V*su
+    (the term appears on the LHS)."""
+    m = zero_matrix(mesh, _ncmp(field),
+                    dims=field.dims * dimVolume / dimTime)
+    return m.replace_fields(source=-_colv(mesh.v, field.data) * su)

@@ -7,11 +7,12 @@ with off(f) = upper[f] when c owns f, lower[f] otherwise;
     diag_eff = diag + sum_bfaces ic,   source_eff = source + sum_bfaces bc.
 Vector equations are segregated: diag/upper/lower are scalar, source
 and boundary coefficients carry one column per component. soff [nC,M] /
-sfb [nfb] are the slot-form off-diagonals (ops/slot.py).
+sfb [nfb] are the slot-form off-diagonals (ops/slot.py). fcorr [nF(,C)]
+is the explicit non-orthogonal face-flux correction a corrected
+laplacian stashes (fvMatrix::faceFluxCorrectionPtr_); `flux` adds it.
 
-The reference's cyclicAMI coupling (ami_coef) and deferred non-orthogonal
-flux correction (fcorr) are outside the ported slice: no ported operator
-produces them.
+The reference's cyclicAMI coupling (ami_coef) is outside the ported
+slice: no ported operator produces it.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ class FvMatrix:
     source: Any     # [nC] or [nC,C]
     ic: Any         # internalCoeffs  [nBf] or [nBf,C] (adds to diag)
     bc: Any         # boundaryCoeffs  [nBf] or [nBf,C] (adds to source)
+    fcorr: Any = None
     soff: Any = None
     sfb: Any = None
     dims: DimensionSet = dimless   # of source (= op * volume)
@@ -67,6 +69,7 @@ class FvMatrix:
             source=self.source + other.source,
             ic=self.ic + other.ic,
             bc=self.bc + other.bc,
+            fcorr=_addn(self.fcorr, other.fcorr),
             soff=so,
             sfb=sf,
             dims=d,
@@ -79,6 +82,7 @@ class FvMatrix:
             lower=None if self.lower is None else -self.lower,
             upper=None if self.upper is None else -self.upper,
             source=-self.source, ic=-self.ic, bc=-self.bc,
+            fcorr=None if self.fcorr is None else -self.fcorr,
             soff=None if self.soff is None else -self.soff,
             sfb=None if self.sfb is None else -self.sfb,
             dims=self.dims, symmetric=self.symmetric,
@@ -179,7 +183,12 @@ class FvMatrix:
         f_int = (self.upper * psi[mesh.neighbour]
                  - self.lower * psi[mesh.owner[:nif]])
         f_bnd = self.ic * surface.owner_to_b(mesh, psi) - self.bc
-        return torch.cat([f_int, f_bnd], dim=0)
+        out = torch.cat([f_int, f_bnd], dim=0)
+        if self.fcorr is not None:
+            # the deferred non-orthogonal correction is part of the
+            # operator's flux (flux += *faceFluxCorrectionPtr_)
+            out = out + self.fcorr
+        return out
 
     # ---- constraints ---------------------------------------------------------
     def set_reference(self, cell: int, value: float) -> "FvMatrix":
@@ -190,6 +199,78 @@ class FvMatrix:
         diag = self.diag.clone()
         diag[cell] += d
         return dataclasses.replace(self, source=source, diag=diag)
+
+    def set_values(self, mask: Any, values: Any, mesh) -> "FvMatrix":
+        """Constrain psi to `values` where mask==1 by exact row
+        replacement + column elimination (fvMatrix::setValues): the
+        constrained row becomes diag*psi = diag*value, its
+        off-diagonals are zeroed, and its known value is eliminated
+        from the free rows' sources. Used by wall functions to fix
+        near-wall epsilon."""
+        nif = mesh.n_internal_faces
+        m_o = mask[mesh.owner[:nif]]
+        m_n = mask[mesh.neighbour]
+        # eliminate constrained neighbours into the free rows' sources
+        elim = self.off_mul(mesh, mask * values)
+        keep_f = (1.0 - m_o) * (1.0 - m_n)
+        so, sf = self.soff, self.sfb
+        if so is not None:
+            from . import slot as slot_mod
+
+            nbm = slot_mod.nbr_values(mesh, mask)
+            so = so * ((1.0 - mask[:, None]) * (1.0 - nbm))
+            if mesh.fb_cells.shape[0]:
+                sf = (sf * (1.0 - mask[mesh.fb_cells])
+                      * (1.0 - mask[mesh.fb_nbrs]))
+        # zero boundary coupling on constrained rows (empty faces read
+        # keep_b=1, and their ic/bc are zero anyway)
+        keep_b = 1.0 - surface.owner_to_b(mesh, mask)
+        if self.ic.ndim == 2:
+            keep_b = keep_b[:, None]
+        src = self.source
+        if src.ndim == 2:
+            src = torch.where(mask[:, None] > 0, self.diag[:, None] * values,
+                              src - elim[:, None])
+        else:
+            src = torch.where(mask > 0, self.diag * values, src - elim)
+        return dataclasses.replace(
+            self, upper=self.upper * keep_f, lower=self.lower * keep_f,
+            source=src, ic=self.ic * keep_b, bc=self.bc * keep_b,
+            soff=so, sfb=sf)
+
+    def off_abs_sum(self, mesh) -> Any:
+        """sum_f |off(f)| per row (slot path when available)."""
+        if self.soff is not None:
+            s = torch.sum(torch.abs(self.soff), dim=1)
+            if mesh.fb_cells.shape[0]:
+                s = s.index_add(0, mesh.fb_cells, torch.abs(self.sfb))
+            return s
+        return torch.sum(torch.abs(self.off_coeffs(mesh)), dim=1)
+
+    def relax(self, mesh, alpha: float, psi: Any) -> "FvMatrix":
+        """Under-relaxation (fvMatrix::relax): add the boundary internal
+        coefficients to the diagonal, force it positive and diagonally
+        dominant (a convection matrix can have locally negative diags,
+        which would make rAU = 1/A(U) negative), divide by alpha, and
+        compensate the source with the current solution."""
+        sum_off = self.off_abs_sum(mesh)
+        ic_min = self.ic if self.ic.ndim == 1 else torch.amin(self.ic, dim=1)
+        b_ic = surface.boundary_sum(mesh, ic_min)
+        d0 = self.diag
+        d_tot = torch.maximum(torch.abs(d0 + b_ic), sum_off) / alpha
+        d1 = d_tot - b_ic
+        dd = d1 - d0
+        if psi.ndim == 2:
+            src = self.source + dd[:, None] * psi
+        else:
+            src = self.source + dd * psi
+        return dataclasses.replace(self, diag=d1, source=src)
+
+    def residual(self, mesh, psi: Any, cmpt: Optional[int] = None) -> Any:
+        d = self.diag_eff(mesh, cmpt)
+        b = self.source_eff(mesh, cmpt)
+        p = psi if psi.ndim == 1 else psi[:, cmpt].contiguous()
+        return b - self.amul(mesh, p, d)
 
 
 def zero_matrix(mesh, n_cmpts: int = 1, dims: DimensionSet = dimless

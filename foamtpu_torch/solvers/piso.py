@@ -27,7 +27,6 @@ from ..core.fields import VolField
 from ..ops import fvc, fvm, surface
 from ..ops import slot as slot_mod
 from . import linear
-from .simple import adjust_phi
 
 
 class PisoConfig(NamedTuple):
@@ -170,6 +169,8 @@ def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
         if needs_reference(p, mesh):
             # global flux balance before the singular pressure solve
             # (adjustPhi in icoFoam's pEqn.H)
+            from .simple import adjust_phi
+
             phiHbyA_b = adjust_phi(mesh, phiHbyA_b, U)
             phiHbyA = phiHbyA._replace(bv=phiHbyA_b)
 
@@ -269,8 +270,11 @@ def project_initial_flux(mesh, p: VolField, phi: Any,
     return phi - eqn.flux(mesh, data) * scale
 
 
-def initial_state(mesh, U: VolField, p: VolField, project: bool = True,
+def initial_state(mesh, U: VolField, p: VolField,
+                  turb_state: Optional[Dict] = None, project: bool = True,
                   ddt_scheme: str = "Euler") -> Dict:
+    """Initial solver state: the (projected) flux of U in flat and slot
+    form, plus the turbulence fields when a model is used."""
     if ddt_scheme.split()[0] != "Euler":
         raise NotImplementedError(
             f"ddt_scheme {ddt_scheme!r} is not ported to foamtpu_torch yet")
@@ -278,5 +282,8 @@ def initial_state(mesh, U: VolField, p: VolField, project: bool = True,
     if project:
         phi = project_initial_flux(mesh, p, phi)
     sl = slot_mod.from_flat(mesh, phi)
-    return {"U": U, "p": p, "phi": phi, "U0": U.data,
-            "phi_slot": (sl.sv, sl.fb)}
+    st = {"U": U, "p": p, "phi": phi, "U0": U.data,
+          "phi_slot": (sl.sv, sl.fb)}
+    if turb_state is not None:
+        st["turb"] = turb_state
+    return st

@@ -3,13 +3,16 @@
 The port copies the reference's host numpy code and builds its torch
 FvMesh from it, so every array must equal the reference's exactly:
 integers equal, floats to 0 ulp (both round the same float64 host values
-to the scalar dtype once). Meshes: the 20^2 and 32^2 cavities and a small
-tet box (non-orthogonal, with a COO fallback). The GAMG level tables are
+to the scalar dtype once). Meshes: the 20^2 and 32^2 cavities, a small
+tet box (non-orthogonal, with a COO fallback) and the pitzDaily
+tutorial's blockMesh (graded, five blocks, non-orthogonal, 8 offsets and
+a COO fallback). The GAMG level tables are
 compared on the 32^2 cavity with n_coarsest=64 (4 levels, the strided
 V-cycle's shape).
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -24,11 +27,16 @@ from foamtpu.solvers.linear import gamg as jgamg
 
 from foamtpu_torch.apps.cases import cavity_polymesh
 from foamtpu_torch.convert import levels_from_numpy, mesh_from_numpy
-from foamtpu_torch.mesh import to_device
+from foamtpu_torch.mesh import blockmesh, to_device
 from foamtpu_torch.mesh.core import ARRAY_FIELDS, Patch, PolyMesh
 from foamtpu_torch.solvers.linear import gamg
 
 torch.set_num_threads(2)
+
+PITZ_BLOCKMESH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "tutorials", "incompressible", "simpleFoam", "pitzDaily", "constant",
+    "polyMesh", "blockMeshDict")
 
 
 def _ref_mesh(n):
@@ -49,6 +57,9 @@ def _meshes(kind):
     if kind.startswith("cavity"):
         n = int(kind[len("cavity"):])
         return _ref_mesh(n), to_device(cavity_polymesh(n), "cpu")
+    if kind == "pitzDaily":
+        return (jto_device(jblockmesh.generate(PITZ_BLOCKMESH)),
+                to_device(blockmesh.generate(PITZ_BLOCKMESH), "cpu"))
     jpm = tet_box(4, 3, 3)
     pm = PolyMesh(points=jpm.points, face_pts=jpm.face_pts,
                   face_npts=jpm.face_npts, owner=jpm.owner,
@@ -58,7 +69,8 @@ def _meshes(kind):
     return jto_device(jpm), to_device(pm, "cpu")
 
 
-@pytest.mark.parametrize("kind", ["cavity20", "cavity32", "tet"])
+@pytest.mark.parametrize("kind", ["cavity20", "cavity32", "tet",
+                                  "pitzDaily"])
 def test_fvmesh_arrays_equal_reference(kind):
     ref, got = _meshes(kind)
     for name in ARRAY_FIELDS:

@@ -205,3 +205,110 @@ def test_gamg_prepare_matches_reference(systems):
     y_t = tprep["Ainv"].numpy() @ b
     np.testing.assert_allclose(y_t, y_j, rtol=1e-2,
                                atol=1e-2 * float(np.abs(y_j).max()))
+
+
+# ---------------------------------------------------------------------------
+# Pairwise (cluster_of_fine) levels and the pitzDaily pressure matrix
+# ---------------------------------------------------------------------------
+
+
+def _hierarchies(jm, tm, pairwise, n_coarsest):
+    """The same level tables built by both packages (host numpy code, so
+    they must agree exactly)."""
+    from foamtpu.solvers.linear import gamg as jgamg
+    from foamtpu_torch.solvers.linear import gamg as tgamg
+
+    from test_torch_mesh import _compare_levels
+
+    nif = jm.n_internal_faces
+    spec = dict(deltas=tuple(jm.st_deltas),
+                valid=np.asarray(jm.st_valid) > 0,
+                fb_c=np.asarray(jm.fb_cells), fb_n=np.asarray(jm.fb_nbrs))
+    args = (np.asarray(jm.owner)[:nif], np.asarray(jm.neighbour),
+            jm.n_cells)
+    kw = dict(n_coarsest=n_coarsest, pairwise=pairwise, level0_spec=spec,
+              face_weights=np.asarray(jm.mag_sf)[:nif])
+    jlv = jgamg.build_hierarchy(*args, **kw)
+    tlv = tgamg.build_hierarchy(*args, **kw)
+    _compare_levels(tlv, jlv)
+    return jlv, tlv
+
+
+def _prepare_and_solve(jm, tm, jP, tP, jg, tg, ctl, singular):
+    jP, ctl_j = jlinear.prep_pressure(jP, singular, dict(ctl, _gamg=jg), 0,
+                                      0.0)
+    tP, ctl_t = linear.prep_pressure(tP, singular, dict(ctl, _gamg=tg), 0,
+                                     0.0)
+    ctl_j = jlinear.prepare_controls(jm, jP, ctl_j)
+    ctl_t = linear.prepare_controls(tm, tP, ctl_t)
+    # the Galerkin coarse diagonals, level by level
+    for i, ((dt_, _, _), (dj, _, _)) in enumerate(
+            zip(ctl_t["_prep"]["mats"], ctl_j["_prep"]["mats"])):
+        np.testing.assert_allclose(dt_.numpy(), np.asarray(dj), rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(dj).max()),
+                                   err_msg=f"level {i} diag")
+    psi0 = np.zeros(jm.n_cells, np.float32)
+    xj, pj = jlinear.solve(jm, jP, jnp.asarray(psi0), ctl_j)
+    xt, pt = linear.solve(tm, tP, tensor(psi0), ctl_t)
+    return xt, xj, pt, pj
+
+
+def test_gamg_pairwise_levels_match_reference(systems):
+    """pairwise='1' forces greedy face-weight matching on every level:
+    cluster_of_fine restrict/prolong and the gather-path Galerkin
+    coarsening (flat upper/lower) on the singular 32^2 pressure system."""
+    from foamtpu.solvers.linear.gamg import GAMG as JGAMG
+
+    jm, tm = systems["jm"], systems["tm"]
+    jlv, tlv = _hierarchies(jm, tm, "1", 64)
+    # greedy matching leaves some cells unpaired: 1024 -> 53 in 5 levels
+    assert [lv.n_fine for lv in tlv][0] == 1024 and len(tlv) == 5
+    assert all(lv.cluster_of_fine is not None and not lv.plane_ok
+               for lv in tlv)
+    ctl = {"solver": "GAMG", "tolerance": 1e-4, "relTol": 0.0,
+           "maxIter": 200}
+    xt, xj, pt, pj = _prepare_and_solve(
+        jm, tm, systems["P"], matrix_from_numpy(systems["P"]),
+        JGAMG(jm, levels=jlv), GAMG(tm, levels=tlv), ctl, True)
+    _check(xt, xj, pt, pj, "GAMG pairwise")
+
+
+@pytest.fixture(scope="module")
+def pitz_p(tmp_path_factory):
+    """pitzDaily's pressure system: laplacian(rAf, p) with a seeded
+    random rAf (~ the SIMPLE rAU range) and source, the tutorial's p BCs
+    (fixedValue outlet: not singular) and the deferred non-orthogonal
+    correction, as simple_step assembles it."""
+    from foamtpu.core.case import Case as JCase
+
+    from test_torch_simple import pitz_case
+
+    jc = JCase(pitz_case(tmp_path_factory.mktemp("pitzp")))
+    jm = jc.mesh
+    tm = mesh_from_numpy(jm)
+    rng = np.random.default_rng(5)
+    rAf = jnp.asarray(1e-3 * (1.0 + rng.random(jm.n_faces)), jnp.float32)
+    jp = jc.read_field("p")
+    P = jfvm.laplacian(jm, rAf, jp, corrected=True, gamma_dims=dimTime,
+                       defer_correction=True,
+                       gamma_slot=jslot.from_flat(jm, rAf))
+    P = P.replace_fields(source=P.source + jnp.asarray(
+        1e-5 * rng.standard_normal(jm.n_cells), jnp.float32))
+    return jm, tm, P
+
+
+def test_gamg_auto_levels_on_pitzdaily_match_reference(pitz_p):
+    """pairwise='auto' (the default) on the graded five-block mesh: the
+    level tables, the Galerkin coarse matrices and a GAMG solve with
+    the tutorial's controls."""
+    from foamtpu.solvers.linear.gamg import GAMG as JGAMG
+
+    jm, tm, P = pitz_p
+    jlv, tlv = _hierarchies(jm, tm, "auto", 1024)
+    assert len(tlv) == 3 and tm.n_cells == 4160
+    ctl = {"solver": "GAMG", "tolerance": 1e-6, "relTol": 0.05,
+           "maxIter": 200}
+    xt, xj, pt, pj = _prepare_and_solve(
+        jm, tm, P, matrix_from_numpy(P), JGAMG(jm, levels=jlv),
+        GAMG(tm, levels=tlv), ctl, False)
+    _check(xt, xj, pt, pj, "GAMG pitzDaily")
