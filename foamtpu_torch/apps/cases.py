@@ -9,6 +9,7 @@ from ..bc import patchfields as pf
 from ..core.dictionary import parse_string
 from ..core.dimensions import DimensionSet, dimVelocity
 from ..core.fields import vol_scalar, vol_vector
+from ..core.precision import DEFAULT_DEVICE
 from ..mesh import blockmesh, to_device
 from ..solvers import piso
 
@@ -73,7 +74,7 @@ def cavity_fields(mesh):
 
 
 def make_cavity(n: int = 20, nu: float = 0.01, p_solver: Dict | None = None,
-                three_d: bool = False, device="cpu") -> Tuple:
+                three_d: bool = False, device=DEFAULT_DEVICE) -> Tuple:
     """icoFoam cavity (tutorials/incompressible/icoFoam/cavity) on
     `device`: returns (mesh, initial_state, PisoConfig). A GAMG p-solver
     gets GAMG(mesh) with the reference defaults."""

@@ -3,9 +3,10 @@ openfoam-2.2.x_tpu/bc/factory.py: `parse_value` and the part of
 `from_dict` that builds the kinds of the ported slice).
 
 Ported kinds: fixedValue, zeroGradient, calculated, empty, inletOutlet,
-nutkWallFunction, kqRWallFunction and epsilonWallFunction. Any other
-`type` raises NotImplementedError naming it (the reference degrades
-unknown types to calculated/zeroGradient; the port refuses instead).
+nutkWallFunction, kqRWallFunction, epsilonWallFunction and
+omegaWallFunction. Any other `type` raises NotImplementedError naming it
+(the reference degrades unknown types to calculated/zeroGradient; the
+port refuses instead).
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from ..core.dictionary import FoamDict, Word
 from .patchfields import PatchField, make
 
 KINDS = ("fixedValue", "zeroGradient", "calculated", "empty", "inletOutlet",
-         "nutkWallFunction", "kqRWallFunction", "epsilonWallFunction")
+         "nutkWallFunction", "kqRWallFunction", "epsilonWallFunction",
+         "omegaWallFunction")
 
 
 def parse_value(entry: Any, size: int, rank: int, dtype, device="cpu"):
@@ -58,7 +60,7 @@ def from_dict(spec: FoamDict, patch, rank: int, dtype, device="cpu"
 
     kw = {}
     if kind in ("fixedValue", "calculated", "nutkWallFunction",
-                "epsilonWallFunction"):
+                "epsilonWallFunction", "omegaWallFunction"):
         kw["ref_value"] = val if val is not None else 0.0
         kw["vfrac"] = 1.0
     elif kind == "inletOutlet":

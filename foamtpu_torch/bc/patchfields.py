@@ -4,12 +4,12 @@ openfoam-2.2.x_tpu/bc/patchfields.py).
 Each BC kind supplies value coefficients (vf = vic*psi_c + vbc); the
 gradient coefficients and evaluation follow from them exactly as in the
 reference module. The ported slice covers the kinds of the icoFoam
-cavity and the simpleFoam pitzDaily case: fixedValue, zeroGradient,
-empty, calculated, mixed, inletOutlet and the nutk/kqR/epsilon wall
-functions. Derived kinds re-evaluate their mixed triple through the
-update registry (`update` / `register_update`; the turbulence models
-register their wall-function rules). Any other kind raises
-NotImplementedError naming it.
+cavity, the simpleFoam pitzDaily case and the kOmegaSST tet duct:
+fixedValue, zeroGradient, empty, calculated, mixed, inletOutlet and the
+nutk/kqR/epsilon/omega wall functions. Derived kinds re-evaluate their
+mixed triple through the update registry (`update` /
+`register_update`; the turbulence models register their wall-function
+rules). Any other kind raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -88,12 +88,14 @@ _VALUE_COEFFS: Dict[str, Callable] = {
     "empty": _vc_zero_gradient,
     "inletOutlet": _vc_mixed,
     # wall functions: fixed-value-like on nut (the value comes from the
-    # update rule), zero-gradient-like on k; epsilon's wall function
-    # fixes the wall-adjacent CELL value through the matrix constraint
-    # (models/turbulence/ras.py), the face itself is flux-free
+    # update rule), zero-gradient-like on k; the epsilon and omega wall
+    # functions fix the wall-adjacent CELL value through the matrix
+    # constraint (models/turbulence/ras.py), the face itself is
+    # flux-free
     "nutkWallFunction": _vc_fixed_value,
     "kqRWallFunction": _vc_zero_gradient,
     "epsilonWallFunction": _vc_zero_gradient,
+    "omegaWallFunction": _vc_zero_gradient,
 }
 
 

@@ -14,13 +14,14 @@ from typing import Dict, Optional
 
 from . import runtime
 from .dictionary import FoamDict, parse_file
+from .precision import DEFAULT_DEVICE
 from ..io import fields as field_io
 from ..io import polymesh as mesh_io
 from ..mesh import to_device
 
 
 class Case:
-    def __init__(self, case_dir: str, device="cpu"):
+    def __init__(self, case_dir: str, device=DEFAULT_DEVICE):
         self.dir = os.path.abspath(case_dir)
         self.device = device
         self.control_dict = parse_file(
@@ -108,6 +109,16 @@ class Case:
         if toks and toks[0] == "Gauss":
             toks = toks[1:]
         return " ".join(toks) if toks else "linear"
+
+    def ddt_scheme(self) -> str:
+        """ddtSchemes/default keyword (fv::ddtScheme::New): e.g. 'Euler',
+        'backward', 'CrankNicolson 0.9', 'steadyState'."""
+        dd = self.fv_schemes.get("ddtSchemes")
+        entry = dd.get("default", "Euler") if isinstance(dd, FoamDict) \
+            else "Euler"
+        toks = [str(t) for t in (entry if isinstance(entry, list)
+                                 else [entry])]
+        return " ".join(toks) if toks else "Euler"
 
     def grad_scheme(self, keyword: str = "default") -> str:
         gs = self.fv_schemes.get("gradSchemes")

@@ -5,6 +5,11 @@ both packages at once (one variable flips the reference and the port).
 Host-side geometry precompute is always float64. Device index arrays
 are int64, torch's native index type (the reference uses int32; the
 values are identical).
+
+DEFAULT_DEVICE is where the entry points (`make_cavity`, `Case`,
+`to_device`, `build_hierarchy`, ...) put their tensors unless the
+caller names a device: the card. Without one they fail as torch does;
+nothing falls back to the CPU. Tests pass device="cpu".
 """
 
 import os
@@ -24,6 +29,8 @@ def scalar_np():
 def scalar_dtype() -> torch.dtype:
     return torch.float64 if x64_enabled() else torch.float32
 
+
+DEFAULT_DEVICE = "cuda"
 
 label_np = np.int64
 label_dtype = torch.int64

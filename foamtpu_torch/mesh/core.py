@@ -18,7 +18,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.precision import label_dtype, label_np, scalar_dtype, scalar_np
+from ..core.precision import (DEFAULT_DEVICE, label_dtype, label_np,
+                               scalar_dtype, scalar_np)
 
 # ---------------------------------------------------------------------------
 # Patches
@@ -607,7 +608,7 @@ def from_arrays(arrays: Dict[str, np.ndarray], static: Dict[str, Any],
     )
 
 
-def to_device(mesh: PolyMesh, device="cpu") -> FvMesh:
+def to_device(mesh: PolyMesh, device=DEFAULT_DEVICE) -> FvMesh:
     """Build the torch FvMesh on `device` (twin of the reference's
     mesh/core.py::to_device). Cyclic patch pairs are internalised here.
     cyclicAMI interfaces are outside the ported slice and raise."""

@@ -5,7 +5,7 @@ openfoam-2.2.x_tpu/models/turbulence/base.py: `TurbulenceModel`,
 A model is a static config object whose methods are plain functions of
 (mesh, tstate, U, phi); its fields (k, epsilon, nut, ...) live in the
 solver state under 'turb'. `select` builds the ported models only
-(laminar and kEpsilon); any other RAS/LES keyword raises
+(laminar, kEpsilon and kOmegaSST); any other RAS/LES keyword raises
 NotImplementedError naming it.
 """
 
@@ -132,8 +132,8 @@ def register(name: str, cls) -> None:
 def select(props: FoamDict, nu: float, kind: str = "RAS",
            compressible: bool = False) -> TurbulenceModel:
     """turbulenceModel::New: dispatch on the RASModel/LESModel keyword
-    of RASProperties/LESProperties. Only the incompressible laminar and
-    kEpsilon models are ported; anything else raises."""
+    of RASProperties/LESProperties. Only the incompressible laminar,
+    kEpsilon and kOmegaSST models are ported; anything else raises."""
     from . import ras  # noqa: F401  (registers the ported RAS models)
 
     if compressible:

@@ -1,23 +1,26 @@
-"""RAS turbulence models (port of the kEpsilon part of
+"""RAS turbulence models (port of the kEpsilon and kOmegaSST parts of
 openfoam-2.2.x_tpu/models/turbulence/ras.py: the nutkWallFunction
-update, the wall-function helpers and `KEpsilon`).
+update, the wall-function helpers, `KEpsilon` and `KOmegaSST`).
 
 Wall functions: nut's wall value comes from the log law through the BC
-update registry; epsilon's wall function fixes the wall-adjacent cell
-values by exact row replacement (FvMatrix.set_values), and the wall
-production G takes the log-law shear with the wall-face nut. The
-closures are the standard published ones (Launder-Spalding 1974). The
-other RAS models of the reference are outside the ported slice.
+update registry; the epsilon and omega wall functions fix the
+wall-adjacent cell values by exact row replacement
+(FvMatrix.set_values), and the wall production G takes the log-law
+shear with the wall-face nut. The closures are the standard published
+ones (Launder-Spalding 1974; Menter 2003). The other RAS models of the
+reference are outside the ported slice.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ...bc import patchfields as pf
 from ...core.dimensions import dimViscosity
 from ...core.fields import VolField
-from ...ops import fvm, schemes
+from ...core.precision import DEFAULT_DEVICE
+from ...ops import fvc, fvm, schemes
 from ...ops import slot as slot_mod
 from ...solvers import linear
 from .base import TurbulenceModel, bound_below, production, register
@@ -28,6 +31,7 @@ _CMU = 0.09
 
 K_MIN = 1e-10
 EPS_MIN = 1e-10
+OMEGA_MIN = 1e-10
 
 
 # ---------------------------------------------------------------------------
@@ -218,4 +222,145 @@ class KEpsilon(TurbulenceModel):
         return new, diag
 
 
+class KOmegaSST(TurbulenceModel):
+    """Menter k-omega SST (the 2003 form, RAS/kOmegaSST/kOmegaSST.C).
+    Needs the wall-distance field: `init_wall_distance` before the
+    first `correct`."""
+
+    name = "kOmegaSST"
+    field_names = ("k", "omega", "nut")
+
+    alphaK1, alphaK2 = 0.85, 1.0
+    alphaOmega1, alphaOmega2 = 0.5, 0.856
+    beta1, beta2 = 0.075, 0.0828
+    betaStar = 0.09
+    gamma1, gamma2 = 5.0 / 9.0, 0.44
+    a1, b1, c1 = 0.31, 1.0, 10.0
+
+    def __init__(self, nu, coeffs=None, y_wall=None):
+        super().__init__(nu, coeffs)
+        self.y_wall = y_wall  # [nC] tensor on the mesh's device
+
+    def init_wall_distance(self, poly_mesh, dtype, device=DEFAULT_DEVICE):
+        """y_wall from the host mesh's KD-tree wall distance, in the
+        mesh's dtype on its device (cells with no wall in reach get
+        1e10; distances are floored at 1e-10)."""
+        from ...mesh.walldist import wall_distance
+
+        y = wall_distance(poly_mesh)
+        y = np.where(np.isfinite(y), y, 1e10)
+        self.y_wall = torch.tensor(np.maximum(y, 1e-10), dtype=dtype,
+                                   device=device)
+
+    def nut(self, mesh, tstate):
+        return tstate["nut"].data
+
+    def _blend(self, mesh, k, omega, grad_k_grad_w):
+        """The blending functions F1, F2 and the cross-diffusion CDkw."""
+        y = self.y_wall
+        sqrtk = torch.sqrt(torch.clamp(k, min=K_MIN))
+        w = torch.clamp(omega, min=OMEGA_MIN)
+        cd = torch.clamp(2.0 * self.alphaOmega2 * grad_k_grad_w / w,
+                         min=1e-10)
+        arg1 = torch.minimum(
+            torch.maximum(sqrtk / (self.betaStar * w * y),
+                          500.0 * self.nu / (y * y * w)),
+            4.0 * self.alphaOmega2 * k / (cd * y * y),
+        )
+        F1 = torch.tanh(torch.clamp(arg1, max=10.0) ** 4)
+        arg2 = torch.maximum(2.0 * sqrtk / (self.betaStar * w * y),
+                             500.0 * self.nu / (y * y * w))
+        F2 = torch.tanh(torch.clamp(arg2, max=10.0) ** 2)
+        return F1, F2, cd
+
+    def correct(self, mesh, tstate, U, phi, dt, steady=False, relax=1.0,
+                controls=None, phi_slot=None):
+        if self.y_wall is None:
+            raise ValueError("KOmegaSST needs init_wall_distance before "
+                             "correct")
+        k_f, w_f, nut_f = tstate["k"], tstate["omega"], tstate["nut"]
+        k, omega, nut = k_f.data, w_f.data, nut_f.data
+        rdt = 1.0 / dt
+        diag = {}
+        phi_sl = _phi_slotform(mesh, phi, phi_slot)
+
+        gk = fvc.grad(mesh, k_f)
+        gw = fvc.grad(mesh, w_f)
+        gkgw = torch.sum(gk * gw, dim=1)
+        F1, F2, cd = self._blend(mesh, k, omega, gkgw)
+
+        def mix(a, b):
+            return F1 * a + (1.0 - F1) * b
+
+        G, S2 = production(mesh, nut, U)
+        S = torch.sqrt(S2)
+        gamma = mix(self.gamma1, self.gamma2)
+        beta = mix(self.beta1, self.beta2)
+
+        wall_fn = _has_wall_fn(w_f, ("omegaWallFunction",))
+        if wall_fn:
+            mask, y1 = _wall_data(mesh)
+            sqrtk = torch.sqrt(torch.clamp(k, min=K_MIN))
+            w_vis = 6.0 * self.nu / (self.beta1 * y1 * y1)
+            w_log = sqrtk / ((_CMU ** 0.25) * _KAPPA * y1)
+            omega_wall = torch.sqrt(w_vis ** 2 + w_log ** 2)
+            nutw = _wall_face_nut(mesh, nut_f)
+            magUp = torch.linalg.norm(U.data, dim=1) / y1
+            G_wall = ((nutw + self.nu) * magUp
+                      * (_CMU ** 0.25) * sqrtk / (_KAPPA * y1))
+            G = torch.where(mask > 0, G_wall, G)
+
+        # omega equation
+        w_flat, w_slot = _gamma_forms(
+            mesh, self.nu,
+            nut_f.with_data(mix(self.alphaOmega1, self.alphaOmega2) * nut))
+        ddt_w = (fvm.ddt(mesh, w_f, omega, rdt) if not steady
+                 else fvm.ddt_steady(mesh, w_f))
+        w_eqn = (
+            ddt_w
+            + _transport_ops(mesh, phi, phi_sl, w_f, self.div_scheme,
+                             w_flat, w_slot, False, self.corr_limit)
+            + fvm.Sp(mesh, beta * omega, w_f)
+        )
+        w_eqn = w_eqn.add_source(gamma * S2 + (1.0 - F1) * cd, mesh)
+        if steady and relax < 1.0:
+            w_eqn = w_eqn.relax(mesh, relax, omega)
+        if wall_fn:
+            w_eqn = w_eqn.set_values(mask, omega_wall, mesh)
+        w_new, perf_w = _solve_transport(mesh, w_f, w_eqn, controls)
+        w_new = bound_below(w_new, OMEGA_MIN)
+        diag["omega"] = perf_w
+
+        # k equation with limited production
+        Gk = torch.minimum(G, self.c1 * self.betaStar * k * w_new)
+        k_flat, k_slot = _gamma_forms(
+            mesh, self.nu,
+            nut_f.with_data(mix(self.alphaK1, self.alphaK2) * nut))
+        ddt_k = (fvm.ddt(mesh, k_f, k, rdt) if not steady
+                 else fvm.ddt_steady(mesh, k_f))
+        k_eqn = (
+            ddt_k
+            + _transport_ops(mesh, phi, phi_sl, k_f, self.div_scheme,
+                             k_flat, k_slot, self.corrected,
+                             self.corr_limit)
+            + fvm.Sp(mesh, self.betaStar * w_new, k_f)
+        )
+        k_eqn = k_eqn.add_source(Gk, mesh)
+        if steady and relax < 1.0:
+            k_eqn = k_eqn.relax(mesh, relax, k)
+        k_new, perf_k = _solve_transport(mesh, k_f, k_eqn, controls)
+        k_new = bound_below(k_new, K_MIN)
+        diag["k"] = perf_k
+
+        nut_new = self.a1 * k_new / torch.maximum(
+            self.a1 * torch.clamp(w_new, min=OMEGA_MIN), self.b1 * F2 * S)
+        new_nut = nut_f.with_data(nut_new).correct_boundary_conditions(
+            mesh, k=k_new, nu=self.nu, U=U.data)
+        new = dict(tstate)
+        new.update(k=k_f.with_data(k_new), omega=w_f.with_data(w_new),
+                   nut=new_nut)
+        return new, diag
+
+
 register("kEpsilon", KEpsilon)
+register("kOmegaSST", KOmegaSST)

@@ -25,7 +25,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ...core.precision import label_np, scalar_np
+from ...core.precision import DEFAULT_DEVICE, label_np, scalar_np
 from ...mesh.core import offset_stencil
 from ...ops import stencil as stencil_mod
 from .krylov import SolverPerf, _small
@@ -324,7 +324,7 @@ def build_hierarchy(
     face_weights: Optional[np.ndarray] = None,
     pairwise: str = "auto",
     level0_spec: Optional[Dict[str, Any]] = None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> List[Level]:
     """pairwise: 'auto' = per level, use index-offset pairing when it
     pairs >=50% of cells across a shared face (structured/renumbered

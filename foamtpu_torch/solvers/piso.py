@@ -1,17 +1,20 @@
-"""icoFoam — transient incompressible PISO solver (port of
+"""icoFoam / pisoFoam — transient incompressible PISO solvers (port of
 openfoam-2.2.x_tpu/solvers/piso.py).
 
     momentum:  UEqn = ddt(U) + div(phi,U) - laplacian(nu,U)
+               (pisoFoam: + turbulence->divDevReff(U))
                solve(UEqn == -grad(p))
     corrector: rAU=1/A(U); HbyA=rAU*H(U); phiHbyA=Sf.interp(HbyA)
                pEqn: laplacian(rAU,p) == div(phiHbyA); solve
                phi = phiHbyA - pEqn.flux(); U = HbyA - rAU*grad(p)
+    pisoFoam:  turbulence->correct()
 
 The reference traces one step into one XLA program and scans a chunk of
 steps; here a step is eager torch and a chunk is a plain loop. The
-slice covers laminar icoFoam with Euler ddt, linear div and an
-orthogonal (or uncorrected) laplacian. Every other PisoConfig feature
-raises NotImplementedError naming it.
+slice covers icoFoam and pisoFoam (a turbulence model in
+PisoConfig.turb) with Euler ddt, any ported div(phi,U) scheme and an
+orthogonal (or uncorrected) pressure laplacian. Every other PisoConfig
+feature raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 from ..bc import patchfields as pf
 from ..core.dimensions import dimless, dimTime, dimViscosity
 from ..core.fields import VolField
-from ..ops import fvc, fvm, surface
+from ..ops import fvc, fvm, schemes, surface
 from ..ops import slot as slot_mod
 from . import linear
 
@@ -65,11 +68,9 @@ def check_supported(mesh, state: Dict, cfg: PisoConfig) -> None:
     def no(what):
         raise NotImplementedError(f"{what} is not ported to foamtpu_torch yet")
 
-    for name in ("turb", "nu_fn", "fv_options", "mrf"):
+    for name in ("nu_fn", "fv_options", "mrf"):
         if getattr(cfg, name):
             no(f"PisoConfig.{name}")
-    if cfg.div_scheme != "linear":
-        no(f"div_scheme {cfg.div_scheme!r}")
     if cfg.ddt_scheme.split()[0] != "Euler":
         no(f"ddt_scheme {cfg.ddt_scheme!r}")
     if cfg.corrected and not getattr(mesh, "orthogonal", False):
@@ -132,12 +133,19 @@ def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
     else:
         phi_slot = slot_mod.from_flat(mesh, phi)
 
-    # -- momentum equation ------------------------------------------------------
+    # -- momentum equation (laminar diffusion or turbulence divDevReff) ----
+    w_slot = (None if cfg.div_scheme == "linear" else
+              schemes.weights_slot(mesh, phi_slot, cfg.div_scheme, U))
     UEqn = (fvm.ddt(mesh, U, state.get("U0", U.data), rdt)
-            + fvm.div(mesh, phi, U, phi_slot=phi_slot))
-    UEqn = UEqn - fvm.laplacian(
-        mesh, _as_scalar(mesh, cfg.nu), U, corrected=cfg.corrected,
-        gamma_dims=dimViscosity, limit=cfg.corr_limit)
+            + fvm.div(mesh, phi, U, phi_slot=phi_slot, slot_weights=w_slot))
+    if cfg.turb is not None:
+        visc_mat, visc_expl = cfg.turb.div_dev_reff(mesh, state["turb"], U)
+        UEqn = UEqn + visc_mat
+        UEqn = UEqn.add_source(-visc_expl, mesh)
+    else:
+        UEqn = UEqn - fvm.laplacian(
+            mesh, _as_scalar(mesh, cfg.nu), U, corrected=cfg.corrected,
+            gamma_dims=dimViscosity, limit=cfg.corr_limit)
     grad_p = fvc.grad_of(mesh, p, cfg.grad_scheme)
     if cfg.momentum_predictor:
         Umat = UEqn.add_source(-grad_p, mesh)
@@ -205,6 +213,14 @@ def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
         U = U.correct_boundary_conditions(mesh, phi=phi_for_bc)
     phi = slot_mod.to_flat(mesh, phi_slot)
 
+    # -- turbulence correction (pisoFoam: turbulence->correct()) ------------
+    new_turb = state.get("turb")
+    if cfg.turb is not None:
+        new_turb, tdiag = cfg.turb.correct(
+            mesh, state["turb"], U, phi, dt, controls=cfg.turb_controls,
+            phi_slot=phi_slot)
+        diag.update({f"turb_{k}": v for k, v in tdiag.items()})
+
     # -- diagnostics --------------------------------------------------------------
     div_phi = slot_mod.surface_sum(mesh, phi_slot)  # continuity error * V
     vol = torch.sum(mesh.v)
@@ -221,6 +237,8 @@ def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
     new_state = dict(state)
     new_state.update(U=U, p=p, phi=phi, U0=U.data,
                      phi_slot=(phi_slot.sv, phi_slot.fb))
+    if new_turb is not None:
+        new_state["turb"] = new_turb
     return new_state, diag
 
 

@@ -229,7 +229,7 @@ def _hierarchies(jm, tm, pairwise, n_coarsest):
     kw = dict(n_coarsest=n_coarsest, pairwise=pairwise, level0_spec=spec,
               face_weights=np.asarray(jm.mag_sf)[:nif])
     jlv = jgamg.build_hierarchy(*args, **kw)
-    tlv = tgamg.build_hierarchy(*args, **kw)
+    tlv = tgamg.build_hierarchy(*args, device="cpu", **kw)
     _compare_levels(tlv, jlv)
     return jlv, tlv
 

@@ -7,7 +7,8 @@
   the same order, so only last-bit rounding differences are allowed.
 - The CUDA kernel against the plain version on the card (marked `cuda`,
   skipped without a card).
-- An import test: the port runs without jax and the JAX package.
+- An import test: the port (and chip_smoke.py) runs without jax and the
+  JAX package, through a cavity PISO step and a duct SIMPLE iteration.
 
 The file imports jax lazily (importorskip inside the reference tests), so
 on a machine with a card and no jax the kernel tests still run:
@@ -150,12 +151,20 @@ def test_kernel_matches_plain_on_card(cuda_card, n, deltas, dtype):
 IMPORT_BODY = r"""
 import json, sys
 import foamtpu_torch
+import foamtpu_torch.mesh.gmsh, foamtpu_torch.mesh.tetmesh
+import foamtpu_torch.mesh.walldist, foamtpu_torch.models.turbulence.ras
+import foamtpu_torch.solvers.apps, foamtpu_torch.solvers.simple
+import chip_smoke
 from foamtpu_torch.apps.cases import make_cavity
 from foamtpu_torch.solvers import piso
-mesh, state, cfg = make_cavity(20)
+mesh, state, cfg = make_cavity(20, device="cpu")
 step = piso.make_step(mesh, cfg)
 for _ in range(2):
     state, diag = step(state, 0.005)
+# the kOmegaSST tet duct too (tet mesher, wall distance, SIMPLE)
+dmesh, dcfg, dstate, _ = chip_smoke.duct_setup(4, 2, 2, device="cpu")
+dstate, ddiag = foamtpu_torch.solvers.simple.make_step(dmesh, dcfg)(dstate)
+assert float(ddiag["continuity"]) < 1e-3
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "foamtpu"
              or m.startswith("foamtpu."))

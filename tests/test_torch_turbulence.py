@@ -63,7 +63,7 @@ def _tstate(fields):
 
 def test_load_turbulence_from_the_tutorial(pitz):
     jmodel, jts = jload(pitz["jc"], NU)
-    tmodel, tts = tload(TCase(pitz["dir"]), NU)
+    tmodel, tts = tload(TCase(pitz["dir"], device="cpu"), NU)
     assert type(tmodel).__name__ == type(jmodel).__name__ == "KEpsilon"
     for attr in ("Cmu", "C1", "C2", "sigma_k", "sigma_eps", "div_scheme",
                  "corrected", "corr_limit", "nu"):
@@ -100,7 +100,7 @@ def test_production_and_div_dev_reff(pitz):
     close(tbase.production(tm, pitz["tf"]["nut"].data, tU),
           jbase.production(jm, pitz["jf"]["nut"].data, jU), "production")
     jmodel, _ = jload(pitz["jc"], NU)
-    tmodel, _ = tload(TCase(pitz["dir"]), NU)
+    tmodel, _ = tload(TCase(pitz["dir"], device="cpu"), NU)
     jmat, jexpl = jmodel.div_dev_reff(jm, _tstate(pitz["jf"]), jU)
     tmat, texpl = tmodel.div_dev_reff(tm, _tstate(pitz["tf"]), tU)
     assert tmat.fcorr is not None and tmat.fcorr.shape == (tm.n_faces, 3)
@@ -113,7 +113,7 @@ def test_kepsilon_correct(pitz):
     wall cells, both transport solves, nut and its wall values."""
     jm, tm, phi = pitz["jm"], pitz["tm"], pitz["phi"]
     jmodel, _ = jload(pitz["jc"], NU)
-    tmodel, _ = tload(TCase(pitz["dir"]), NU)
+    tmodel, _ = tload(TCase(pitz["dir"], device="cpu"), NU)
     phi_j, phi_t = jnp.asarray(phi), _t(phi)
     jnew, jd = jmodel.correct(
         jm, _tstate(pitz["jf"]), pitz["jf"]["U"], phi_j,
