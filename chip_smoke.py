@@ -4,13 +4,19 @@
 
 Phases (each prints one JSON line; any failure raises and exits non-zero):
   1. device: the card's name and power limit, and the build of the
-     offset-stencil SpMV kernel (foamtpu_torch/csrc/spmv_stencil.cu).
-  2. kernel: the kernel against its plain torch version on the card, at
-     the shapes of tests/test_pallas_spmv.py plus a [160000, 3] operand
-     and a no-diagonal call, in float32 and float64, with timings; and
-     at pitzDaily's own stencil (its st_deltas with the pressure matrix
-     [n] and the relaxed momentum matrix [n, 3] that the first SIMPLE
-     iteration hands to its linear solves).
+     offset-stencil SpMV kernel with its fused COO remainder
+     (foamtpu_torch/csrc/spmv_stencil.cu).
+  2. kernel: the kernel against its plain torch version (the roll chain,
+     then the remainder by index_add) on the card, at the shapes of
+     tests/test_pallas_spmv.py plus a [160000, 3] operand and a
+     no-diagonal call, and with random unsorted COO remainders (repeated
+     cells, empty rows, a row of six entries) at n = 1024, 5000 and
+     160,000, [n] and [n, 3], with and without a diagonal, plus the
+     scalar-load, generic-M, no-slot and C = 2, 4, 8 bodies, in float32
+     and float64, with timings; and at pitzDaily's own stencil (its
+     st_deltas with the pressure matrix [n] and the relaxed momentum
+     matrix [n, 3] that the first SIMPLE iteration hands to its linear
+     solves), whole operator included.
   3. physics: the 20^2 icoFoam cavity, 100 steps, against the goldens of
      tests/test_cavity.py.
   4. headline: the 400^2 cavity with the GAMG pressure controls of
@@ -34,8 +40,10 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      the JAX package's COO fraction of this mesh.
   7. kernel_duct: the kernel against its plain version at the duct's own
      operands (the pressure matrix [n] and the relaxed momentum matrix
-     [n, 3] of its first SIMPLE iteration), and the whole operator
-     (kernel + the COO remainder by index_add) against a CSR product.
+     [n, 3] of its first SIMPLE iteration), whole operator included, at
+     one GAMG plane level whose COO remainder is not row-sorted, and at
+     the coarsest level's dense assembly (C = n); the slot part alone
+     and the whole operator (one launch) timed against a CSR product.
   8. duct_profile: one 2-iteration duct chunk under torch.profiler.
   9. cavity_ras: pisoFoam on the unmodified cavityRAS tutorial (Case,
      kEpsilon with wall functions, limitedLinearV 1, GAMG p) for its 200
@@ -43,10 +51,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 Every timed SpMV shape (kernel, plain version, one CSR product from
 torch.sparse as the library yardstick) gets its device time per call
 from torch.profiler, back to back with the operands warm in L2 and
-again with L2 flushed before each call, and its wrapper time per call
-back to back by CUDA events (the host launch path, where that is the
-slower side), beside its HBM bound: the bytes it must move (each input
-read once, each output written once) over 3.35 TB/s (H100 SXM data
+again with L2 flushed before each call (per call the profile recorded:
+CUPTI loses events), the kernel's flushed time also from a CUDA graph
+without the profiler, and its wrapper time per call back to back by
+CUDA events (the host launch path, where that is the slower side),
+beside its HBM bound: the bytes it must move (each input
+read once, each output written once; the remainder as its int32 row
+pointers, int32 columns and coefficients) over 3.35 TB/s (H100 SXM data
 sheet).
 Then the kernel table and the final `{"ok": true, ...}` line.
 
@@ -100,7 +111,7 @@ DUCT_COO_FRACTION = 0.327
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, data sheet
 F32_FLOPS = 67e12           # H100 SXM, float32 outside the tensor cores
 L2_FLUSH_BYTES = 128 << 20  # written before each flushed launch (L2: 50 MB)
-EMPTY_PROFILES = 0          # device_ms profiles that recorded no device work
+INCOMPLETE_PROFILES = 0     # device_ms profiles that missed device work
 CAVITY_RAS_CASE = os.path.join("tutorials", "incompressible", "pisoFoam",
                                "cavityRAS")
 CAVITY_RAS_STEPS = 200   # the tutorial's endTime 0.1 / deltaT 0.0005
@@ -116,12 +127,26 @@ CAVITY_RAS_GOLDEN = {
             0.0026751933619379997],
 }
 
-SPMV_CASES = [  # (name, n, deltas, ncols, with_diag)
-    ("n1024", 1024, (1, -1, 16, -16), 1, True),
-    ("n160000", 160000, (1, -1, 400, -400), 1, True),
-    ("n5000", 5000, (1, -1, 128, -128, 3000, -3000), 1, True),
-    ("n160000x3", 160000, (1, -1, 400, -400), 3, True),
-    ("n160000_nodiag", 160000, (1, -1, 400, -400), 1, False),
+SPMV_SHAPES = {"n1024": (1024, (1, -1, 16, -16)),
+               "n5000": (5000, (1, -1, 128, -128, 3000, -3000)),
+               "n160000": (160000, (1, -1, 400, -400))}
+SPMV_CASES = [  # (name, n, deltas, ncols, with_diag, with_remainder)
+    ("n1024", 1024, (1, -1, 16, -16), 1, True, False),
+    ("n160000", 160000, (1, -1, 400, -400), 1, True, False),
+    ("n5000", 5000, (1, -1, 128, -128, 3000, -3000), 1, True, False),
+    ("n160000x3", 160000, (1, -1, 400, -400), 3, True, False),
+    ("n160000_nodiag", 160000, (1, -1, 400, -400), 1, False, False),
+] + [(f"{name}{'' if c == 1 else 'x%d' % c}_fb{'' if d else '_nodiag'}",
+      n, deltas, c, d, True)
+     for name, (n, deltas) in SPMV_SHAPES.items()
+     for c in (1, 3) for d in (True, False)] + [
+    ("n5000_m3_fb", 5000, (1, -1, 64), 1, True, True),      # scalar loads
+    ("n5000_m10_fb", 5000, (1, -1, 2, -2, 50, -50, 100, -100, 200, -200),
+     1, True, True),                                        # generic body
+    ("n1024_m0_fb", 1024, (), 1, True, True),               # no slot
+    ("n1024x2_fb", 1024, (1, -1, 16, -16), 2, True, True),
+    ("n1024x4_fb", 1024, (1, -1, 16, -16), 4, False, True),
+    ("n1024x8_fb", 1024, (1, -1, 16, -16), 8, True, True),  # (cell, column)
 ]
 # float32: rtol 2e-6 / atol 2e-5 (tests/test_pallas_spmv.py; FMA and
 # summation order differ from the roll chain). float64: rtol 1e-12 with
@@ -155,7 +180,7 @@ def spmv_inputs(n, deltas, ncols, with_diag, dtype, seed=0):
     shape = (n,) if ncols == 1 else (n, ncols)
     x = rng.standard_normal(shape)
     diag = rng.standard_normal(shape) if with_diag else None
-    soff = rng.standard_normal((n, len(deltas)))
+    soff = rng.standard_normal((n, max(len(deltas), 1)))
     idx = np.arange(n)
     for m, d in enumerate(deltas):
         soff[(idx + d < 0) | (idx + d >= n), m] = 0.0
@@ -164,6 +189,31 @@ def spmv_inputs(n, deltas, ncols, with_diag, dtype, seed=0):
         return None if a is None else torch.tensor(a, dtype=dtype,
                                                    device="cuda")
     return dev(diag), dev(x), dev(soff)
+
+
+def random_remainder(spmv, n, dtype, seed=0):
+    """A random COO remainder for an n-row operator, unsorted, with
+    repeated cells, rows with no entry (the upper half and random gaps)
+    and one row of six entries, with its row layout, on the card."""
+    rng = np.random.default_rng(seed + 100)
+    nfb = max(n // 3, 12)
+    cells = rng.integers(0, max(n // 2, 1), nfb)
+    cells[rng.choice(nfb, 6, replace=False)] = n // 4
+    nbrs = rng.integers(0, n, nfb)
+    coeffs = rng.standard_normal(nfb)
+
+    def dev(a, dt):
+        return torch.tensor(a, dtype=dt, device="cuda")
+    layout = spmv.row_layout(cells, nbrs, n, "cuda")
+    check(layout.order is not None, "the random remainder came out sorted")
+    return spmv.remainder(dev(cells, torch.int64), dev(nbrs, torch.int64),
+                          dev(coeffs, dtype), layout)
+
+
+def mesh_remainder(spmv, mesh, sfb, dtype):
+    """The mesh's COO remainder with a matrix's coefficients sfb."""
+    return spmv.remainder(mesh.fb_cells, mesh.fb_nbrs,
+                          sfb.to(dtype).contiguous(), mesh.fb_layout)
 
 
 def time_ms(fn, reps=5, inner=200) -> float:
@@ -388,12 +438,13 @@ def pitz_operands(mesh, cfg, state):
 
 def spmv_bound(n, ncols, n_off, with_diag, n_fb=0, itemsize=4):
     """The least time the card could take for one call: bytes moved
-    (x, diag and y of n*ncols each, soff of n*n_off; the COO remainder
-    reads its int64 cell and neighbour indices and its coefficient once)
-    over HBM_BYTES_PER_S, against the multiply-adds over F32_FLOPS."""
+    (x, diag and y of n*ncols each, soff of n*n_off; a COO remainder of
+    n_fb entries reads its int32 row pointers [n+1] once and, per entry,
+    its coefficient and int32 column) over HBM_BYTES_PER_S, against the
+    multiply-adds over F32_FLOPS."""
     vec = n * ncols
     nbytes = (itemsize * (vec * (3 if with_diag else 2) + n * n_off + n_fb)
-              + 16 * n_fb)
+              + (4 * (n + 1) + 4 * n_fb if n_fb else 0))
     flops = 2 * vec * (n_off + (1 if with_diag else 0)) + 2 * n_fb * ncols
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
     return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_b, t_o) * 1e3,
@@ -435,22 +486,26 @@ def csr_operator(diag, soff, deltas, fb=None):
 
 
 def device_ms(fn, flush=None, reps=30, trials=3, attempts=3) -> float:
-    """Device time of one call of fn: the device-side work (kernels,
-    copies, memsets) that torch.profiler (CUPTI) records over `reps`
-    calls, divided by `reps`; the median over `trials` profiles. With
-    `flush`, a uint8 buffer of L2_FLUSH_BYTES, L2 is flushed by a write
-    of it before every call (its fill kernel, FillFunctor<unsigned char>,
-    is left out of the sum); without, the calls run back to back with
-    their operands warm in L2. A profile that recorded no device work at
-    all is taken again, at most `attempts` times, and counted in
-    EMPTY_PROFILES."""
-    global EMPTY_PROFILES
+    """Device time of one call of fn from torch.profiler (CUPTI): the
+    device-side work (kernels, copies, memsets) a profile of `reps` calls
+    recorded, divided by the calls it recorded; the median over `trials`
+    profiles. With `flush`, a uint8 buffer of L2_FLUSH_BYTES, L2 is
+    flushed by a write of it before every call (its fill kernel,
+    FillFunctor<unsigned char>, is left out); without, the calls run back
+    to back with their operands warm in L2. A profile often loses an
+    event, and now and then many, so dividing by `reps` would read low:
+    every call launches the same work, so the calls a profile recorded
+    are its events over the events per call (the most any profile
+    recorded, over `reps`). A profile with events missing counts in
+    INCOMPLETE_PROFILES; one with none is taken again, at most `attempts`
+    times."""
+    global INCOMPLETE_PROFILES
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    out = []
+    taken = []                      # (device events, ms) per profile
     for _ in range(trials):
         for _ in range(attempts):
             with profile(activities=[ProfilerActivity.CPU,
@@ -464,14 +519,50 @@ def device_ms(fn, flush=None, reps=30, trials=3, attempts=3) -> float:
                     if getattr(e, "device_type", None)
                     == torch.autograd.DeviceType.CUDA
                     and "unsigned char" not in e.key]
-            ms = sum(_dev_time(e, "self_device_time_total")
-                     for e in work) / 1e3
-            if ms > 0:
+            events = sum(e.count for e in work)
+            if events:
                 break
-            EMPTY_PROFILES += 1
-        check(ms > 0, "the profiler saw no device time in a timed call")
-        out.append(ms / reps)
-    return statistics.median(out)
+            INCOMPLETE_PROFILES += 1
+        check(events > 0, "the profiler saw no device time in a timed call")
+        taken.append((events, sum(_dev_time(e, "self_device_time_total")
+                                  for e in work) / 1e3))
+    per_call = max(1, round(max(n for n, _ in taken) / reps))
+    INCOMPLETE_PROFILES += sum(n < per_call * reps for n, _ in taken)
+    return statistics.median(ms * per_call / n for n, ms in taken)
+
+
+def graph_ms(fn, flush, reps=30, replays=7) -> float:
+    """Device ms per call of fn with L2 flushed, without the profiler:
+    CUDA-event time of a CUDA graph of `reps` (flush, fn) pairs less that
+    of a graph of `reps` flushes, over `reps`; the median of `replays`.
+    A check of the profiler's time that does not depend on CUPTI; the
+    gaps and overlap between a graph's kernels move it either way."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graphs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()]
+    for g, with_fn in zip(graphs, (True, False)):
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                flush.fill_(1)
+                if with_fn:
+                    fn()
+
+    def replay_ms(g):
+        out = []
+        for _ in range(replays):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            g.replay()
+            b.record()
+            torch.cuda.synchronize()
+            out.append(a.elapsed_time(b))
+        return statistics.median(out)
+    return (replay_ms(graphs[0]) - replay_ms(graphs[1])) / reps
 
 
 def timed(fn, flush):
@@ -485,105 +576,92 @@ def timed(fn, flush):
 def time_shape(spmv, name, diag, x, soff, deltas, flush, fb=None):
     """Kernel, plain version and the CSR product at one operand (the
     plain version timed in turns plain/kernel/kernel/plain), with the
-    bound. With fb = (cells, nbrs, coeffs) also the whole operator:
-    kernel + COO remainder (StencilOp.matvec, the main path's call)
-    against its CSR product, and the remainder alone."""
-    from foamtpu_torch.ops.stencil import StencilOp
-
+    bound: the slot part alone, and with a remainder fb (spmv.Remainder)
+    also the whole operator in one launch (the main path's call, shape
+    `<name>_whole`) against its plain version (roll chain + index_add)
+    and the CSR product of the whole operator. Returns the entries."""
     n = x.shape[0]
     ncols = 1 if x.ndim == 1 else x.shape[1]
     xs = x.reshape(-1)
+    out = []
+    for part in ((None,) if fb is None else (None, fb)):
+        def kern():
+            return spmv.spmv(diag, x, soff, deltas, part)
 
-    def kern():
-        return spmv.spmv(diag, x, soff, deltas)
+        def plain():
+            return spmv.plain(diag, x, soff, deltas, part)
 
-    def plain():
-        return spmv.plain(diag, x, soff, deltas)
+        a = csr_operator(diag, soff, deltas, None if part is None else
+                         (part.cells, part.nbrs, part.coeffs))
 
-    a = csr_operator(diag, soff, deltas)
+        def lib():
+            return a @ xs
 
-    def lib():
-        return a @ xs
-
-    ref = plain()
-    check(bool(torch.allclose(lib().reshape(x.shape), ref, rtol=1e-4,
-                              atol=1e-5 * float(ref.abs().max()))),
-          f"CSR operator disagrees with plain at {name}")
-    p1, k1, k2, p2 = (timed(f, flush) for f in (plain, kern, kern, plain))
-    k = min((k1, k2), key=lambda t: t["ms"])
-    p = min((p1, p2), key=lambda t: t["ms"])
-    lb = timed(lib, flush)
-    out = {"shape": name, "n": n, "ncols": ncols, "offsets": len(deltas),
-           "diag": diag is not None, "dtype": str(x.dtype),
-           "kernel_ms": k["ms"], "kernel_ms_l2_warm": k["ms_l2_warm"],
-           # CUDA events around the wrapper, calls back to back: the
-           # host launch path when it is the slower side
-           "kernel_wrapper_ms": time_ms(kern),
-           "plain_ms": p["ms"], "plain_ms_l2_warm": p["ms_l2_warm"],
-           "library_ms": lb["ms"], "library_ms_l2_warm": lb["ms_l2_warm"],
-           "runs": {"plain": [p1, p2], "kernel": [k1, k2]},
-           "library": "torch.sparse CSR @ x (cuSPARSE), "
-                      f"nnz {int(a.values().shape[0])}"}
-    out.update(spmv_bound(n, ncols, len(deltas), diag is not None))
-    out["bound_share"] = out["bound_ms"] / out["kernel_ms"]
-    if fb is not None:
-        op = StencilOp(tuple(deltas), soff, fb[0], fb[1], fb[2])
-        a_op = csr_operator(diag, soff, deltas, fb)
-        zero = torch.zeros_like(x)
-
-        def whole():
-            return op.matvec(diag, x)
-
-        def whole_lib():
-            return a_op @ xs
-
-        def remainder():
-            return op._add_fallback(zero, x)
-
-        ref = whole()
-        check(bool(torch.allclose(whole_lib().reshape(x.shape), ref,
-                                  rtol=1e-4,
+        ref = plain()
+        check(bool(torch.allclose(lib().reshape(x.shape), ref, rtol=1e-4,
                                   atol=1e-5 * float(ref.abs().max()))),
-              f"CSR of the whole operator disagrees at {name}")
-        n_fb = int(fb[0].shape[0])
-        op_bound = spmv_bound(n, ncols, len(deltas), diag is not None, n_fb)
-        w = timed(whole, flush)
-        out["whole_operator"] = {
-            "coo_entries": n_fb, **w,
-            "library": timed(whole_lib, flush),
-            "library_nnz": int(a_op.values().shape[0]),
-            "coo_remainder": timed(remainder, flush),
-            "bound_ms": op_bound["bound_ms"], "bytes": op_bound["bytes"],
-            "bound_by": op_bound["bound_by"],
-            "bound_share": op_bound["bound_ms"] / w["ms"]}
+              f"CSR operator disagrees with plain at {name}")
+        p1, k1, k2, p2 = (timed(f, flush) for f in (plain, kern, kern, plain))
+        k = min((k1, k2), key=lambda t: t["ms"])
+        p = min((p1, p2), key=lambda t: t["ms"])
+        lb = timed(lib, flush)
+        n_fb = 0 if part is None else int(part.cells.shape[0])
+        t = {"shape": name if part is None else f"{name}_whole", "n": n,
+             "ncols": ncols, "offsets": len(deltas), "coo_entries": n_fb,
+             "diag": diag is not None, "dtype": str(x.dtype),
+             "kernel_ms": k["ms"], "kernel_ms_l2_warm": k["ms_l2_warm"],
+             "kernel_graph_ms": graph_ms(kern, flush),
+             # CUDA events around the wrapper, calls back to back: the
+             # host launch path when it is the slower side
+             "kernel_wrapper_ms": time_ms(kern),
+             "plain_ms": p["ms"], "plain_ms_l2_warm": p["ms_l2_warm"],
+             "library_ms": lb["ms"], "library_ms_l2_warm": lb["ms_l2_warm"],
+             "runs": {"plain": [p1, p2], "kernel": [k1, k2]},
+             "library": "torch.sparse CSR @ x (cuSPARSE), "
+                        f"nnz {int(a.values().shape[0])}"}
+        t.update(spmv_bound(n, ncols, len(deltas), diag is not None, n_fb,
+                            x.element_size()))
+        t["bound_share"] = t["bound_ms"] / t["kernel_ms"]
+        out.append(t)
     return out
 
 
-def check_operands(spmv, ops, deltas, dtype, rng, cases):
-    """The kernel against its plain version at a mesh's own operands,
-    with seeded O(1) x; atol is taken relative to max|plain| because the
-    matrices' scale is far from 1. Returns the largest f32 error."""
+def hold(cases, name, dtype, got, ref, relative=False):
+    """One kernel result against its plain version at TOL[dtype]; with
+    `relative`, atol is taken relative to max|plain| (mesh operands,
+    whose scale is far from 1). Returns the max abs error."""
     rtol, atol = TOL[dtype]
+    scale = float(torch.max(torch.abs(ref))) if ref.numel() else 0.0
+    err = float(torch.max(torch.abs(got - ref))) if ref.numel() else 0.0
+    ok = bool(torch.allclose(got, ref, rtol=rtol,
+                             atol=atol * scale if relative else atol))
+    cases.append({"case": name, "dtype": str(dtype), "ok": ok,
+                  "n": int(ref.shape[0]),
+                  "ncols": 1 if ref.ndim == 1 else int(ref.shape[1]),
+                  "max_abs_err": err, "scale": scale})
+    check(ok, f"spmv kernel disagrees with plain: {name} {dtype}")
+    return err
+
+
+def check_operands(spmv, ops, mesh, deltas, dtype, rng, cases):
+    """The kernel against its plain version at a mesh's own operands,
+    the slot part alone and the whole operator with the mesh's COO
+    remainder, with seeded O(1) x. Returns the largest error."""
     max_err = 0.0
-    for name, soff, diag, _ in ops:
+    for name, soff, diag, sfb in ops:
         soff = soff.to(dtype).contiguous()
         diag = diag.to(dtype).contiguous()
         x = torch.tensor(rng.standard_normal(tuple(diag.shape)),
                          dtype=dtype, device="cuda")
-        got = spmv.spmv(diag, x, soff, deltas)
-        torch.cuda.synchronize()
-        ref = spmv.plain(diag, x, soff, deltas)
-        scale = float(torch.max(torch.abs(ref)))
-        err = float(torch.max(torch.abs(got - ref)))
-        ok = bool(torch.allclose(got, ref, rtol=rtol, atol=atol * scale))
-        if dtype == torch.float32:
-            max_err = max(max_err, err)
-        cases.append({"case": name, "dtype": str(dtype), "ok": ok,
-                      "n": int(x.shape[0]),
-                      "ncols": 1 if x.ndim == 1 else int(x.shape[1]),
-                      "offsets": len(deltas), "max_abs_err": err,
-                      "scale": scale})
-        check(ok, f"spmv kernel disagrees with plain: {name} {dtype}")
+        fb = mesh_remainder(spmv, mesh, sfb, dtype)
+        for part, suffix in ((None, ""), (fb, "_whole")):
+            if suffix and part is None:
+                continue
+            got = spmv.spmv(diag, x, soff, deltas, part)
+            torch.cuda.synchronize()
+            ref = spmv.plain(diag, x, soff, deltas, part)
+            max_err = max(max_err, hold(cases, name + suffix, dtype, got,
+                                        ref, relative=True))
     return max_err
 
 
@@ -593,37 +671,34 @@ def operand_x(diag, seed):
                         dtype=diag.dtype, device=diag.device)
 
 
-def phase_kernel(spmv, pitz_ops, deltas_pitz, flush):
+def phase_kernel(spmv, pitz_mesh, pitz_ops, deltas_pitz, flush):
     max_err = 0.0
     cases = []
     timings = []
     for dtype in (torch.float32, torch.float64):
-        rtol, atol = TOL[dtype]
-        for name, n, deltas, ncols, with_diag in SPMV_CASES:
+        for name, n, deltas, ncols, with_diag, with_fb in SPMV_CASES:
             diag, x, soff = spmv_inputs(n, deltas, ncols, with_diag, dtype)
-            got = spmv.spmv(diag, x, soff, deltas)
+            fb = random_remainder(spmv, n, dtype) if with_fb else None
+            got = spmv.spmv(diag, x, soff, deltas, fb)
             torch.cuda.synchronize()
-            ref = spmv.plain(diag, x, soff, deltas)
-            err = float(torch.max(torch.abs(got - ref)))
-            ok = bool(torch.allclose(got, ref, rtol=rtol, atol=atol))
-            cases.append({"case": name, "dtype": str(dtype), "ok": ok,
-                          "max_abs_err": err})
-            check(ok, f"spmv kernel disagrees with plain: {name} {dtype}")
+            ref = spmv.plain(diag, x, soff, deltas, fb)
+            err = hold(cases, name, dtype, got, ref)
             if dtype == torch.float32:
                 max_err = max(max_err, err)
                 if name in ("n160000", "n160000x3"):
                     # the 400^2 cavity's shapes: 4 offsets, a diagonal
-                    timings.append(time_shape(spmv, f"cavity_{name}", diag,
-                                              x, soff, deltas, flush))
-        err = check_operands(spmv, pitz_ops, deltas_pitz, dtype,
+                    timings += time_shape(spmv, f"cavity_{name}", diag, x,
+                                          soff, deltas, flush)
+        err = check_operands(spmv, pitz_ops, pitz_mesh, deltas_pitz, dtype,
                              np.random.default_rng(1), cases)
-        max_err = max(max_err, err)
-    name, soff, diag, _ = pitz_ops[0]
-    timings.append(time_shape(spmv, name, diag.contiguous(),
-                              operand_x(diag, 1), soff.contiguous(),
-                              deltas_pitz, flush))
+        if dtype == torch.float32:
+            max_err = max(max_err, err)
+    name, soff, diag, sfb = pitz_ops[0]
+    timings += time_shape(spmv, name, diag.contiguous(), operand_x(diag, 1),
+                          soff.contiguous(), deltas_pitz, flush,
+                          fb=mesh_remainder(spmv, pitz_mesh, sfb, diag.dtype))
     emit({"phase": "kernel", "cases": cases, "max_abs_err_f32": max_err,
-          "timings": timings, "empty_profiles": EMPTY_PROFILES})
+          "timings": timings, "incomplete_profiles": INCOMPLETE_PROFILES})
     return max_err, timings
 
 
@@ -661,7 +736,7 @@ def phase_headline(spmv, n=400, nsteps=10, trials=3):
     from foamtpu_torch.apps.cases import make_cavity
     from foamtpu_torch.solvers import piso
 
-    spmv.LAUNCHES = 0
+    spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
     t0 = time.perf_counter()
     # bench.py:146-153: GAMG p-solve, tol 1e-7, relTol 0.01
     mesh, state, cfg = make_cavity(n, p_solver={
@@ -705,6 +780,7 @@ def phase_headline(spmv, n=400, nsteps=10, trials=3):
            "spmv_launches_per_step": (launches - launches0)
            / (nsteps * trials),
            "spmv_launches_total": launches,
+           "spmv_fb_launches_total": spmv.FB_LAUNCHES,
            "finite": finite,
            "u_max": float(torch.max(torch.abs(state["U"].data))),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -753,7 +829,7 @@ def phase_pitz(spmv, here, root, trials=3):
     from foamtpu_torch.solvers import simple
 
     torch.cuda.reset_peak_memory_stats()
-    spmv.LAUNCHES = 0
+    spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
     t0 = time.perf_counter()
     mesh, cfg, state = pitz_setup(here, root)
     torch.cuda.synchronize()
@@ -762,7 +838,7 @@ def phase_pitz(spmv, here, root, trials=3):
     c = mesh.c
     behind = (c[:, 0] > 0.0) & (c[:, 0] < 0.06) & (c[:, 1] < -0.005)
     min_ux, ux_res, times = 1e9, [], []
-    launches0 = None
+    launches0 = fb0 = None
     t_run = time.perf_counter()
     for i in range(PITZ_CHUNKS):
         t0 = time.perf_counter()
@@ -770,17 +846,18 @@ def phase_pitz(spmv, here, root, trials=3):
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / PITZ_CHUNK
         if i == 0:
-            launches0 = spmv.LAUNCHES
+            launches0, fb0 = spmv.LAUNCHES, spmv.FB_LAUNCHES
         elif i <= trials:
             times.append(dt)
         if i == trials:
             launches_timed = spmv.LAUNCHES - launches0
+            fb_timed = spmv.FB_LAUNCHES - fb0
         ux = state["U"].data
         check(bool(torch.isfinite(ux).all()), f"diverged in chunk {i}")
         min_ux = min(min_ux, float(ux[behind, 0].min()))
         ux_res.append(float(diag["Ux"].initial_residual.max()))
     run_s = time.perf_counter() - t_run
-    launches = spmv.LAUNCHES
+    launches, fb_launches = spmv.LAUNCHES, spmv.FB_LAUNCHES
     oracles, checks = pitz_oracles(mesh, state, min_ux, ux_res)
     iters = {"p": int(diag["p_iters"]),
              "U": int(diag["Ux"].n_iterations),
@@ -807,7 +884,9 @@ def phase_pitz(spmv, here, root, trials=3):
            "trial_sec_per_iter": times,
            "last_iter_solver_iterations": iters,
            "spmv_launches_per_iter": launches_timed / (PITZ_CHUNK * trials),
+           "spmv_fb_launches_per_iter": fb_timed / (PITZ_CHUNK * trials),
            "spmv_launches_total": launches,
+           "spmv_fb_launches_total": fb_launches,
            "p_initial": float(diag["p_initial"]),
            "continuity": float(diag["continuity"]),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -821,6 +900,8 @@ def phase_pitz(spmv, here, root, trials=3):
         check(ok, f"pitzDaily oracle {name}: {oracles}")
     check(launches > 0 and out["spmv_launches_per_iter"] > 0,
           "the pitzDaily path did not launch the SpMV kernel")
+    check(fb_launches > 0 or not mesh.fb_cells.shape[0],
+          "no pitzDaily SpMV launch carried the COO remainder")
     return out, (mesh, cfg, state)
 
 
@@ -838,61 +919,47 @@ def solver_iterations(diag):
 
 def profile_chunk(spmv, phase, mesh, chunk, state, n, sec_per_iter, top=12):
     """One n-iteration chunk under torch.profiler (CPU + CUDA), each
-    linear solve in a record_function range named after its field and
-    each COO remainder of the SpMV (StencilOp._add_fallback, the
-    index_add after the kernel) in a range spmv_coo_remainder, with the
-    SpMV launches counted over the same chunk; where the mesh has COO
-    entries, a range that recorded no call or no device time fails the
-    run rather than read 0. Device time is the sum
-    over device-side events (the GPU copies of the record_function
-    ranges are spans, not work, and are left out); the busy share
-    divides it by the unprofiled time per iteration. A solve's device ms
-    counts the kernels of the torch ops inside its range: the SpMV
-    kernels, launched through ctypes, are not attributed to ranges and
-    have their own line."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    linear solve in a record_function range named after its field, with
+    the SpMV launches counted over the same chunk, and among them those
+    that carried the COO remainder (spmv.FB_LAUNCHES); where the mesh
+    has COO entries, a chunk with no such launch fails the run, and so
+    does one whose SpMV kernels the profiler saw no device time of.
+    Device time is the sum over device-side events (the GPU copies of
+    the record_function ranges are spans, not work, and are left out);
+    the busy share divides it by the unprofiled time per iteration. A
+    solve's device ms counts the kernels of the torch ops inside its
+    range: the SpMV kernels, launched through ctypes, are not attributed
+    to ranges and have their own line."""
+    from torch.profiler import ProfilerActivity, profile
 
-    from foamtpu_torch.ops import stencil
-
-    orig_fb = stencil.StencilOp._add_fallback
-
-    def fallback_in_range(self, acc, psi):
-        with record_function("spmv_coo_remainder"):
-            return orig_fb(self, acc, psi)
-
-    ranges = ("solve_", "spmv_coo_remainder")
-    launches0 = spmv.LAUNCHES
-    stencil.StencilOp._add_fallback = fallback_in_range
-    try:
-        with SolveLog(state, ranges=True) as log:
+    launches0, fb0 = spmv.LAUNCHES, spmv.FB_LAUNCHES
+    with SolveLog(state, ranges=True) as log:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, diag = chunk(state)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                state, diag = chunk(state)
-                torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        stencil.StencilOp._add_fallback = orig_fb
+        wall = time.perf_counter() - t0
     spmv_launches = spmv.LAUNCHES - launches0
+    fb_launches = spmv.FB_LAUNCHES - fb0
     ka = prof.key_averages()
     # device-side events (kernels, copies, memsets); the CPU ops carry
     # the same time again as their children's
     work = [e for e in ka
             if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith(ranges)]
+            and not e.key.startswith("solve_")]
     device_ms = sum(_dev_time(e, "self_device_time_total") for e in work) / 1e3
     solves = {e.key[len("solve_"):]: {
         "cpu_ms_per_call": e.cpu_time_total / 1e3 / e.count,
         "device_ms_per_call": _dev_time(e, "device_time_total") / 1e3 / e.count}
         for e in ka if e.key.startswith("solve_") and e.cpu_time_total > 0}
-    spmv_device_ms = sum(_dev_time(e, "self_device_time_total") for e in work
-                         if e.key.startswith("void spmv_stencil_kernel"))
+    spmv_events = [e for e in work
+                   if e.key.startswith("void spmv_stencil_kernel")]
+    spmv_device_ms = sum(_dev_time(e, "self_device_time_total")
+                         for e in spmv_events)
     index_add_ms = sum(_dev_time(e, "self_device_time_total") for e in work
                        if "indexFunc" in e.key or "index_add" in e.key)
-    coo = [e for e in ka if e.key == "spmv_coo_remainder"
-           and e.cpu_time_total > 0]
-    coo_ms = sum(_dev_time(e, "device_time_total") for e in coo) / 1e3
     kernels = sorted(((_dev_time(e, "self_device_time_total") / 1e3 / n,
                        e.count / n, e.key[:70]) for e in work),
                      reverse=True)[:top]
@@ -909,19 +976,21 @@ def profile_chunk(spmv, phase, mesh, chunk, state, n, sec_per_iter, top=12):
            "device_busy_share_unprofiled": device_ms / n / 1e3 / sec_per_iter,
            "cuda_launch_kernel_per_iter": launches / n,
            "spmv_launches_per_iter": spmv_launches / n,
+           "spmv_fb_launches_per_iter": fb_launches / n,
+           "spmv_kernel_events_per_iter": sum(e.count for e in spmv_events)
+           / n,
            "spmv_device_ms_per_iter": spmv_device_ms / 1e3 / n,
            "index_add_device_ms_per_iter": index_add_ms / 1e3 / n,
-           "spmv_coo_remainder_device_ms_per_iter": coo_ms / n,
-           "spmv_coo_remainder_calls_per_iter":
-               sum(e.count for e in coo) / n,
            "solver_iterations": solver_iterations(diag),
            "solve_calls": log.calls, "solves": solves,
            "top_kernels_ms_per_iter": kernels,
            "top_ops_device_ms_per_iter": ops}
     emit(out)
+    check(spmv_launches > 0 and spmv_device_ms > 0,
+          f"{phase}: the profiler saw no SpMV kernel time")
     if mesh.fb_cells.shape[0]:
-        check(out["spmv_coo_remainder_calls_per_iter"] > 0 and coo_ms > 0,
-              f"{phase}: the spmv_coo_remainder range recorded nothing")
+        check(fb_launches > 0,
+              f"{phase}: no SpMV launch carried the COO remainder")
     return state, out
 
 
@@ -947,7 +1016,7 @@ def phase_duct(spmv, chunk=DUCT_CHUNK, trials=DUCT_TRIALS):
     from foamtpu_torch.solvers import simple
 
     torch.cuda.reset_peak_memory_stats()
-    spmv.LAUNCHES = 0
+    spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
     t0 = time.perf_counter()
     mesh, cfg, state, setup = duct_setup(*DUCT, device="cuda")
     setup_s = time.perf_counter() - t0
@@ -962,7 +1031,7 @@ def phase_duct(spmv, chunk=DUCT_CHUNK, trials=DUCT_TRIALS):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     records = [iteration_record(d) for d in diags + more]
-    launches0 = spmv.LAUNCHES
+    launches0, fb0 = spmv.LAUNCHES, spmv.FB_LAUNCHES
     times = []
     for _ in range(trials):
         t0 = time.perf_counter()
@@ -970,7 +1039,7 @@ def phase_duct(spmv, chunk=DUCT_CHUNK, trials=DUCT_TRIALS):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) / chunk)
         records += [iteration_record(d) for d in diags]
-    launches = spmv.LAUNCHES
+    launches, fb_launches = spmv.LAUNCHES, spmv.FB_LAUNCHES
     sec = statistics.median(times)
     turb = state["turb"]
     u, k = state["U"].data, turb["k"].data
@@ -997,7 +1066,10 @@ def phase_duct(spmv, chunk=DUCT_CHUNK, trials=DUCT_TRIALS):
            "per_iteration": records,
            "spmv_launches_per_iter": (launches - launches0)
            / (chunk * trials),
+           "spmv_fb_launches_per_iter": (fb_launches - fb0)
+           / (chunk * trials),
            "spmv_launches_total": launches,
+           "spmv_fb_launches_total": fb_launches,
            "finite": finite, "u_max": float(torch.max(torch.abs(u))),
            "k_min": float(k.min()), "omega_min": float(om.min()),
            "nut_min": float(nut.min()),
@@ -1014,31 +1086,93 @@ def phase_duct(spmv, chunk=DUCT_CHUNK, trials=DUCT_TRIALS):
                                  for r in records),
               "coo_fraction": abs(frac - DUCT_COO_FRACTION) < 0.002,
               "spmv launched": launches > 0
-              and out["spmv_launches_per_iter"] > 0}
+              and out["spmv_launches_per_iter"] > 0,
+              "remainder fused": out["spmv_fb_launches_per_iter"] > 0}
     for name, ok in checks.items():
         check(ok, f"duct check {name}: {out}")
     return out, (mesh, cfg, state), log
 
 
-def phase_kernel_duct(spmv, mesh, log, flush):
-    """The kernel at the duct's own operands: held to its plain version
-    (f32 and f64), then timed with its whole operator against CSR."""
+def gamg_cases(spmv, mesh, cfg, pmat, rng, cases):
+    """The kernel at the duct's GAMG operators, built by prepare() from
+    its pressure matrix: the first plane level whose COO remainder is not
+    row-sorted (its coefficients reordered when the operator was made),
+    and the coarsest level's dense assembly, the operator applied to the
+    identity (C = n), held to their plain versions in float32 (the
+    operators as the solve makes them) and float64. Returns the largest
+    float32 error and what was held."""
+    from foamtpu_torch.ops.stencil import StencilOp
+
+    gamg = cfg.p_controls["_gamg"]
+    check(all(lv.plane_ok for lv in gamg.levels),
+          "the duct's GAMG levels are not all plane levels")
+    prep = gamg.prepare(mesh, pmat)
+    ops, diags = prep["ops"], [m[0] for m in prep["mats"]]
+    unsorted = [i for i, op in enumerate(ops)
+                if i > 0 and op.fb is not None and op.fb_layout.order
+                is not None]
+    check(bool(unsorted), "no duct GAMG plane level has an unsorted "
+                          "COO remainder")
+    lvl, last = unsorted[0], len(ops) - 1
+    check(ops[last].fb is not None, "the coarsest level has no remainder")
+    max_err = 0.0
+    for dtype in (torch.float32, torch.float64):
+        for i, what in ((lvl, "level"), (last, "dense")):
+            op = ops[i]
+            if dtype != op.off.dtype:
+                op = StencilOp(op.deltas, op.off.to(dtype), op.fb_cells,
+                               op.fb_nbrs, op.fb_coeffs.to(dtype),
+                               op.fb_layout)
+            n = op.off.shape[0]
+            if what == "level":
+                x = torch.tensor(rng.standard_normal(n), dtype=dtype,
+                                 device="cuda")
+                d = diags[i].to(dtype)
+                got = op.matvec(d, x)
+                torch.cuda.synchronize()
+                ref = spmv.plain(d, x, op.off, op.deltas, op.fb)
+            else:
+                eye = torch.eye(n, dtype=dtype, device="cuda")
+                got = op.apply_off(eye)
+                torch.cuda.synchronize()
+                ref = spmv.plain(None, eye, op.off, op.deltas, op.fb)
+            err = hold(cases, f"duct_gamg_{what}{i}", dtype, got, ref,
+                       relative=True)
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+    held = {"plane_level": lvl, "plane_level_n": int(ops[lvl].off.shape[0]),
+            "plane_level_coo_entries": int(ops[lvl].fb_cells.shape[0]),
+            "dense_level": last, "dense_n": int(ops[last].off.shape[0]),
+            "dense_coo_entries": int(ops[last].fb_cells.shape[0]),
+            "unsorted_levels": unsorted}
+    return max_err, held
+
+
+def phase_kernel_duct(spmv, mesh, cfg, log, flush):
+    """The kernel at the duct's own operands, whole operator included,
+    and at its GAMG operators: held to its plain version (f32 and f64),
+    then the slot part and the whole operator timed against CSR."""
     ops = solve_operands(log, mesh, "duct")
     deltas = tuple(mesh.st_deltas)
     cases = []
     max_err = 0.0
     for dtype in (torch.float32, torch.float64):
-        err = check_operands(spmv, ops, deltas, dtype,
+        err = check_operands(spmv, ops, mesh, deltas, dtype,
                              np.random.default_rng(2), cases)
-        max_err = max(max_err, err)
+        if dtype == torch.float32:
+            max_err = max(max_err, err)
+    err, held = gamg_cases(spmv, mesh, cfg, log.matrices["p"],
+                           np.random.default_rng(3), cases)
+    max_err = max(max_err, err)
     timings = []
     for i, (name, soff, diag, sfb) in enumerate(ops):
         soff, diag = soff.contiguous(), diag.contiguous()
-        timings.append(time_shape(
+        timings += time_shape(
             spmv, name, diag, operand_x(diag, 10 + i), soff, deltas, flush,
-            fb=(mesh.fb_cells, mesh.fb_nbrs, sfb.contiguous())))
+            fb=mesh_remainder(spmv, mesh, sfb, diag.dtype))
     emit({"phase": "kernel_duct", "cases": cases, "max_abs_err_f32": max_err,
-          "timings": timings, "empty_profiles": EMPTY_PROFILES})
+          "gamg": held, "timings": timings,
+          "incomplete_profiles": INCOMPLETE_PROFILES})
     return max_err, timings
 
 
@@ -1104,7 +1238,7 @@ def phase_cavity_ras(spmv, here, root):
     shutil.copytree(os.path.join(here, CAVITY_RAS_CASE), dst)
     with contextlib.redirect_stdout(sys.stderr):
         check(cli(["blockMesh", "-case", dst]) == 0, "blockMesh failed")
-    spmv.LAUNCHES = 0
+    spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
     t0 = time.perf_counter()
     case = Case(dst, device="cuda")
     mesh, cfg, state = cavity_ras_setup(case)
@@ -1119,7 +1253,7 @@ def phase_cavity_ras(spmv, here, root):
         state, diag = step(state, dt)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = spmv.LAUNCHES
+    launches, fb_launches = spmv.LAUNCHES, spmv.FB_LAUNCHES
     res, checks = cavity_ras_checks(state, diag)
     out = {"phase": "cavity_ras",
            "case": "pisoFoam cavityRAS, kEpsilon + wall functions, "
@@ -1129,6 +1263,7 @@ def phase_cavity_ras(spmv, here, root):
            "run_s": run_s, "sec_per_step": run_s / steps,
            "solver_iterations_last_step": solver_iterations(diag),
            "spmv_launches_total": launches,
+           "spmv_fb_launches_total": fb_launches,
            "spmv_launches_per_step": launches / steps, **res,
            "checks": checks}
     emit(out)
@@ -1164,8 +1299,8 @@ def main() -> int:
     try:
         mesh, cfg, state = pitz_setup(here, os.path.join(root, "ops"))
         ops = pitz_operands(mesh, cfg, state)
-        max_err, timings = phase_kernel(spmv, ops, tuple(mesh.st_deltas),
-                                        flush)
+        max_err, timings = phase_kernel(spmv, mesh, ops,
+                                        tuple(mesh.st_deltas), flush)
         del mesh, cfg, state, ops
         phase_physics()
         head = phase_headline(spmv)
@@ -1176,7 +1311,7 @@ def main() -> int:
                       pitz["simple_sec_per_iter"])
         del pitz_run, mesh, cfg, state
         duct, (mesh, cfg, state), log = phase_duct(spmv)
-        err_duct, t_duct = phase_kernel_duct(spmv, mesh, log, flush)
+        err_duct, t_duct = phase_kernel_duct(spmv, mesh, cfg, log, flush)
         del log
         profile_chunk(spmv, "duct_profile", mesh,
                       simple.make_chunk(mesh, cfg, 2), state, 2,
@@ -1187,28 +1322,35 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
 
     # the kernels line: device ms per call (torch.profiler) with L2
-    # flushed before every call, beside the HBM bound, at the duct's
-    # pressure operand, the largest the main path hands the kernel; the
-    # warm-L2 time apart, and every timed shape beside it
-    main_shape = t_duct[0]
+    # flushed before every call, beside the HBM bound, of the whole
+    # operator at the duct's pressure operand (one launch, remainder
+    # included), the largest call the main path makes; the warm-L2 time
+    # apart, and every timed shape beside it
+    main_shape = next(t for t in t_duct if t["shape"] == "duct_p_whole")
     emit({"kernels": [{
         "name": "spmv_stencil", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": (head["spmv_launches_total"] + pitz["spmv_launches_total"]
                      + duct["spmv_launches_total"]
                      + ras["spmv_launches_total"]),
+        "fb_launches": (head["spmv_fb_launches_total"]
+                        + pitz["spmv_fb_launches_total"]
+                        + duct["spmv_fb_launches_total"]
+                        + ras["spmv_fb_launches_total"]),
         "max_abs_err": max(max_err, err_duct),
         "ms": main_shape["kernel_ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
         "ms_l2_warm": main_shape["kernel_ms_l2_warm"],
+        "ms_cuda_graph": main_shape["kernel_graph_ms"],
         "shape": main_shape["shape"],
         "shapes": [{k: t[k] for k in (
-            "shape", "n", "ncols", "offsets", "kernel_ms",
-            "kernel_ms_l2_warm", "kernel_wrapper_ms", "plain_ms",
-            "library_ms", "library_ms_l2_warm", "bound_ms", "bound_by",
-            "bound_share")}
+            "shape", "n", "ncols", "offsets", "coo_entries", "kernel_ms",
+            "kernel_ms_l2_warm", "kernel_graph_ms", "kernel_wrapper_ms",
+            "plain_ms",
+            "plain_ms_l2_warm", "library_ms", "library_ms_l2_warm",
+            "bound_ms", "bound_by", "bound_share")}
             for t in timings + t_duct]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -20,6 +20,7 @@ import torch
 
 from ..core.precision import (DEFAULT_DEVICE, label_dtype, label_np,
                                scalar_dtype, scalar_np)
+from ..ops.spmv import row_layout
 
 # ---------------------------------------------------------------------------
 # Patches
@@ -510,7 +511,9 @@ class FvMesh:
     """Device-side FV mesh: flat geometry tensors + gather tables, with
     the same fields as the reference's FvMesh (see its comments there).
     Float tensors use the scalar dtype, index tensors int64; all live on
-    one device."""
+    one device. `fb_layout` is port-only (outside ARRAY_FIELDS): the row
+    layout of the COO fallback that the SpMV kernel reads
+    (ops/spmv.py::row_layout), built by `from_arrays`."""
 
     sf: Any
     mag_sf: Any
@@ -573,6 +576,7 @@ class FvMesh:
     patches: Tuple[Patch, ...]
     orthogonal: bool = False
     has_ami: bool = False
+    fb_layout: Any = None
 
     @property
     def n_boundary_faces(self) -> int:
@@ -593,7 +597,8 @@ def from_arrays(arrays: Dict[str, np.ndarray], static: Dict[str, Any],
                 cell_zone_masks: Dict[str, np.ndarray],
                 device) -> FvMesh:
     """FvMesh from host arrays: float arrays go to the scalar dtype,
-    integer arrays to int64, all in one pass to `device`."""
+    integer arrays to int64, all in one pass to `device`; plus the row
+    layout of the COO fallback."""
     fdt, idt = scalar_dtype(), label_dtype
 
     def dev(a):
@@ -605,6 +610,8 @@ def from_arrays(arrays: Dict[str, np.ndarray], static: Dict[str, Any],
         **{k: dev(arrays[k]) for k in ARRAY_FIELDS},
         cell_zone_masks={k: dev(v) for k, v in cell_zone_masks.items()},
         **static,
+        fb_layout=row_layout(arrays["fb_cells"], arrays["fb_nbrs"],
+                             static["n_cells"], device),
     )
 
 

@@ -6,7 +6,7 @@ per side); the irregular remainder lives in the COO fallback [nfb];
 boundary faces stay flat [nBf]. Neighbour access c -> c + d_m is
 torch.roll, which has jnp.roll's circular semantics; `.at[i].add`
 becomes `index_add`. The off-diagonal product `off_apply` goes through
-the offset-stencil SpMV kernel (ops/spmv.py).
+the offset-stencil SpMV kernel (ops/spmv.py), fallback included.
 """
 
 from __future__ import annotations
@@ -221,11 +221,8 @@ def laplacian_flux(mesh, gamma_slot: SlotFace, data: Any, corrected: bool,
 
 def off_apply(mesh, soff: Any, sfb: Any, psi: Any) -> Any:
     """Off-diagonal SpMV from slot coefficients:
-    sum_m soff[c,m] * psi[c+d_m] (+ fallback), through the offset-stencil
-    kernel (ops/spmv.py)."""
-    acc = spmv.spmv(None, psi, soff, tuple(mesh.st_deltas))
-    if mesh.fb_cells.shape[0]:
-        pn = psi[mesh.fb_nbrs]
-        acc = acc.index_add(0, mesh.fb_cells,
-                            sfb[:, None] * pn if psi.ndim == 2 else sfb * pn)
-    return acc
+    sum_m soff[c,m] * psi[c+d_m] (+ fallback), one call of the
+    offset-stencil kernel (ops/spmv.py) with the fallback fused. The
+    mesh's fallback is row-sorted, so sfb needs no reordering."""
+    fb = spmv.remainder(mesh.fb_cells, mesh.fb_nbrs, sfb, mesh.fb_layout)
+    return spmv.spmv(None, psi, soff, tuple(mesh.st_deltas), fb)

@@ -84,7 +84,8 @@ def solve(mesh, mat, psi: Any, controls: Dict) -> Tuple[Any, SolverPerf]:
 
     if mat.soff is not None:
         st = stencil_mod.StencilOp(tuple(mesh.st_deltas), mat.soff,
-                                   mesh.fb_cells, mesh.fb_nbrs, mat.sfb)
+                                   mesh.fb_cells, mesh.fb_nbrs, mat.sfb,
+                                   mesh.fb_layout)
     else:
         st = stencil_mod.mesh_stencil(mesh, mat.upper, mat.lower)
     row_off = st.off.sum(dim=1)

@@ -14,7 +14,8 @@ restrict/prolong as reshapes, the coarsest-level dense inverse
 (`torch.linalg.inv`, then a matrix-vector product), the V-cycle (plain
 and strided) and the flexible Polak-Ribiere PCG with null-space
 deflation. Every smoothing, residual and scale SpMV goes through the
-offset-stencil kernel (ops/stencil.py).
+offset-stencil kernel (ops/stencil.py), each level's COO fallback fused
+into the same launch.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 from ...core.precision import DEFAULT_DEVICE, label_np, scalar_np
 from ...mesh.core import offset_stencil
 from ...ops import stencil as stencil_mod
+from ...ops.spmv import row_layout
 from .krylov import SolverPerf, _small
 
 
@@ -89,7 +91,13 @@ def _pairwise_match(owner, neighbour, w, n_cells, rounds=6):
 @dataclasses.dataclass(frozen=True)
 class Level:
     """Tables for one coarsening step fine->coarse (field meanings as in
-    the reference's Level)."""
+    the reference's Level). Two port-only attributes, set on creation and
+    not dataclass fields (the level parity tests compare the reference's
+    fields): `fb_layout` and `pfb_layout`, the row layouts
+    (ops/spmv.py::row_layout) of the coarse operator's COO fallback on
+    the gather path (st's fb_cells, row-sorted) and on the plane path
+    (pfb_cells, concatenated from two sources and not row-sorted), which
+    the SpMV kernel reads."""
 
     face_src: Any        # [nFc, Mf]
     face_src_mask: Any
@@ -118,6 +126,14 @@ class Level:
     plane_rules: Tuple = ()
     plane_deltas: Tuple[int, ...] = ()
     plane_ok: bool = False
+
+    def __post_init__(self):
+        dev = self.st["fb_cells"].device
+        object.__setattr__(self, "fb_layout", row_layout(
+            self.st["fb_cells"], self.st["fb_nbrs"], self.n_coarse, dev))
+        object.__setattr__(self, "pfb_layout", None if self.pfb_cells is None
+                           else row_layout(self.pfb_cells, self.pfb_nbrs,
+                                           self.n_coarse, dev))
 
 
 LEVEL_META = ("n_fine", "n_fine_pad", "n_coarse", "d", "st_deltas",
@@ -600,12 +616,12 @@ def _coarsen_matrix(lv: Level, diag, upper, lower):
     return _sign_fix(d_members + d_intra), c_upper, c_lower
 
 
-def _make_st_op(deltas, st: Dict[str, Any], upper, lower
-                ) -> stencil_mod.StencilOp:
+def _make_st_op(lv: Level, upper, lower) -> stencil_mod.StencilOp:
+    st = lv.st
     return stencil_mod.from_tables(
-        deltas, st["st_cface"], st["st_sign"], st["st_valid"],
+        lv.st_deltas, st["st_cface"], st["st_sign"], st["st_valid"],
         st["fb_cells"], st["fb_faces"], st["fb_signs"], st["fb_nbrs"],
-        upper, lower,
+        upper, lower, lv.fb_layout,
     )
 
 
@@ -679,7 +695,7 @@ class GAMG:
                            else stencil_mod.mesh_stencil(mesh, upper, lower))
             else:
                 lv = self.levels[i - 1]
-                ops.append(_make_st_op(lv.st_deltas, lv.st, upper, lower))
+                ops.append(_make_st_op(lv, upper, lower))
         return ops
 
     def coarsen_all(self, diag_eff, upper, lower):
@@ -701,12 +717,14 @@ class GAMG:
         if plane_ok:
             planes, fbc = mat.soff, mat.sfb
             ops = [stencil_mod.StencilOp(tuple(mesh.st_deltas), planes,
-                                         mesh.fb_cells, mesh.fb_nbrs, fbc)]
+                                         mesh.fb_cells, mesh.fb_nbrs, fbc,
+                                         mesh.fb_layout)]
             diags = [d_eff]
             for lv in self.levels:
                 dg, planes, fbc = _coarsen_planes(lv, diags[-1], planes, fbc)
                 ops.append(stencil_mod.StencilOp(
-                    lv.plane_deltas, planes, lv.pfb_cells, lv.pfb_nbrs, fbc))
+                    lv.plane_deltas, planes, lv.pfb_cells, lv.pfb_nbrs, fbc,
+                    lv.pfb_layout))
                 diags.append(dg)
             mats = [(dg, None, None) for dg in diags]
         else:
@@ -715,7 +733,7 @@ class GAMG:
             if soff is not None:
                 fine_op = stencil_mod.StencilOp(
                     tuple(mesh.st_deltas), mat.soff, mesh.fb_cells,
-                    mesh.fb_nbrs, mat.sfb)
+                    mesh.fb_nbrs, mat.sfb, mesh.fb_layout)
             ops = self._ops(mesh, mats, fine_op=fine_op)
 
         def lam_of(diag, op):
