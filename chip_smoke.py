@@ -48,6 +48,23 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
   9. cavity_ras: pisoFoam on the unmodified cavityRAS tutorial (Case,
      kEpsilon with wall functions, limitedLinearV 1, GAMG p) for its 200
      steps, held to its oracles and to goldens from the JAX package.
+ 10. pimple_ras: pimpleFoam on the unmodified cavityRAS tutorial through
+     the port's application (blockMesh, `run(case)`: nOuterCorrectors 2,
+     nCorrectors 2, kEpsilon, GAMG p) for its 200 steps, held to goldens
+     from the JAX package and to continuity < 1e-6; and one step with
+     nOuterCorrectors 1 held to piso_step on the card.
+ 11. pimple_headline: the 400^2 cavity of phase 4 as PimpleConfig(n_outer=2,
+     n_correctors=2, alpha_u=0.7, alpha_p=0.3): a 10-step warm-up chunk,
+     three timed 10-step chunks, and one 5-step chunk under
+     torch.profiler.
+ 12. dambreak: interFoam (MULES VOF) on the damBreak tutorial through
+     blockMesh, setFields and the port's application: 20 steps held to
+     goldens from the JAX package, 120 steps held to the invariants of
+     tests/test_interfoam.py (see DAMBREAK_STEPS); then the same case at
+     736^2 cells (541,696, deltaT 6.25e-05): two warm-up steps through
+     the application, three timed 10-step chunks of the application's
+     step, one 3-step chunk under torch.profiler, the invariants, and the
+     SpMV kernel held to its plain version and timed at the p_rgh operand.
 Every timed SpMV shape (kernel, plain version, one CSR product from
 torch.sparse as the library yardstick) gets its device time per call
 from torch.profiler, back to back with the operands warm in L2 and
@@ -126,6 +143,48 @@ CAVITY_RAS_GOLDEN = {
             -0.0035601831041276455, -0.005434846971184015,
             0.0026751933619379997],
 }
+
+PIMPLE_RAS_CASE = os.path.join("tutorials", "incompressible", "pimpleFoam",
+                               "cavityRAS")
+PIMPLE_RAS_STEPS = 200   # the tutorial's endTime 0.1 / deltaT 0.0005
+# tests/test_torch_pimple.py::reference_pimple_ras: the JAX package's
+# pimplefoam on the CPU in float32, the tutorial's 200 steps. Held at 1e-3
+# relative.
+PIMPLE_RAS_GOLDEN = {
+    "ke": 0.00014997422113083303,
+    "k_max": 0.0036708081606775522,
+    "nut_max": 0.0015751677565276623,
+    "ucl": [-0.0014631750527769327, -0.0021035117097198963,
+            -0.003560975193977356, -0.00543519202619791,
+            0.0026772094424813986],
+}
+DAMBREAK_CASE = os.path.join("tutorials", "multiphase", "interFoam",
+                             "laminar", "damBreak")
+DAMBREAK_GOLDEN_STEPS = 20    # of the tutorial's deltaT 0.001
+# The invariants are held at step 120 (t = 0.12, the front well on its
+# way). At step 146, when the front has reached the obstacle, the p_rgh
+# solve of this tutorial (fixed deltaT 0.001) returns NaN: in the JAX
+# package's interfoam_app too, at the same step, in float32 and float64
+# alike (continuity jumps to 6.5e-2 at step 144 first), and the port
+# mirrors the reference. So a run to 200 steps is not held.
+DAMBREAK_STEPS = 120
+DAMBREAK_N = 46               # the tutorial's block: 46 x 46 x 1
+# three cells inside the water column at t = 0.02
+DAMBREAK_P_CELLS = (2 * 46 + 2, 6 * 46 + 10, 9 * 46 + 16)
+# tests/test_torch_interfoam.py::reference_dambreak: the JAX package's
+# blockMesh, setFields and interfoam_app on the CPU in float32, 20 steps.
+# Held at 1e-3 relative (alpha's extrema relative to 1: its minimum is 0).
+DAMBREAK_GOLDEN = {
+    "water_volume": 0.0012989784175101947,
+    "u_max": 0.9744970202445984,
+    "alpha_min": -1.0269972941729169e-13,
+    "alpha_max": 1.0000147819519043,
+    "p_rgh": [1155.385498046875, 1525.573486328125, 2090.9296875],
+}
+DAMBREAK_BIG_N = 736          # 541,696 cells, 16x the tutorial per side
+DAMBREAK_BIG_DT = 6.25e-05    # the tutorial's 0.001 / 16: the same Courant
+DAMBREAK_BIG_CHUNK = 10
+DAMBREAK_BIG_WARMUP = 2
 
 SPMV_SHAPES = {"n1024": (1024, (1, -1, 16, -16)),
                "n5000": (5000, (1, -1, 128, -128, 3000, -3000)),
@@ -366,19 +425,26 @@ def duct_setup(nx, ny, nz, device="cuda"):
 
 class SolveLog:
     """The one wrapper around foamtpu_torch.solvers.linear.solve that the
-    SIMPLE runs use. Each call is named by its equation's dimensions
-    (FvMatrix.dims: U, p and the turbulence fields other than nut differ;
-    an equation of other dimensions fails the run), counted, and its
-    first matrix per name kept; with `fence` it is timed between two
-    torch.cuda.synchronize, with `ranges` it runs in a torch.profiler
-    range solve_<name>."""
+    profiled and fenced runs use. Each call is named by its equation's
+    dimensions (FvMatrix.dims: U, p and the turbulence fields other than
+    nut differ; an equation of other dimensions fails the run), counted,
+    its iteration count and its first matrix per name kept; with `fence`
+    it is timed between two torch.cuda.synchronize, with `ranges` it runs
+    in a torch.profiler range solve_<name>."""
 
     def __init__(self, state, fence=False, ranges=False):
-        from foamtpu_torch.core.dimensions import dimFlux, dimLength, dimTime
+        from foamtpu_torch.core.dimensions import (dimDensity, dimFlux,
+                                                   dimLength, dimTime)
 
-        self.names = {dimFlux * state["U"].dims: "U",
-                      dimTime * state["p"].dims * dimLength: "p"}
-        transported = [k for k in state["turb"] if k != "nut"]
+        if "p_rgh" in state:
+            # interFoam: the momentum equation carries rho
+            self.names = {
+                dimDensity * dimFlux * state["U"].dims: "U",
+                dimTime * state["p_rgh"].dims * dimLength: "p"}
+        else:
+            self.names = {dimFlux * state["U"].dims: "U",
+                          dimTime * state["p"].dims * dimLength: "p"}
+        transported = [k for k in state.get("turb", {}) if k != "nut"]
         for name in transported:
             self.names[dimFlux * state["turb"][name].dims] = name
         check(len(self.names) == 2 + len(transported),
@@ -386,6 +452,7 @@ class SolveLog:
         self.fence, self.ranges = fence, ranges
         self.calls = dict.fromkeys(self.names.values(), 0)
         self.seconds = dict.fromkeys(self.names.values(), 0.0)
+        self.iterations = {name: [] for name in self.names.values()}
         self.matrices = {}
 
     def __enter__(self):
@@ -414,6 +481,7 @@ class SolveLog:
             if self.fence:
                 torch.cuda.synchronize()
                 self.seconds[name] += time.perf_counter() - t0
+        self.iterations[name].append(out[1].n_iterations)
         return out
 
 
@@ -1273,6 +1341,456 @@ def phase_cavity_ras(spmv, here, root):
     return out
 
 
+def quiet():
+    """The applications log every step to stdout; the phases send that to
+    stderr so that stdout keeps one JSON line per phase."""
+    return contextlib.redirect_stdout(sys.stderr)
+
+
+def copy_case(here, rel, root, name, edits=()):
+    """A tutorial copied under `root` with (path, old, new) text edits,
+    each of which must change its file, then meshed by the port's
+    blockMesh. Returns the copy's path."""
+    from foamtpu_torch.apps.cli import main as cli
+
+    dst = os.path.join(root, name)
+    shutil.copytree(os.path.join(here, rel), dst)
+    for path, old, new in edits:
+        path = os.path.join(dst, path)
+        with open(path) as f:
+            text = f.read()
+        check(old in text, f"{path} holds no {old!r}")
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
+    with quiet():
+        check(cli(["blockMesh", "-case", dst]) == 0, "blockMesh failed")
+    return dst
+
+
+def golden_rel_err(got, golden, floor=None):
+    """Largest relative error of each golden entry (scalars or lists);
+    `floor` maps a name to the least magnitude its error is taken
+    relative to."""
+    out = {}
+    for name, g in golden.items():
+        g = np.asarray(g, dtype=np.float64)
+        den = np.maximum(np.abs(g), (floor or {}).get(name, 0.0))
+        out[name] = float(np.max(np.abs(np.asarray(got[name]) - g) / den))
+    return out
+
+
+def pimple_ras_checks(state, diag):
+    """pimpleFoam cavityRAS: cavityRAS's oracles, continuity < 1e-6 and
+    the goldens (1e-3 relative)."""
+    turb = state["turb"]
+    u = state["U"].data.cpu().numpy()
+    k = turb["k"].data.cpu().numpy()
+    eps = turb["epsilon"].data.cpu().numpy()
+    nut = turb["nut"].data.cpu().numpy()
+    got = cavity_ras_scalars(u, k, nut)
+    rel = golden_rel_err(got, PIMPLE_RAS_GOLDEN)
+    out = {"scalars": got, "golden_rel_err": rel,
+           "continuity": float(diag["continuity"]),
+           "u_max": float(np.abs(u).max()), "k_min": float(k.min()),
+           "epsilon_min": float(eps.min()), "nut_min": float(nut.min())}
+    checks = {"finite": all(bool(np.isfinite(a).all())
+                            for a in (u, k, eps, nut)),
+              "k>0": out["k_min"] > 0, "epsilon>0": out["epsilon_min"] > 0,
+              "nut>=0": out["nut_min"] >= 0,
+              "continuity<1e-6": out["continuity"] < 1e-6,
+              "|U|<=1.05": out["u_max"] <= 1.05}
+    checks.update({f"golden {name}": r <= 1e-3 for name, r in rel.items()})
+    return out, checks
+
+
+def pimple_reduces_to_piso(case):
+    """One step of the case with nOuterCorrectors 1 against piso_step from
+    the same state: the largest difference of U, p and phi relative to
+    each field's scale."""
+    from foamtpu_torch.core.dictionary import dimensioned_scalar
+    from foamtpu_torch.solvers import pimple, piso
+    from foamtpu_torch.solvers.apps import (_load_turbulence, _pimple_config,
+                                            _piso_config)
+
+    _, nu = dimensioned_scalar(case.transport_properties()["nu"])
+    model, tstate = _load_turbulence(case, nu)
+    cfg1 = _pimple_config(case, nu, model)._replace(
+        n_outer=1, alpha_u=0.7, alpha_p=0.3)   # ignored on a final iteration
+    pcfg = _piso_config(case, nu, model)._replace(
+        p_controls=cfg1.p_controls, p_controls_final=cfg1.p_controls_final)
+    state = piso.initial_state(case.mesh, case.read_field("U"),
+                               case.read_field("p"), turb_state=tstate)
+    dt = float(case.control_dict["deltaT"])
+    s1, s2 = state, state
+    for _ in range(2):
+        s1, _ = pimple.pimple_step(case.mesh, s1, dt, cfg1)
+        s2, _ = piso.piso_step(case.mesh, s2, dt, pcfg)
+    rel = {}
+    for name in ("U", "p", "phi"):
+        a, b = s1[name], s2[name]
+        a, b = (a, b) if torch.is_tensor(a) else (a.data, b.data)
+        rel[name] = float(torch.max(torch.abs(a - b))
+                          / torch.max(torch.abs(b)))
+    return rel
+
+
+def phase_pimple_ras(spmv, here, root):
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.solvers.apps import run
+
+    dst = copy_case(here, PIMPLE_RAS_CASE, root, "pimpleRAS")
+    spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
+    t0 = time.perf_counter()
+    case = Case(dst, device="cuda")
+    check(case.application == "pimpleFoam", case.application)
+    with quiet():
+        run(case)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, fb_launches = spmv.LAUNCHES, spmv.FB_LAUNCHES
+    steps = case.time.index
+    check(steps == PIMPLE_RAS_STEPS, f"pimpleFoam cavityRAS ran {steps} steps")
+    state = case.final_state
+    # the application's last diagnostics are gone with its loop: the
+    # continuity error of the state it left, from its flux
+    from foamtpu_torch.ops import surface
+
+    div_phi = surface.surface_sum(case.mesh, state["phi"])
+    diag = {"continuity": torch.sum(torch.abs(div_phi))
+            / torch.sum(case.mesh.v)}
+    res, checks = pimple_ras_checks(state, diag)
+    written = sorted(os.listdir(os.path.join(dst, case.time.name)))
+    rel = pimple_reduces_to_piso(Case(dst, device="cuda"))
+    checks["n_outer=1 is PISO (1e-6)"] = max(rel.values()) <= 1e-6
+    checks["fields written"] = written == ["U", "epsilon", "k", "nut", "p"]
+    out = {"phase": "pimple_ras",
+           "case": "pimpleFoam cavityRAS through solvers.apps.run, "
+                   "unmodified tutorial files",
+           "n_cells": case.mesh.n_cells, "dtype": str(case.mesh.v.dtype),
+           "steps": steps, "run_s": run_s, "sec_per_step": run_s / steps,
+           "spmv_launches_total": launches,
+           "spmv_fb_launches_total": fb_launches,
+           "spmv_launches_per_step": launches / steps, **res,
+           "n_outer_1_vs_piso_rel": rel, "written": written,
+           "checks": checks}
+    emit(out)
+    for name, ok in checks.items():
+        check(ok, f"pimpleFoam cavityRAS check {name}: {out}")
+    check(launches > 0, "the pimpleFoam path did not launch the SpMV kernel")
+    return out
+
+
+def phase_pimple_headline(spmv, n=400, nsteps=10, trials=3, n_profile=5):
+    """The 400^2 cavity of phase_headline, same GAMG p-controls, as a
+    PIMPLE step with two outer and two inner correctors, U and p relaxed
+    (0.7, 0.3) on the first outer iteration."""
+    from foamtpu_torch.apps.cases import make_cavity
+    from foamtpu_torch.solvers import pimple
+
+    torch.cuda.reset_peak_memory_stats()
+    spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
+    mesh, state, pcfg = make_cavity(n, p_solver={
+        "solver": "GAMG", "preconditioner": "polynomial",
+        "tolerance": 1e-7, "relTol": 0.01, "maxIter": 1000}, device="cuda")
+    # relaxed on the first outer iteration (0.7 / 0.3, the tutorials'
+    # factors): unrelaxed, two outer iterations of this case diverge
+    # (max |U| 1.9 after 45 steps, in the JAX package alike), where one
+    # (PISO) and the relaxed two are stable
+    cfg = pimple.PimpleConfig(
+        nu=pcfg.nu, n_outer=2, n_correctors=2, alpha_u=0.7, alpha_p=0.3,
+        p_controls=pcfg.p_controls, u_controls=pcfg.u_controls)
+    dt = 0.5 * (0.1 / n)
+    chunk = pimple.make_chunk(mesh, cfg, nsteps)
+    t0 = time.perf_counter()
+    state, diag = chunk(state, dt)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    launches0 = spmv.LAUNCHES
+    times = []
+    for _ in range(trials):
+        t0 = time.perf_counter()
+        state, diag = chunk(state, dt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / nsteps)
+    launches_timed = spmv.LAUNCHES - launches0
+    sec = statistics.median(times)
+    prof_chunk = pimple.make_chunk(mesh, cfg, n_profile)
+    state, prof = profile_chunk(
+        spmv, "pimple_headline_profile", mesh,
+        lambda s: prof_chunk(s, dt), state, n_profile, sec)
+    launches = spmv.LAUNCHES
+    finite = all(bool(torch.isfinite(t).all()) for t in (
+        state["U"].data, state["p"].data, state["phi"]))
+    out = {"phase": "pimple_headline",
+           "case": f"pimpleFoam cavity {n}x{n}, nOuterCorrectors 2, "
+                   "nCorrectors 2, relaxation U 0.7 p 0.3, GAMG (bench.py "
+                   "p-controls)",
+           "n_cells": mesh.n_cells, "dtype": str(mesh.v.dtype),
+           "warmup_chunk_s": warm_s, "sec_per_step": sec,
+           "trial_sec_per_step": times,
+           "steps": nsteps * (trials + 1) + n_profile,
+           "p_iters": int(diag["p_iters"]),
+           "p_final": float(diag["p_final"]),
+           "u_iters": int(diag["Ux"].n_iterations),
+           "continuity": float(diag["continuity"]),
+           "courant_max": float(diag["courant_max"]),
+           "spmv_launches_per_step": launches_timed / (nsteps * trials),
+           "cuda_launch_kernel_per_step": prof["cuda_launch_kernel_per_iter"],
+           "device_ms_per_step": prof["device_ms_per_iter"],
+           "device_busy_share": prof["device_busy_share_unprofiled"],
+           "spmv_launches_total": launches,
+           "spmv_fb_launches_total": spmv.FB_LAUNCHES,
+           "finite": finite,
+           "u_max": float(torch.max(torch.abs(state["U"].data))),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(out)
+    # the bound of phase_headline: the p-controls stop at relTol 0.01
+    check(out["continuity"] < 1e-3, out["continuity"])
+    check(finite, "non-finite U, p or phi")
+    check(out["u_max"] <= 1.0 + 1e-3, "|U| above the lid velocity")
+    check(launches > 0 and out["spmv_launches_per_step"] > 0,
+          "the PIMPLE path did not launch the SpMV kernel")
+    return out
+
+
+def dambreak_scalars(v, alpha, U, p_rgh):
+    """The golden scalars of a 46x46 damBreak state (numpy arrays): the
+    water volume sum(alpha V), max |U|, alpha's extrema and p_rgh at
+    DAMBREAK_P_CELLS."""
+    return {"water_volume": float(np.sum(np.asarray(alpha, np.float64)
+                                         * np.asarray(v, np.float64))),
+            "u_max": float(np.sqrt(np.sum(np.asarray(U) ** 2, axis=1)).max()),
+            "alpha_min": float(np.min(alpha)),
+            "alpha_max": float(np.max(alpha)),
+            "p_rgh": [float(p_rgh[i]) for i in DAMBREAK_P_CELLS]}
+
+
+def dambreak_golden_checks(mesh, state):
+    """The 46x46 damBreak state after DAMBREAK_GOLDEN_STEPS steps against
+    the goldens, 1e-3 relative (alpha's extrema relative to 1)."""
+    got = dambreak_scalars(mesh.v.cpu().numpy(),
+                           state["alpha"].data.cpu().numpy(),
+                           state["U"].data.cpu().numpy(),
+                           state["p_rgh"].data.cpu().numpy())
+    rel = golden_rel_err(got, DAMBREAK_GOLDEN,
+                         floor={"alpha_min": 1.0, "alpha_max": 1.0})
+    checks = {f"golden {name}": r <= 1e-3 for name, r in rel.items()}
+    return {"scalars": got, "golden_rel_err": rel}, checks
+
+
+def dambreak_invariants(mesh, alpha0, state):
+    """tests/test_interfoam.py's invariants on a damBreak state: alpha
+    within [-1e-4, 1 + 1e-4], the water volume conserved to 1e-4
+    relative, the fill of the cell column at the left wall lower than at
+    the start, U finite."""
+    v = mesh.v.double()
+    a = state["alpha"].data
+    left = mesh.c[:, 0] < mesh.c[:, 0].min() * 1.5   # the first column
+
+    def fill(x):
+        return float(torch.sum(x.double()[left] * v[left])
+                     / torch.sum(v[left]))
+
+    vol0 = float(torch.sum(alpha0.double() * v))
+    vol = float(torch.sum(a.double() * v))
+    out = {"alpha_min": float(a.min()), "alpha_max": float(a.max()),
+           "water_volume_0": vol0, "water_volume": vol,
+           "water_volume_rel_change": abs(vol - vol0) / vol0,
+           "left_column_fill_0": fill(alpha0), "left_column_fill": fill(a),
+           "u_max": float(torch.max(torch.abs(state["U"].data)))}
+    checks = {"alpha bounded": out["alpha_min"] > -1e-4
+              and out["alpha_max"] < 1.0 + 1e-4,
+              "volume conserved (1e-4)": out["water_volume_rel_change"] < 1e-4,
+              "column falls": out["left_column_fill"]
+              < out["left_column_fill_0"],
+              "U finite": bool(torch.isfinite(state["U"].data).all())
+              and bool(torch.isfinite(state["p_rgh"].data).all())}
+    return out, checks
+
+
+def dambreak_small(spmv, here, root):
+    """(a) the tutorial as it is: 20 steps to the goldens, then the run
+    again for DAMBREAK_STEPS steps to the invariants."""
+    from foamtpu_torch.apps.cli import main as cli
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.solvers.apps import run
+
+    dst = copy_case(here, DAMBREAK_CASE, root, "damBreak")
+    with quiet():
+        check(cli(["setFields", "-case", dst]) == 0, "setFields failed")
+    case = Case(dst, device="cuda")
+    check(case.application == "interFoam", case.application)
+    check(case.mesh.n_cells == DAMBREAK_N ** 2, case.mesh.n_cells)
+    alpha0 = case.read_field("alpha1").data.clone()
+    with quiet():
+        run(case, max_steps=DAMBREAK_GOLDEN_STEPS)
+    gold, checks = dambreak_golden_checks(case.mesh, case.final_state)
+    case = Case(dst, device="cuda")
+    t0 = time.perf_counter()
+    with quiet():
+        run(case, max_steps=DAMBREAK_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    check(case.time.index == DAMBREAK_STEPS, case.time.index)
+    inv, inv_checks = dambreak_invariants(case.mesh, alpha0,
+                                          case.final_state)
+    checks.update(inv_checks)
+    written = sorted(os.listdir(os.path.join(dst, case.time.name)))
+    checks["fields written"] = written == ["U", "alpha1", "p_rgh"]
+    return {"n_cells": case.mesh.n_cells, "steps": DAMBREAK_STEPS,
+            "run_s": run_s, "sec_per_step": run_s / DAMBREAK_STEPS,
+            **gold, "invariants": inv, "written": written}, checks
+
+
+def dambreak_big(spmv, here, root, n=DAMBREAK_BIG_N, trials=3):
+    """(b) the same case at n x n cells: set-up and two warm-up steps
+    through the application, then its own step (the config and state the
+    application built) in three timed chunks and one profiled chunk."""
+    from foamtpu_torch.apps.cli import main as cli
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.solvers import interfoam
+    from foamtpu_torch.solvers.apps import _inter_config, run
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dst = copy_case(here, DAMBREAK_CASE, root, f"damBreak{n}", edits=[
+        ("constant/polyMesh/blockMeshDict", f"({DAMBREAK_N} {DAMBREAK_N} 1)",
+         f"({n} {n} 1)"),
+        ("system/controlDict", "deltaT          0.001;",
+         f"deltaT          {DAMBREAK_BIG_DT};")])
+    with quiet():
+        check(cli(["setFields", "-case", dst]) == 0, "setFields failed")
+    case = Case(dst, device="cuda")
+    mesh = case.mesh
+    check(mesh.n_cells == n * n, mesh.n_cells)
+    alpha0 = case.read_field("alpha1").data.clone()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with quiet():
+        run(case, max_steps=DAMBREAK_BIG_WARMUP)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    if warm_s / DAMBREAK_BIG_WARMUP > 20.0 and n == DAMBREAK_BIG_N:
+        return None     # too slow to fit the run: the caller halves n
+    dt = case.time.delta_t
+    check(dt == DAMBREAK_BIG_DT, dt)
+    cfg = _inter_config(case)
+    step = interfoam.make_step(mesh, cfg)
+    state = case.final_state
+
+    def chunk(state, n_steps=DAMBREAK_BIG_CHUNK):
+        diags = []
+        for _ in range(n_steps):
+            state, diag = step(state, dt)
+            diags.append(diag)
+        return state, diags
+
+    launches0 = spmv.LAUNCHES
+    times = []
+    with SolveLog(state) as log:
+        for _ in range(trials):
+            t0 = time.perf_counter()
+            state, diags = chunk(state)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) / DAMBREAK_BIG_CHUNK)
+    launches_timed = spmv.LAUNCHES - launches0
+    sec = statistics.median(times)
+    diag = diags[-1]
+    p_iters = [int(i) for i in log.iterations["p"]]
+    n_profile = 3
+
+    def profiled(state):
+        state, diags = chunk(state, n_profile)
+        return state, diags[-1]
+
+    state, prof = profile_chunk(spmv, "dambreak_profile", mesh, profiled,
+                                state, n_profile, sec)
+    inv, checks = dambreak_invariants(mesh, alpha0, state)
+    out = {"n_cells": mesh.n_cells, "dtype": str(mesh.v.dtype),
+           "delta_t": dt, "st_deltas": list(mesh.st_deltas),
+           "setup_s": setup_s, "warmup_steps": DAMBREAK_BIG_WARMUP,
+           "warmup_s": warm_s, "sec_per_step": sec,
+           "trial_sec_per_step": times, "cells_per_sec": mesh.n_cells / sec,
+           "steps": (DAMBREAK_BIG_WARMUP + DAMBREAK_BIG_CHUNK * trials + 1
+                     + n_profile),
+           "p_rgh_solves_per_step": len(p_iters)
+           / (DAMBREAK_BIG_CHUNK * trials),
+           "p_rgh_iterations_per_solve": statistics.mean(p_iters),
+           "p_rgh_iterations_max": max(p_iters),
+           "u_iterations": int(diag["Ux"].n_iterations),
+           "courant_max": float(diag["courant_max"]),
+           "continuity": float(diag["continuity"]),
+           "spmv_launches_per_step": launches_timed
+           / (DAMBREAK_BIG_CHUNK * trials),
+           "cuda_launch_kernel_per_step": prof["cuda_launch_kernel_per_iter"],
+           "device_ms_per_step": prof["device_ms_per_iter"],
+           "device_busy_share": prof["device_busy_share_unprofiled"],
+           "invariants": inv,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    checks["spmv launched"] = out["spmv_launches_per_step"] > 0
+    # every SpMV of the profiled chunk went through the kernel: the
+    # profiler's kernel events equal the wrapper's launch count
+    checks["all SpMV through the kernel"] = (
+        prof["spmv_kernel_events_per_iter"] > 0
+        and abs(prof["spmv_kernel_events_per_iter"]
+                - prof["spmv_launches_per_iter"])
+        <= 0.02 * prof["spmv_launches_per_iter"])
+    return out, checks, (mesh, log)
+
+
+def phase_dambreak(spmv, here, root, flush):
+    spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
+    small, checks = dambreak_small(spmv, here, root)
+    launches_small = spmv.LAUNCHES
+    n = DAMBREAK_BIG_N
+    res = dambreak_big(spmv, here, root, n)
+    if res is None:
+        # over 20 s a step at 736^2: once, at half the width
+        n //= 2
+        res = dambreak_big(spmv, here, root, n)
+    big, big_checks, (mesh, log) = res
+    launches, fb_launches = spmv.LAUNCHES, spmv.FB_LAUNCHES
+    checks.update({f"{n}^2 {k}": v for k, v in big_checks.items()})
+    # the kernel at the p_rgh operand of the flat-path operator: held to
+    # its plain version, then timed against the bound and CSR
+    from foamtpu_torch.ops import stencil
+
+    pm = log.matrices["p"]
+    check(pm.soff is None, "the interFoam pressure matrix is not flat")
+    op = stencil.mesh_stencil(mesh, pm.upper, pm.lower)
+    diag = pm.diag_eff(mesh).contiguous()
+    cases = []
+    max_err = 0.0
+    for dtype in (torch.float32, torch.float64):
+        d, off = diag.to(dtype), op.off.to(dtype).contiguous()
+        x = operand_x(d, 21)
+        got = spmv.spmv(d, x, off, op.deltas, None)
+        torch.cuda.synchronize()
+        err = hold(cases, "dambreak_p_rgh", dtype, got,
+                   spmv.plain(d, x, off, op.deltas, None), relative=True)
+        if dtype == torch.float32:
+            max_err = err
+    check(op.fb is None, "the hex damBreak mesh has a COO remainder")
+    timings = time_shape(spmv, "dambreak_p_rgh", diag, operand_x(diag, 22),
+                         op.off.contiguous(), op.deltas, flush)
+    out = {"phase": "dambreak",
+           "case": "interFoam damBreak through blockMesh, setFields and "
+                   "solvers.apps.run, tutorial files",
+           "tutorial": small, f"n{n}": big, "big_n": n,
+           "spmv_launches_total": launches,
+           "spmv_launches_tutorial": launches_small,
+           "spmv_fb_launches_total": fb_launches,
+           "kernel_cases": cases, "max_abs_err_f32": max_err,
+           "timings": timings, "checks": checks}
+    emit(out)
+    for name, ok in checks.items():
+        check(ok, f"damBreak check {name}: {out}")
+    check(launches_small > 0 and launches > launches_small,
+          "the interFoam path did not launch the SpMV kernel")
+    return out, max_err, timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1318,6 +1836,9 @@ def main() -> int:
                       duct["sec_per_iter"])
         del mesh, cfg, state
         ras = phase_cavity_ras(spmv, here, os.path.join(root, "ras"))
+        pras = phase_pimple_ras(spmv, here, root)
+        phead = phase_pimple_headline(spmv)
+        dam, err_dam, t_dam = phase_dambreak(spmv, here, root, flush)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1327,17 +1848,13 @@ def main() -> int:
     # included), the largest call the main path makes; the warm-L2 time
     # apart, and every timed shape beside it
     main_shape = next(t for t in t_duct if t["shape"] == "duct_p_whole")
+    paths = (head, pitz, duct, ras, pras, phead, dam)
     emit({"kernels": [{
         "name": "spmv_stencil", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": (head["spmv_launches_total"] + pitz["spmv_launches_total"]
-                     + duct["spmv_launches_total"]
-                     + ras["spmv_launches_total"]),
-        "fb_launches": (head["spmv_fb_launches_total"]
-                        + pitz["spmv_fb_launches_total"]
-                        + duct["spmv_fb_launches_total"]
-                        + ras["spmv_fb_launches_total"]),
-        "max_abs_err": max(max_err, err_duct),
+        "launches": sum(p["spmv_launches_total"] for p in paths),
+        "fb_launches": sum(p["spmv_fb_launches_total"] for p in paths),
+        "max_abs_err": max(max_err, err_duct, err_dam),
         "ms": main_shape["kernel_ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
@@ -1351,7 +1868,7 @@ def main() -> int:
             "plain_ms",
             "plain_ms_l2_warm", "library_ms", "library_ms_l2_warm",
             "bound_ms", "bound_by", "bound_share")}
-            for t in timings + t_duct]}]})
+            for t in timings + t_duct + t_dam]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@ openfoam-2.2.x_tpu/bc/factory.py: `parse_value` and the part of
 `from_dict` that builds the kinds of the ported slice).
 
 Ported kinds: fixedValue, zeroGradient, calculated, empty, inletOutlet,
-nutkWallFunction, kqRWallFunction, epsilonWallFunction and
-omegaWallFunction. Any other `type` raises NotImplementedError naming it
+totalPressure, pressureInletOutletVelocity, nutkWallFunction,
+kqRWallFunction, epsilonWallFunction and omegaWallFunction. Any other
+`type` raises NotImplementedError naming it
 (the reference degrades unknown types to calculated/zeroGradient; the
 port refuses instead).
 """
@@ -20,8 +21,8 @@ from ..core.dictionary import FoamDict, Word
 from .patchfields import PatchField, make
 
 KINDS = ("fixedValue", "zeroGradient", "calculated", "empty", "inletOutlet",
-         "nutkWallFunction", "kqRWallFunction", "epsilonWallFunction",
-         "omegaWallFunction")
+         "totalPressure", "pressureInletOutletVelocity", "nutkWallFunction",
+         "kqRWallFunction", "epsilonWallFunction", "omegaWallFunction")
 
 
 def parse_value(entry: Any, size: int, rank: int, dtype, device="cpu"):
@@ -68,5 +69,10 @@ def from_dict(spec: FoamDict, patch, rank: int, dtype, device="cpu"
         if iv is None:
             iv = val
         kw["ref_value"] = iv if iv is not None else 0.0
+        kw["vfrac"] = 1.0
+    elif kind == "totalPressure":
+        p0 = parse_value(spec.get("p0"), size, 0, dtype, device)
+        kw["ref_value"] = p0 if p0 is not None else 0.0
+        kw["p0"] = float(p0.mean()) if p0 is not None else 0.0
         kw["vfrac"] = 1.0
     return make(kind, **kw)

@@ -4,9 +4,11 @@ openfoam-2.2.x_tpu/bc/patchfields.py).
 Each BC kind supplies value coefficients (vf = vic*psi_c + vbc); the
 gradient coefficients and evaluation follow from them exactly as in the
 reference module. The ported slice covers the kinds of the icoFoam
-cavity, the simpleFoam pitzDaily case and the kOmegaSST tet duct:
-fixedValue, zeroGradient, empty, calculated, mixed, inletOutlet and the
-nutk/kqR/epsilon/omega wall functions. Derived kinds re-evaluate their
+cavity, the simpleFoam pitzDaily case, the kOmegaSST tet duct and the
+interFoam damBreak case: fixedValue, zeroGradient, empty, calculated,
+mixed, inletOutlet, totalPressure (incompressible form),
+pressureInletOutletVelocity and the nutk/kqR/epsilon/omega wall
+functions. Derived kinds re-evaluate their
 mixed triple through the update registry (`update` /
 `register_update`; the turbulence models register their wall-function
 rules). Any other kind raises NotImplementedError naming it.
@@ -39,6 +41,11 @@ class PatchField:
 
     def replace(self, **kw) -> "PatchField":
         return dataclasses.replace(self, **kw)
+
+
+def _patch_normals(mesh, patch):
+    sl = patch.slice
+    return mesh.sf[sl] / torch.clamp(mesh.mag_sf[sl], min=1e-30)[:, None]
 
 
 def _patch_internal(mesh, patch, data):
@@ -87,6 +94,8 @@ _VALUE_COEFFS: Dict[str, Callable] = {
     "calculated": _vc_fixed_value,
     "empty": _vc_zero_gradient,
     "inletOutlet": _vc_mixed,
+    "totalPressure": _vc_mixed,
+    "pressureInletOutletVelocity": _vc_mixed,
     # wall functions: fixed-value-like on nut (the value comes from the
     # update rule), zero-gradient-like on k; the epsilon and omega wall
     # functions fix the wall-adjacent CELL value through the matrix
@@ -164,8 +173,40 @@ def _up_inlet_outlet(bc, mesh, patch, internal, *, phi=None, **ctx):
     return bc.replace(vfrac=(phib < 0.0).to(phib.dtype))
 
 
+def _up_total_pressure(bc, mesh, patch, internal, *, phi=None, U=None,
+                       rho_b=None, **ctx):
+    """Fixed-value: p = p0 on outflow, p0 - 0.5 (rho) |U|^2 on inflow
+    (derived/totalPressure, the incompressible psi=none form; rho_b
+    supplies the density factor for p_rgh-style solvers)."""
+    if phi is None or U is None:
+        return bc
+    phib = phi[patch.slice]
+    p0 = bc.opt("p0", 0.0)
+    cells = mesh.owner[patch.slice]
+    Ub = U[cells]
+    magU2 = torch.sum(Ub * Ub, dim=1)
+    if rho_b is not None:
+        magU2 = magU2 * rho_b[cells]
+    pval = torch.where(phib > 0.0, torch.full_like(magU2, p0),
+                       p0 - 0.5 * magU2)
+    return bc.replace(ref_value=pval, vfrac=torch.ones_like(pval))
+
+
+def _up_pressure_io_velocity(bc, mesh, patch, internal, *, phi=None, **ctx):
+    """On outflow zeroGradient; on inflow the normal component is set
+    from the flux (derived/pressureInletOutletVelocity)."""
+    if phi is None:
+        return bc
+    phib = phi[patch.slice]
+    n = _patch_normals(mesh, patch)
+    Un = (phib / torch.clamp(mesh.mag_sf[patch.slice], min=1e-30))[:, None] * n
+    return bc.replace(ref_value=Un, vfrac=(phib < 0.0).to(phib.dtype))
+
+
 _UPDATE: Dict[str, Callable] = {
     "inletOutlet": _up_inlet_outlet,
+    "totalPressure": _up_total_pressure,
+    "pressureInletOutletVelocity": _up_pressure_io_velocity,
 }
 
 
@@ -198,7 +239,7 @@ def zero_gradient(**opts) -> PatchField:
 def make(kind: str, **kw) -> PatchField:
     opts = {k: v for k, v in kw.items()
             if k not in ("ref_value", "ref_grad", "vfrac")}
-    value_kinds = ("fixedValue", "calculated")
+    value_kinds = ("fixedValue", "totalPressure", "calculated")
     return PatchField(
         ref_value=kw.get("ref_value", 0.0),
         ref_grad=kw.get("ref_grad", 0.0),

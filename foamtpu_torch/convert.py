@@ -139,18 +139,44 @@ def matrix_from_numpy(mat, device="cpu") -> FvMatrix:
                     symmetric=bool(mat.symmetric))
 
 
+_STATE_FIELDS = ("U", "p", "p_rgh", "alpha")
+_STATE_ARRAYS = ("phi", "U0", "U00", "rdt0", "ddt0_U", "rho", "lts_rdt")
+
+
 def state_from_numpy(state, device="cpu") -> Dict[str, Any]:
-    """The port's PISO/SIMPLE state from the reference's: U, p, phi,
-    phi_slot and U0, plus the turbulence fields (k, epsilon, nut, ...
-    with their wall BCs) under 'turb' when present."""
-    out = {
-        "U": field_from_numpy(state["U"], device),
-        "p": field_from_numpy(state["p"], device),
-        "phi": tensor(state["phi"], device),
-        "phi_slot": tuple(tensor(a, device) for a in state["phi_slot"]),
-        "U0": tensor(state["U0"], device),
-    }
+    """The port's solver state from the reference's. PISO/PIMPLE/SIMPLE:
+    U, p, phi, phi_slot and U0, the `backward` / `CrankNicolson` history
+    (U00, rdt0, ddt0_U), plus the turbulence fields (k, epsilon, nut, ...
+    with their wall BCs) under 'turb' when present. interFoam: U, p_rgh,
+    alpha, phi, rho, U0 and, under local time stepping, lts_rdt."""
+    out: Dict[str, Any] = {}
+    for name in _STATE_FIELDS:
+        if name in state:
+            out[name] = field_from_numpy(state[name], device)
+    for name in _STATE_ARRAYS:
+        if name in state:
+            out[name] = tensor(state[name], device)
+    if "phi_slot" in state:
+        out["phi_slot"] = tuple(tensor(a, device) for a in state["phi_slot"])
     if state.get("turb") is not None:
         out["turb"] = {name: field_from_numpy(f, device)
                        for name, f in state["turb"].items()}
+    unknown = set(state) - set(out)
+    if unknown:
+        raise NotImplementedError(
+            f"state entries {sorted(unknown)} are not ported to "
+            "foamtpu_torch yet")
     return out
+
+
+def config_from_reference(cls, cfg, **overrides):
+    """A port config NamedTuple (PisoConfig, PimpleConfig, SimpleConfig,
+    InterConfig) from the reference's NamedTuple of the same fields.
+    Entries that hold reference objects (GAMG controls, a turbulence
+    model) are passed in `overrides` as their port twins; the control
+    dicts are copied."""
+    kw = {}
+    for name in cls._fields:
+        v = overrides[name] if name in overrides else getattr(cfg, name)
+        kw[name] = dict(v) if isinstance(v, dict) else v
+    return cls(**kw)

@@ -1,10 +1,11 @@
 """Case: load an OpenFOAM case directory (port of
-openfoam-2.2.x_tpu/core/case.py: `Case` without `request_parallel`,
-`write_fields`, multi-region cases and the application registry).
+openfoam-2.2.x_tpu/core/case.py: `Case` without `request_parallel` and
+multi-region cases; the application registry is `solvers.apps.run`).
 
-A Case owns system/ (controlDict, fvSchemes, fvSolution), constant/
-(polyMesh, read once and moved to the case's device, and the
-*Properties dicts) and the start-time fields.
+A Case owns system/ (controlDict with its Time, fvSchemes, fvSolution),
+constant/ (polyMesh, read once and moved to the case's device, and the
+*Properties dicts) and the time directories: fields are read at the
+start time and written at write times.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from .precision import DEFAULT_DEVICE
 from ..io import fields as field_io
 from ..io import polymesh as mesh_io
 from ..mesh import to_device
+from ..utils import logging as log
 
 
 class Case:
@@ -29,6 +31,7 @@ class Case:
         self.fv_schemes = parse_file(self.sys_path("fvSchemes"))
         self.fv_solution = parse_file(self.sys_path("fvSolution"))
         self.time = runtime.Time(self.control_dict, self.dir)
+        log.load_debug_switches(self.control_dict)
         self._mesh = None
         self._poly = None
 
@@ -37,6 +40,10 @@ class Case:
 
     def const_path(self, name: str) -> str:
         return os.path.join(self.dir, "constant", name)
+
+    @property
+    def application(self) -> str:
+        return str(self.control_dict.get("application", "unknown"))
 
     # -- mesh -------------------------------------------------------------------
     @property
@@ -67,6 +74,16 @@ class Case:
                 and t == "0.0"):
             path = os.path.join(self.dir, "0", name)
         return field_io.read_field(path, self.mesh, name=name)
+
+    def write_fields(self, fields, time_name: Optional[str] = None) -> None:
+        t = time_name or self.time.name
+        fmt = str(self.control_dict.get("writeFormat", "ascii"))
+        compress = str(self.control_dict.get("writeCompression", "off")) in (
+            "on", "yes", "true", "compressed")
+        for f in fields:
+            field_io.write_field(f, self.mesh, self.dir, t,
+                                 fmt=fmt, compress=compress)
+        self.time.register_write(t)
 
     # -- solver controls ------------------------------------------------------------
     def solver_controls(self, field_name: str) -> Dict:

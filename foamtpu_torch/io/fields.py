@@ -1,11 +1,10 @@
-"""Field file reader (port of the read path of
-openfoam-2.2.x_tpu/io/fields.py: `load_field_dict`, `_debinarize`,
-`_fast_internal_field` and `read_field`).
+"""Field file reader and writer (port of openfoam-2.2.x_tpu/io/fields.py:
+`load_field_dict`, `_debinarize`, `_fast_internal_field`, `read_field`,
+`write_field` and its formatters).
 
 A field file is a FoamFile header + dimensions + internalField +
 boundaryField, ascii or `format binary` (raw little-endian float64
-List payloads), plain or gzipped. Writing fields is outside the ported
-slice.
+List payloads), plain or gzipped.
 """
 
 from __future__ import annotations
@@ -13,11 +12,13 @@ from __future__ import annotations
 import gzip
 import os
 import re
+from fractions import Fraction
 from typing import Optional
 
 import numpy as np
 
 from ..bc import factory
+from ..bc import patchfields as pf
 from ..bc.patchfields import normalize_bcs
 from ..core.dictionary import FoamDict, Word, parse_string
 from ..core.dimensions import DimensionSet
@@ -150,3 +151,139 @@ def read_field(path: str, mesh, name: Optional[str] = None) -> VolField:
     return VolField(data=internal, bcs=normalize_bcs(mesh, tuple(bcs), rank),
                     name=name, dims=dims)
 
+
+_HEADER = """/*--------------------------------*- C++ -*----------------------------------*\\
+| foamtpu_torch: finite-volume framework      | Version: 2.2.x-torch          |
+\\*---------------------------------------------------------------------------*/
+FoamFile
+{{
+    version     2.0;
+    format      {fmt};
+    class       {cls};
+    location    "{loc}";
+    object      {obj};
+}}
+// * * * * * * * * * * * * * * * * * * * * * * * * * * * * * * * * * * * * * //
+
+"""
+
+
+def _host(x) -> np.ndarray:
+    """Tensor on any device (or a number) -> float64 numpy array."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=np.float64)
+
+
+def _list_parts(arr: np.ndarray, binary: bool):
+    """`List<kind> N (payload)` as a list of str/bytes parts."""
+    kind = "scalar" if arr.ndim == 1 else "vector"
+    n = arr.shape[0]
+    if binary:
+        raw = np.ascontiguousarray(arr, dtype="<f8").tobytes()
+        return [f"List<{kind}> {n}(", raw, ")"]
+    if n > 20000:
+        # vectorised %.17g formatting (round-trips exactly like repr)
+        import io as _io
+
+        buf = _io.StringIO()
+        if arr.ndim == 1:
+            np.savetxt(buf, arr, fmt="%.17g")
+            body = buf.getvalue()
+        else:
+            np.savetxt(buf, arr, fmt="(%.17g %.17g %.17g)")
+            body = buf.getvalue()
+        return [f"List<{kind}>\n{n}\n(\n{body})"]
+    if arr.ndim == 1:
+        body = "\n".join(repr(float(x)) for x in arr)
+    else:
+        body = "\n".join(
+            "(" + " ".join(repr(float(x)) for x in row) + ")" for row in arr
+        )
+    return [f"List<{kind}>\n{n}\n(\n{body}\n)"]
+
+
+def _fmt_dims(dims: DimensionSet) -> str:
+    def fmt(x: Fraction) -> str:
+        return str(int(x)) if x.denominator == 1 else str(float(x))
+
+    return "[" + " ".join(fmt(e) for e in dims.exponents()) + "]"
+
+
+def _fmt_internal(data: np.ndarray, binary: bool = False):
+    return (["internalField   nonuniform "]
+            + _list_parts(data, binary) + [";\n"])
+
+
+def _fmt_bvalue(vals: np.ndarray, binary: bool = False):
+    if vals.ndim == 1:
+        u = np.unique(np.round(vals, 12))
+        if u.shape[0] == 1:
+            return [f"uniform {repr(float(u[0]))}"]
+    elif np.allclose(vals, vals[0:1], atol=0.0):
+        return ["uniform (" + " ".join(repr(float(x)) for x in vals[0]) + ")"]
+    return ["nonuniform "] + _list_parts(vals, binary) + ["\n"]
+
+
+def write_field(field: VolField, mesh, case_dir: str, time_name: str,
+                fmt: str = "ascii", compress: bool = False) -> str:
+    """Write in OpenFOAM format under <case>/<time>/<name>.
+    fmt: 'ascii' | 'binary' (controlDict writeFormat); compress: gzip
+    (controlDict writeCompression), both readable back by read_field,
+    by the reference package's reader and by reference tooling."""
+    data = _host(field.data)
+    binary = fmt == "binary"
+    cls = "volScalarField" if data.ndim == 1 else "volVectorField"
+    out_dir = os.path.join(case_dir, time_name)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, field.name)
+
+    parts = [_HEADER.format(fmt=fmt, cls=cls, loc=time_name, obj=field.name)]
+    parts.append(f"dimensions      {_fmt_dims(field.dims)};\n\n")
+    parts.extend(_fmt_internal(data, binary))
+    parts.append("\nboundaryField\n{\n")
+    for p, bc in zip(mesh.patches, field.bcs):
+        parts.append(f"    {p.name}\n    {{\n")
+        kind = bc.kind
+        out_type = {
+            "fixedValue": "fixedValue",
+            "zeroGradient": "zeroGradient",
+            "empty": "empty",
+            "symmetry": "symmetry",
+            "symmetryPlane": "symmetryPlane",
+            "slip": "slip",
+            "calculated": "calculated",
+            "mixed": "mixed",
+            "fixedGradient": "fixedGradient",
+            "inletOutlet": "inletOutlet",
+        }.get(kind, kind)
+        parts.append(f"        type            {out_type};\n")
+        if kind in ("fixedValue", "calculated") or kind.endswith("WallFunction"):
+            vals = _host(pf.evaluate(bc, mesh, p, field.data))
+            parts.append("        value           ")
+            parts.extend(_fmt_bvalue(vals, binary))
+            parts.append(";\n")
+        elif kind == "inletOutlet":
+            iv = np.broadcast_to(
+                _host(bc.ref_value),
+                (p.size,) if data.ndim == 1 else (p.size, 3))
+            parts.append("        inletValue      ")
+            parts.extend(_fmt_bvalue(iv, binary))
+            parts.append(";\n")
+            vals = _host(pf.evaluate(bc, mesh, p, field.data))
+            parts.append("        value           ")
+            parts.extend(_fmt_bvalue(vals, binary))
+            parts.append(";\n")
+        parts.append("    }\n")
+    parts.append("}\n")
+    blob = b"".join(
+        x if isinstance(x, bytes) else x.encode("latin-1") for x in parts
+    )
+    if compress:
+        path = path + ".gz"
+        with gzip.open(path, "wb") as f:
+            f.write(blob)
+    else:
+        with open(path, "wb") as f:
+            f.write(blob)
+    return path

@@ -1,7 +1,8 @@
 """fvm — implicit finite-volume operators returning FvMatrix (port of
-openfoam-2.2.x_tpu/ops/fvm.py: Euler and steadyState `ddt`, Gauss `div`
-with scheme weights on the slot-form flux, the Gauss `laplacian` with
-its non-orthogonal correction, and the `Sp`/`SuSp`/`Su` sources).
+openfoam-2.2.x_tpu/ops/fvm.py: the Euler, steadyState, backward and
+Crank-Nicolson `ddt`, `d2dt2`, Gauss `div` with scheme weights on the
+slot-form or the flat flux, the Gauss `laplacian` with its
+non-orthogonal correction, and the `Sp`/`SuSp`/`Su` sources).
 
 Coefficients follow the reference's assembly + negSumDiag:
   convection (face flux phi, owner weight w):
@@ -12,8 +13,8 @@ Boundary faces fold the BC linearisation into internalCoeffs (ic) and
 boundaryCoeffs (bc). A corrected laplacian on a non-orthogonal mesh
 moves the explicit correction to the source and stashes its face flux
 in `fcorr` (unless the caller defers the correction, as the pressure
-equations do). The second-order ddt schemes and coupled-interface
-(cyclicAMI/jump) laplacian terms are outside the ported slice.
+equations do). Coupled-interface (cyclicAMI/jump) laplacian terms are
+outside the ported slice.
 """
 
 from __future__ import annotations
@@ -53,35 +54,127 @@ def ddt_steady(mesh, field: VolField) -> FvMatrix:
                        dims=field.dims * dimVolume / dimTime)
 
 
-def div(mesh, phi: Any, field: VolField, phi_slot: Any,
+def d2dt2(mesh, field: VolField, old: Any, old_old: Any, rdt: Any
+          ) -> FvMatrix:
+    """Euler implicit d2/dt2 (EulerD2dt2Scheme::fvmD2dt2):
+    diag = V/dt^2, source = V/dt^2 * (2 psi0 - psi00)."""
+    m = zero_matrix(mesh, _ncmp(field),
+                    dims=field.dims * dimVolume / (dimTime * dimTime))
+    vdt2 = mesh.v * rdt * rdt
+    return m.replace_fields(
+        diag=vdt2, source=_colv(vdt2, field.data) * (2.0 * old - old_old))
+
+
+def ddt_backward(mesh, field: VolField, old: Any, old_old: Any,
+                 rdt: Any, rdt0: Any) -> FvMatrix:
+    """Second-order backward (BDF2) implicit d/dt
+    (backwardDdtScheme.C), variable-dt coefficients:
+        coefft   = 1 + dt/(dt+dt0)
+        coefft00 = dt^2 / (dt0 (dt+dt0))
+        coefft0  = coefft + coefft00
+        diag = coefft V/dt;  source = V/dt (coefft0 old - coefft00 old_old)
+    First step: dt0 is huge (rdt0 tiny, as deltaT0_ = GREAT while
+    oldTime.oldTime is unset), so coefft -> 1 and coefft00 -> 0: Euler."""
+    dt = 1.0 / rdt
+    dt0 = 1.0 / torch.clamp(_as(mesh, rdt0), min=1e-30)
+    coefft = 1.0 + dt / (dt + dt0)
+    coefft00 = dt * dt / (dt0 * (dt + dt0))
+    coefft0 = coefft + coefft00
+    m = zero_matrix(mesh, _ncmp(field), dims=field.dims * dimVolume / dimTime)
+    vdt = mesh.v * rdt
+    return m.replace_fields(
+        diag=coefft * vdt,
+        source=_colv(vdt, field.data) * (coefft0 * old - coefft00 * old_old))
+
+
+def _as(mesh, x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=mesh.v.dtype, device=mesh.device)
+
+
+def _cn_active(oc: float, rdt0: Any) -> Any:
+    """CrankNicolsonDdtScheme::coef_: the off-centre term is active only
+    AFTER the first step (ddt0 undefined at startup, so the first step
+    runs as pure Euler). rdt0 <= tiny marks startup."""
+    if rdt0 is None:
+        return oc
+    return oc * (torch.as_tensor(rdt0) > 1e-20).to(torch.as_tensor(rdt0).dtype)
+
+
+def ddt_crank_nicolson(mesh, field: VolField, old: Any, ddt0: Any,
+                       rdt: Any, oc: float = 1.0,
+                       rdt0: Any = None) -> FvMatrix:
+    """Crank-Nicolson implicit d/dt (CrankNicolsonDdtScheme, 2.2
+    convention: the dict coefficient oc in [0,1] blends Euler (0) to
+    pure CN (1)):
+        ddt(psi) = (1+oc)(psi - old)/dt - oc*ddt0
+    where ddt0 is the PREVIOUS step's ddt, updated after the solve via
+    ddt_cn_update; the caller carries ddt0 (and rdt0, the previous
+    step's 1/dt, tiny at startup) in the solver state."""
+    oc_eff = _cn_active(oc, rdt0)
+    m = zero_matrix(mesh, _ncmp(field), dims=field.dims * dimVolume / dimTime)
+    vrc = mesh.v * ((1.0 + oc_eff) * rdt)
+    return m.replace_fields(
+        diag=vrc,
+        source=(_colv(vrc, field.data) * old
+                + oc_eff * _colv(mesh.v, field.data) * ddt0))
+
+
+def ddt_cn_update(new: Any, old: Any, ddt0: Any, rdt: Any,
+                  oc: float = 1.0, rdt0: Any = None) -> Any:
+    """Advance the stored ddt0 at the END of a CN step:
+    ddt0 <- (1+oc')*rdt*(new-old) - oc'*ddt0, with oc' gated off on the
+    startup step (matching the matrix)."""
+    oc_eff = _cn_active(oc, rdt0)
+    return (1.0 + oc_eff) * rdt * (new - old) - oc_eff * ddt0
+
+
+def div(mesh, phi: Any, field: VolField, weights: Optional[Any] = None,
+        phi_dims: Optional[DimensionSet] = None, phi_slot: Any = None,
         slot_weights: Any = None) -> FvMatrix:
     """Implicit Gauss convection div(phi, psi)
-    (gaussConvectionScheme::fvmDiv) on the slot-form flux `phi_slot`:
-    the diagonal and the slot off-diagonals assemble elementwise over
-    [nC,M]. `slot_weights` = (wself [nC,M], fb_wself [nfb]) are the
-    self-side scheme weights (ops/schemes.py; default linear)."""
+    (gaussConvectionScheme::fvmDiv). `weights` are owner-side
+    interpolation weights on internal faces (ops/schemes.py; default
+    linear).
+
+    With `phi_slot` (the slot form of the flux) the diagonal and the slot
+    off-diagonals assemble elementwise over [nC,M]; `slot_weights` =
+    (wself [nC,M], fb_wself [nfb]) are the self-side scheme weights
+    (default linear). Without it the matrix is flat (upper/lower only,
+    the diagonal by negSumDiag in gather form) and the solvers build
+    their operator with stencil.mesh_stencil."""
     nif = mesh.n_internal_faces
     act = mesh.face_active
     phi_i = phi[:nif]
 
-    if slot_weights is None:
-        wself, fb_wself = mesh.st_wself, mesh.fb_wself
-        w = mesh.weights[:nif]
+    soff = sfb = None
+    if phi_slot is not None:
+        if slot_weights is None:
+            wself, fb_wself = mesh.st_wself, mesh.fb_wself
+        else:
+            wself, fb_wself = slot_weights
+        phi_out = mesh.st_sign * phi_slot.sv
+        soff = phi_out * (1.0 - wself) * mesh.st_valid
+        diag = torch.sum(phi_out * wself * mesh.st_valid, dim=1)
+        if mesh.fb_cells.shape[0]:
+            phi_ofb = mesh.fb_signs * phi_slot.fb
+            sfb = phi_ofb * (1.0 - fb_wself)
+            diag = diag.index_add(0, mesh.fb_cells, phi_ofb * fb_wself)
+        else:
+            sfb = diag.new_zeros((0,))
+        if weights is None and slot_weights is not None:
+            weights = slot_mod.to_flat_internal(
+                mesh, slot_mod.SlotFace(wself, fb_wself))
+        w = mesh.weights[:nif] if weights is None else weights
+        lower = -phi_i * w
+        upper = phi_i * (1.0 - w)
     else:
-        wself, fb_wself = slot_weights
-        w = slot_mod.to_flat_internal(mesh,
-                                      slot_mod.SlotFace(wself, fb_wself))
-    phi_out = mesh.st_sign * phi_slot.sv
-    soff = phi_out * (1.0 - wself) * mesh.st_valid
-    diag = torch.sum(phi_out * wself * mesh.st_valid, dim=1)
-    if mesh.fb_cells.shape[0]:
-        phi_ofb = mesh.fb_signs * phi_slot.fb
-        sfb = phi_ofb * (1.0 - fb_wself)
-        diag = diag.index_add(0, mesh.fb_cells, phi_ofb * fb_wself)
-    else:
-        sfb = diag.new_zeros((0,))
-    lower = -phi_i * w
-    upper = phi_i * (1.0 - w)
+        w = mesh.weights[:nif] if weights is None else weights
+        lower = -phi_i * w
+        upper = phi_i * (1.0 - w)
+        # negSumDiag in gather form: diag[own] -= lower; diag[nei] -= upper
+        own_side = torch.where(mesh.csign > 0, lower[mesh.cface_i],
+                               upper[mesh.cface_i])
+        diag = -torch.sum(own_side * mesh.cnbr_valid, dim=1)
 
     # boundary: term phi_b * (vic*psi_c + vbc)
     ics, bcs = [], []
@@ -94,7 +187,7 @@ def div(mesh, phi: Any, field: VolField, phi_slot: Any,
     ic = torch.cat(ics, dim=0)
     bcc = torch.cat(bcs, dim=0)
 
-    dims = dimFlux * field.dims
+    dims = (phi_dims or dimFlux) * field.dims
     src = diag.new_zeros(tuple(field.data.shape))
     return FvMatrix(diag=diag, lower=lower, upper=upper, source=src, ic=ic,
                     bc=bcc, soff=soff, sfb=sfb, dims=dims, symmetric=False)

@@ -1,19 +1,42 @@
-"""Case-reading helpers of the solver applications (port of
-openfoam-2.2.x_tpu/solvers/apps.py: `_load_turbulence`, `_relaxation`,
-`_residual_control`, and `_piso_config`, the PisoConfig that the
-reference's `_run_piso` builds for icoFoam/pisoFoam). The applications
-themselves (time loop, logging, field output) are outside the ported
-slice, as are MRF zones, fvOptions and non-Newtonian viscosity.
+"""Solver applications: case-driven host loops (port of
+openfoam-2.2.x_tpu/solvers/apps.py).
+
+Each application reads its config from the case dictionaries, builds the
+step, runs the Time loop with reference-format logging, writes
+OpenFOAM-format output at write times and leaves the last state in
+`case.final_state`. Ported: icoFoam, pisoFoam, pimpleFoam, simpleFoam
+and interFoam (with LTSInterFoam's `lts=True`); `run(case)` picks among
+them by controlDict's `application`.
+
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.solvers.apps import run
+    run(Case(case_dir))              # on the card; Case(d, device="cpu")
+
+MRF zones, fvOptions, function objects, non-Newtonian viscosity and the
+moving-mesh interDyMFoam are outside the ported slice: a case that asks
+for one raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Optional
 
-from ..core.dictionary import FoamDict, parse_file
+import numpy as np
+import torch
+
+from ..core.dictionary import FoamDict, dimensioned_scalar, parse_file
 from ..models.turbulence import base as turb_mod
+from ..utils import logging as log
 from . import piso as piso_mod
+from . import simple as simple_mod
+from .linear.krylov import SolverPerf
+
+_TRUE = ("yes", "true", "on", "1")
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported to foamtpu_torch yet")
 
 
 def _load_turbulence(case, nu: float, compressible: bool = False):
@@ -45,6 +68,32 @@ def _load_turbulence(case, nu: float, compressible: bool = False):
     return model, tstate
 
 
+def _load_mrf(case):
+    """None for a case without rotating zones; constant/MRFZones or
+    constant/SRFProperties raise (models/mrf.py is not ported)."""
+    for name in ("MRFZones", "SRFProperties"):
+        if os.path.exists(case.const_path(name)):
+            _not_ported(f"constant/{name} (MRF zones)")
+    return None
+
+
+def _load_fvoptions(case, nu: float):
+    """None for a case without system/fvOptions; the file raises
+    (models/fvoptions.py is not ported)."""
+    for path in (case.sys_path("fvOptions"), case.const_path("fvOptions")):
+        if os.path.exists(path):
+            _not_ported("system/fvOptions (fvOptions)")
+    return None
+
+
+def _check_function_objects(case) -> None:
+    """A controlDict with a non-empty `functions` block raises (function
+    objects are not ported)."""
+    fn = case.control_dict.get("functions")
+    if fn is not None and len(fn) > 0:
+        _not_ported("controlDict functions (function objects)")
+
+
 def _piso_config(case, nu: float, model=None) -> piso_mod.PisoConfig:
     """The PisoConfig of an icoFoam/pisoFoam case: the PISO dict, the
     schemes, the p/U solver controls and, with a turbulence model, the
@@ -59,8 +108,8 @@ def _piso_config(case, nu: float, model=None) -> piso_mod.PisoConfig:
         nu=nu,
         n_correctors=int(pdict.get("nCorrectors", 2)),
         n_non_orth=int(pdict.get("nNonOrthogonalCorrectors", 0)),
-        momentum_predictor=str(pdict.get("momentumPredictor", "yes")) in (
-            "yes", "true", "on", "1"),
+        momentum_predictor=str(
+            pdict.get("momentumPredictor", "yes")) in _TRUE,
         corrected=case.laplacian_corrected(),
         div_scheme=case.div_scheme("div(phi,U)"),
         ddt_scheme=case.ddt_scheme(),
@@ -71,6 +120,8 @@ def _piso_config(case, nu: float, model=None) -> piso_mod.PisoConfig:
         u_controls=case.solver_controls("U"),
         turb=model,
         turb_controls=turb_ctl,
+        fv_options=_load_fvoptions(case, nu),
+        mrf=_load_mrf(case),
     )
 
 
@@ -94,3 +145,342 @@ def _residual_control(case, name="SIMPLE") -> Dict[str, float]:
         return {str(k): float(v) for k, v in d.items()
                 if isinstance(v, (int, float))}
     return {}
+
+
+def _log_step(case, t, diag, cumulative, extra_fields=()):
+    log.info(f"Time = {t.name}\n")
+    if "courant_mean" in diag:
+        log.info(log.courant_line(float(diag["courant_mean"]),
+                                  float(diag["courant_max"])))
+    if diag.get("Ux") is not None:
+        log.info(log.solver_line("U", diag["Ux"]))
+    if "p_initial" in diag:
+        log.info(log.solver_line("p", SolverPerf(
+            diag["p_initial"], diag["p_final"], diag["p_iters"])))
+    for name in extra_fields:
+        perf = diag.get(f"turb_{name}")
+        if perf is not None:
+            log.info(log.solver_line(name, perf))
+    if "continuity" in diag:
+        dtv = getattr(t, "current_dt", 1.0)
+        local = float(diag["continuity"]) * dtv
+        glob = float(diag.get("continuity_global", 0.0)) * dtv
+        cumulative += glob
+        log.info(log.continuity_line(local, glob, cumulative))
+    log.info(f"ExecutionTime = {t.execution_time():.2f} s"
+             f"  ClockTime = {t.clock_time():.0f} s\n")
+    # runTimeModifiable: pick up controlDict edits between steps
+    if t.read_if_modified():
+        log.info("regIOobject::readIfModified() : "
+                 "Re-reading object controlDict\n")
+    return cumulative
+
+
+def _write_state(case, state):
+    fields = [state["U"], state["p"]]
+    if "turb" in state and state["turb"]:
+        fields += list(state["turb"].values())
+    case.write_fields(fields)
+
+
+def _time_loop(case, step, state, max_steps, extra):
+    """The transient applications' loop: step, log, adjust deltaT, write
+    at write times and once more at the end."""
+    cumulative = 0.0
+    for t in case.time.loop():
+        state, diag = step(state, t.current_dt)
+        cumulative = _log_step(case, t, diag, cumulative, extra)
+        t.adjust_delta_t(float(diag["courant_max"]))
+        if t.write_time():
+            _write_state(case, state)
+            log.info(f"Writing fields at time {t.name}\n")
+        if max_steps is not None and t.index >= max_steps:
+            break
+    _write_state(case, state)
+    log.info("End\n")
+    case.final_state = state
+
+
+# ---------------------------------------------------------------------------
+# transient PISO family
+# ---------------------------------------------------------------------------
+
+
+def _run_piso(case, max_steps, with_turbulence: bool) -> None:
+    _check_function_objects(case)
+    mesh = case.mesh
+    _, nu = dimensioned_scalar(case.transport_properties()["nu"])
+    U = case.read_field("U")
+    p = case.read_field("p")
+    model = tstate = None
+    if with_turbulence:
+        model, tstate = _load_turbulence(case, nu)
+    cfg = _piso_config(case, nu, model)
+    step = piso_mod.make_step(mesh, cfg)
+    state = piso_mod.initial_state(mesh, U, p, turb_state=tstate,
+                                   ddt_scheme=cfg.ddt_scheme)
+    extra = model.field_names[:-1] if model else ()
+    log.info(f"Starting time loop: {case.application}, {mesh.n_cells} cells\n")
+    _time_loop(case, step, state, max_steps, extra)
+
+
+def icofoam(case, max_steps: Optional[int] = None) -> None:
+    """icoFoam (incompressible/icoFoam/icoFoam.C)."""
+    _run_piso(case, max_steps, with_turbulence=False)
+
+
+def pisofoam(case, max_steps: Optional[int] = None) -> None:
+    """pisoFoam: PISO + turbulence model (incompressible/pisoFoam)."""
+    _run_piso(case, max_steps, with_turbulence=True)
+
+
+def _pimple_config(case, nu: float, model=None):
+    """The PimpleConfig of a pimpleFoam case: the PIMPLE dict, the
+    relaxation factors, the schemes and the p/pFinal/U/k controls."""
+    from . import pimple as pimple_mod
+
+    pdict = case.pimple_controls("PIMPLE")
+    relax = _relaxation(case)
+    turb_ctl = None
+    try:
+        turb_ctl = case.solver_controls("k")
+    except KeyError:
+        pass
+    try:
+        p_final = case.solver_controls("pFinal")
+    except KeyError:
+        p_final = None
+    return pimple_mod.PimpleConfig(
+        nu=nu,
+        n_outer=int(pdict.get("nOuterCorrectors", 1)),
+        n_correctors=int(pdict.get("nCorrectors", 2)),
+        n_non_orth=int(pdict.get("nNonOrthogonalCorrectors", 0)),
+        momentum_predictor=str(
+            pdict.get("momentumPredictor", "yes")) in _TRUE,
+        corrected=case.laplacian_corrected(),
+        div_scheme=case.div_scheme("div(phi,U)"),
+        ddt_scheme=case.ddt_scheme(),
+        grad_scheme=case.grad_scheme("grad(p)"),
+        p_ref_cell=int(pdict.get("pRefCell", 0)),
+        p_ref_value=float(pdict.get("pRefValue", 0.0)),
+        alpha_u=relax.get("U", 1.0),
+        alpha_p=relax.get("p", 1.0),
+        p_controls=case.solver_controls("p"),
+        p_controls_final=p_final,
+        u_controls=case.solver_controls("U"),
+        turb=model,
+        turb_controls=turb_ctl,
+        turb_on_final_only=str(
+            pdict.get("turbOnFinalIterOnly", "yes")) in _TRUE,
+        fv_options=_load_fvoptions(case, nu),
+        mrf=_load_mrf(case),
+    )
+
+
+def pimplefoam(case, max_steps: Optional[int] = None) -> None:
+    """pimpleFoam: merged PISO-SIMPLE with nOuterCorrectors outer
+    iterations, inter-iteration relaxation and final-iteration semantics
+    (incompressible/pimpleFoam + pimpleControl). nOuterCorrectors=1
+    reduces to PISO."""
+    from . import pimple as pimple_mod
+
+    _check_function_objects(case)
+    mesh = case.mesh
+    _, nu = dimensioned_scalar(case.transport_properties()["nu"])
+    U = case.read_field("U")
+    p = case.read_field("p")
+    model, tstate = _load_turbulence(case, nu)
+    cfg = _pimple_config(case, nu, model)
+    step = pimple_mod.make_step(mesh, cfg)
+    state = piso_mod.initial_state(mesh, U, p, turb_state=tstate,
+                                   ddt_scheme=cfg.ddt_scheme)
+    extra = model.field_names[:-1] if model else ()
+    log.info(f"Starting time loop: pimpleFoam, {mesh.n_cells} cells\n")
+    _time_loop(case, step, state, max_steps, extra)
+
+
+# ---------------------------------------------------------------------------
+# steady SIMPLE
+# ---------------------------------------------------------------------------
+
+
+def _simple_config(case, nu: float, model=None) -> simple_mod.SimpleConfig:
+    """The SimpleConfig of a simpleFoam case: the SIMPLE dict, the
+    relaxation factors, the schemes and the p/U/k controls."""
+    sdict = case.pimple_controls("SIMPLE")
+    relax = _relaxation(case)
+    turb_ctl = None
+    try:
+        turb_ctl = case.solver_controls("k")
+    except KeyError:
+        pass
+    return simple_mod.SimpleConfig(
+        nu=nu,
+        n_non_orth=int(sdict.get("nNonOrthogonalCorrectors", 0)),
+        corrected=case.laplacian_corrected(),
+        div_scheme=case.div_scheme("div(phi,U)"),
+        grad_scheme=case.grad_scheme("grad(p)"),
+        p_ref_cell=int(sdict.get("pRefCell", 0)),
+        p_ref_value=float(sdict.get("pRefValue", 0.0)),
+        alpha_u=relax.get("U", 0.7),
+        alpha_p=relax.get("p", 0.3),
+        p_controls=case.solver_controls("p"),
+        u_controls=case.solver_controls("U"),
+        turb=model,
+        turb_controls=turb_ctl,
+        turb_relax=relax.get("k", relax.get("epsilon", 0.7)),
+        fv_options=_load_fvoptions(case, nu),
+        mrf=_load_mrf(case),
+    )
+
+
+def simplefoam(case, max_steps: Optional[int] = None) -> None:
+    """simpleFoam (incompressible/simpleFoam): chunks of FOAMTPU_CHUNK
+    iterations (default 10) between log lines, stopped by
+    residualControl."""
+    _check_function_objects(case)
+    mesh = case.mesh
+    _, nu = dimensioned_scalar(case.transport_properties()["nu"])
+    U = case.read_field("U")
+    p = case.read_field("p")
+    model, tstate = _load_turbulence(case, nu)
+    cfg = _simple_config(case, nu, model)
+    chunk_n = int(os.environ.get("FOAMTPU_CHUNK", "10"))
+    chunk = simple_mod.make_chunk(mesh, cfg, chunk_n)
+    state = piso_mod.initial_state(mesh, U, p, turb_state=tstate)
+    res_ctl = _residual_control(case, "SIMPLE")
+
+    extra = model.field_names[:-1] if model else ()
+    log.info(f"Starting SIMPLE loop: simpleFoam, {mesh.n_cells} cells\n")
+    cumulative = 0.0
+    t = case.time
+    max_iter = max(int(round((t.end_time - t.start_time) / t.delta_t)), 1)
+    if max_steps is not None:
+        max_iter = min(max_iter, max_steps)
+    while (t.index < max_iter and not t.stop_now
+           and t.value < t.end_time - 1e-12):
+        state, diag = chunk(state)
+        t.index += chunk_n
+        t.value = t.start_time + t.index * t.delta_t
+        t.current_dt = t.delta_t
+        cumulative = _log_step(case, t, diag, cumulative, extra)
+        if t.write_time():
+            _write_state(case, state)
+        if simple_mod.converged(diag, res_ctl):
+            log.info(f"SIMPLE solution converged in {t.index} iterations\n")
+            break
+    _write_state(case, state)
+    log.info("End\n")
+    case.final_state = state
+
+
+# ---------------------------------------------------------------------------
+# interFoam
+# ---------------------------------------------------------------------------
+
+
+def _inter_config(case, lts: bool = False):
+    """The InterConfig of an interFoam case: the two phases (2.2 layout:
+    phase1 { nu; rho; } phase2 { ... } sigma), constant/g, the PIMPLE
+    dict and the p_rgh/U controls. As in the reference, the PIMPLE
+    dict's momentumPredictor is not read (the step always solves the
+    momentum predictor), and the U controls are taken when any solvers
+    key mentions U (damBreak's "(U|alpha1)")."""
+    from . import interfoam as inter_mod
+
+    tp = case.transport_properties()
+
+    def phase(name):
+        ph = tp.get(name, tp)
+        _, nu_v = dimensioned_scalar(ph["nu"])
+        _, rho_v = dimensioned_scalar(ph["rho"])
+        return nu_v, rho_v
+
+    nu1, rho1 = phase("phase1")
+    nu2, rho2 = phase("phase2")
+    _, sigma = dimensioned_scalar(tp.get("sigma", 0.0))
+    g_vec = (0.0, -9.81, 0.0)
+    g_path = case.const_path("g")
+    if os.path.exists(g_path):
+        val = parse_file(g_path).get("value")
+        if val is not None:
+            g_vec = tuple(float(x) for x in np.asarray(val).reshape(3))
+    pdict = case.pimple_controls("PIMPLE")
+    return inter_mod.InterConfig(
+        lts=lts,
+        lts_max_co=float(case.control_dict.get("maxCo", 0.5)),
+        lts_max_dt=float(case.control_dict.get("maxDeltaT", 1e6)),
+        rho1=rho1, rho2=rho2, nu1=nu1, nu2=nu2, sigma=sigma, g=g_vec,
+        c_alpha=float(pdict.get("cAlpha", 1.0)),
+        n_alpha_subcycles=int(pdict.get("nAlphaSubCycles", 1)),
+        n_correctors=int(pdict.get("nCorrectors", 3)),
+        n_non_orth=int(pdict.get("nNonOrthogonalCorrectors", 0)),
+        p_controls=case.solver_controls("p_rgh"),
+        u_controls=case.solver_controls("U") if "U" in str(
+            case.fv_solution.get("solvers", {})) else None,
+        fv_options=_load_fvoptions(case, min(nu1, nu2)),
+        mrf=_load_mrf(case),
+    )
+
+
+def interfoam_app(case, max_steps: Optional[int] = None,
+                  lts: bool = False, dym: bool = False) -> None:
+    """interFoam from case files (multiphase/interFoam); lts=True is
+    LTSInterFoam. dym=True (interDyMFoam) is not ported."""
+    from . import interfoam as inter_mod
+
+    if dym:
+        _not_ported("interDyMFoam (dym=True, mesh/moving.py)")
+    _check_function_objects(case)
+    mesh = case.mesh
+    cfg = _inter_config(case, lts=lts)
+    U = case.read_field("U")
+    alpha = None
+    for nm in ("alpha1", "alpha.water", "alpha"):
+        if os.path.exists(os.path.join(case.dir, "0", nm)):
+            alpha = case.read_field(nm)
+            break
+    p_rgh = case.read_field("p_rgh")
+    step = inter_mod.make_step(mesh, cfg)
+    state = inter_mod.initial_state(mesh, U, p_rgh, alpha, cfg)
+
+    def fields(state):
+        return [state["U"], state["p_rgh"], state["alpha"]]
+
+    log.info(f"Starting time loop: interFoam, {mesh.n_cells} cells\n")
+    for t in case.time.loop():
+        state, diag = step(state, t.current_dt)
+        log.info(f"Time = {t.name}")
+        log.info(f"Phase-1 volume fraction: min = "
+                 f"{float(diag['alpha_min']):.6g} max = "
+                 f"{float(diag['alpha_max']):.6g}")
+        log.info(log.solver_line("p_rgh", SolverPerf(
+            diag["p_initial"], diag["p_final"], diag["p_iters"])) + "\n")
+        t.adjust_delta_t(float(diag["courant_max"]))
+        if t.write_time():
+            case.write_fields(fields(state))
+        if max_steps is not None and t.index >= max_steps:
+            break
+    case.write_fields(fields(state))
+    case.final_state = state
+    log.info("End\n")
+
+
+APPLICATIONS = {
+    "icoFoam": icofoam,
+    "pisoFoam": pisofoam,
+    "pimpleFoam": pimplefoam,
+    "simpleFoam": simplefoam,
+    "interFoam": interfoam_app,
+}
+
+
+def run(case, max_steps: Optional[int] = None):
+    """Run the application that the case's controlDict names; returns the
+    case, with the last state in `case.final_state`."""
+    fn = APPLICATIONS.get(case.application)
+    if fn is None:
+        _not_ported(f"application {case.application!r} (ported: "
+                    f"{sorted(APPLICATIONS)})")
+    fn(case, max_steps=max_steps)
+    return case

@@ -12,9 +12,10 @@ openfoam-2.2.x_tpu/solvers/piso.py).
 The reference traces one step into one XLA program and scans a chunk of
 steps; here a step is eager torch and a chunk is a plain loop. The
 slice covers icoFoam and pisoFoam (a turbulence model in
-PisoConfig.turb) with Euler ddt, any ported div(phi,U) scheme and an
-orthogonal (or uncorrected) pressure laplacian. Every other PisoConfig
-feature raises NotImplementedError naming it.
+PisoConfig.turb) with the Euler, backward, CrankNicolson and steadyState
+ddt schemes, any ported div(phi,U) scheme and an orthogonal (or
+uncorrected) pressure laplacian. Every other PisoConfig feature raises
+NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -54,6 +55,46 @@ class PisoConfig(NamedTuple):
     mrf: Any = None
 
 
+def ddt_matrix(mesh, field, state: Dict, rdt, scheme: str,
+               key: str = "U") -> Any:
+    """fvm ddt dispatch on the fvSchemes keyword (fv::ddtScheme::New).
+    State layout per scheme (set up by initial_state): Euler: {key}0;
+    backward: {key}0, {key}00, rdt0; CrankNicolson <oc>: {key}0,
+    ddt0_{key}, rdt0."""
+    toks = scheme.split()
+    old = state.get(f"{key}0", field.data)
+    if toks[0] == "Euler":
+        return fvm.ddt(mesh, field, old, rdt)
+    if toks[0] == "backward":
+        return fvm.ddt_backward(
+            mesh, field, old, state.get(f"{key}00", old),
+            rdt, state.get("rdt0", rdt))
+    if toks[0] == "CrankNicolson":
+        oc = float(toks[1]) if len(toks) > 1 else 1.0
+        return fvm.ddt_crank_nicolson(
+            mesh, field, old, state[f"ddt0_{key}"], rdt, oc,
+            rdt0=state.get("rdt0"))
+    if toks[0] == "steadyState":
+        return fvm.ddt_steady(mesh, field)
+    raise ValueError(f"unknown ddtScheme {scheme!r}")
+
+
+def advance_time_state(state: Dict, new_state: Dict, U, rdt,
+                       scheme: str) -> None:
+    """Update the old-time entries in new_state after a completed step."""
+    toks = scheme.split()
+    new_state["U0"] = U.data
+    if toks[0] == "backward":
+        new_state["U00"] = state.get("U0", U.data)
+        new_state["rdt0"] = rdt
+    elif toks[0] == "CrankNicolson":
+        oc = float(toks[1]) if len(toks) > 1 else 1.0
+        new_state["ddt0_U"] = fvm.ddt_cn_update(
+            U.data, state.get("U0", U.data), state["ddt0_U"], rdt, oc,
+            rdt0=state.get("rdt0"))
+        new_state["rdt0"] = rdt
+
+
 def _default_controls():
     return (
         {"solver": "PCG", "preconditioner": "diagonal",
@@ -63,16 +104,15 @@ def _default_controls():
     )
 
 
-def check_supported(mesh, state: Dict, cfg: PisoConfig) -> None:
-    """Raise NotImplementedError for any feature outside the slice."""
+def check_supported(mesh, state: Dict, cfg) -> None:
+    """Raise NotImplementedError for any feature of a PisoConfig or
+    PimpleConfig outside the slice."""
     def no(what):
         raise NotImplementedError(f"{what} is not ported to foamtpu_torch yet")
 
     for name in ("nu_fn", "fv_options", "mrf"):
         if getattr(cfg, name):
-            no(f"PisoConfig.{name}")
-    if cfg.ddt_scheme.split()[0] != "Euler":
-        no(f"ddt_scheme {cfg.ddt_scheme!r}")
+            no(f"{type(cfg).__name__}.{name}")
     if cfg.corrected and not getattr(mesh, "orthogonal", False):
         no("corrected=True on a non-orthogonal mesh")
     if "mom_src" in state:
@@ -136,7 +176,7 @@ def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
     # -- momentum equation (laminar diffusion or turbulence divDevReff) ----
     w_slot = (None if cfg.div_scheme == "linear" else
               schemes.weights_slot(mesh, phi_slot, cfg.div_scheme, U))
-    UEqn = (fvm.ddt(mesh, U, state.get("U0", U.data), rdt)
+    UEqn = (ddt_matrix(mesh, U, state, rdt, cfg.ddt_scheme)
             + fvm.div(mesh, phi, U, phi_slot=phi_slot, slot_weights=w_slot))
     if cfg.turb is not None:
         visc_mat, visc_expl = cfg.turb.div_dev_reff(mesh, state["turb"], U)
@@ -235,8 +275,9 @@ def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
         / (2.0 * vol)) * dt
 
     new_state = dict(state)
-    new_state.update(U=U, p=p, phi=phi, U0=U.data,
+    new_state.update(U=U, p=p, phi=phi,
                      phi_slot=(phi_slot.sv, phi_slot.fb))
+    advance_time_state(state, new_state, U, rdt, cfg.ddt_scheme)
     if new_turb is not None:
         new_state["turb"] = new_turb
     return new_state, diag
@@ -292,16 +333,23 @@ def initial_state(mesh, U: VolField, p: VolField,
                   turb_state: Optional[Dict] = None, project: bool = True,
                   ddt_scheme: str = "Euler") -> Dict:
     """Initial solver state: the (projected) flux of U in flat and slot
-    form, plus the turbulence fields when a model is used."""
-    if ddt_scheme.split()[0] != "Euler":
-        raise NotImplementedError(
-            f"ddt_scheme {ddt_scheme!r} is not ported to foamtpu_torch yet")
+    form, the old-time entries of the ddt scheme, plus the turbulence
+    fields when a model is used."""
     phi = fvc.flux(mesh, U)
     if project:
         phi = project_initial_flux(mesh, p, phi)
     sl = slot_mod.from_flat(mesh, phi)
     st = {"U": U, "p": p, "phi": phi, "U0": U.data,
           "phi_slot": (sl.sv, sl.fb)}
+    toks = ddt_scheme.split()
+    if toks[0] == "backward":
+        # deltaT0_ = GREAT until oldTime.oldTime exists: the first step
+        # degenerates to Euler
+        st["U00"] = U.data
+        st["rdt0"] = _as_scalar(mesh, 1e-30)
+    elif toks[0] == "CrankNicolson":
+        st["ddt0_U"] = torch.zeros_like(U.data)
+        st["rdt0"] = _as_scalar(mesh, 1e-30)
     if turb_state is not None:
         st["turb"] = turb_state
     return st

@@ -139,10 +139,19 @@ def test_piso_config_from_the_tutorial(tmp_path):
 def test_port_rejects_ddt_schemes_outside_slice(tmp_path):
     tc = TCase(ras_case(tmp_path), device="cpu")
     _, nu = dimensioned_scalar(tc.transport_properties()["nu"])
+    # CrankNicolson and backward are ported since the PIMPLE slice: their
+    # history entries are set up; what is no ddtScheme is still refused
     cfg = _piso_config(tc, nu)._replace(ddt_scheme="CrankNicolson 0.9")
-    with pytest.raises(NotImplementedError, match="CrankNicolson"):
-        piso.initial_state(tc.mesh, tc.read_field("U"), tc.read_field("p"),
-                           ddt_scheme=cfg.ddt_scheme)
+    st = piso.initial_state(tc.mesh, tc.read_field("U"), tc.read_field("p"),
+                            ddt_scheme=cfg.ddt_scheme)
+    assert float(st["ddt0_U"].abs().max()) == 0.0
+    assert float(st["rdt0"]) == pytest.approx(1e-30)
+    st = piso.initial_state(tc.mesh, tc.read_field("U"), tc.read_field("p"),
+                            ddt_scheme="backward")
+    assert torch.equal(st["U00"], st["U0"])
+    with pytest.raises(ValueError, match="localEuler"):
+        piso.piso_step(tc.mesh, st, 1e-3,
+                       cfg._replace(ddt_scheme="localEuler"))
 
 
 def test_cavity_ras_goldens_come_from_the_reference(tmp_path):
