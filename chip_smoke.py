@@ -65,6 +65,21 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      the application, three timed 10-step chunks of the application's
      step, one 3-step chunk under torch.profiler, the invariants, and the
      SpMV kernel held to its plain version and timed at the p_rgh operand.
+ 13. basic: nonNewtonianIcoFoam (crossCavity, 50 steps), laplacianFoam
+     (heatedBlock), scalarTransportFoam (pulse, after setFields) and
+     potentialFoam (channel) from their unmodified tutorials through
+     run(case), held to goldens from the JAX package and to their
+     invariants (nu inside [nuInf, nu0], T between its boundary values, T
+     bounded and conserved, div(phi) ~ 0 and U = (1 0 0)).
+ 14. cross_headline: crossCavity at 400^2 with a functions block (forces,
+     probes, fieldMinMax, fieldValues) through the application's loop:
+     three 10-step chunks with the function objects and three without,
+     in turns, the host time of fol.execute per step and per object, its
+     fetches, one profiled chunk; no object may fail, each writes its rows.
+ 15. heated_1m: heatedBlock at 1024^2 (1,048,576 cells): one step through
+     run(case), ten of the application's step timed with their T
+     iterations, one profiled chunk, and the SpMV kernel held to its
+     plain version and timed at the T operand.
 Every timed SpMV shape (kernel, plain version, one CSR product from
 torch.sparse as the library yardstick) gets its device time per call
 from torch.profiler, back to back with the operands warm in L2 and
@@ -85,8 +100,10 @@ it; without either it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -185,6 +202,85 @@ DAMBREAK_BIG_N = 736          # 541,696 cells, 16x the tutorial per side
 DAMBREAK_BIG_DT = 6.25e-05    # the tutorial's 0.001 / 16: the same Courant
 DAMBREAK_BIG_CHUNK = 10
 DAMBREAK_BIG_WARMUP = 2
+
+# The basic phase: each tutorial as shipped, from its case files through
+# run(case), for `steps` steps (the whole run but for crossCavity, 50 of
+# its 200).
+BASIC_CASES = {
+    "nonNewtonianIcoFoam": (os.path.join(
+        "tutorials", "incompressible", "nonNewtonianIcoFoam", "crossCavity"),
+        50),
+    "laplacianFoam": (os.path.join(
+        "tutorials", "basic", "laplacianFoam", "heatedBlock"), 100),
+    "scalarTransportFoam": (os.path.join(
+        "tutorials", "basic", "scalarTransportFoam", "pulse"), 100),
+    "potentialFoam": (os.path.join(
+        "tutorials", "basic", "potentialFoam", "channel"), 1),
+}
+BASIC_COLS = (1, 5, 10, 14, 18)    # crossCavity: cells along its centre rows
+HEATED_COLS = (0, 1, 2, 3)    # heatedBlock: the heat reaches ~1 cm in 0.5 s
+# the least magnitude each golden's error is taken relative to: the lid
+# velocity's 1e-2, 0.1 K of heatedBlock's rise
+BASIC_FLOOR = {"ucl": 1e-2, "rise_row": 0.1}
+# tests/test_torch_basic.py::reference_basic: the JAX package's blockMesh,
+# setFields and application on the CPU in float32, the steps above. Held
+# at 1e-3 relative (tests/test_torch_basic.py: the CPU port is within
+# 4e-5 of them).
+BASIC_GOLDEN = {
+    "nonNewtonianIcoFoam": {
+        "ke": 0.0001863329836508016,
+        "u_max": 0.06779012829065323,
+        "ucl": [-0.0009118674206547439, -0.002317975740879774,
+                -0.004981556674465537, -0.007363141747191548,
+                0.0037270241882652044],
+        "nu_min": 5.93498807575088e-05,
+        "nu_max": 0.009989469312131405,
+    },
+    "laplacianFoam": {
+        "rise_mean": 4.569947814941406,
+        "rise_row": [64.50039672851562, 20.8099365234375,
+                     4.97894287109375, 0.941131591796875],
+    },
+    "scalarTransportFoam": {
+        "t_max": 0.9584218263626099,
+        "t_sum": 10.000032159113136,
+        "t_centroid": 0.5999556363207048,
+    },
+    "potentialFoam": {
+        "ux_mean": 0.99995709836483,
+        "ux_min": 0.999934196472168,
+        "ux_max": 1.0000028610229492,
+    },
+}
+# crossCavity at 400^2 (160,000 cells, the headline's width), deltaT cut
+# by the refinement (20x) so the Courant number is the tutorial's, p on
+# bench.py's GAMG controls (the tutorial's PCG, polynomial, stops at its
+# 1,000-iteration cap in every solve at this width: 995 iterations, 1.6
+# s/step, continuity 2e-3), with a functions block of the four most used
+# types
+CROSS_N = 400
+CROSS_DT = 0.0005 / 20
+CROSS_CHUNK = 10
+CROSS_FUNCS = """
+functions
+{
+    lidForces { type forces; patches ( movingWall ); rhoInf 1; }
+    probes1
+    {
+        type probes;
+        probeLocations ( (0.025 0.025 0.005) (0.05 0.05 0.005)
+                         (0.075 0.075 0.005) );
+        fields ( p U );
+    }
+    minMax { type fieldMinMax; fields ( U p ); }
+    pAverage { type fieldValues; source all; operation volAverage;
+               fields ( p ); }
+}
+"""
+# heatedBlock at 1024^2 (1,048,576 cells), the tutorial's deltaT and
+# controls (PCG, polynomial, tolerance 1e-9, maxIter 500)
+HEATED_N = 1024
+HEATED_STEPS = 10
 
 SPMV_SHAPES = {"n1024": (1024, (1, -1, 16, -16)),
                "n5000": (5000, (1, -1, 128, -128, 3000, -3000)),
@@ -434,20 +530,25 @@ class SolveLog:
 
     def __init__(self, state, fence=False, ranges=False):
         from foamtpu_torch.core.dimensions import (dimDensity, dimFlux,
-                                                   dimLength, dimTime)
+                                                   dimLength, dimTime,
+                                                   dimVolume)
 
         if "p_rgh" in state:
             # interFoam: the momentum equation carries rho
             self.names = {
                 dimDensity * dimFlux * state["U"].dims: "U",
                 dimTime * state["p_rgh"].dims * dimLength: "p"}
-        else:
+        elif "p" in state:
             self.names = {dimFlux * state["U"].dims: "U",
                           dimTime * state["p"].dims * dimLength: "p"}
+        else:
+            # laplacianFoam / scalarTransportFoam: one T equation
+            self.names = {state["T"].dims * dimVolume / dimTime: "T"}
         transported = [k for k in state.get("turb", {}) if k != "nut"]
         for name in transported:
             self.names[dimFlux * state["turb"][name].dims] = name
-        check(len(self.names) == 2 + len(transported),
+        check(len(self.names) == (1 if "T" in state else 2)
+              + len(transported),
               f"equation dimensions collide: {self.names}")
         self.fence, self.ranges = fence, ranges
         self.calls = dict.fromkeys(self.names.values(), 0)
@@ -979,6 +1080,8 @@ def _dev_time(e, attr):
 
 
 def solver_iterations(diag):
+    if "p_iters" not in diag:       # the basic solvers: one T solve
+        return {"T": int(diag["T"].n_iterations)}
     out = {"p": int(diag["p_iters"]), "U": int(diag["Ux"].n_iterations)}
     out.update({k[len("turb_"):]: int(v.n_iterations)
                 for k, v in diag.items() if k.startswith("turb_")})
@@ -1791,6 +1894,424 @@ def phase_dambreak(spmv, here, root, flush):
     return out, max_err, timings
 
 
+def solve_iterations(log):
+    """{field: [iterations of each solve]} from an application's log
+    lines ("Solving for <field>, ... No Iterations <n>")."""
+    out = {}
+    for m in re.finditer(r"Solving for (\w+),.*No Iterations (\d+)", log):
+        out.setdefault(m.group(1), []).append(int(m.group(2)))
+    return out
+
+
+def basic_case(here, app, root, cli, device=()):
+    """A copy of the app's tutorial under root, meshed by `cli` (the
+    port's command line or the JAX package's), with setFields where the
+    tutorial has a setFieldsDict. Returns the copy's path."""
+    dst = os.path.join(root, app)
+    shutil.copytree(os.path.join(here, BASIC_CASES[app][0]), dst)
+    with quiet():
+        check(cli(["blockMesh", "-case", dst]) == 0, "blockMesh failed")
+        if os.path.exists(os.path.join(dst, "system", "setFieldsDict")):
+            check(cli(["setFields", "-case", dst, *device]) == 0,
+                  "setFields failed")
+    return dst
+
+
+def basic_scalars(app, a):
+    """The golden scalars of a basic tutorial's final state, from numpy
+    arrays `a` (U, p, T and, for crossCavity, nu)."""
+    if app == "nonNewtonianIcoFoam":
+        u = np.asarray(a["U"], np.float64).reshape(20, 20, 3)
+        ucl = 0.5 * (u[9, :, 0] + u[10, :, 0])
+        return {"ke": float(np.mean(np.sum(u ** 2, axis=-1))),
+                "u_max": float(np.abs(u).max()),
+                "ucl": [float(ucl[i]) for i in BASIC_COLS],
+                "nu_min": float(np.min(a["nu"])),
+                "nu_max": float(np.max(a["nu"]))}
+    if app == "laplacianFoam":
+        # the rise above the cold wall's 273 K along the mid-height line
+        # (blockMesh orders the cells y-fastest: t[x index, y index])
+        t = np.asarray(a["T"], np.float64).reshape(20, 20) - 273.0
+        row = 0.5 * (t[:, 9] + t[:, 10])
+        return {"rise_mean": float(np.mean(t)),
+                "rise_row": [float(row[i]) for i in HEATED_COLS]}
+    if app == "scalarTransportFoam":
+        t = np.asarray(a["T"], np.float64)
+        x = (np.arange(t.shape[0]) + 0.5) / t.shape[0]
+        return {"t_max": float(t.max()), "t_sum": float(t.sum()),
+                "t_centroid": float(np.sum(t * x) / np.sum(t))}
+    u = np.asarray(a["U"], np.float64)
+    return {"ux_mean": float(u[:, 0].mean()), "ux_min": float(u[:, 0].min()),
+            "ux_max": float(u[:, 0].max())}
+
+
+def basic_arrays(app, case):
+    """The final state's arrays that basic_scalars reads, on the host."""
+    st = case.final_state
+    out = {k: st[k].data.cpu().numpy() for k in ("U", "p", "T") if k in st}
+    if app == "nonNewtonianIcoFoam":
+        from foamtpu_torch.models import transport
+
+        nu = transport.select(case.transport_properties())(case.mesh,
+                                                           st["U"])
+        out["nu"] = nu.cpu().numpy()
+    return out
+
+
+def basic_invariants(app, case, a, t_sum0=None):
+    """What each basic tutorial must keep, whatever its goldens."""
+    from foamtpu_torch.core.dictionary import dimensioned_scalar
+    from foamtpu_torch.ops import surface
+
+    checks = {"finite": all(bool(np.isfinite(v).all()) for v in a.values())}
+    out = {}
+    if app == "nonNewtonianIcoFoam":
+        c = case.transport_properties().subdict("CrossPowerLawCoeffs")
+        nu0 = dimensioned_scalar(c["nu0"])[1]
+        nu_inf = dimensioned_scalar(c["nuInf"])[1]
+        out.update(nu_min=float(a["nu"].min()), nu_max=float(a["nu"].max()),
+                   u_max=float(np.abs(a["U"]).max()))
+        checks["nuInf <= nu <= nu0"] = (out["nu_min"] >= nu_inf * (1 - 1e-5)
+                                        and out["nu_max"] <= nu0 * (1 + 1e-5))
+        checks["|U| <= 1"] = out["u_max"] <= 1.0 + 1e-3
+    if app == "laplacianFoam":
+        out.update(t_min=float(a["T"].min()), t_max=float(a["T"].max()))
+        # the maximum principle: T between its boundary values
+        checks["273 <= T <= 373"] = (out["t_min"] >= 273.0 - 1e-3
+                                     and out["t_max"] <= 373.0 + 1e-3)
+    if app == "scalarTransportFoam":
+        v = case.mesh.v.cpu().numpy()
+        out.update(t_min=float(a["T"].min()), t_max=float(a["T"].max()),
+                   t_integral=float(np.sum(a["T"] * v)), t_integral_0=t_sum0)
+        out["t_integral_rel_change"] = abs(out["t_integral"] / t_sum0 - 1.0)
+        checks["0 <= T <= 1"] = out["t_min"] >= -1e-3 \
+            and out["t_max"] <= 1.0 + 1e-3
+        # the pulse is still inside the channel: T is conserved
+        checks["T conserved (1e-4)"] = out["t_integral_rel_change"] < 1e-4
+    if app == "potentialFoam":
+        phi = case.final_state["phi"]
+        div = surface.surface_sum(case.mesh, phi)
+        out["div_phi_rel"] = float(torch.max(torch.abs(div))
+                                   / torch.max(torch.abs(phi)))
+        # uniform inflow between slip walls: the potential flow is U = (1 0 0)
+        out["u_dev"] = float(np.abs(a["U"] - [1.0, 0.0, 0.0]).max())
+        # from O(1) before the solve (phi0 crosses only the inlet and the
+        # outlet); float32 differences of a potential of O(1) leave 5e-5
+        checks["div(phi) ~ 0 (1e-3)"] = out["div_phi_rel"] < 1e-3
+        checks["U = (1 0 0) (1e-3)"] = out["u_dev"] < 1e-3
+    return out, checks
+
+
+def phase_basic(spmv, here, root):
+    """The four tutorials from their case files through run(case), each
+    held to its goldens and invariants, each through the SpMV kernel."""
+    from foamtpu_torch.apps.cli import main as cli
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.solvers.apps import run
+
+    spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
+    results, checks = {}, {}
+    for app, (_, steps) in BASIC_CASES.items():
+        dst = basic_case(here, app, os.path.join(root, "basic"), cli)
+        case = Case(dst, device="cuda")
+        check(case.application == app, case.application)
+        t_sum0 = None
+        if app == "scalarTransportFoam":
+            t_sum0 = float(torch.sum(case.read_field("T").data
+                                     * case.mesh.v))
+        launches0 = spmv.LAUNCHES
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            run(case, max_steps=steps)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        sys.stderr.write(log.getvalue())
+        a = basic_arrays(app, case)
+        got = basic_scalars(app, a)
+        rel = golden_rel_err(got, BASIC_GOLDEN[app], BASIC_FLOOR)
+        inv, inv_checks = basic_invariants(app, case, a, t_sum0)
+        iters = solve_iterations(log.getvalue())
+        launches = spmv.LAUNCHES - launches0
+        ran = case.time.index if app != "potentialFoam" else 1
+        results[app] = {
+            "case": BASIC_CASES[app][0], "n_cells": case.mesh.n_cells,
+            "steps": ran, "run_s": run_s, "sec_per_step": run_s / ran,
+            "iterations_mean": {k: statistics.mean(v)
+                                for k, v in iters.items()},
+            "iterations_max": {k: max(v) for k, v in iters.items()},
+            "spmv_launches": launches,
+            "scalars": got, "golden_rel_err": rel, "invariants": inv}
+        checks.update({f"{app} {k}": v for k, v in inv_checks.items()})
+        checks.update({f"{app} golden {k}": r <= 1e-3
+                       for k, r in rel.items()})
+        checks[f"{app} steps"] = ran == steps
+        checks[f"{app} spmv launched"] = launches > 0
+    out = {"phase": "basic", "dtype": "torch.float32", "apps": results,
+           "spmv_launches_total": spmv.LAUNCHES,
+           "spmv_fb_launches_total": spmv.FB_LAUNCHES, "checks": checks}
+    emit(out)
+    for name, ok in checks.items():
+        check(ok, f"basic check {name}: {out}")
+    return out
+
+
+def app_steps(case, step, state, n, fol):
+    """n steps of the transient applications' loop
+    (solvers/apps.py::_time_loop) without its writes: step, log, the
+    function objects, deltaT."""
+    from foamtpu_torch.solvers import apps
+
+    diag = None
+    for t in case.time.loop():
+        state, diag = step(state, t.current_dt)
+        apps._log_step(case, t, diag, 0.0)
+        fol.execute(t.name, state)
+        t.adjust_delta_t(float(diag["courant_max"]))
+        n -= 1
+        if n == 0:
+            break
+    return state, diag
+
+
+def phase_cross_headline(spmv, here, root, trials=3, n_profile=5):
+    """crossCavity at CROSS_N^2 with CROSS_FUNCS through the
+    application's loop: chunks with the function objects and without
+    them, taken in turns, and one profiled chunk."""
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.core.dictionary import dimensioned_scalar
+    from foamtpu_torch.functionobjects.base import FunctionObjectList
+    from foamtpu_torch.models import transport
+    from foamtpu_torch.solvers import piso
+    from foamtpu_torch.solvers.apps import _piso_config, run
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dst = copy_case(here, BASIC_CASES["nonNewtonianIcoFoam"][0], root,
+                    f"cross{CROSS_N}", edits=[
+                        ("system/blockMeshDict", "(20 20 1)",
+                         f"({CROSS_N} {CROSS_N} 1)"),
+                        ("system/controlDict", "deltaT 0.0005;",
+                         f"deltaT {CROSS_DT!r};"),
+                        ("system/fvSolution", "p { solver PCG;",
+                         "p { solver GAMG;")])
+    with open(os.path.join(dst, "system", "controlDict"), "a") as f:
+        f.write(CROSS_FUNCS)
+    case = Case(dst, device="cuda")
+    mesh = case.mesh
+    check(mesh.n_cells == CROSS_N ** 2, mesh.n_cells)
+    setup_s = time.perf_counter() - t0
+    spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with quiet():
+        run(case, max_steps=2)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    fol = case.function_objects
+    check(len(fol.objects) == 4, [o.name for o in fol.objects])
+    props = case.transport_properties()
+    _, nu = dimensioned_scalar(props["nu"])
+    cfg = _piso_config(case, nu, nu_fn=transport.select(props))
+    step = piso.make_step(mesh, cfg)
+    state = case.final_state
+    bare = FunctionObjectList([])
+    with_fo, without, fo_host = [], [], []
+    launches0 = spmv.LAUNCHES
+    fetch0 = sum(fol.fetches().values())
+    by0 = dict(fol.seconds_by_object)
+    with quiet():
+        for _ in range(trials):
+            for lst, times in ((fol, with_fo), (bare, without)):
+                s0 = fol.seconds
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, diag = app_steps(case, step, state, CROSS_CHUNK, lst)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) / CROSS_CHUNK)
+                if lst is fol:
+                    fo_host.append((fol.seconds - s0) / CROSS_CHUNK)
+    timed_steps = 2 * trials * CROSS_CHUNK
+    launches_timed = spmv.LAUNCHES - launches0
+    fetches = (sum(fol.fetches().values()) - fetch0) / (trials * CROSS_CHUNK)
+    sec = statistics.median(with_fo)
+    with quiet():
+        state, prof = profile_chunk(
+            spmv, "cross_headline_profile", mesh,
+            lambda st: app_steps(case, step, st, n_profile, fol), state,
+            n_profile, sec)
+    nu_cell = cfg.nu_fn(mesh, state["U"])
+    c = props.subdict("CrossPowerLawCoeffs")
+    nu0 = dimensioned_scalar(c["nu0"])[1]
+    nu_inf = dimensioned_scalar(c["nuInf"])[1]
+    rows = {}
+    post = os.path.join(dst, "postProcessing")
+    for name in sorted(os.listdir(post)):
+        for fname in sorted(os.listdir(os.path.join(post, name))):
+            with open(os.path.join(post, name, fname)) as f:
+                rows[f"{name}/{fname}"] = sum(
+                    1 for line in f if not line.startswith("#"))
+    executes = fol.executes
+    out = {"phase": "cross_headline",
+           "case": f"nonNewtonianIcoFoam crossCavity {CROSS_N}x{CROSS_N} "
+                   f"(CrossPowerLaw, GAMG p (bench.py's controls), the "
+                   f"tutorial's PBiCGStab U, deltaT {CROSS_DT!r}), functions: "
+                   + ", ".join(o.name for o in fol.objects),
+           "n_cells": mesh.n_cells, "dtype": str(mesh.v.dtype),
+           "setup_s": setup_s, "warmup_s": warm_s, "sec_per_step": sec,
+           "trial_sec_per_step": with_fo,
+           "sec_per_step_without_functions": statistics.median(without),
+           "trial_sec_per_step_without_functions": without,
+           "fol_execute_host_ms_per_step": 1e3 * statistics.median(fo_host),
+           "fol_execute_host_ms_trials": [1e3 * x for x in fo_host],
+           "fol_host_ms_per_step_by_object": {
+               k: 1e3 * (v - by0[k]) / (trials * CROSS_CHUNK)
+               for k, v in fol.seconds_by_object.items()},
+           "fol_fetches_per_step": fetches,
+           "fol_fetches_by_object": fol.fetches(), "fol_executes": executes,
+           "fol_failures": fol.failures, "postprocessing_rows": rows,
+           "p_iters": int(diag["p_iters"]),
+           "u_iters": int(diag["Ux"].n_iterations),
+           "continuity": float(diag["continuity"]),
+           "courant_max": float(diag["courant_max"]),
+           "nu_min": float(nu_cell.min()), "nu_max": float(nu_cell.max()),
+           "spmv_launches_per_step": launches_timed / timed_steps,
+           "cuda_launch_kernel_per_step": prof["cuda_launch_kernel_per_iter"],
+           "device_ms_per_step": prof["device_ms_per_iter"],
+           "device_busy_share": prof["device_busy_share_unprofiled"],
+           "spmv_launches_total": spmv.LAUNCHES,
+           "spmv_fb_launches_total": spmv.FB_LAUNCHES,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    checks = {
+        "function objects failed 0 times": fol.failures == 0,
+        # a row per execute; fieldMinMax one per field (U and p)
+        "every object wrote its rows": len(rows) == 5 and all(
+            n == executes * (2 if name.startswith("minMax/") else 1)
+            for name, n in rows.items()),
+        "nuInf <= nu <= nu0": (out["nu_min"] >= nu_inf * (1 - 1e-5)
+                               and out["nu_max"] <= nu0 * (1 + 1e-5)),
+        "finite": bool(torch.isfinite(state["U"].data).all())
+        and bool(torch.isfinite(state["p"].data).all()),
+        # the log's "sum local" (continuity x deltaT): GAMG at relTol
+        # 0.01 leaves ~4e-8 on the 400^2 PISO headline too (3e-4 x 1.25e-4)
+        "continuity x deltaT < 1e-7": out["continuity"] * CROSS_DT < 1e-7,
+        "spmv launched": out["spmv_launches_per_step"] > 0}
+    out["checks"] = checks
+    emit(out)
+    for name, ok in checks.items():
+        check(ok, f"cross_headline check {name}: {out}")
+    return out
+
+
+def phase_heated(spmv, here, root, flush, n_profile=2):
+    """heatedBlock at HEATED_N^2: one step through run(case), then
+    HEATED_STEPS of the application's step timed, one profiled chunk,
+    and the SpMV kernel at the T operand held to its plain version and
+    timed."""
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.ops import stencil
+    from foamtpu_torch.solvers.apps import basic_step, run
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dst = copy_case(here, BASIC_CASES["laplacianFoam"][0], root,
+                    f"heated{HEATED_N}", edits=[
+                        ("system/blockMeshDict", "(20 20 1)",
+                         f"({HEATED_N} {HEATED_N} 1)")])
+    case = Case(dst, device="cuda")
+    mesh = case.mesh
+    check(mesh.n_cells == HEATED_N ** 2, mesh.n_cells)
+    setup_s = time.perf_counter() - t0
+    spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with quiet():
+        run(case, max_steps=1)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    step = basic_step(case, convection=False)
+    T = case.final_state["T"]
+    dt = case.time.delta_t
+    launches0 = spmv.LAUNCHES
+    with SolveLog({"T": T}) as log:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HEATED_STEPS):
+            T, perf = step(T, dt)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / HEATED_STEPS
+    launches_timed = spmv.LAUNCHES - launches0
+    iters = [int(i) for i in log.iterations["T"]]
+
+    def chunk(st):
+        T, perf = st["T"], None
+        for _ in range(n_profile):
+            T, perf = step(T, dt)
+        return {"T": T}, {"T": perf}
+
+    _, prof = profile_chunk(spmv, "heated_profile", mesh, chunk, {"T": T},
+                            n_profile, sec)
+    # the main path's count, before the hold and the timing launch it
+    launches, fb_launches = spmv.LAUNCHES, spmv.FB_LAUNCHES
+    t = T.data
+    # the kernel at the T operand: held to its plain version, then timed
+    tm = log.matrices["T"]
+    check(tm.soff is not None and mesh.fb_cells.shape[0] == 0,
+          "the heatedBlock T matrix is not a slot operator")
+    op = stencil.StencilOp(tuple(mesh.st_deltas), tm.soff, mesh.fb_cells,
+                           mesh.fb_nbrs, tm.sfb, mesh.fb_layout)
+    diag = tm.diag_eff(mesh).contiguous()
+    cases, max_err = [], 0.0
+    for dtype in (torch.float32, torch.float64):
+        d, off = diag.to(dtype), op.off.to(dtype).contiguous()
+        x = operand_x(d, 31)
+        got = spmv.spmv(d, x, off, op.deltas, None)
+        torch.cuda.synchronize()
+        err = hold(cases, "heated_T", dtype, got,
+                   spmv.plain(d, x, off, op.deltas, None), relative=True)
+        if dtype == torch.float32:
+            max_err = err
+    timings = time_shape(spmv, "heated_T", diag, operand_x(diag, 32),
+                         op.off.contiguous(), op.deltas, flush)
+    out = {"phase": "heated_1m",
+           "case": f"laplacianFoam heatedBlock {HEATED_N}x{HEATED_N}, "
+                   "the tutorial's deltaT and T controls (PCG, polynomial, "
+                   "tolerance 1e-9, maxIter 500)",
+           "n_cells": mesh.n_cells, "dtype": str(mesh.v.dtype),
+           "setup_s": setup_s, "warmup_s": warm_s, "sec_per_step": sec,
+           "cells_per_sec": mesh.n_cells / sec,
+           "t_iterations_per_step": iters,
+           "t_iterations_mean": statistics.mean(iters),
+           "t_final_residual": float(perf.final_residual),
+           "spmv_launches_per_step": launches_timed / HEATED_STEPS,
+           "cuda_launch_kernel_per_step": prof["cuda_launch_kernel_per_iter"],
+           "device_ms_per_step": prof["device_ms_per_iter"],
+           "device_busy_share": prof["device_busy_share_unprofiled"],
+           "t_min": float(t.min()), "t_max": float(t.max()),
+           "spmv_launches_total": launches,
+           "spmv_fb_launches_total": fb_launches,
+           "kernel_cases": cases, "max_abs_err_f32": max_err,
+           "timings": timings,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    # the maximum principle to what a float32 solve can hold: eps x the
+    # operator's condition (1 + 8 DT dt / dx^2, ~161 here) x |T| ~ 7e-3 K
+    # (the tolerance 1e-9 is met in float32, but T's error is that)
+    from foamtpu_torch.core.dictionary import dimensioned_scalar
+
+    _, DT = dimensioned_scalar(case.transport_properties()["DT"])
+    dx = 0.1 / HEATED_N                  # the block is 0.1 m wide
+    kappa = 1.0 + 8.0 * DT * dt / dx ** 2
+    t_tol = float(torch.finfo(t.dtype).eps) * kappa * 373.0
+    out.update(condition_estimate=kappa, t_bound_tol=t_tol)
+    checks = {"273 <= T <= 373 (float32 solve)": out["t_min"] >= 273.0 - t_tol
+              and out["t_max"] <= 373.0 + t_tol,
+              "finite": bool(torch.isfinite(t).all()),
+              "spmv launched": out["spmv_launches_per_step"] > 0}
+    out["checks"] = checks
+    emit(out)
+    for name, ok in checks.items():
+        check(ok, f"heated_1m check {name}: {out}")
+    return out, max_err, timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1839,6 +2360,9 @@ def main() -> int:
         pras = phase_pimple_ras(spmv, here, root)
         phead = phase_pimple_headline(spmv)
         dam, err_dam, t_dam = phase_dambreak(spmv, here, root, flush)
+        basic = phase_basic(spmv, here, root)
+        cross = phase_cross_headline(spmv, here, root)
+        heated, err_heat, t_heat = phase_heated(spmv, here, root, flush)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1848,13 +2372,13 @@ def main() -> int:
     # included), the largest call the main path makes; the warm-L2 time
     # apart, and every timed shape beside it
     main_shape = next(t for t in t_duct if t["shape"] == "duct_p_whole")
-    paths = (head, pitz, duct, ras, pras, phead, dam)
+    paths = (head, pitz, duct, ras, pras, phead, dam, basic, cross, heated)
     emit({"kernels": [{
         "name": "spmv_stencil", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": sum(p["spmv_launches_total"] for p in paths),
         "fb_launches": sum(p["spmv_fb_launches_total"] for p in paths),
-        "max_abs_err": max(max_err, err_duct, err_dam),
+        "max_abs_err": max(max_err, err_duct, err_dam, err_heat),
         "ms": main_shape["kernel_ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
@@ -1868,7 +2392,7 @@ def main() -> int:
             "plain_ms",
             "plain_ms_l2_warm", "library_ms", "library_ms_l2_warm",
             "bound_ms", "bound_by", "bound_share")}
-            for t in timings + t_duct + t_dam]}]})
+            for t in timings + t_duct + t_dam + t_heat]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ openfoam-2.2.x_tpu/bc/factory.py: `parse_value` and the part of
 
 Ported kinds: fixedValue, zeroGradient, calculated, empty, inletOutlet,
 totalPressure, pressureInletOutletVelocity, nutkWallFunction,
-kqRWallFunction, epsilonWallFunction and omegaWallFunction. Any other
+kqRWallFunction, epsilonWallFunction, omegaWallFunction, and slip,
+symmetryPlane, symmetry and wedge (one value rule). Any other
 `type` raises NotImplementedError naming it
 (the reference degrades unknown types to calculated/zeroGradient; the
 port refuses instead).
@@ -22,7 +23,8 @@ from .patchfields import PatchField, make
 
 KINDS = ("fixedValue", "zeroGradient", "calculated", "empty", "inletOutlet",
          "totalPressure", "pressureInletOutletVelocity", "nutkWallFunction",
-         "kqRWallFunction", "epsilonWallFunction", "omegaWallFunction")
+         "kqRWallFunction", "epsilonWallFunction", "omegaWallFunction",
+         "slip", "symmetryPlane", "symmetry", "wedge")
 
 
 def parse_value(entry: Any, size: int, rank: int, dtype, device="cpu"):

@@ -7,8 +7,9 @@ reference module. The ported slice covers the kinds of the icoFoam
 cavity, the simpleFoam pitzDaily case, the kOmegaSST tet duct and the
 interFoam damBreak case: fixedValue, zeroGradient, empty, calculated,
 mixed, inletOutlet, totalPressure (incompressible form),
-pressureInletOutletVelocity and the nutk/kqR/epsilon/omega wall
-functions. Derived kinds re-evaluate their
+pressureInletOutletVelocity, the nutk/kqR/epsilon/omega wall functions,
+and slip with the kinds that share its value coefficients
+(symmetryPlane, symmetry, wedge). Derived kinds re-evaluate their
 mixed triple through the update registry (`update` /
 `register_update`; the turbulence models register their wall-function
 rules). Any other kind raises NotImplementedError naming it.
@@ -87,6 +88,17 @@ def _vc_zero_gradient(bc, mesh, patch, vi):
     return torch.ones_like(vi), torch.zeros_like(vi)
 
 
+def _vc_symmetry(bc, mesh, patch, vi):
+    """Scalars: zero gradient. Vectors: vf = vi - n (n . vi), its
+    diagonal part (1 - n_c^2) implicit and the rest explicit."""
+    if vi.ndim == 1:
+        return torch.ones_like(vi), torch.zeros_like(vi)
+    n = _patch_normals(mesh, patch).to(vi.dtype)
+    vic = 1.0 - n * n
+    vf = vi - n * torch.sum(n * vi, dim=1, keepdim=True)
+    return vic, vf - vic * vi
+
+
 _VALUE_COEFFS: Dict[str, Callable] = {
     "mixed": _vc_mixed,
     "fixedValue": _vc_fixed_value,
@@ -96,6 +108,12 @@ _VALUE_COEFFS: Dict[str, Callable] = {
     "inletOutlet": _vc_mixed,
     "totalPressure": _vc_mixed,
     "pressureInletOutletVelocity": _vc_mixed,
+    "symmetryPlane": _vc_symmetry,
+    "symmetry": _vc_symmetry,
+    "slip": _vc_symmetry,
+    # wedge: for the small wedge angles the reference prescribes (< 5
+    # deg) the rotation is the symmetry transform to O(theta^2)
+    "wedge": _vc_symmetry,
     # wall functions: fixed-value-like on nut (the value comes from the
     # update rule), zero-gradient-like on k; the epsilon and omega wall
     # functions fix the wall-adjacent CELL value through the matrix

@@ -68,19 +68,19 @@ def _parse_face_list(text: str) -> Tuple[np.ndarray, np.ndarray]:
     """faces file: `N ( 4(a b c d) 3(a b c) ... )` -> padded array."""
     body = text[text.index("(") + 1: text.rindex(")")]
     nums = _numbers(body).astype(np.int64)
-    # walk: [npts, p0..pn-1, npts, ...]
-    faces, counts = [], []
-    i, total = 0, nums.shape[0]
-    while i < total:
-        n = int(nums[i])
-        counts.append(n)
-        faces.append(nums[i + 1: i + 1 + n])
-        i += 1 + n
-    max_pts = max(counts) if counts else 3
-    out = np.full((len(faces), max_pts), -1, dtype=np.int64)
-    for fi, f in enumerate(faces):
-        out[fi, : f.shape[0]] = f
-    return out, np.asarray(counts, dtype=np.int64)
+    # the headers' positions: each face is [npts, p0..pn-1]
+    lst, starts, i = nums.tolist(), [], 0
+    while i < len(lst):
+        starts.append(i)
+        i += lst[i] + 1
+    starts = np.asarray(starts, dtype=np.int64)
+    counts = nums[starts]
+    max_pts = int(counts.max()) if counts.shape[0] else 3
+    cols = np.arange(max_pts)
+    take = starts[:, None] + 1 + cols
+    real = cols < counts[:, None]
+    out = np.where(real, nums[np.where(real, take, 0)], -1)
+    return out, counts
 
 
 def read(mesh_dir: str) -> PolyMesh:
@@ -154,16 +154,19 @@ def _read_cell_zones(text: str) -> dict:
 
 
 def _fmt_big_scalar_list(a: np.ndarray, as_int=False) -> str:
-    if as_int:
-        body = "\n".join(str(int(x)) for x in a)
-    else:
-        body = "\n".join(repr(float(x)) for x in a)
+    vals = np.asarray(a, np.int64 if as_int else np.float64).tolist()
+    body = "\n".join(map(str if as_int else repr, vals))
     return f"{a.shape[0]}\n(\n{body}\n)\n"
 
 
+def _fmt_rows(fmt: str, a: np.ndarray) -> str:
+    """One `fmt % row` line per row of a, formatted by the % operator in
+    one call (%r of a Python float is its repr)."""
+    return ((fmt + "\n") * a.shape[0] % tuple(a.ravel().tolist()))[:-1]
+
+
 def _fmt_big_vector_list(a: np.ndarray) -> str:
-    body = "\n".join(
-        "(" + " ".join(repr(float(x)) for x in row) + ")" for row in a)
+    body = _fmt_rows("(%r %r %r)", np.asarray(a, np.float64))
     return f"{a.shape[0]}\n(\n{body}\n)\n"
 
 
@@ -188,10 +191,16 @@ def write(mesh: PolyMesh, mesh_dir: str) -> None:
 
     emit("points", "vectorField",
          _fmt_big_vector_list(np.asarray(mesh.points, np.float64)))
-    lines = [f"{int(n)}(" + " ".join(str(int(x)) for x in f[:n]) + ")"
-             for f, n in zip(mesh.face_pts, mesh.face_npts)]
-    emit("faces", "faceList",
-         f"{mesh.n_faces}\n(\n" + "\n".join(lines) + "\n)\n")
+    # one formatted block per point count, each line put back in its place
+    npts = np.asarray(mesh.face_npts, np.int64)
+    pts = np.asarray(mesh.face_pts, np.int64)
+    lines = np.empty(npts.shape[0], dtype=object)
+    for k in np.unique(npts).tolist():
+        sel = np.nonzero(npts == k)[0]
+        lines[sel] = _fmt_rows(f"{k}(" + " ".join(["%d"] * k) + ")",
+                               pts[sel, :k]).split("\n")
+    body = "\n".join(lines.tolist())
+    emit("faces", "faceList", f"{mesh.n_faces}\n(\n" + body + "\n)\n")
     for obj, arr in (("owner", mesh.owner), ("neighbour", mesh.neighbour)):
         emit(obj, "labelList", _fmt_big_scalar_list(arr, as_int=True))
 

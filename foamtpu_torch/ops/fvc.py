@@ -1,10 +1,10 @@
 """fvc — explicit finite-volume operators (port of
 openfoam-2.2.x_tpu/ops/fvc.py): cell->face interpolation, surface
 integration and divergence, the Gauss linear gradient through the slot
-layout, the face-normal gradient, the face flux, the explicit laplacian,
-face->cell averaging and reconstruction, and the domain integral. The
-least-squares and cell-limited gradients and `curl` are outside the
-ported slice.
+layout, the least-squares and cell-limited gradients and their fvSchemes
+dispatch, the face-normal gradient, the face flux, the explicit
+laplacian, face->cell averaging and reconstruction, and the domain
+integral. `curl` is outside the ported slice.
 
 Empty-patch faces are masked out via mesh.face_active, which makes 2-D
 extruded meshes exact."""
@@ -56,14 +56,127 @@ def grad(mesh, field: VolField) -> Any:
     return slot_mod.grad(mesh, field.data, field.boundary_values(mesh))
 
 
+def grad_least_squares(mesh, field: VolField) -> Any:
+    """Least-squares gradient (gradSchemes/leastSquaresGrad):
+    inverse-distance-squared weighted fit over the face neighbours and
+    the boundary faces; exact for linear fields on any mesh. scalar ->
+    [nC,3]; vector -> [nC,3,3] with g[c,i,j] = d(u_j)/d(x_i)."""
+    data = field.data
+    c = mesh.c
+    tiny = 1e-30
+    vec = data.ndim == 2
+
+    valid = mesh.cnbr_valid                                   # [nC,K]
+    d = (c[mesh.cnbr] - c[:, None, :]) * valid[:, :, None]
+    w2 = valid / torch.clamp(torch.sum(d * d, dim=2), min=tiny)
+    G = torch.sum(w2[:, :, None, None] * d[:, :, :, None]
+                  * d[:, :, None, :], dim=1)                  # [nC,3,3]
+    dpsi = data[mesh.cnbr] - data[:, None]                    # [nC,K(,C)]
+    if vec:
+        rhs = torch.sum((w2[:, :, None] * d)[:, :, :, None]
+                        * dpsi[:, :, None, :], dim=1)         # [nC,3,C]
+    else:
+        rhs = torch.sum(w2[:, :, None] * d * dpsi[:, :, None], dim=1)
+
+    # boundary faces: d = Cf - C(own), the value from the BC
+    act = mesh.face_active
+    for p, bc in zip(mesh.patches, field.bcs):
+        cells = mesh.owner[p.slice]
+        a = act[p.slice]
+        db = (mesh.cf[p.slice] - c[cells]) * a[:, None]
+        w2b = a / torch.clamp(torch.sum(db * db, dim=1), min=tiny)
+        dvb = pf.evaluate(bc, mesh, p, data) - data[cells]
+        G = G.index_add(0, cells, w2b[:, None, None] * db[:, :, None]
+                        * db[:, None, :])
+        if vec:
+            rb = (w2b[:, None] * db)[:, :, None] * dvb[:, None, :]
+        else:
+            rb = w2b[:, None] * db * dvb[:, None]
+        rhs = rhs.index_add(0, cells, rb)
+
+    # regularise null directions (2-D empty-masked meshes: the z row and
+    # column are exactly zero with a zero rhs -> a clean 0, not NaN)
+    tr = torch.diagonal(G, dim1=1, dim2=2).sum(dim=1)
+    eps = (1e-9 * tr + tiny)[:, None, None] * torch.eye(
+        3, dtype=G.dtype, device=G.device)
+    if vec:
+        return torch.linalg.solve(G + eps, rhs)
+    return torch.linalg.solve(G + eps, rhs[..., None])[..., 0]
+
+
+def grad_cell_limited(mesh, field: VolField, g: Any, k: float) -> Any:
+    """cellLimited gradient limiter (limitedGradSchemes/cellLimitedGrad):
+    scale each cell's gradient so that the face-extrapolated values stay
+    within the extrema over the cell's neighbours and boundary faces.
+    k in (0,1]; k=1 limits fully."""
+    data = field.data
+    vec = data.ndim == 2
+    big = torch.tensor(1e30, dtype=data.dtype, device=data.device)
+    valid = mesh.cnbr_valid                                   # [nC,K]
+    vn = data[mesh.cnbr]                                      # [nC,K(,C)]
+    vmask = (valid[:, :, None] if vec else valid) > 0
+    vmax = torch.amax(torch.where(vmask, vn, -big), dim=1)
+    vmin = torch.amin(torch.where(vmask, vn, big), dim=1)
+    # the boundary face values extend the extrema
+    act = mesh.face_active
+    for p, bc in zip(mesh.patches, field.bcs):
+        cells = mesh.owner[p.slice]
+        a = act[p.slice]
+        vb = pf.evaluate(bc, mesh, p, data)
+        am = (a[:, None] if vec else a) > 0
+        idx = cells[:, None].expand_as(vb) if vec else cells
+        vmax = vmax.scatter_reduce(0, idx, torch.where(am, vb, -big), "amax")
+        vmin = vmin.scatter_reduce(0, idx, torch.where(am, vb, big), "amin")
+
+    max_d = vmax - data
+    min_d = vmin - data
+    if k < 1.0:
+        rk = (1.0 / max(k, 1e-3) - 1.0)
+        span = rk * (max_d - min_d)
+        max_d = max_d + span
+        min_d = min_d - span
+
+    # extrapolation to every face of the cell (boundary faces included)
+    pres = torch.abs(mesh.csign)                              # [nC,K]
+    rvec = (mesh.cf[mesh.cface] - mesh.c[:, None, :]) * pres[:, :, None]
+    if vec:
+        ext = torch.einsum("cki,cij->ckj", rvec, g)           # [nC,K,C]
+        md, nd = max_d[:, None, :], min_d[:, None, :]
+        pm = pres[:, :, None]
+    else:
+        ext = torch.sum(rvec * g[:, None, :], dim=2)          # [nC,K]
+        md, nd = max_d[:, None], min_d[:, None]
+        pm = pres
+    tinyx = 1e-30
+    lim_hi = torch.where(ext > md + tinyx,
+                         md / torch.clamp(ext, min=tinyx), 1.0)
+    lim_lo = torch.where(ext < nd - tinyx,
+                         nd / torch.clamp(ext, max=-tinyx), 1.0)
+    lim = torch.clamp(torch.minimum(lim_hi, lim_lo), 0.0, 1.0)
+    lim = torch.where(pm > 0, lim, 1.0)
+    limiter = torch.amin(lim, dim=1)                          # [nC(,C)]
+    if vec:
+        return g * limiter[:, None, :]
+    return g * limiter[:, None]
+
+
 def grad_of(mesh, field: VolField, scheme: str = "Gauss linear") -> Any:
-    """Gradient dispatch by fvSchemes keyword. The slice ports
-    'Gauss linear'; other schemes raise."""
+    """Gradient dispatch by fvSchemes keyword (gradScheme::New):
+    'Gauss linear' (and any 'Gauss ...'), 'leastSquares',
+    'cellLimited <base...> <k>', and 'faceLimited ...', which the
+    reference maps to cellLimited."""
     toks = str(scheme).split()
-    if toks in (["Gauss", "linear"], ["linear"], ["Gauss"], []):
+    if not toks or toks == ["linear"]:
         return grad(mesh, field)
-    raise NotImplementedError(
-        f"gradScheme {scheme!r} is not ported to foamtpu_torch yet")
+    if toks[0] in ("cellLimited", "faceLimited"):
+        k = float(toks[-1])
+        base = " ".join(toks[1:-1]) or "Gauss linear"
+        return grad_cell_limited(mesh, field, grad_of(mesh, field, base), k)
+    if toks[0] == "leastSquares":
+        return grad_least_squares(mesh, field)
+    if toks[0] == "Gauss":
+        return grad(mesh, field)
+    raise ValueError(f"unknown gradScheme {scheme!r}")
 
 
 def flux(mesh, field: VolField) -> Any:

@@ -4,17 +4,22 @@ openfoam-2.2.x_tpu/solvers/apps.py).
 Each application reads its config from the case dictionaries, builds the
 step, runs the Time loop with reference-format logging, writes
 OpenFOAM-format output at write times and leaves the last state in
-`case.final_state`. Ported: icoFoam, pisoFoam, pimpleFoam, simpleFoam
-and interFoam (with LTSInterFoam's `lts=True`); `run(case)` picks among
-them by controlDict's `application`.
+`case.final_state`. Ported: icoFoam, nonNewtonianIcoFoam, pisoFoam,
+pimpleFoam, simpleFoam, interFoam (with LTSInterFoam's `lts=True`) and
+the basic solvers laplacianFoam, scalarTransportFoam and potentialFoam;
+`run(case)` picks among them by controlDict's `application`.
 
     from foamtpu_torch.core.case import Case
     from foamtpu_torch.solvers.apps import run
     run(Case(case_dir))              # on the card; Case(d, device="cpu")
 
-MRF zones, fvOptions, function objects, non-Newtonian viscosity and the
-moving-mesh interDyMFoam are outside the ported slice: a case that asks
-for one raises NotImplementedError naming it.
+The controlDict's `functions` block runs after every step of the six
+flow solvers, as in the reference (functionobjects/; the list is left in
+`case.function_objects`); the basic solvers run none, as the reference's
+do not. MRF zones, fvOptions and the moving-mesh interDyMFoam are outside
+the ported slice: a case that asks for one raises NotImplementedError
+naming it, as does a function-object type that is not ported, before
+the first step.
 """
 
 from __future__ import annotations
@@ -86,18 +91,21 @@ def _load_fvoptions(case, nu: float):
     return None
 
 
-def _check_function_objects(case) -> None:
-    """A controlDict with a non-empty `functions` block raises (function
-    objects are not ported)."""
-    fn = case.control_dict.get("functions")
-    if fn is not None and len(fn) > 0:
-        _not_ported("controlDict functions (function objects)")
+def _function_objects(case):
+    """The controlDict's function objects, built before the first step
+    and kept on the case (`case.function_objects`)."""
+    from ..functionobjects import make_function_objects
+
+    case.function_objects = make_function_objects(case)
+    return case.function_objects
 
 
-def _piso_config(case, nu: float, model=None) -> piso_mod.PisoConfig:
-    """The PisoConfig of an icoFoam/pisoFoam case: the PISO dict, the
-    schemes, the p/U solver controls and, with a turbulence model, the
-    k controls for its transport solves."""
+def _piso_config(case, nu: float, model=None,
+                 nu_fn=None) -> piso_mod.PisoConfig:
+    """The PisoConfig of an icoFoam/nonNewtonianIcoFoam/pisoFoam case:
+    the PISO dict, the schemes, the p/U solver controls, the viscosity
+    model's nu(mesh, U) and, with a turbulence model, the k controls for
+    its transport solves."""
     pdict = case.pimple_controls("PISO")
     turb_ctl = None
     try:
@@ -120,6 +128,7 @@ def _piso_config(case, nu: float, model=None) -> piso_mod.PisoConfig:
         u_controls=case.solver_controls("U"),
         turb=model,
         turb_controls=turb_ctl,
+        nu_fn=nu_fn,
         fv_options=_load_fvoptions(case, nu),
         mrf=_load_mrf(case),
     )
@@ -183,13 +192,15 @@ def _write_state(case, state):
     case.write_fields(fields)
 
 
-def _time_loop(case, step, state, max_steps, extra):
-    """The transient applications' loop: step, log, adjust deltaT, write
-    at write times and once more at the end."""
+def _time_loop(case, step, state, max_steps, extra, fol):
+    """The transient applications' loop: step, log, run the function
+    objects, adjust deltaT, write at write times and once more at the
+    end."""
     cumulative = 0.0
     for t in case.time.loop():
         state, diag = step(state, t.current_dt)
         cumulative = _log_step(case, t, diag, cumulative, extra)
+        fol.execute(t.name, state)
         t.adjust_delta_t(float(diag["courant_max"]))
         if t.write_time():
             _write_state(case, state)
@@ -206,8 +217,8 @@ def _time_loop(case, step, state, max_steps, extra):
 # ---------------------------------------------------------------------------
 
 
-def _run_piso(case, max_steps, with_turbulence: bool) -> None:
-    _check_function_objects(case)
+def _run_piso(case, max_steps, with_turbulence: bool, nu_fn=None) -> None:
+    fol = _function_objects(case)
     mesh = case.mesh
     _, nu = dimensioned_scalar(case.transport_properties()["nu"])
     U = case.read_field("U")
@@ -215,18 +226,28 @@ def _run_piso(case, max_steps, with_turbulence: bool) -> None:
     model = tstate = None
     if with_turbulence:
         model, tstate = _load_turbulence(case, nu)
-    cfg = _piso_config(case, nu, model)
+    cfg = _piso_config(case, nu, model, nu_fn=nu_fn)
     step = piso_mod.make_step(mesh, cfg)
     state = piso_mod.initial_state(mesh, U, p, turb_state=tstate,
                                    ddt_scheme=cfg.ddt_scheme)
     extra = model.field_names[:-1] if model else ()
     log.info(f"Starting time loop: {case.application}, {mesh.n_cells} cells\n")
-    _time_loop(case, step, state, max_steps, extra)
+    _time_loop(case, step, state, max_steps, extra, fol)
 
 
 def icofoam(case, max_steps: Optional[int] = None) -> None:
     """icoFoam (incompressible/icoFoam/icoFoam.C)."""
     _run_piso(case, max_steps, with_turbulence=False)
+
+
+def non_newtonian_icofoam(case, max_steps: Optional[int] = None) -> None:
+    """nonNewtonianIcoFoam (incompressible/nonNewtonianIcoFoam): icoFoam
+    with the strain-rate dependent viscosity model that
+    transportProperties selects."""
+    from ..models import transport as transport_mod
+
+    _run_piso(case, max_steps, with_turbulence=False,
+              nu_fn=transport_mod.select(case.transport_properties()))
 
 
 def pisofoam(case, max_steps: Optional[int] = None) -> None:
@@ -284,7 +305,7 @@ def pimplefoam(case, max_steps: Optional[int] = None) -> None:
     reduces to PISO."""
     from . import pimple as pimple_mod
 
-    _check_function_objects(case)
+    fol = _function_objects(case)
     mesh = case.mesh
     _, nu = dimensioned_scalar(case.transport_properties()["nu"])
     U = case.read_field("U")
@@ -296,7 +317,7 @@ def pimplefoam(case, max_steps: Optional[int] = None) -> None:
                                    ddt_scheme=cfg.ddt_scheme)
     extra = model.field_names[:-1] if model else ()
     log.info(f"Starting time loop: pimpleFoam, {mesh.n_cells} cells\n")
-    _time_loop(case, step, state, max_steps, extra)
+    _time_loop(case, step, state, max_steps, extra, fol)
 
 
 # ---------------------------------------------------------------------------
@@ -338,7 +359,7 @@ def simplefoam(case, max_steps: Optional[int] = None) -> None:
     """simpleFoam (incompressible/simpleFoam): chunks of FOAMTPU_CHUNK
     iterations (default 10) between log lines, stopped by
     residualControl."""
-    _check_function_objects(case)
+    fol = _function_objects(case)
     mesh = case.mesh
     _, nu = dimensioned_scalar(case.transport_properties()["nu"])
     U = case.read_field("U")
@@ -364,6 +385,7 @@ def simplefoam(case, max_steps: Optional[int] = None) -> None:
         t.value = t.start_time + t.index * t.delta_t
         t.current_dt = t.delta_t
         cumulative = _log_step(case, t, diag, cumulative, extra)
+        fol.execute(t.name, state)
         if t.write_time():
             _write_state(case, state)
         if simple_mod.converged(diag, res_ctl):
@@ -431,7 +453,7 @@ def interfoam_app(case, max_steps: Optional[int] = None,
 
     if dym:
         _not_ported("interDyMFoam (dym=True, mesh/moving.py)")
-    _check_function_objects(case)
+    fol = _function_objects(case)
     mesh = case.mesh
     cfg = _inter_config(case, lts=lts)
     U = case.read_field("U")
@@ -456,6 +478,7 @@ def interfoam_app(case, max_steps: Optional[int] = None,
                  f"{float(diag['alpha_max']):.6g}")
         log.info(log.solver_line("p_rgh", SolverPerf(
             diag["p_initial"], diag["p_final"], diag["p_iters"])) + "\n")
+        fol.execute(t.name, state)
         t.adjust_delta_t(float(diag["courant_max"]))
         if t.write_time():
             case.write_fields(fields(state))
@@ -466,12 +489,123 @@ def interfoam_app(case, max_steps: Optional[int] = None,
     log.info("End\n")
 
 
+# ---------------------------------------------------------------------------
+# basic solvers
+# ---------------------------------------------------------------------------
+
+
+def _basic_loop(case, step, T, max_steps) -> None:
+    """The loop of laplacianFoam and scalarTransportFoam: one T solve a
+    step, its log line, T written at write times and at the end."""
+    for t in case.time.loop():
+        T, perf = step(T, t.current_dt)
+        log.info(f"Time = {t.name}")
+        log.info(log.solver_line("T", perf))
+        if t.write_time():
+            case.write_fields([T])
+        if max_steps is not None and t.index >= max_steps:
+            break
+    case.write_fields([T])
+    case.final_state = {"T": T}
+    log.info("End\n")
+
+
+def basic_step(case, convection: bool):
+    """(T, dt) -> (T, perf): the step of scalarTransportFoam
+    (basic/scalarTransportFoam; ddt(T) + div(phi,T) - laplacian(DT,T),
+    phi the flux of the case's fixed U) or, without `convection`, of
+    laplacianFoam (basic/laplacianFoam; ddt(T) - laplacian(DT,T))."""
+    from ..core.dimensions import dimViscosity
+    from ..ops import fvc, fvm, schemes
+    from . import linear
+
+    mesh = case.mesh
+    _, DT = dimensioned_scalar(case.transport_properties()["DT"])
+    DT = piso_mod._as_scalar(mesh, DT)
+    ctl = case.solver_controls("T")
+    corrected = case.laplacian_corrected()
+    if convection:
+        phi = fvc.flux(mesh, case.read_field("U"))
+        scheme = case.div_scheme("div(phi,T)")
+
+    def step(T, dt):
+        rdt = 1.0 / piso_mod._as_scalar(mesh, dt)
+        eqn = fvm.ddt(mesh, T, T.data, rdt)
+        if convection:
+            w = schemes.weights(mesh, phi, scheme, T)
+            eqn = eqn + fvm.div(mesh, phi, T, weights=w)
+        eqn = eqn - fvm.laplacian(mesh, DT, T, corrected=corrected,
+                                  gamma_dims=dimViscosity)
+        data, perf = linear.solve(mesh, eqn, T.data, ctl)
+        return T.with_data(data), perf
+
+    return step
+
+
+def scalar_transport_foam(case, max_steps: Optional[int] = None) -> None:
+    """scalarTransportFoam: passive scalar advection-diffusion."""
+    _basic_loop(case, basic_step(case, convection=True),
+                case.read_field("T"), max_steps)
+
+
+def laplacian_foam(case, max_steps: Optional[int] = None) -> None:
+    """laplacianFoam: transient diffusion of T."""
+    _basic_loop(case, basic_step(case, convection=False),
+                case.read_field("T"), max_steps)
+
+
+def potential_foam(case, max_steps: Optional[int] = None) -> None:
+    """potentialFoam: potential-flow initialisation (basic/potentialFoam):
+    solve laplacian(Phi) = div(phi0) for the velocity potential Phi with
+    p's boundary types, correct the flux by the equation's flux, and
+    reconstruct U from it. As in the reference (its "r2 fix"), the right
+    side stays div(phi0) in every non-orthogonal pass, and phi is
+    corrected once, after the last."""
+    from ..core.dimensions import dimless
+    from ..core.fields import vol_scalar
+    from ..ops import fvc, fvm, surface
+    from . import linear
+
+    mesh = case.mesh
+    U = case.read_field("U")
+    p = case.read_field("p")
+    Phi = vol_scalar(mesh, 0.0, name="Phi", bcs=p.bcs)
+    ctl = case.solver_controls("p")
+    nno = int(case.pimple_controls("potentialFlow").get(
+        "nNonOrthogonalCorrectors", 3))
+
+    nif = mesh.n_internal_faces
+    phi0 = torch.cat([mesh.v.new_zeros(nif),
+                      piso_mod.boundary_flux(mesh, U)])
+    src0 = surface.surface_sum(mesh, phi0)
+    corrected = case.laplacian_corrected()
+    for _ in range(max(nno, 1)):
+        eqn = fvm.laplacian(mesh, 1.0, Phi, corrected=corrected,
+                            gamma_dims=dimless)
+        eqn = eqn.replace_fields(source=eqn.source + src0)
+        if piso_mod.needs_reference(Phi, mesh):
+            eqn = eqn.set_reference(0, 0.0)
+        data, perf = linear.solve(mesh, eqn, Phi.data, ctl)
+        Phi = Phi.with_data(data)
+    phi = phi0 - eqn.flux(mesh, data)
+
+    log.info(log.solver_line("Phi", perf))
+    Unew = U.with_data(fvc.reconstruct(mesh, phi))
+    case.write_fields([Unew, p])
+    case.final_state = {"U": Unew, "phi": phi, "Phi": Phi}
+    log.info("End\n")
+
+
 APPLICATIONS = {
     "icoFoam": icofoam,
+    "nonNewtonianIcoFoam": non_newtonian_icofoam,
     "pisoFoam": pisofoam,
     "pimpleFoam": pimplefoam,
     "simpleFoam": simplefoam,
     "interFoam": interfoam_app,
+    "laplacianFoam": laplacian_foam,
+    "scalarTransportFoam": scalar_transport_foam,
+    "potentialFoam": potential_foam,
 }
 
 

@@ -16,9 +16,10 @@ Semantics:
 - turbOnFinalIterOnly (default yes): turbulence corrected after the
   final outer iteration only.
 
-A step is eager torch, like piso.piso_step. Non-Newtonian viscosity
-(nu_fn), fvOptions, MRF zones and fan BCs are outside the ported slice
-and raise NotImplementedError naming themselves (piso.check_supported).
+A step is eager torch, like piso.piso_step; a non-Newtonian viscosity
+(nu_fn) enters as in PISO (piso.add_viscous). fvOptions, MRF zones and
+fan BCs are outside the ported slice and raise NotImplementedError
+naming themselves (piso.check_supported).
 """
 
 from __future__ import annotations
@@ -27,13 +28,14 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
-from ..core.dimensions import dimTime, dimViscosity
+from ..core.dimensions import dimTime
 from ..core.fields import VolField
 from ..ops import fvc, fvm, schemes, surface
 from ..ops import slot as slot_mod
 from . import linear
-from .piso import (_as_scalar, advance_time_state, boundary_flux,
-                   check_supported, ddt_matrix, needs_reference)
+from .piso import (_as_scalar, add_viscous, advance_time_state,
+                   boundary_flux, check_supported, ddt_matrix,
+                   needs_reference)
 from .simple import adjust_phi
 
 
@@ -96,14 +98,7 @@ def pimple_step(mesh, state: Dict, dt: Any, cfg: PimpleConfig
         UEqn = (ddt_matrix(mesh, U, state, rdt, cfg.ddt_scheme)
                 + fvm.div(mesh, phi, U, phi_slot=phi_slot,
                           slot_weights=w_slot))
-        if cfg.turb is not None:
-            visc_mat, visc_expl = cfg.turb.div_dev_reff(mesh, new_turb, U)
-            UEqn = UEqn + visc_mat
-            UEqn = UEqn.add_source(-visc_expl, mesh)
-        else:
-            UEqn = UEqn - fvm.laplacian(
-                mesh, _as_scalar(mesh, cfg.nu), U, corrected=cfg.corrected,
-                gamma_dims=dimViscosity, limit=cfg.corr_limit)
+        UEqn = add_viscous(mesh, UEqn, U, new_turb, cfg)
         if not final_outer and cfg.alpha_u < 1.0:
             UEqn = UEqn.relax(mesh, cfg.alpha_u, U.data)
         grad_p = fvc.grad_of(mesh, p, cfg.grad_scheme)

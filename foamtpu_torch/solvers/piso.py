@@ -11,9 +11,10 @@ openfoam-2.2.x_tpu/solvers/piso.py).
 
 The reference traces one step into one XLA program and scans a chunk of
 steps; here a step is eager torch and a chunk is a plain loop. The
-slice covers icoFoam and pisoFoam (a turbulence model in
-PisoConfig.turb) with the Euler, backward, CrankNicolson and steadyState
-ddt schemes, any ported div(phi,U) scheme and an orthogonal (or
+slice covers icoFoam, nonNewtonianIcoFoam (PisoConfig.nu_fn) and
+pisoFoam (a turbulence model in PisoConfig.turb) with the Euler,
+backward, CrankNicolson and steadyState ddt schemes, any ported
+div(phi,U) scheme and an orthogonal (or
 uncorrected) pressure laplacian. Every other PisoConfig feature raises
 NotImplementedError naming it.
 """
@@ -110,7 +111,7 @@ def check_supported(mesh, state: Dict, cfg) -> None:
     def no(what):
         raise NotImplementedError(f"{what} is not ported to foamtpu_torch yet")
 
-    for name in ("nu_fn", "fv_options", "mrf"):
+    for name in ("fv_options", "mrf"):
         if getattr(cfg, name):
             no(f"{type(cfg).__name__}.{name}")
     if cfg.corrected and not getattr(mesh, "orthogonal", False):
@@ -152,6 +153,26 @@ def _as_scalar(mesh, x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=mesh.v.dtype, device=mesh.device)
 
 
+def add_viscous(mesh, UEqn, U: VolField, turb_state, cfg):
+    """UEqn plus the viscous term: the turbulence model's divDevReff, a
+    non-Newtonian laplacian(nu(strain rate), U) with nu interpolated to
+    the faces in slot form (nonNewtonianIcoFoam), or laplacian(nu, U)."""
+    if cfg.turb is not None:
+        visc_mat, visc_expl = cfg.turb.div_dev_reff(mesh, turb_state, U)
+        return (UEqn + visc_mat).add_source(-visc_expl, mesh)
+    if cfg.nu_fn is not None:
+        nu_cell = cfg.nu_fn(mesh, U)
+        nu_b = surface.owner_to_b(mesh, nu_cell)
+        nu_slot = slot_mod.interpolate(mesh, nu_cell, bv=nu_b)
+        return UEqn - fvm.laplacian(
+            mesh, slot_mod.to_flat(mesh, nu_slot), U,
+            corrected=cfg.corrected, gamma_dims=dimViscosity,
+            limit=cfg.corr_limit, gamma_slot=nu_slot)
+    return UEqn - fvm.laplacian(
+        mesh, _as_scalar(mesh, cfg.nu), U, corrected=cfg.corrected,
+        gamma_dims=dimViscosity, limit=cfg.corr_limit)
+
+
 def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
               ) -> Tuple[Dict, Dict]:
     """One PISO time step. state: {"U": VolField, "p": VolField,
@@ -178,14 +199,7 @@ def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
               schemes.weights_slot(mesh, phi_slot, cfg.div_scheme, U))
     UEqn = (ddt_matrix(mesh, U, state, rdt, cfg.ddt_scheme)
             + fvm.div(mesh, phi, U, phi_slot=phi_slot, slot_weights=w_slot))
-    if cfg.turb is not None:
-        visc_mat, visc_expl = cfg.turb.div_dev_reff(mesh, state["turb"], U)
-        UEqn = UEqn + visc_mat
-        UEqn = UEqn.add_source(-visc_expl, mesh)
-    else:
-        UEqn = UEqn - fvm.laplacian(
-            mesh, _as_scalar(mesh, cfg.nu), U, corrected=cfg.corrected,
-            gamma_dims=dimViscosity, limit=cfg.corr_limit)
+    UEqn = add_viscous(mesh, UEqn, U, state.get("turb"), cfg)
     grad_p = fvc.grad_of(mesh, p, cfg.grad_scheme)
     if cfg.momentum_predictor:
         Umat = UEqn.add_source(-grad_p, mesh)

@@ -9,8 +9,11 @@ float32, against the reference's application on a second copy: the same
 steps of float32 solves summed in another order, the tolerance
 tests/test_torch_turbulence.py uses for a float32 solve; the flux at 1e-4
 of its scale; damBreak's U and phi at 1e-3, see F32_TOL_INTER), the same
-time index, time name and written files, and the written fields read
-back equal by the reference's reader. simpleFoam runs with
+time index, time name and written files, the written fields read back
+equal by the reference's reader, and the postProcessing files of a
+`functions` block (forces on a wall, a probe, fieldMinMax, a volume
+average, CourantNo) in the reference's layout, their numbers at the
+"fo" tolerance of F32_TOL. simpleFoam runs with
 FOAMTPU_CHUNK=3 in both packages (three iterations in one chunk), in
 float64 in a process of its own (rtol 1e-6) and from seeded k and
 epsilon: see seed_turbulence and the test.
@@ -19,7 +22,8 @@ Then the application layer itself: `Time.loop` / `adjust_delta_t` /
 `write_time` / `register_write` (purgeWrite) against the reference's Time
 on the same controlDict, the log lines against the reference's
 formatters, and the cases that must raise: an unknown application, a
-non-empty `functions` block, constant/MRFZones, system/fvOptions.
+function object of a type that is not ported, constant/MRFZones,
+system/fvOptions.
 """
 
 import contextlib
@@ -98,12 +102,17 @@ def seed_turbulence(case_dir, n_cells):
 
 
 # name -> (rtol, atol as a share of the field's scale)
-F32_TOL = {"default": (1e-4, 1e-5), "phi": (1e-4, 1e-4)}
+# "fo": the function objects' numbers, atol a share of each file's
+# largest number (test_torch_functionobjects.compare_post): a probe or a
+# reduction carries its field's error, and the file's scale can be
+# below the field's (the centre probe of the cavity); measured up to
+# 3.0e-4 (icoFoam), 5.8e-4 (interFoam)
+F32_TOL = {"default": (1e-4, 1e-5), "phi": (1e-4, 1e-4), "fo": (1e-4, 1e-3)}
 # damBreak after 3 ms: |U| <= 0.4 m/s is the difference of rho g h and
 # grad(p_rgh) terms of scale 2e3 Pa, so float32 round-off of p_rgh shows
 # in U and phi at 1e-4 of their scale (float64: 3e-13)
 F32_TOL_INTER = {"default": (1e-4, 1e-5), "U": (1e-4, 1e-3),
-                 "phi": (1e-4, 1e-3)}
+                 "phi": (1e-4, 1e-3), "fo": (1e-4, 2e-3)}
 # float64: the packages differ by summation order only; pitzDaily's first
 # SIMPLE iterations amplify that from 1e-12 to 6e-9 in three iterations
 F64_TOL = {"default": (1e-6, 1e-6)}
@@ -118,6 +127,10 @@ def compare_run(app, root, tol):
 
     dj = tutorial(app, root, jcli, "ref")
     dt_ = tutorial(app, root, tcli, "port", ("-device", "cpu"))
+    tc = TCase(dt_, device="cpu")
+    funcs = function_objects_block(tc.mesh)
+    for d in (dj, dt_):
+        _append(os.path.join(d, "system", "controlDict"), funcs)
     tc = TCase(dt_, device="cpu")
     if app == "simpleFoam":
         seed_turbulence(dj, tc.mesh.n_cells)
@@ -155,7 +168,40 @@ def compare_run(app, root, tol):
     text = log.getvalue()
     assert text.count("\nTime = ") == (1 if app == "simpleFoam" else STEPS)
     assert "Solving for p" in text and text.rstrip().endswith("End")
+
+    # the function objects: the reference's postProcessing files, rows
+    # and words, numbers at the fields' tolerance
+    from test_torch_functionobjects import compare_post
+
+    fo_tol = tol.get("fo", tol["default"])
+    compare_post(dj, dt_, *fo_tol)
+    assert tc.function_objects.failures == 0
+    assert tc.function_objects.executes == (1 if app == "simpleFoam"
+                                            else STEPS)
     return tc
+
+
+def function_objects_block(mesh):
+    """forces on the first wall patch, probes at the mesh's centre,
+    fieldMinMax, a volume average and CourantNo: the types users add
+    most, for every application."""
+    wall = next(p.name for p in mesh.patches if p.type == "wall")
+    c = mesh.c.mean(dim=0).tolist()
+    return f"""
+functions
+{{
+    wallForces {{ type forces; patches ( {wall} ); rhoInf 1; }}
+    centre
+    {{
+        type probes; fields ( U p p_rgh );
+        probeLocations ( ({c[0]!r} {c[1]!r} {c[2]!r}) );
+    }}
+    minMax {{ type fieldMinMax; fields ( U p p_rgh ); }}
+    pAverage {{ type fieldValues; source all; operation volAverage;
+               fields ( p U ); }}
+    co {{ type CourantNo; }}
+}}
+"""
 
 
 F64_BODY = """
@@ -300,8 +346,8 @@ def test_run_rejects_an_unknown_application(cavity):
 
 @pytest.mark.parametrize("where,text,word", [
     (("system", "controlDict"),
-     "\nfunctions { probes1 { type probes; fields (p); } }\n",
-     "function objects"),
+     "\nfunctions { lines { type sets; fields (p); } }\n",
+     "'sets'"),
     (("constant", "MRFZones"), "1 ( rotor { cellZone rotor; } )\n", "MRF"),
     (("system", "fvOptions"), "src { type explicitPorositySource; }\n",
      "fvOptions"),

@@ -12,6 +12,7 @@ compute the same float32 expressions, but sums may group differently
 last bits; 1e-6 of the array's scale covers entries that cancel to ~0.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -211,8 +212,18 @@ def test_fvc_ops(case):
     close(fvc.grad_of(tm, tU, "Gauss linear"),
           jfvc.grad_of(jm, jU, "Gauss linear"), "grad U")
     close(fvc.flux(tm, tU), jfvc.flux(jm, jU), "flux")
-    with pytest.raises(NotImplementedError):
-        fvc.grad_of(tm, tp, "leastSquares")
+    # the least-squares gradient and the limiter on top of it
+    # (tests/test_torch_grad.py holds every scheme in float64); an
+    # unknown scheme is refused as the reference refuses it
+    # (jitted: the reference compiles once, not once per eager op)
+    jgrad_of = jax.jit(jfvc.grad_of, static_argnums=2)
+    scheme = "cellLimited leastSquares 0.5"
+    close(fvc.grad_of(tm, tp, scheme), jgrad_of(jm, jp, scheme),
+          f"grad p {scheme}")
+    close(fvc.grad_of(tm, tU, "leastSquares"),
+          jgrad_of(jm, jU, "leastSquares"), "grad U leastSquares")
+    with pytest.raises(ValueError, match="gradScheme"):
+        fvc.grad_of(tm, tp, "fourth")
 
 
 def _momentum(jm, tm, jU, tU, ex):

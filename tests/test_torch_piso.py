@@ -73,10 +73,10 @@ def test_port_cavity_regression_goldens(port_cavity20):
 
 def test_port_rejects_features_outside_slice():
     mesh, state, cfg = make_cavity(4, device="cpu")
-    # turbulence and the div(phi,U) schemes are ported (pisoFoam,
-    # tests/test_torch_pisoturb.py); these are not
-    for bad in (dict(nu_fn=lambda m, u: None), dict(fv_options=object()),
-                dict(mrf=object())):
+    # turbulence, the div(phi,U) schemes (pisoFoam,
+    # tests/test_torch_pisoturb.py) and nu_fn (nonNewtonianIcoFoam,
+    # tests/test_torch_basic.py) are ported; these are not
+    for bad in (dict(fv_options=object()), dict(mrf=object())):
         with pytest.raises(NotImplementedError):
             piso.piso_step(mesh, state, 0.005, cfg._replace(**bad))
     # the second-order time schemes are ported; a scheme that is not a
