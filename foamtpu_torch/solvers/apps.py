@@ -5,9 +5,12 @@ Each application reads its config from the case dictionaries, builds the
 step, runs the Time loop with reference-format logging, writes
 OpenFOAM-format output at write times and leaves the last state in
 `case.final_state`. Ported: icoFoam, nonNewtonianIcoFoam, pisoFoam,
-pimpleFoam, simpleFoam, interFoam (with LTSInterFoam's `lts=True`) and
-the basic solvers laplacianFoam, scalarTransportFoam and potentialFoam;
-`run(case)` picks among them by controlDict's `application`.
+pimpleFoam, simpleFoam, interFoam (with LTSInterFoam's `lts=True`), their
+rotating-frame and porous variants (MRFSimpleFoam, MRFPimpleFoam,
+SRFSimpleFoam, SRFPimpleFoam, porousSimpleFoam, MRFInterFoam,
+porousInterFoam) and the basic solvers laplacianFoam, scalarTransportFoam
+and potentialFoam; `run(case)` picks among them by controlDict's
+`application`.
 
     from foamtpu_torch.core.case import Case
     from foamtpu_torch.solvers.apps import run
@@ -16,10 +19,12 @@ the basic solvers laplacianFoam, scalarTransportFoam and potentialFoam;
 The controlDict's `functions` block runs after every step of the six
 flow solvers, as in the reference (functionobjects/; the list is left in
 `case.function_objects`); the basic solvers run none, as the reference's
-do not. MRF zones, fvOptions and the moving-mesh interDyMFoam are outside
-the ported slice: a case that asks for one raises NotImplementedError
-naming it, as does a function-object type that is not ported, before
-the first step.
+do not. constant/MRFZones, constant/SRFProperties, system/fvOptions,
+constant/fvOptions and constant/porousZones are read by the flow
+solvers, so the MRF*, SRF* and porous* applications are aliases of
+their base solvers, as in the reference. The moving-mesh interDyMFoam is
+outside the ported slice: asking for it raises NotImplementedError, as
+does a function-object type that is not ported, before the first step.
 """
 
 from __future__ import annotations
@@ -73,22 +78,64 @@ def _load_turbulence(case, nu: float, compressible: bool = False):
     return model, tstate
 
 
+def _dim_scalar_of(d: FoamDict, key: str, default: float) -> float:
+    if key not in d:
+        return default
+    try:
+        return float(dimensioned_scalar(d[key])[1])
+    except Exception:
+        return float(d[key])
+
+
 def _load_mrf(case):
-    """None for a case without rotating zones; constant/MRFZones or
-    constant/SRFProperties raise (models/mrf.py is not ported)."""
-    for name in ("MRFZones", "SRFProperties"):
-        if os.path.exists(case.const_path(name)):
-            _not_ported(f"constant/{name} (MRF zones)")
-    return None
+    """constant/MRFZones -> models/mrf.MRFZones, or None. With
+    constant/SRFProperties (SRFSimpleFoam, SRFPimpleFoam) the single
+    rotating frame is one zone over the whole mesh (selectionMode all):
+    the same Coriolis and frame-flux terms, rpm converted to rad/s."""
+    from ..models import mrf as mrf_mod
+
+    srf_path = case.const_path("SRFProperties")
+    if not os.path.exists(srf_path):
+        return mrf_mod.from_case(case)
+    srf = parse_file(srf_path)
+    rpm = srf.get("rpmCoeffs", srf).get("rpm", None)
+    if rpm is not None:
+        omega = float(rpm if not isinstance(rpm, (list, tuple))
+                      else rpm[-1]) * 2.0 * np.pi / 60.0
+    else:
+        omega = _dim_scalar_of(srf, "omega", 0.0)
+    spec = FoamDict([
+        ("selectionMode", "all"),
+        ("origin", tuple(np.asarray(srf.get("origin", (0.0, 0.0, 0.0)),
+                                    dtype=float))),
+        ("axis", tuple(np.asarray(srf.get("axis", (0.0, 0.0, 1.0)),
+                                  dtype=float))),
+        ("omega", omega)])
+    nrp = srf.get("nonRotatingPatches")
+    if nrp is not None:
+        spec["nonRotatingPatches"] = nrp
+    return mrf_mod.from_dict(case.mesh, FoamDict([("SRF", spec)]))
 
 
 def _load_fvoptions(case, nu: float):
-    """None for a case without system/fvOptions; the file raises
-    (models/fvoptions.py is not ported)."""
-    for path in (case.sys_path("fvOptions"), case.const_path("fvOptions")):
-        if os.path.exists(path):
-            _not_ported("system/fvOptions (fvOptions)")
-    return None
+    """system/fvOptions (or constant/fvOptions) and constant/porousZones
+    -> models/fvoptions.OptionList, or None when the case has none."""
+    from ..models import fvoptions as fvopt_mod
+
+    return fvopt_mod.from_case(case, nu)
+
+
+def _frames(case, cfg, state):
+    """The initial state in the rotating frames and with the fvOptions'
+    state: the absolute flux made relative to the MRF zones, and the
+    fvOptions' entries (meanVelocityForce's gradient) under "fvopt"."""
+    if cfg.mrf:
+        from ..models import mrf as mrf_mod
+
+        state = mrf_mod.make_relative_state(case.mesh, cfg.mrf, state)
+    if cfg.fv_options:
+        state["fvopt"] = cfg.fv_options.init_state(case.mesh)
+    return state
 
 
 def _function_objects(case):
@@ -98,6 +145,13 @@ def _function_objects(case):
 
     case.function_objects = make_function_objects(case)
     return case.function_objects
+
+
+def _read_u(case, mrf):
+    """U from the start time, the rotating walls of the MRF zones set to
+    omega x r (MRFZones::correctBoundaryVelocity)."""
+    U = case.read_field("U")
+    return mrf.correct_boundary_velocity(case.mesh, U) if mrf else U
 
 
 def _piso_config(case, nu: float, model=None,
@@ -221,15 +275,15 @@ def _run_piso(case, max_steps, with_turbulence: bool, nu_fn=None) -> None:
     fol = _function_objects(case)
     mesh = case.mesh
     _, nu = dimensioned_scalar(case.transport_properties()["nu"])
-    U = case.read_field("U")
-    p = case.read_field("p")
     model = tstate = None
     if with_turbulence:
         model, tstate = _load_turbulence(case, nu)
     cfg = _piso_config(case, nu, model, nu_fn=nu_fn)
+    U = _read_u(case, cfg.mrf)
+    p = case.read_field("p")
     step = piso_mod.make_step(mesh, cfg)
-    state = piso_mod.initial_state(mesh, U, p, turb_state=tstate,
-                                   ddt_scheme=cfg.ddt_scheme)
+    state = _frames(case, cfg, piso_mod.initial_state(
+        mesh, U, p, turb_state=tstate, ddt_scheme=cfg.ddt_scheme))
     extra = model.field_names[:-1] if model else ()
     log.info(f"Starting time loop: {case.application}, {mesh.n_cells} cells\n")
     _time_loop(case, step, state, max_steps, extra, fol)
@@ -308,13 +362,13 @@ def pimplefoam(case, max_steps: Optional[int] = None) -> None:
     fol = _function_objects(case)
     mesh = case.mesh
     _, nu = dimensioned_scalar(case.transport_properties()["nu"])
-    U = case.read_field("U")
-    p = case.read_field("p")
     model, tstate = _load_turbulence(case, nu)
     cfg = _pimple_config(case, nu, model)
+    U = _read_u(case, cfg.mrf)
+    p = case.read_field("p")
     step = pimple_mod.make_step(mesh, cfg)
-    state = piso_mod.initial_state(mesh, U, p, turb_state=tstate,
-                                   ddt_scheme=cfg.ddt_scheme)
+    state = _frames(case, cfg, piso_mod.initial_state(
+        mesh, U, p, turb_state=tstate, ddt_scheme=cfg.ddt_scheme))
     extra = model.field_names[:-1] if model else ()
     log.info(f"Starting time loop: pimpleFoam, {mesh.n_cells} cells\n")
     _time_loop(case, step, state, max_steps, extra, fol)
@@ -362,13 +416,14 @@ def simplefoam(case, max_steps: Optional[int] = None) -> None:
     fol = _function_objects(case)
     mesh = case.mesh
     _, nu = dimensioned_scalar(case.transport_properties()["nu"])
-    U = case.read_field("U")
-    p = case.read_field("p")
     model, tstate = _load_turbulence(case, nu)
     cfg = _simple_config(case, nu, model)
+    U = _read_u(case, cfg.mrf)
+    p = case.read_field("p")
     chunk_n = int(os.environ.get("FOAMTPU_CHUNK", "10"))
     chunk = simple_mod.make_chunk(mesh, cfg, chunk_n)
-    state = piso_mod.initial_state(mesh, U, p, turb_state=tstate)
+    state = _frames(case, cfg, piso_mod.initial_state(
+        mesh, U, p, turb_state=tstate))
     res_ctl = _residual_control(case, "SIMPLE")
 
     extra = model.field_names[:-1] if model else ()
@@ -603,6 +658,16 @@ APPLICATIONS = {
     "pimpleFoam": pimplefoam,
     "simpleFoam": simplefoam,
     "interFoam": interfoam_app,
+    # the rotating-frame and porous variants: the base solvers read
+    # constant/MRFZones, constant/SRFProperties and constant/porousZones
+    # (OpenFOAM 2.2 ships them as applications of their own)
+    "MRFSimpleFoam": simplefoam,
+    "MRFPimpleFoam": pimplefoam,
+    "SRFSimpleFoam": simplefoam,
+    "SRFPimpleFoam": pimplefoam,
+    "porousSimpleFoam": simplefoam,
+    "MRFInterFoam": interfoam_app,
+    "porousInterFoam": interfoam_app,
     "laplacianFoam": laplacian_foam,
     "scalarTransportFoam": scalar_transport_foam,
     "potentialFoam": potential_foam,

@@ -14,9 +14,11 @@ The step assembles flat (upper/lower) matrices, not the slot form of the
 PISO family: the linear solvers build their offset-stencil operator from
 them (ops/stencil.py::mesh_stencil), so every Krylov iteration still
 goes through the SpMV kernel. `lts=True` is LTSInterFoam's per-cell
-pseudo-time stepping. Porous zones (fv_options), MRF zones and the
-moving-mesh variant (interDyMFoam) are outside the ported slice and
-raise NotImplementedError naming themselves.
+pseudo-time stepping. MRF zones (MRFInterFoam: the rho-weighted Coriolis
+term, the flat relative flux) and fvOptions (porousInterFoam: the porous
+drag with the mixture's rho and mu) enter the momentum equation and the
+flux. The moving-mesh variant (interDyMFoam) is outside the ported slice
+and raises NotImplementedError naming itself.
 """
 
 from __future__ import annotations
@@ -61,20 +63,17 @@ class InterConfig(NamedTuple):
     p_ref_value: float = 0.0
     p_controls: Dict = None
     u_controls: Dict = None
-    fv_options: Any = None
-    mrf: Any = None
+    # porousInterFoam / MRFInterFoam
+    fv_options: Any = None   # models/fvoptions.OptionList
+    mrf: Any = None          # models/mrf.MRFZones
 
 
 def check_supported(state: Dict, cfg: InterConfig) -> None:
     """Raise NotImplementedError for any feature outside the slice."""
-    def no(what):
-        raise NotImplementedError(f"{what} is not ported to foamtpu_torch yet")
-
-    for name in ("fv_options", "mrf"):
-        if getattr(cfg, name):
-            no(f"InterConfig.{name}")
     if "mesh_phi" in state:
-        no("the moving-mesh flux of interDyMFoam (state['mesh_phi'])")
+        raise NotImplementedError(
+            "the moving-mesh flux of interDyMFoam (state['mesh_phi']) is not "
+            "ported to foamtpu_torch yet")
 
 
 def mixture(cfg: InterConfig, alpha: Any) -> Tuple[Any, Any]:
@@ -166,6 +165,15 @@ def interfoam_step(mesh, state: Dict, dt: Any, cfg: InterConfig
         - fvm.laplacian(mesh, mu_f, U, corrected=cfg.corrected,
                         gamma_dims=dimViscosity * dimDensity)
     )
+    if cfg.mrf:
+        # MRFInterFoam: mrfZones.addCoriolis(rho, UEqn)
+        UEqn = cfg.mrf.add_coriolis(mesh, UEqn, U, rho=rho)
+    if cfg.fv_options:
+        # porousInterFoam: pZones.addResistance(UEqn) with the mixture's
+        # density and viscosity
+        UEqn = cfg.fv_options.add_to(mesh, UEqn, "U", U, U=U,
+                                     fvopt_state=state.get("fvopt"),
+                                     rho=rho, mu=mu)
     # surface tension + buoyancy face fluxes (UEqn.H rhs)
     st_flux = iface.surface_tension_flux(mesh, alpha, cfg.sigma, U=U)
     sng_rho = fvc.sn_grad(mesh, VolField(
@@ -194,6 +202,8 @@ def interfoam_step(mesh, state: Dict, dt: Any, cfg: InterConfig
         phiHbyA_i = (torch.sum(mesh.sf[:nif] * hf, dim=1)
                      * mesh.face_active[:nif])
         phiHbyA = torch.cat([phiHbyA_i, boundary_flux(mesh, U)], dim=0)
+        if cfg.mrf:
+            phiHbyA = cfg.mrf.make_relative_flat(mesh, phiHbyA)
         phig = rAf * (st_flux + buoy_flux)
         phiHbyA = phiHbyA + phig
 

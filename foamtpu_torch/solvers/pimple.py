@@ -17,9 +17,11 @@ Semantics:
   final outer iteration only.
 
 A step is eager torch, like piso.piso_step; a non-Newtonian viscosity
-(nu_fn) enters as in PISO (piso.add_viscous). fvOptions, MRF zones and
-fan BCs are outside the ported slice and raise NotImplementedError
-naming themselves (piso.check_supported).
+(nu_fn) enters as in PISO (piso.add_viscous), and so do fvOptions and
+MRF zones (piso.add_sources before the relaxation, the relative phiHbyA
+before adjustPhi; fvOptions correct U after each outer iteration's
+correctors: MRFPimpleFoam, SRFPimpleFoam). Fan BCs are outside the
+ported slice and raise NotImplementedError (piso.check_supported).
 """
 
 from __future__ import annotations
@@ -33,9 +35,9 @@ from ..core.fields import VolField
 from ..ops import fvc, fvm, schemes, surface
 from ..ops import slot as slot_mod
 from . import linear
-from .piso import (_as_scalar, add_viscous, advance_time_state,
-                   boundary_flux, check_supported, ddt_matrix,
-                   needs_reference)
+from .piso import (_as_scalar, add_sources, add_viscous,
+                   advance_time_state, boundary_flux, check_supported,
+                   ddt_matrix, needs_reference)
 from .simple import adjust_phi
 
 
@@ -61,8 +63,8 @@ class PimpleConfig(NamedTuple):
     turb_controls: Dict = None
     turb_on_final_only: bool = True
     nu_fn: Any = None
-    fv_options: Any = None
-    mrf: Any = None
+    fv_options: Any = None   # models/fvoptions.OptionList
+    mrf: Any = None          # models/mrf.MRFZones
 
 
 def pimple_step(mesh, state: Dict, dt: Any, cfg: PimpleConfig
@@ -83,6 +85,7 @@ def pimple_step(mesh, state: Dict, dt: Any, cfg: PimpleConfig
     rdt = 1.0 / dt
     diag: Dict[str, Any] = {}
     new_turb = state.get("turb")
+    fvopt_state = state.get("fvopt")
 
     if "phi_slot" in state:
         phi_slot = slot_mod.SlotFace(*state["phi_slot"], bv=phi[nif:])
@@ -99,6 +102,7 @@ def pimple_step(mesh, state: Dict, dt: Any, cfg: PimpleConfig
                 + fvm.div(mesh, phi, U, phi_slot=phi_slot,
                           slot_weights=w_slot))
         UEqn = add_viscous(mesh, UEqn, U, new_turb, cfg)
+        UEqn = add_sources(mesh, UEqn, U, fvopt_state, cfg)
         if not final_outer and cfg.alpha_u < 1.0:
             UEqn = UEqn.relax(mesh, cfg.alpha_u, U.data)
         grad_p = fvc.grad_of(mesh, p, cfg.grad_scheme)
@@ -129,6 +133,9 @@ def pimple_step(mesh, state: Dict, dt: Any, cfg: PimpleConfig
             HbyA = rA[:, None] * UEqn.H(mesh, U.data)
             phiHbyA = slot_mod.flux_of(mesh, HbyA,
                                        bv=boundary_flux(mesh, U))
+            if cfg.mrf:
+                # mrfZones.relativeFlux(phiHbyA), before adjustPhi
+                phiHbyA = cfg.mrf.make_relative(mesh, phiHbyA)
             phiHbyA_b = phiHbyA.bv
             if closed:
                 phiHbyA_b = adjust_phi(mesh, phiHbyA_b, U)
@@ -169,6 +176,10 @@ def pimple_step(mesh, state: Dict, dt: Any, cfg: PimpleConfig
             phi_for_bc = torch.cat([phi.new_zeros(nif), phi_slot.bv], dim=0)
             U = U.correct_boundary_conditions(mesh, phi=phi_for_bc)
         phi = slot_mod.to_flat(mesh, phi_slot)
+        if cfg.fv_options:
+            # fvOptions.correct(U) after the corrector loop
+            U, fvopt_state = cfg.fv_options.correct_U(mesh, U, rA,
+                                                      fvopt_state)
 
         # -- turbulence ------------------------------------------------------
         if cfg.turb is not None and (
@@ -195,6 +206,8 @@ def pimple_step(mesh, state: Dict, dt: Any, cfg: PimpleConfig
     new_state = dict(state)
     new_state.update(U=U, p=p, phi=phi,
                      phi_slot=(phi_slot.sv, phi_slot.fb))
+    if fvopt_state is not None:
+        new_state["fvopt"] = fvopt_state
     advance_time_state(state, new_state, U, rdt, cfg.ddt_scheme)
     if new_turb is not None:
         new_state["turb"] = new_turb

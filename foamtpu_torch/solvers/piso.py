@@ -15,7 +15,9 @@ slice covers icoFoam, nonNewtonianIcoFoam (PisoConfig.nu_fn) and
 pisoFoam (a turbulence model in PisoConfig.turb) with the Euler,
 backward, CrankNicolson and steadyState ddt schemes, any ported
 div(phi,U) scheme and an orthogonal (or
-uncorrected) pressure laplacian. Every other PisoConfig feature raises
+uncorrected) pressure laplacian, with fvOptions in the momentum equation
+(corrected after the correctors) and MRF zones (the Coriolis source and
+the relative phiHbyA). Every other PisoConfig feature raises
 NotImplementedError naming it.
 """
 
@@ -52,8 +54,8 @@ class PisoConfig(NamedTuple):
     turb: Any = None
     turb_controls: Dict = None
     nu_fn: Any = None
-    fv_options: Any = None
-    mrf: Any = None
+    fv_options: Any = None   # models/fvoptions.OptionList
+    mrf: Any = None          # models/mrf.MRFZones
 
 
 def ddt_matrix(mesh, field, state: Dict, rdt, scheme: str,
@@ -111,9 +113,6 @@ def check_supported(mesh, state: Dict, cfg) -> None:
     def no(what):
         raise NotImplementedError(f"{what} is not ported to foamtpu_torch yet")
 
-    for name in ("fv_options", "mrf"):
-        if getattr(cfg, name):
-            no(f"{type(cfg).__name__}.{name}")
     if cfg.corrected and not getattr(mesh, "orthogonal", False):
         no("corrected=True on a non-orthogonal mesh")
     if "mom_src" in state:
@@ -173,6 +172,17 @@ def add_viscous(mesh, UEqn, U: VolField, turb_state, cfg):
         gamma_dims=dimViscosity, limit=cfg.corr_limit)
 
 
+def add_sources(mesh, UEqn, U: VolField, fvopt_state, cfg):
+    """UEqn plus the fvOptions' sources (fvOptions(U)) and the MRF zones'
+    Coriolis term (mrfZones.addCoriolis(UEqn)), in the reference's order."""
+    if cfg.fv_options:
+        UEqn = cfg.fv_options.add_to(mesh, UEqn, "U", U, U=U,
+                                     fvopt_state=fvopt_state)
+    if cfg.mrf:
+        UEqn = cfg.mrf.add_coriolis(mesh, UEqn, U)
+    return UEqn
+
+
 def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
               ) -> Tuple[Dict, Dict]:
     """One PISO time step. state: {"U": VolField, "p": VolField,
@@ -200,6 +210,7 @@ def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
     UEqn = (ddt_matrix(mesh, U, state, rdt, cfg.ddt_scheme)
             + fvm.div(mesh, phi, U, phi_slot=phi_slot, slot_weights=w_slot))
     UEqn = add_viscous(mesh, UEqn, U, state.get("turb"), cfg)
+    UEqn = add_sources(mesh, UEqn, U, state.get("fvopt"), cfg)
     grad_p = fvc.grad_of(mesh, p, cfg.grad_scheme)
     if cfg.momentum_predictor:
         Umat = UEqn.add_source(-grad_p, mesh)
@@ -227,6 +238,9 @@ def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
     for corr in range(cfg.n_correctors):
         HbyA = rA[:, None] * UEqn.H(mesh, U.data)
         phiHbyA = slot_mod.flux_of(mesh, HbyA, bv=boundary_flux(mesh, U))
+        if cfg.mrf:
+            # mrfZones.relativeFlux(phiHbyA), before adjustPhi
+            phiHbyA = cfg.mrf.make_relative(mesh, phiHbyA)
         phiHbyA_b = phiHbyA.bv
         if needs_reference(p, mesh):
             # global flux balance before the singular pressure solve
@@ -266,6 +280,10 @@ def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
         phi_for_bc = torch.cat([phi.new_zeros(nif), phi_slot.bv], dim=0)
         U = U.correct_boundary_conditions(mesh, phi=phi_for_bc)
     phi = slot_mod.to_flat(mesh, phi_slot)
+    fvopt_state = state.get("fvopt")
+    if cfg.fv_options:
+        # fvOptions.correct(U) after the corrector loop
+        U, fvopt_state = cfg.fv_options.correct_U(mesh, U, rA, fvopt_state)
 
     # -- turbulence correction (pisoFoam: turbulence->correct()) ------------
     new_turb = state.get("turb")
@@ -291,6 +309,8 @@ def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
     new_state = dict(state)
     new_state.update(U=U, p=p, phi=phi,
                      phi_slot=(phi_slot.sv, phi_slot.fb))
+    if fvopt_state is not None:
+        new_state["fvopt"] = fvopt_state
     advance_time_state(state, new_state, U, rdt, cfg.ddt_scheme)
     if new_turb is not None:
         new_state["turb"] = new_turb

@@ -8,8 +8,11 @@ non-orthogonal corrector with the deferred correction, explicit
 pressure relaxation after the flux update, then the turbulence model's
 correct(). The reference scans a chunk of iterations inside one XLA
 program; here an iteration is eager torch and a chunk is a plain loop.
-fvOptions, MRF zones and the adjoint porosity sink are outside the
-ported slice and raise NotImplementedError.
+fvOptions (porousSimpleFoam's porous zones among them) enter the momentum
+equation and correct U after the corrector, MRF zones add their Coriolis
+term before the relaxation and make phiHbyA relative before adjustPhi
+(MRFSimpleFoam, SRFSimpleFoam). The adjoint porosity sink is outside the
+ported slice and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from ..core.fields import VolField
 from ..ops import fvc, fvm, schemes, surface
 from ..ops import slot as slot_mod
 from . import linear
-from .piso import boundary_flux, needs_reference
+from .piso import add_sources, boundary_flux, needs_reference
 
 
 class SimpleConfig(NamedTuple):
@@ -44,8 +47,8 @@ class SimpleConfig(NamedTuple):
     turb: Any = None
     turb_controls: Dict = None
     turb_relax: float = 0.7
-    fv_options: Any = None
-    mrf: Any = None
+    fv_options: Any = None   # models/fvoptions.OptionList
+    mrf: Any = None          # models/mrf.MRFZones
 
 
 def adjust_phi(mesh, phi_b: Any, U: VolField) -> Any:
@@ -71,10 +74,6 @@ def adjust_phi(mesh, phi_b: Any, U: VolField) -> Any:
 
 def check_supported(state: Dict, cfg: SimpleConfig) -> None:
     """Raise NotImplementedError for any feature outside the slice."""
-    for name in ("fv_options", "mrf"):
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"SimpleConfig.{name} is not ported to foamtpu_torch yet")
     if "alpha_sink" in state:
         raise NotImplementedError(
             "the adjoint porosity sink (state['alpha_sink']) is not "
@@ -116,6 +115,9 @@ def simple_step(mesh, state: Dict, cfg: SimpleConfig) -> Tuple[Dict, Dict]:
                                device=mesh.device), U,
             corrected=cfg.corrected, gamma_dims=dimViscosity,
             limit=cfg.corr_limit)
+    # fvOptions and the Coriolis term before relax, so that the H/A split
+    # sees them
+    UEqn = add_sources(mesh, UEqn, U, state.get("fvopt"), cfg)
     UEqn = UEqn.relax(mesh, cfg.alpha_u, U.data)
     grad_p = fvc.grad_of(mesh, p, cfg.grad_scheme)
     Umat = UEqn.add_source(-grad_p, mesh)
@@ -127,6 +129,9 @@ def simple_step(mesh, state: Dict, cfg: SimpleConfig) -> Tuple[Dict, Dict]:
     rA = 1.0 / UEqn.A(mesh)
     HbyA = rA[:, None] * UEqn.H(mesh, U.data)
     phiHbyA = slot_mod.flux_of(mesh, HbyA, bv=boundary_flux(mesh, U))
+    if cfg.mrf:
+        # mrfZones.relativeFlux(phiHbyA), before adjustPhi
+        phiHbyA = cfg.mrf.make_relative(mesh, phiHbyA)
     phiHbyA_b = phiHbyA.bv
     closed = needs_reference(p, mesh)
     if closed:
@@ -178,6 +183,10 @@ def simple_step(mesh, state: Dict, cfg: SimpleConfig) -> Tuple[Dict, Dict]:
     phi = slot_mod.to_flat(mesh, phi_slot)
     phi_for_bc = torch.cat([phi.new_zeros(nif), phi_slot.bv], dim=0)
     U = U.correct_boundary_conditions(mesh, phi=phi_for_bc)
+    fvopt_state = state.get("fvopt")
+    if cfg.fv_options:
+        # fvOptions.correct(U) after the corrector
+        U, fvopt_state = cfg.fv_options.correct_U(mesh, U, rA, fvopt_state)
 
     # -- turbulence -------------------------------------------------------------
     new_turb = state.get("turb")
@@ -196,6 +205,8 @@ def simple_step(mesh, state: Dict, cfg: SimpleConfig) -> Tuple[Dict, Dict]:
     new_state = dict(state)
     new_state.update(U=U, p=p, phi=phi,
                      phi_slot=(phi_slot.sv, phi_slot.fb))
+    if fvopt_state is not None:
+        new_state["fvopt"] = fvopt_state
     if new_turb is not None:
         new_state["turb"] = new_turb
     return new_state, diag

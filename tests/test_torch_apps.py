@@ -22,8 +22,8 @@ Then the application layer itself: `Time.loop` / `adjust_delta_t` /
 `write_time` / `register_write` (purgeWrite) against the reference's Time
 on the same controlDict, the log lines against the reference's
 formatters, and the cases that must raise: an unknown application, a
-function object of a type that is not ported, constant/MRFZones,
-system/fvOptions.
+function object of a type that is not ported, a compressible MRF
+application, a codedSource snippet that uses jnp.
 """
 
 import contextlib
@@ -348,9 +348,15 @@ def test_run_rejects_an_unknown_application(cavity):
     (("system", "controlDict"),
      "\nfunctions { lines { type sets; fields (p); } }\n",
      "'sets'"),
-    (("constant", "MRFZones"), "1 ( rotor { cellZone rotor; } )\n", "MRF"),
-    (("system", "fvOptions"), "src { type explicitPorositySource; }\n",
-     "fvOptions"),
+    # MRFZones and fvOptions are read since the rotating-frame slice
+    # (tests/test_torch_mrf.py); the compressible MRF family and a coded
+    # snippet written for jax are not
+    (("system", "controlDict"), "\napplication rhoPorousMRFSimpleFoam;\n",
+     "rhoPorousMRFSimpleFoam"),
+    (("system", "fvOptions"),
+     "src { type vectorCodedSource; selectionMode all; fields (U);\n"
+     "codeAddSup #{\nsource = jnp.zeros((V.shape[0], 3))\n#}; }\n",
+     "codedSource"),
 ])
 def test_run_rejects_features_outside_slice(cavity, where, text, word):
     _append(os.path.join(cavity, *where), text)

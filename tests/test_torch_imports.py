@@ -37,6 +37,9 @@ def test_no_source_imports_jax_or_the_reference():
         bad += [f"{os.path.relpath(path, REPO)}: {m.group(0).strip()}"
                 for m in IMPORT.finditer(text)]
     assert n > 50 and bad == [], bad
+    sources = {os.path.relpath(p, REPO) for p in _sources()}
+    assert {"foamtpu_torch/models/fvoptions.py",
+            "foamtpu_torch/models/mrf.py"} <= sources
     # the pattern does catch the imports it is there for
     assert IMPORT.search("import jax.numpy as jnp")
     assert IMPORT.search("    from foamtpu.ops import fvc")
@@ -48,6 +51,9 @@ import importlib, pkgutil, sys
 import foamtpu_torch
 names = [m.name for m in pkgutil.walk_packages(foamtpu_torch.__path__,
                                                "foamtpu_torch.")]
+# the rotating-frame and porous slice's modules are among them
+assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf"} <= set(
+    names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")

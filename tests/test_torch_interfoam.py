@@ -210,10 +210,24 @@ def test_interfoam_rejects_features_outside_slice(tmp_path):
     state = tinter.initial_state(mesh, case.read_field("U"),
                                  case.read_field("p_rgh"),
                                  case.read_field("alpha1"), cfg)
-    for bad, word in ((dict(fv_options=object()), "fv_options"),
-                      (dict(mrf=object()), "mrf")):
-        with pytest.raises(NotImplementedError, match=word):
-            tinter.interfoam_step(mesh, state, 1e-3, cfg._replace(**bad))
+    # MRF zones and porous zones are ported (MRFInterFoam, porousInterFoam:
+    # tests/test_torch_mrf.py)
+    from foamtpu_torch.core.dictionary import parse_string
+    from foamtpu_torch.models import fvoptions, mrf
+
+    zones = mrf.from_dict(mesh, parse_string(
+        "rotor { selectionMode cylinder; origin (0.3 0.25 0); "
+        "axis (0 0 1); radius 0.05; omega 10; }"))
+    opts = fvoptions.from_dict(mesh, parse_string(
+        "screen { type explicitPorositySource; "
+        "explicitPorositySourceCoeffs { selectionMode box; "
+        "box ((0.35 0 -1) (0.45 0.3 1)); d (1e6 1e6 1e6); f (0 0 0); } }"),
+        nu=1e-6)
+    for name, value in (("mrf", zones), ("fv_options", opts)):
+        assert value
+        new, _ = tinter.interfoam_step(mesh, state, 1e-3,
+                                       cfg._replace(**{name: value}))
+        assert bool(torch.isfinite(new["U"].data).all()), name
     with pytest.raises(NotImplementedError, match="mesh_phi"):
         tinter.interfoam_step(mesh, dict(state, mesh_phi=state["phi"]),
                               1e-3, cfg)

@@ -182,10 +182,13 @@ def test_pimple_config_from_the_tutorial(tmp_path):
 def test_pimple_rejects_features_outside_slice():
     mesh, state, pcfg = make_cavity(4, device="cpu")
     cfg = pimple.PimpleConfig(nu=pcfg.nu, n_outer=2)
-    for bad in ("fv_options", "mrf"):       # nu_fn is ported
-        with pytest.raises(NotImplementedError, match=f"PimpleConfig.{bad}"):
-            pimple.pimple_step(mesh, state, 0.005,
-                               cfg._replace(**{bad: object()}))
+    # nu_fn, fvOptions and MRF zones are ported
+    from test_torch_piso import rotating_options
+
+    for name, value in rotating_options(mesh).items():
+        new, _ = pimple.pimple_step(mesh, state, 0.005,
+                                    cfg._replace(**{name: value}))
+        assert bool(torch.isfinite(new["U"].data).all()), name
     fan = state["p"].bcs[0].replace(kind="fan")
     with pytest.raises(NotImplementedError, match="fan"):
         pimple.pimple_step(

@@ -71,14 +71,35 @@ def test_port_cavity_regression_goldens(port_cavity20):
     np.testing.assert_allclose(ke, GOLDEN_KE, rtol=1e-3)
 
 
+def rotating_options(mesh):
+    """An MRF zone over the cavity's centre and a semiImplicitSource on U:
+    the fv_options and mrf a config can carry (tests/test_torch_mrf.py and
+    tests/test_torch_fvoptions.py hold them to the JAX package)."""
+    from foamtpu_torch.core.dictionary import parse_string
+    from foamtpu_torch.models import fvoptions, mrf
+
+    zones = mrf.from_dict(mesh, parse_string(
+        "rotor { selectionMode cylinder; origin (0.05 0.05 0); "
+        "axis (0 0 1); radius 0.02; omega 5; }"))
+    opts = fvoptions.from_dict(mesh, parse_string(
+        "src { type semiImplicitSource; semiImplicitSourceCoeffs { "
+        "selectionMode all; injectionRateSuSp { U ((0.1 0 0) -0.5); } } }"))
+    return {"mrf": zones, "fv_options": opts}
+
+
 def test_port_rejects_features_outside_slice():
     mesh, state, cfg = make_cavity(4, device="cpu")
     # turbulence, the div(phi,U) schemes (pisoFoam,
-    # tests/test_torch_pisoturb.py) and nu_fn (nonNewtonianIcoFoam,
-    # tests/test_torch_basic.py) are ported; these are not
-    for bad in (dict(fv_options=object()), dict(mrf=object())):
-        with pytest.raises(NotImplementedError):
-            piso.piso_step(mesh, state, 0.005, cfg._replace(**bad))
+    # tests/test_torch_pisoturb.py), nu_fn (nonNewtonianIcoFoam,
+    # tests/test_torch_basic.py), fvOptions and MRF zones are ported
+    for name, value in rotating_options(mesh).items():
+        new, _ = piso.piso_step(mesh, state, 0.005,
+                                cfg._replace(**{name: value}))
+        assert bool(torch.isfinite(new["U"].data).all()), name
+    # these are not
+    for bad, word in ((dict(state, mom_src=state["U"].data), "mom_src"),):
+        with pytest.raises(NotImplementedError, match=word):
+            piso.piso_step(mesh, bad, 0.005, cfg)
     # the second-order time schemes are ported; a scheme that is not a
     # ddtScheme is refused as the reference refuses it
     with pytest.raises(ValueError, match="ddtScheme"):

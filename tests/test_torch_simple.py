@@ -334,9 +334,21 @@ def test_simple_rejects_features_outside_slice(pitz):
     cfg = simple.SimpleConfig(nu=1e-5)
     state = {"U": pitz["tf"]["U"], "p": pitz["tf"]["p"],
              "phi": _t(pitz["phi"])}
-    for bad in (dict(fv_options=object()), dict(mrf=object())):
-        with pytest.raises(NotImplementedError):
-            simple.simple_step(tm, state, cfg._replace(**bad))
+    # fvOptions and MRF zones are ported (tests/test_torch_fvoptions.py,
+    # tests/test_torch_mrf.py); the adjoint porosity sink is not
+    from foamtpu_torch.models import fvoptions, mrf
+
+    zones = mrf.from_dict(tm, parse_string(
+        "rotor { selectionMode box; box (0.05 -0.02 -1) (0.15 0.02 1); "
+        "origin (0.1 0 0); axis (0 0 1); omega 50; }"))
+    opts = fvoptions.from_dict(tm, parse_string(
+        "porous { type explicitPorositySource; "
+        "explicitPorositySourceCoeffs { selectionMode all; "
+        "d (1e3 1e3 1e3); f (0 0 0); } }"), nu=1e-5)
+    for name, value in (("mrf", zones), ("fv_options", opts)):
+        assert value
+        new, _ = simple.simple_step(tm, state, cfg._replace(**{name: value}))
+        assert bool(torch.isfinite(new["U"].data).all()), name
     with pytest.raises(NotImplementedError):
         simple.simple_step(tm, dict(state, alpha_sink=None), cfg)
     # totalPressure came with the interFoam slice; a kind still outside
