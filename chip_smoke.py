@@ -80,6 +80,23 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      run(case), ten of the application's step timed with their T
      iterations, one profiled chunk, and the SpMV kernel held to its
      plain version and timed at the T operand.
+ 16. rotating: the seven rotating-frame and porous tutorials through
+     run(case), held to goldens and invariants.
+ 17. mrf_headline: MRFSimpleFoam's mixer at 294,912 cells, timed and
+     profiled, the SpMV kernel held and timed at its p operand.
+ 18. turbulence_models: the seven RAS models of ras.py on the 2D channel
+     of tests/test_turbulence.py (20 pisoFoam steps each), boundaryFoam
+     on boundaryLaunderSharma (100 iterations) and channelFoam's
+     channel395 (the first cyclic mesh on the card) under the six LES
+     models (10 steps each, with yPlus and wallShearStress), all from
+     case files through run(case): goldens from the JAX package and the
+     reference tests' physics oracles (see phase_turbulence_models).
+ 19. les_headline: channel395 refined to 192x128x32 (786,432 cells, the
+     cyclic wrap faces in the SpMV's COO remainder), Smagorinsky from a
+     perturbed start: blockMesh, Case, 3 warm-up steps through run(case),
+     three timed 5-step chunks, the SpMV kernel held to its plain version
+     at the channel's p and U operands (f32, f64) and timed at p, and one
+     profiled step last.
 Every timed SpMV shape (kernel, plain version, one CSR product from
 torch.sparse as the library yardstick) gets its device time per call
 from torch.profiler, back to back with the operands warm in L2 and
@@ -2785,6 +2802,770 @@ def phase_mrf_headline(spmv, here, root, flush, trials=3):
     return out, max_err, timings
 
 
+# ---------------------------------------------------------------------------
+# turbulence_models and les_headline: the RAS models of ras.py on the 2D
+# channel of tests/test_turbulence.py, boundaryFoam, and channelFoam's
+# channel395 under the six LES models of les.py and les2.py
+# ---------------------------------------------------------------------------
+
+RAS_CHANNEL_NU = 1e-4         # tests/test_turbulence.py: U 1, H 0.1
+RAS_CHANNEL_STEPS = 20
+RAS_CHANNEL_DT = 0.02
+# model: (its second transported field, the nut wall BC it is run with;
+# the BCs ported with the models are spread over them)
+RAS_CHANNEL_MODELS = {
+    "RNGkEpsilon": ("epsilon", "nutkWallFunction"),
+    "realizableKE": ("epsilon", "nutUWallFunction"),
+    "LaunderSharmaKE": ("epsilon", "nutLowReWallFunction"),
+    "kOmega": ("omega", "nutUSpaldingWallFunction"),
+    "SpalartAllmaras": (None, "nutUSpaldingWallFunction"),
+    "SpalartAllmarasDES": (None, "nutUWallFunction"),
+    "SpalartAllmarasDDES": (None, "nutUSpaldingWallFunction"),
+}
+CHANNEL395_CASE = os.path.join("tutorials", "incompressible", "channelFoam",
+                               "channel395")
+BOUNDARY_CASE = os.path.join("tutorials", "incompressible", "boundaryFoam",
+                             "boundaryLaunderSharma")
+BOUNDARY_STEPS = 100          # the tutorial's endTime 100 / deltaT 1
+LES_MODELS = ("Smagorinsky", "oneEqEddy", "homogeneousDynSmagorinsky",
+              "dynOneEqEddy", "scaleSimilarity", "mixedSmagorinsky")
+LES_K_MODELS = ("oneEqEddy", "dynOneEqEddy")
+LES_STEPS = 10
+LES_FUNCS = """
+functions
+{
+    yPlus1 { type yPlus; }
+    shear1 { type wallShearStress; }
+}
+"""
+
+# from tests/test_torch_channel.py::reference_goldens (the JAX package on the CPU
+# in float32, through its run_case, on the cases written above)
+RAS_GOLDEN = {
+    "RNGkEpsilon": {
+        "ke": 0.5117350220680237,
+        "ux_centre_out": 0.6911365985870361,
+        "ux_centre_row": 0.9999900460243225,
+        "ux_wall_row": 0.9979972243309021,
+        "k_max": 0.06511863321065903,
+        "k_mean": 0.013255960308015347,
+        "epsilon_max": 1.2905679941177368,
+        "epsilon_mean": 0.17046070098876953,
+        "nut_max": 0.0006952387630008161,
+        "nut_mean": 0.00014770434063393623,
+    },
+    "realizableKE": {
+        "ke": 0.5120598077774048,
+        "ux_centre_out": 0.682236909866333,
+        "ux_centre_row": 0.9999908804893494,
+        "ux_wall_row": 0.9980452060699463,
+        "k_max": 0.06353656947612762,
+        "k_mean": 0.012216247618198395,
+        "epsilon_max": 1.3067806959152222,
+        "epsilon_mean": 0.17540444433689117,
+        "nut_max": 0.0016722457949072123,
+        "nut_mean": 0.0002180171140935272,
+    },
+    "LaunderSharmaKE": {
+        "ke": 0.503154456615448,
+        "ux_centre_out": 0.8681455254554749,
+        "ux_centre_row": 0.9999850988388062,
+        "ux_wall_row": 0.9977337718009949,
+        "k_max": 1.5880711078643799,
+        "k_mean": 0.27780431509017944,
+        "epsilon_max": 31.05703353881836,
+        "epsilon_mean": 4.4745774269104,
+        "nut_max": 0.007225282955914736,
+        "nut_mean": 0.0015147414524108171,
+    },
+    "kOmega": {
+        "ke": 0.5152376890182495,
+        "ux_centre_out": 0.6366220116615295,
+        "ux_centre_row": 0.9999997615814209,
+        "ux_wall_row": 0.9977689385414124,
+        "k_max": 0.02053774520754814,
+        "k_mean": 0.005895450245589018,
+        "omega_max": 357.6550598144531,
+        "omega_mean": 97.27108764648438,
+        "nut_max": 0.00033390987664461136,
+        "nut_mean": 0.00014952782657928765,
+    },
+    "SpalartAllmaras": {
+        "ke": 0.5178465247154236,
+        "ux_centre_out": 0.6032958030700684,
+        "ux_centre_row": 1.0000003576278687,
+        "ux_wall_row": 0.9977140426635742,
+        "nuTilda_max": 0.0008827498531900346,
+        "nuTilda_mean": 0.0002103252918459475,
+        "nut_max": 0.0005806380650028586,
+        "nut_mean": 1.5108946172404103e-05,
+    },
+    "SpalartAllmarasDES": {
+        "ke": 0.5167974233627319,
+        "ux_centre_out": 0.6144391894340515,
+        "ux_centre_row": 0.9999968409538269,
+        "ux_wall_row": 0.9978778958320618,
+        "nuTilda_max": 0.0002611973031889647,
+        "nuTilda_mean": 9.415398380951956e-05,
+        "nut_max": 1.2387902643240523e-05,
+        "nut_mean": 7.031505333543464e-07,
+    },
+    "SpalartAllmarasDDES": {
+        "ke": 0.5178455114364624,
+        "ux_centre_out": 0.6032947897911072,
+        "ux_centre_row": 0.9999993443489075,
+        "ux_wall_row": 0.9977138638496399,
+        "nuTilda_max": 0.0008827500860206783,
+        "nuTilda_mean": 0.00021032516087871045,
+        "nut_max": 0.000580638472456485,
+        "nut_mean": 1.5108938896446489e-05,
+    },
+}
+LES_GOLDEN = {
+    "Smagorinsky": {
+        "ke": 0.009157366119325161,
+        "ux_mean": 0.13398291170597076,
+        "ux_wall_layers": 0.13304540514945984,
+        "ux_centre_layers": 0.13413278758525848,
+        "nut_mean": 0.00011662590986816213,
+        "yplus_min": 17.836,
+        "yplus_max": 23.2466,
+        "yplus_avg": 20.5728,
+        "wall_shear_min": 3.25758e-05,
+        "wall_shear_max": 5.53372e-05,
+    },
+    "oneEqEddy": {
+        "ke": 0.009158619679510593,
+        "ux_mean": 0.13398100435733795,
+        "ux_wall_layers": 0.13303901255130768,
+        "ux_centre_layers": 0.1341327279806137,
+        "nut_mean": 8.924316352931783e-05,
+        "yplus_min": 20.253,
+        "yplus_max": 27.4004,
+        "yplus_avg": 23.6799,
+        "wall_shear_min": 4.20028e-05,
+        "wall_shear_max": 7.68801e-05,
+        "k_mean": 7.575711788376793e-05,
+    },
+    "homogeneousDynSmagorinsky": {
+        "ke": 0.009163140319287777,
+        "ux_mean": 0.13398297131061554,
+        "ux_wall_layers": 0.13304363191127777,
+        "ux_centre_layers": 0.13413196802139282,
+        "nut_mean": 0.0,
+        "yplus_min": 17.706,
+        "yplus_max": 23.3691,
+        "yplus_avg": 20.5768,
+        "wall_shear_min": 3.21026e-05,
+        "wall_shear_max": 5.59221e-05,
+    },
+    "dynOneEqEddy": {
+        "ke": 0.00916200876235962,
+        "ux_mean": 0.1339813470840454,
+        "ux_wall_layers": 0.13303937017917633,
+        "ux_centre_layers": 0.13413219153881073,
+        "nut_mean": 1.8656231986824423e-05,
+        "yplus_min": 19.5615,
+        "yplus_max": 26.0771,
+        "yplus_avg": 22.7957,
+        "wall_shear_min": 3.91835e-05,
+        "wall_shear_max": 6.96334e-05,
+        "k_mean": 7.302653102669865e-05,
+    },
+    "scaleSimilarity": {
+        "ke": 0.009162929840385914,
+        "ux_mean": 0.13398145139217377,
+        "ux_wall_layers": 0.1330329030752182,
+        "ux_centre_layers": 0.13413403928279877,
+        "nut_mean": 0.0,
+        "yplus_min": 17.6912,
+        "yplus_max": 23.3357,
+        "yplus_avg": 20.5768,
+        "wall_shear_min": 3.20491e-05,
+        "wall_shear_max": 5.57625e-05,
+    },
+    "mixedSmagorinsky": {
+        "ke": 0.009157159365713596,
+        "ux_mean": 0.13398145139217377,
+        "ux_wall_layers": 0.13303498923778534,
+        "ux_centre_layers": 0.13413481414318085,
+        "nut_mean": 0.00011662683391477913,
+        "yplus_min": 17.8222,
+        "yplus_max": 23.2151,
+        "yplus_avg": 20.5728,
+        "wall_shear_min": 3.25253e-05,
+        "wall_shear_max": 5.51877e-05,
+    },
+}
+# the golden tolerance (relative), and the least magnitude an error is
+# taken relative to where a golden is 0 (homogeneousDynSmagorinsky's cD
+# clips to 0 from this start; scaleSimilarity has no eddy viscosity)
+TURB_GOLDEN_TOL = 1e-3
+TURB_GOLDEN_FLOOR = {"nut_mean": 1e-7}
+# the oracle "nut exceeds nu somewhere": not for SpalartAllmarasDES, whose
+# length scale CDES cbrt(V) (~4e-3 m on this 2D mesh) keeps nut below nu,
+# nor for the LES models whose nut is 0 here (homogeneousDynSmagorinsky,
+# scaleSimilarity) or held below nu by its dynamic Ck (dynOneEqEddy:
+# mean nut 1.9e-5 against nu 2e-5 in the JAX package's run)
+NUT_BELOW_NU = ("SpalartAllmarasDES", "homogeneousDynSmagorinsky",
+                "scaleSimilarity", "dynOneEqEddy")
+LES_HEAD_BLOCKS = (192, 128, 32)   # 786,432 cells of 0.021 x 0.016 x 0.016
+LES_HEAD_WARMUP = 3
+LES_HEAD_STEPS = 5
+LES_HEAD_PROFILE = 1
+
+
+_rows = "\n".join
+
+
+def _foam_header(cls, obj):
+    return ("FoamFile { version 2.0; format ascii; "
+            f"class {cls}; object {obj}; }}\n")
+
+
+def write_field(case_dir, name, dims, internal, boundary):
+    """0/<name> with `internal` a scalar, a 3-vector, or per-cell values
+    ([n] or [n,3], written exactly with repr) and `boundary` the text of
+    the boundaryField entries."""
+    a = np.asarray(internal, dtype=np.float64)
+    vec = a.shape[-1:] == (3,)
+    cls = "volVectorField" if vec else "volScalarField"
+    if a.ndim == (1 if vec else 0):
+        body = ("uniform (" + " ".join(repr(float(x)) for x in a) + ")"
+                if vec else f"uniform {float(a)!r}")
+    else:
+        rows = ("(" + " ".join(repr(float(x)) for x in r) + ")"
+                for r in a) if vec else (repr(float(x)) for x in a)
+        body = (f"nonuniform List<{'vector' if vec else 'scalar'}> "
+                f"{a.shape[0]}\n(\n" + "\n".join(rows) + "\n)")
+    with open(os.path.join(case_dir, "0", name), "w") as f:
+        f.write(_foam_header(cls, name)
+                + f"dimensions {dims};\ninternalField {body};\n"
+                + f"boundaryField\n{{\n{boundary}\n}}\n")
+
+
+def _write_text(case_dir, rel, text):
+    path = os.path.join(case_dir, rel)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def ras_channel_scales():
+    """The inlet turbulence of tests/test_turbulence.py::channel_fields
+    (5 % intensity, 0.01 m length scale), and nuTilda 4 nu."""
+    k0 = 1.5 * (1.0 * 0.05) ** 2
+    eps0 = 0.09 ** 0.75 * k0 ** 1.5 / 0.01
+    return {"k": k0, "epsilon": eps0, "omega": eps0 / (0.09 * k0),
+            "nuTilda": 4.0 * RAS_CHANNEL_NU}
+
+
+def ras_channel_case(dst, model, steps=RAS_CHANNEL_STEPS, seed=1,
+                     nx=30, ny=10):
+    """The 2D channel of tests/test_turbulence.py (2 x 0.1 m, nx x ny,
+    walls top and bottom, U = 1 at the inlet) as pisoFoam case files for
+    one RAS model: its fields under 0/ with the channel's BCs (the nut
+    wall BC of RAS_CHANNEL_MODELS; LaunderSharmaKE integrates to the wall:
+    k fixed at 1e-10 and epsilon zeroGradient there), PCG p and PBiCGStab
+    U at relTol 0, limitedLinear 1 for U and the model's fields. A
+    well-posed start: Ux = 1 + 0.1u, Uy = 0.05n and each turbulence field
+    its inlet value times 1 + 0.2u, u and n from numpy's generator at
+    `seed` (the limiter of a uniform field is a ratio of round-off).
+    Returns dst; mesh it with blockMesh."""
+    second, nut_wall = RAS_CHANNEL_MODELS[model]
+    os.makedirs(os.path.join(dst, "0"), exist_ok=True)
+    _write_text(dst, "system/blockMeshDict", _foam_header(
+        "dictionary", "blockMeshDict") + f"""
+convertToMeters 1;
+vertices ( (0 0 0) (2 0 0) (2 0.1 0) (0 0.1 0)
+           (0 0 0.01) (2 0 0.01) (2 0.1 0.01) (0 0.1 0.01) );
+blocks ( hex (0 1 2 3 4 5 6 7) ({nx} {ny} 1) simpleGrading (1 1 1) );
+boundary (
+    inlet {{ type patch; faces ((0 4 7 3)); }}
+    outlet {{ type patch; faces ((2 6 5 1)); }}
+    walls {{ type wall; faces ((1 5 4 0) (3 7 6 2)); }}
+    frontAndBack {{ type empty; faces ((0 3 2 1) (4 5 6 7)); }}
+);
+""")
+    _write_text(dst, "system/controlDict", _foam_header(
+        "dictionary", "controlDict") + f"""
+application pisoFoam; startFrom startTime; startTime 0; stopAt endTime;
+endTime {steps * RAS_CHANNEL_DT!r}; deltaT {RAS_CHANNEL_DT!r};
+writeControl timeStep; writeInterval {steps}; writeFormat ascii;
+""")
+    _write_text(dst, "system/fvSchemes", _foam_header(
+        "dictionary", "fvSchemes") + """
+ddtSchemes { default Euler; }
+gradSchemes { default Gauss linear; }
+divSchemes { default none; div(phi,U) Gauss limitedLinear 1;
+             div(phi,k) Gauss limitedLinear 1; }
+laplacianSchemes { default Gauss linear corrected; }
+interpolationSchemes { default linear; }
+snGradSchemes { default corrected; }
+""")
+    _write_text(dst, "system/fvSolution", _foam_header(
+        "dictionary", "fvSolution") + """
+solvers
+{
+    p { solver PCG; preconditioner DIC; tolerance 1e-07; relTol 0; }
+    U { solver PBiCGStab; preconditioner DILU; tolerance 1e-07; relTol 0; }
+    "(k|epsilon|omega|nuTilda)"
+    { solver PBiCGStab; preconditioner DILU; tolerance 1e-08; relTol 0.01; }
+}
+PISO { nCorrectors 2; nNonOrthogonalCorrectors 0; pRefCell 0; pRefValue 0; }
+""")
+    _write_text(dst, "constant/transportProperties", _foam_header(
+        "dictionary", "transportProperties")
+        + f"nu nu [0 2 -1 0 0 0 0] {RAS_CHANNEL_NU!r};\n")
+    _write_text(dst, "constant/RASProperties", _foam_header(
+        "dictionary", "RASProperties")
+        + f"RASModel {model}; turbulence on; printCoeffs on;\n")
+
+    n = nx * ny
+    rng = np.random.default_rng(seed)
+    U = np.zeros((n, 3))
+    U[:, 0] = 1.0 + 0.1 * rng.random(n)
+    U[:, 1] = 0.05 * rng.standard_normal(n)
+    empty = "frontAndBack { type empty; }"
+    write_field(dst, "U", "[0 1 -1 0 0 0 0]", U, _rows([
+        "inlet { type fixedValue; value uniform (1 0 0); }",
+        "outlet { type inletOutlet; inletValue uniform (0 0 0); "
+        "value uniform (0 0 0); }",
+        "walls { type fixedValue; value uniform (0 0 0); }", empty]))
+    write_field(dst, "p", "[0 2 -2 0 0 0 0]", 0.0, _rows([
+        "inlet { type zeroGradient; }",
+        "outlet { type fixedValue; value uniform 0; }",
+        "walls { type zeroGradient; }", empty]))
+    scales = ras_channel_scales()
+    low_re = model == "LaunderSharmaKE"
+    walls = {"k": ("walls { type fixedValue; value uniform 1e-10; }"
+                   if low_re else
+                   f"walls {{ type kqRWallFunction; value uniform "
+                   f"{scales['k']!r}; }}"),
+             "epsilon": ("walls { type zeroGradient; }" if low_re else
+                         f"walls {{ type epsilonWallFunction; value uniform "
+                         f"{scales['epsilon']!r}; }}"),
+             "omega": f"walls {{ type omegaWallFunction; value uniform "
+                      f"{scales['omega']!r}; }}",
+             "nuTilda": "walls { type fixedValue; value uniform 0; }"}
+    dims = {"k": "[0 2 -2 0 0 0 0]", "epsilon": "[0 2 -3 0 0 0 0]",
+            "omega": "[0 0 -1 0 0 0 0]", "nuTilda": "[0 2 -1 0 0 0 0]"}
+    names = ("nuTilda",) if second is None else ("k", second)
+    for name in names:
+        v0 = scales[name]
+        write_field(dst, name, dims[name], v0 * (1.0 + 0.2 * rng.random(n)),
+                    _rows([
+                        f"inlet {{ type fixedValue; value uniform {v0!r}; }}",
+                        "outlet { type inletOutlet; inletValue uniform 0; "
+                        "value uniform 0; }", walls[name], empty]))
+    write_field(dst, "nut", "[0 2 -1 0 0 0 0]", 0.0, _rows([
+        "inlet { type calculated; value uniform 0; }",
+        "outlet { type calculated; value uniform 0; }",
+        f"walls {{ type {nut_wall}; value uniform 0; }}", empty]))
+    return dst
+
+
+def les_channel_case(here, dst, model, blocks=(24, 16, 8), steps=LES_STEPS,
+                     seed=2, funcs=""):
+    """channelFoam's channel395 copied to dst with its block cut to
+    `blocks`, LESProperties naming `model`, endTime `steps` deltaT, and
+    a well-posed start: U = Ubar + 0.1 |Ubar| n per component and, for
+    the models that carry k (LES_K_MODELS), 0/k = k0 (1 + 0.2u) with
+    k0 = 1.5 (0.05 Ubar)^2, fixed at 0 on the walls; u and n from numpy's
+    generator at `seed`. Returns dst; mesh it with blockMesh."""
+    shutil.copytree(os.path.join(here, CHANNEL395_CASE), dst)
+
+    def edit(rel, old, new):
+        path = os.path.join(dst, rel)
+        with open(path) as f:
+            text = f.read()
+        check(old in text, f"{path} holds no {old!r}")
+        with open(path, "w") as f:
+            f.write(text.replace(old, new))
+
+    edit("system/blockMeshDict", "(24 16 8)", "({} {} {})".format(*blocks))
+    edit("constant/LESProperties", "LESModel        Smagorinsky;",
+         f"LESModel        {model};")
+    edit("system/controlDict", "endTime         0.2;",
+         f"endTime         {steps * 0.02!r};\n{funcs}")
+    edit("system/controlDict", "writeInterval   10;",
+         f"writeInterval   {steps};")
+    n = blocks[0] * blocks[1] * blocks[2]
+    rng = np.random.default_rng(seed)
+    ubar = np.array([0.1335, 0.0, 0.0])
+    U = ubar + 0.1 * np.linalg.norm(ubar) * rng.standard_normal((n, 3))
+    cyclic = _rows(f"{p} {{ type cyclic; }}"
+                         for p in ("inlet", "outlet", "front", "back"))
+    write_field(dst, "U", "[0 1 -1 0 0 0 0]", U, cyclic + "\n"
+                "walls { type fixedValue; value uniform (0 0 0); }")
+    if model in LES_K_MODELS:
+        k0 = 1.5 * (0.05 * 0.1335) ** 2
+        write_field(dst, "k", "[0 2 -2 0 0 0 0]",
+                    k0 * (1.0 + 0.2 * rng.random(n)), cyclic + "\n"
+                    "walls { type fixedValue; value uniform 0; }")
+    return dst
+
+
+def turbulence_arrays(state, host):
+    """U, p and the turbulence fields of a final state as numpy arrays."""
+    out = {"U": host(state["U"].data)}
+    if "p" in state:
+        out["p"] = host(state["p"].data)
+    for name, f in (state.get("turb") or {}).items():
+        out[name] = host(f.data)
+    return out
+
+
+def ras_channel_scalars(a, v, nx=30, ny=10):
+    """The golden scalars of a RAS channel run: the volume-averaged
+    kinetic energy, Ux of the outlet column's centreline cell, the mean
+    Ux of the centre row and of the wall row, and the largest and the
+    mean value of each turbulence field (cells are numbered x first)."""
+    u = a["U"]
+    ux = u[:, 0].reshape(ny, nx)
+    out = {"ke": float(np.sum(0.5 * np.sum(u * u, axis=1) * v) / v.sum()),
+           "ux_centre_out": float(ux[ny // 2, -1]),
+           "ux_centre_row": float(ux[ny // 2].mean()),
+           "ux_wall_row": float(ux[0].mean())}
+    for name in ("k", "epsilon", "omega", "nuTilda", "nut"):
+        if name in a:
+            out[f"{name}_max"] = float(a[name].max())
+            out[f"{name}_mean"] = float(np.sum(a[name] * v) / v.sum())
+    return out
+
+
+def post_last_row(case_dir, rel):
+    """The numbers of the last row of a postProcessing .dat file."""
+    with open(os.path.join(case_dir, "postProcessing", rel)) as f:
+        row = f.read().strip().splitlines()[-1].split()
+    return [float(x) for x in row[2:]]
+
+
+def les_channel_scalars(a, v, case_dir, blocks=(24, 16, 8)):
+    """The golden scalars of an LES channel run: the volume-averaged
+    kinetic energy and Ux, the mean Ux of the two wall-adjacent layers
+    and of the two centre layers (cells are numbered x, then y, then z),
+    the mean nut (and k), and the last rows of the yPlus and
+    wallShearStress files."""
+    u = a["U"]
+    nx, ny, nz = blocks
+    ux = u[:, 0].reshape(nz, ny, nx)
+    yp = post_last_row(case_dir, "yPlus1/yPlus.dat")
+    ws = post_last_row(case_dir, "shear1/wallShearStress.dat")
+    out = {"ke": float(np.sum(0.5 * np.sum(u * u, axis=1) * v) / v.sum()),
+           "ux_mean": float(np.sum(u[:, 0] * v) / v.sum()),
+           "ux_wall_layers": float(ux[:, [0, ny - 1], :].mean()),
+           "ux_centre_layers": float(ux[:, [ny // 2 - 1, ny // 2], :].mean()),
+           "nut_mean": float(np.sum(a["nut"] * v) / v.sum()),
+           "yplus_min": yp[0], "yplus_max": yp[1], "yplus_avg": yp[2],
+           "wall_shear_min": ws[0], "wall_shear_max": ws[1]}
+    if "k" in a:
+        out["k_mean"] = float(np.sum(a["k"] * v) / v.sum())
+    return out
+
+
+def log_continuity(text):
+    """The 'sum local' continuity errors of an application's log."""
+    return [float(m) for m in re.findall(
+        r"continuity errors : sum local = (\S+),", text)]
+
+
+def turbulence_oracles(name, a, nu):
+    """The physics oracles of the reference's turbulence tests that hold
+    on these starts: finite fields, nut >= 0, k, epsilon, omega and
+    nuTilda > 0, the centre faster than the wall (RAS: the centre row
+    over the wall row; LES: the two centre layers over the two wall
+    layers), and nut above nu somewhere (not for NUT_BELOW_NU)."""
+    checks = {"finite": all(bool(np.isfinite(x).all()) for x in a.values()),
+              "nut >= 0": bool(a["nut"].min() >= 0.0)}
+    for f in ("k", "epsilon", "omega", "nuTilda"):
+        if f in a:
+            checks[f"{f} > 0"] = bool(a[f].min() > 0.0)
+    if name not in NUT_BELOW_NU:
+        checks["nut > nu somewhere"] = bool(a["nut"].max() > nu)
+    if name == "scaleSimilarity":
+        checks["nut == 0"] = bool(np.all(a["nut"] == 0.0))
+    return checks
+
+
+def phase_turbulence_models(spmv, here, root):
+    """The seven RAS models of ras.py on the 2D channel
+    (ras_channel_case, RAS_CHANNEL_STEPS pisoFoam steps), boundaryFoam on
+    its tutorial (BOUNDARY_STEPS iterations) and channel395 under the six
+    LES models (les_channel_case, LES_STEPS channelFoam steps, with a
+    yPlus and a wallShearStress object), each from case files through
+    run(case) on the card, the counts set to 0 before each run. Held to
+    goldens from the JAX package (RAS and LES, TURB_GOLDEN_TOL), to the
+    oracles of `turbulence_oracles` and continuity < 1e-3 per unit time
+    step (tests/test_turbulence.py's bound). boundaryFoam, whose profile
+    does not develop in either package (ROADMAP Queue 3), is held to its
+    invariants: finite, k and epsilon > 0, nut >= 0 and the bulk velocity
+    at Ubar after every iteration."""
+    from foamtpu_torch.apps.cli import main as cli
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.solvers.apps import run
+
+    results, checks = {}, {}
+    launches_total = fb_total = 0
+
+    def one(kind, dst, steps):
+        nonlocal launches_total, fb_total
+        with quiet():
+            check(cli(["blockMesh", "-case", dst]) == 0, "blockMesh failed")
+        case = Case(dst, device="cuda")
+        log = io.StringIO()
+        spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            run(case, max_steps=steps)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches_total += spmv.LAUNCHES
+        fb_total += spmv.FB_LAUNCHES
+        text = log.getvalue()
+        sys.stderr.write(text[-2000:])
+        a = turbulence_arrays(case.final_state, lambda t: t.cpu().numpy())
+        v = case.mesh.v.cpu().numpy()
+        rec = {"kind": kind, "n_cells": case.mesh.n_cells,
+               "steps": case.time.index, "run_s": run_s,
+               "sec_per_step": run_s / max(case.time.index, 1),
+               "coo_fraction": float(case.mesh.fb_cells.shape[0])
+               / (2 * case.mesh.n_internal_faces),
+               "spmv_launches": spmv.LAUNCHES,
+               "spmv_fb_launches": spmv.FB_LAUNCHES}
+        ck = {"steps": case.time.index == steps,
+              "spmv launched": spmv.LAUNCHES > 0}
+        its = solve_iterations(text)
+        rec["iterations_max"] = {k: max(x) for k, x in its.items()}
+        return case, a, v, text, rec, ck
+
+    from foamtpu_torch.core.dictionary import dimensioned_scalar
+
+    for model in RAS_CHANNEL_MODELS:
+        dst = ras_channel_case(os.path.join(root, "ras", model), model)
+        case, a, v, text, rec, ck = one("ras", dst, RAS_CHANNEL_STEPS)
+        got = ras_channel_scalars(a, v)
+        rel = golden_rel_err(got, RAS_GOLDEN[model], TURB_GOLDEN_FLOOR)
+        ck.update(turbulence_oracles(model, a, RAS_CHANNEL_NU))
+        ck["centre row faster than wall row"] = (got["ux_centre_row"]
+                                                 > got["ux_wall_row"])
+        cont = max(log_continuity(text)) / RAS_CHANNEL_DT
+        ck["continuity < 1e-3"] = cont < 1e-3
+        ck.update({f"golden {k}": r <= TURB_GOLDEN_TOL
+                   for k, r in rel.items()})
+        rec.update(scalars=got, golden_rel_err=rel, continuity=cont,
+                   checks="goldens and oracles")
+        results[model] = rec
+        checks.update({f"{model} {k}": x for k, x in ck.items()})
+
+    dst = os.path.join(root, "boundary")
+    shutil.copytree(os.path.join(here, BOUNDARY_CASE), dst)
+    case, a, v, text, rec, ck = one("boundaryFoam", dst, BOUNDARY_STEPS)
+    ubar = (a["U"] * v[:, None]).sum(axis=0) / v.sum()
+    gradp = [float(x) for x in re.findall(r"pressure gradient = (\S+)",
+                                          text)]
+    ck.update({"finite": all(bool(np.isfinite(x).all())
+                             for x in a.values()),
+               "k > 0": bool(a["k"].min() > 0),
+               "epsilon > 0": bool(a["epsilon"].min() > 0),
+               "nut >= 0": bool(a["nut"].min() >= 0),
+               "bulk U = Ubar (1e-5)": bool(
+                   np.abs(ubar - [1.0, 0.0, 0.0]).max() <= 1e-5),
+               "gradP logged every iteration": len(gradp) == BOUNDARY_STEPS})
+    rec.update(ubar=ubar.tolist(), gradp_last=gradp[-5:],
+               u_min=float(a["U"][:, 0].min()),
+               u_max=float(a["U"][:, 0].max()),
+               checks="invariants (the reference's profile does not develop)")
+    results["boundaryLaunderSharma"] = rec
+    checks.update({f"boundaryLaunderSharma {k}": x for k, x in ck.items()})
+
+    for model in LES_MODELS:
+        dst = les_channel_case(here, os.path.join(root, "les", model), model,
+                               funcs=LES_FUNCS)
+        case, a, v, text, rec, ck = one("les", dst, LES_STEPS)
+        _, nu = dimensioned_scalar(case.transport_properties()["nu"])
+        got = les_channel_scalars(a, v, dst)
+        rel = golden_rel_err(got, LES_GOLDEN[model], TURB_GOLDEN_FLOOR)
+        ck.update(turbulence_oracles(model, a, nu))
+        ck["centre layers faster than wall layers"] = (
+            got["ux_centre_layers"] > got["ux_wall_layers"])
+        cont = max(log_continuity(text)) / 0.02
+        ck["continuity < 1e-3"] = cont < 1e-3
+        ck.update({f"golden {k}": r <= TURB_GOLDEN_TOL
+                   for k, r in rel.items()})
+        fol = case.function_objects
+        ck["function objects ran"] = (fol.failures == 0
+                                      and fol.executes == LES_STEPS)
+        rec.update(scalars=got, golden_rel_err=rel, continuity=cont,
+                   fo_fetches=fol.fetches(), fo_seconds=fol.seconds,
+                   checks="goldens (yPlus and wallShearStress files among "
+                          "them) and oracles")
+        results[model] = rec
+        checks.update({f"{model} {k}": x for k, x in ck.items()})
+
+    out = {"phase": "turbulence_models", "dtype": "torch.float32",
+           "runs": results, "spmv_launches_total": launches_total,
+           "spmv_fb_launches_total": fb_total, "checks": checks}
+    emit(out)
+    for name, ok in checks.items():
+        check(ok, f"turbulence_models check {name}: {out}")
+    return out
+
+
+def phase_les_headline(spmv, here, root, flush, trials=3):
+    """channel395 with its block refined to LES_HEAD_BLOCKS (786,432
+    cells; geometry, cyclic pairs, schemes and deltaT as shipped),
+    Smagorinsky, U = Ubar plus a 10% perturbation drawn on the card with
+    a torch.Generator: blockMesh, Case, LES_HEAD_WARMUP steps through
+    run(case) (the tutorial's PCG p; bench.py's GAMG controls if a p
+    solve reaches its cap), `trials` timed chunks of LES_HEAD_STEPS steps
+    of the application's step, the SpMV kernel held to its plain version
+    at the channel's p and U operands (f32, f64) and timed at the p
+    operand, and last one profiled chunk of LES_HEAD_PROFILE steps."""
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.core.dictionary import dimensioned_scalar
+    from foamtpu_torch.solvers import apps, pimple
+    from foamtpu_torch.solvers.apps import run
+    from foamtpu_torch.solvers.linear.gamg import GAMG
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    blocks = "({} {} {})".format(*LES_HEAD_BLOCKS)
+    dst = copy_case(here, CHANNEL395_CASE, root, "channel_big", edits=[
+        ("system/blockMeshDict", "(24 16 8)", blocks)])
+    blockmesh_s = time.perf_counter() - t0
+    case = Case(dst, device="cuda")
+    mesh = case.mesh
+    n = LES_HEAD_BLOCKS[0] * LES_HEAD_BLOCKS[1] * LES_HEAD_BLOCKS[2]
+    check(mesh.n_cells == n, mesh.n_cells)
+    # U = Ubar + 0.1 |Ubar| n, drawn on the card
+    U0 = case.read_field("U")
+    gen = torch.Generator(device="cuda").manual_seed(395)
+    ubar = U0.data[0].clone()
+    u_start = ubar + 0.1 * torch.linalg.norm(ubar) * torch.randn(
+        U0.data.shape, generator=gen, device="cuda", dtype=U0.data.dtype)
+    read_field = case.read_field
+    case.read_field = lambda name, *a, **k: (
+        read_field(name, *a, **k).with_data(u_start) if name == "U"
+        else read_field(name, *a, **k))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    progress("les_headline", f"set-up {setup_s:.1f} s, {n} cells")
+    spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        run(case, max_steps=LES_HEAD_WARMUP)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_its = solve_iterations(log.getvalue())
+    progress("les_headline", f"warm-up {warm_s:.1f} s, p iterations "
+             f"{warm_its.get('p')}")
+    _, nu = dimensioned_scalar(case.transport_properties()["nu"])
+    model, _ = apps._load_turbulence(case, nu)
+    cfg = apps._pimple_config(case, nu, model)
+    p_cap = int(cfg.p_controls.get("maxIter", 1000))
+    p_controls = "tutorial (PCG, polynomial preconditioner)"
+    if max(warm_its.get("p", [0])) >= p_cap:
+        gamg = {"solver": "GAMG", "preconditioner": "polynomial",
+                "tolerance": 1e-6, "relTol": 0.01, "maxIter": 1000,
+                "_gamg": GAMG(mesh)}
+        cfg = cfg._replace(p_controls=gamg, p_controls_final=dict(
+            gamg, relTol=0.0))
+        p_controls = ("bench.py's GAMG (the tutorial's PCG reached its cap "
+                      f"of {p_cap} in the warm-up: {warm_its['p']})")
+    step = pimple.make_step(mesh, cfg)
+    state = case.final_state
+    dt = case.time.delta_t
+
+    def chunk_of(k):
+        def chunk(st):
+            diag = None
+            for _ in range(k):
+                st, diag = step(st, dt)
+            return st, diag
+        return chunk
+
+    chunk = chunk_of(LES_HEAD_STEPS)
+    secs = []
+    l0 = spmv.LAUNCHES
+    with SolveLog(state) as tlog:
+        for _ in range(trials):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, diag = chunk(state)
+            torch.cuda.synchronize()
+            secs.append((time.perf_counter() - t0) / LES_HEAD_STEPS)
+    p_its = [int(i) for i in tlog.iterations["p"]]
+    launches_per_step = (spmv.LAUNCHES - l0) / (trials * LES_HEAD_STEPS)
+    sec = statistics.median(secs)
+    progress("les_headline", f"timed chunks {secs}")
+    launches, fb_launches = spmv.LAUNCHES, spmv.FB_LAUNCHES
+    # the kernel at the channel's p and U operands (the cyclic wrap
+    # offsets, the remainder fused): held to its plain version, timed at p
+    ops = solve_operands(tlog, mesh, "channel")
+    deltas = tuple(mesh.st_deltas)
+    cases, max_err = [], 0.0
+    for dtype in (torch.float32, torch.float64):
+        err = check_operands(spmv, ops, mesh, deltas, dtype,
+                             np.random.default_rng(43), cases)
+        if dtype == torch.float32:
+            max_err = err
+    _, soff, diag_p, sfb = ops[0]
+    timings = time_shape(
+        spmv, "channel_p", diag_p.contiguous(), operand_x(diag_p, 44),
+        soff.contiguous(), deltas, flush,
+        fb=mesh_remainder(spmv, mesh, sfb, diag_p.dtype))
+    # the profiled chunk last, from the state the timed chunks left
+    l1, f1 = spmv.LAUNCHES, spmv.FB_LAUNCHES
+    _, prof = profile_chunk(spmv, "les_headline_profile", mesh,
+                            chunk_of(LES_HEAD_PROFILE), state,
+                            LES_HEAD_PROFILE, sec)
+    launches += spmv.LAUNCHES - l1
+    fb_launches += spmv.FB_LAUNCHES - f1
+    u = state["U"].data
+    nut = state["turb"]["nut"].data
+    n_fb = int(mesh.fb_cells.shape[0])
+    out = {"phase": "les_headline",
+           "case": f"channelFoam channel395, block {blocks}: the tutorial's "
+                   "geometry, cyclic pairs, schemes, deltaT and Smagorinsky",
+           "n_cells": n, "dtype": str(mesh.v.dtype),
+           "coo_fraction": n_fb / (2 * mesh.n_internal_faces),
+           "coo_entries": n_fb, "st_deltas": list(deltas),
+           "p_controls": p_controls, "blockmesh_s": blockmesh_s,
+           "setup_s": setup_s, "warmup_s": warm_s,
+           "warmup_p_iterations": warm_its.get("p"),
+           "sec_per_step": sec, "sec_per_step_trials": secs,
+           "m_cells_per_sec": n / sec / 1e6,
+           "p_iterations": p_its, "p_iterations_mean": statistics.mean(p_its),
+           "p_iterations_max": max(p_its),
+           "spmv_launches_per_step": launches_per_step,
+           "cuda_launch_kernel_per_step": prof["cuda_launch_kernel_per_iter"],
+           "device_ms_per_step": prof["device_ms_per_iter"],
+           "device_busy_share": prof["device_busy_share_unprofiled"],
+           "spmv_device_ms_per_step": prof["spmv_device_ms_per_iter"],
+           "continuity": float(diag["continuity"]),
+           "u_max": float(torch.linalg.norm(u, dim=1).max()),
+           "nut_mean": float(nut.mean()),
+           "spmv_launches_total": launches,
+           "spmv_fb_launches_total": fb_launches,
+           "kernel_cases": cases, "max_abs_err_f32": max_err,
+           "timings": timings,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    checks = {"finite": bool(torch.isfinite(u).all()
+                             and torch.isfinite(nut).all()),
+              "nut >= 0": bool(nut.min() >= 0),
+              "continuity < 1e-3": out["continuity"] < 1e-3,
+              "the remainder carries the wrap faces": n_fb > 0
+              and fb_launches > 0,
+              "spmv launched": launches > 0}
+    out["checks"] = checks
+    emit(out)
+    for name, ok in checks.items():
+        check(ok, f"les_headline check {name}: {out}")
+    return out, max_err, timings
+
+
 T_START = time.perf_counter()
 TIMELINE = {}
 
@@ -2863,6 +3644,11 @@ def main() -> int:
         stamp("rotating")
         mrf, err_mrf, t_mrf = phase_mrf_headline(spmv, here, root, flush)
         stamp("mrf_headline")
+        turb = phase_turbulence_models(spmv, here,
+                                       os.path.join(root, "turbulence"))
+        stamp("turbulence_models")
+        les, err_les, t_les = phase_les_headline(spmv, here, root, flush)
+        stamp("les_headline")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "timeline", "seconds": TIMELINE,
@@ -2875,13 +3661,14 @@ def main() -> int:
     # apart, and every timed shape beside it
     main_shape = next(t for t in t_duct if t["shape"] == "duct_p_whole")
     paths = (head, pitz, duct, ras, pras, phead, dam, basic, cross, heated,
-             rot, mrf)
+             rot, mrf, turb, les)
     emit({"kernels": [{
         "name": "spmv_stencil", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": sum(p["spmv_launches_total"] for p in paths),
         "fb_launches": sum(p["spmv_fb_launches_total"] for p in paths),
-        "max_abs_err": max(max_err, err_duct, err_dam, err_heat, err_mrf),
+        "max_abs_err": max(max_err, err_duct, err_dam, err_heat, err_mrf,
+                           err_les),
         "ms": main_shape["kernel_ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
@@ -2895,7 +3682,7 @@ def main() -> int:
             "plain_ms",
             "plain_ms_l2_warm", "library_ms", "library_ms_l2_warm",
             "bound_ms", "bound_by", "bound_share")}
-            for t in timings + t_duct + t_dam + t_heat + t_mrf]}]})
+            for t in timings + t_duct + t_dam + t_heat + t_mrf + t_les]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

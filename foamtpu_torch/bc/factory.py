@@ -4,9 +4,11 @@ openfoam-2.2.x_tpu/bc/factory.py: `parse_value` and the part of
 
 Ported kinds: fixedValue, zeroGradient, calculated, empty, inletOutlet,
 totalPressure, pressureInletOutletVelocity, nutkWallFunction,
-kqRWallFunction, epsilonWallFunction, omegaWallFunction, and slip,
-symmetryPlane, symmetry and wedge (one value rule). Any other
-`type` raises NotImplementedError naming it
+nutUWallFunction, nutUSpaldingWallFunction, nutLowReWallFunction (fixed
+value 0, as the reference sets it), kqRWallFunction,
+epsilonWallFunction, omegaWallFunction, and slip, symmetryPlane,
+symmetry and wedge (one value rule). Any other `type` raises
+NotImplementedError naming it
 (the reference degrades unknown types to calculated/zeroGradient; the
 port refuses instead).
 """
@@ -19,12 +21,14 @@ import numpy as np
 import torch
 
 from ..core.dictionary import FoamDict, Word
+from . import derived2  # noqa: F401  (registers nutUSpaldingWallFunction)
 from .patchfields import PatchField, make
 
 KINDS = ("fixedValue", "zeroGradient", "calculated", "empty", "inletOutlet",
          "totalPressure", "pressureInletOutletVelocity", "nutkWallFunction",
-         "kqRWallFunction", "epsilonWallFunction", "omegaWallFunction",
-         "slip", "symmetryPlane", "symmetry", "wedge")
+         "nutUWallFunction", "nutUSpaldingWallFunction",
+         "nutLowReWallFunction", "kqRWallFunction", "epsilonWallFunction",
+         "omegaWallFunction", "slip", "symmetryPlane", "symmetry", "wedge")
 
 
 def parse_value(entry: Any, size: int, rank: int, dtype, device="cpu"):
@@ -58,11 +62,15 @@ def from_dict(spec: FoamDict, patch, rank: int, dtype, device="cpu"
         raise NotImplementedError(
             f"boundary condition kind {kind!r} is not ported to "
             "foamtpu_torch yet")
+    # nutLowReWallFunction: nut = 0 at the wall of a wall-resolved mesh
+    if kind == "nutLowReWallFunction":
+        return make("fixedValue", ref_value=0.0, vfrac=1.0)
     size = patch.size
     val = parse_value(spec.get("value"), size, rank, dtype, device)
 
     kw = {}
     if kind in ("fixedValue", "calculated", "nutkWallFunction",
+                "nutUWallFunction", "nutUSpaldingWallFunction",
                 "epsilonWallFunction", "omegaWallFunction"):
         kw["ref_value"] = val if val is not None else 0.0
         kw["vfrac"] = 1.0

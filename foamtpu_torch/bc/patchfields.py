@@ -7,7 +7,8 @@ reference module. The ported slice covers the kinds of the icoFoam
 cavity, the simpleFoam pitzDaily case, the kOmegaSST tet duct and the
 interFoam damBreak case: fixedValue, zeroGradient, empty, calculated,
 mixed, inletOutlet, totalPressure (incompressible form),
-pressureInletOutletVelocity, the nutk/kqR/epsilon/omega wall functions,
+pressureInletOutletVelocity, the nutk/nutU/nutUSpalding/kqR/epsilon/omega
+wall functions,
 and slip with the kinds that share its value coefficients
 (symmetryPlane, symmetry, wedge). Derived kinds re-evaluate their
 mixed triple through the update registry (`update` /
@@ -120,6 +121,8 @@ _VALUE_COEFFS: Dict[str, Callable] = {
     # constraint (models/turbulence/ras.py), the face itself is
     # flux-free
     "nutkWallFunction": _vc_fixed_value,
+    "nutUWallFunction": _vc_fixed_value,
+    "nutUSpaldingWallFunction": _vc_fixed_value,
     "kqRWallFunction": _vc_zero_gradient,
     "epsilonWallFunction": _vc_zero_gradient,
     "omegaWallFunction": _vc_zero_gradient,

@@ -140,14 +140,18 @@ def matrix_from_numpy(mat, device="cpu") -> FvMatrix:
 
 
 _STATE_FIELDS = ("U", "p", "p_rgh", "alpha")
+# the fields of the ported turbulence models (RAS: k, epsilon, omega,
+# nuTilda, nut; LES: nut and the subgrid k)
+_TURB_FIELDS = ("k", "epsilon", "omega", "nuTilda", "nut")
 _STATE_ARRAYS = ("phi", "U0", "U00", "rdt0", "ddt0_U", "rho", "lts_rdt")
 
 
 def state_from_numpy(state, device="cpu") -> Dict[str, Any]:
     """The port's solver state from the reference's. PISO/PIMPLE/SIMPLE:
     U, p, phi, phi_slot and U0, the `backward` / `CrankNicolson` history
-    (U00, rdt0, ddt0_U), plus the turbulence fields (k, epsilon, nut, ...
-    with their wall BCs) under 'turb' when present. interFoam: U, p_rgh,
+    (U00, rdt0, ddt0_U), plus the turbulence fields (k, epsilon, omega,
+    nuTilda, nut, with their wall BCs) under 'turb' when present; any
+    other turbulence field raises. interFoam: U, p_rgh,
     alpha, phi, rho, U0 and, under local time stepping, lts_rdt."""
     out: Dict[str, Any] = {}
     for name in _STATE_FIELDS:
@@ -159,6 +163,11 @@ def state_from_numpy(state, device="cpu") -> Dict[str, Any]:
     if "phi_slot" in state:
         out["phi_slot"] = tuple(tensor(a, device) for a in state["phi_slot"])
     if state.get("turb") is not None:
+        extra = set(state["turb"]) - set(_TURB_FIELDS)
+        if extra:
+            raise NotImplementedError(
+                f"turbulence fields {sorted(extra)} are not ported to "
+                "foamtpu_torch yet")
         out["turb"] = {name: field_from_numpy(f, device)
                        for name, f in state["turb"].items()}
     unknown = set(state) - set(out)

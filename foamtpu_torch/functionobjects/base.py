@@ -20,7 +20,9 @@ cellSource, faceSource, systemCall, abortCalculation, nearWallFields
 (values.py); forces, forceCoeffs (forces.py); probes (probes.py);
 readFields, surfaceInterpolateFields, regionSizeDistribution,
 fieldCoordinateSystemTransform, CourantNo, writeDictionary,
-timeActivatedFileUpdate (misc.py). The reference's other types raise
+timeActivatedFileUpdate (misc.py); yPlus, yPlusRAS, wallShearStress,
+sets, streamLine (sampling.py). The reference's other types (surfaces,
+sampledSurfaces, coded) raise
 NotImplementedError naming themselves when the list is built; a type
 neither package knows is skipped with a message, as the reference does.
 """
@@ -40,11 +42,6 @@ _TYPES: Dict[str, Callable] = {}
 
 # the reference's types that the port does not carry, by where they live
 NOT_PORTED = {
-    "yPlus": "functionobjects/sampling.py",
-    "yPlusRAS": "functionobjects/sampling.py",
-    "wallShearStress": "functionobjects/sampling.py",
-    "sets": "functionobjects/sampling.py",
-    "streamLine": "functionobjects/sampling.py",
     "surfaces": "functionobjects/surfaces.py",
     "sampledSurfaces": "functionobjects/surfaces.py",
     # the user's code is written against numpy and jax.numpy
@@ -108,7 +105,7 @@ class FunctionObjectList:
 
 def make_function_objects(case) -> FunctionObjectList:
     """Build from the controlDict `functions {}` block (functionObjectList)."""
-    from . import field, forces, misc, probes, values  # noqa: F401
+    from . import field, forces, misc, probes, sampling, values  # noqa: F401
 
     objs: List[FunctionObject] = []
     fns = case.control_dict.get("functions")

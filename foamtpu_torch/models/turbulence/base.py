@@ -4,9 +4,11 @@ openfoam-2.2.x_tpu/models/turbulence/base.py: `TurbulenceModel`,
 
 A model is a static config object whose methods are plain functions of
 (mesh, tstate, U, phi); its fields (k, epsilon, nut, ...) live in the
-solver state under 'turb'. `select` builds the ported models only
-(laminar, kEpsilon and kOmegaSST); any other RAS/LES keyword raises
-NotImplementedError naming it.
+solver state under 'turb'. `select` builds the ported models only: the
+nine incompressible RAS models of ras.py and the six LES models of les.py
+and les2.py (with LESProperties' `delta cubeRootVol`, the one filter
+width they compute); any other model, a compressible one, or another LES
+delta raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -132,9 +134,10 @@ def register(name: str, cls) -> None:
 def select(props: FoamDict, nu: float, kind: str = "RAS",
            compressible: bool = False) -> TurbulenceModel:
     """turbulenceModel::New: dispatch on the RASModel/LESModel keyword
-    of RASProperties/LESProperties. Only the incompressible laminar,
-    kEpsilon and kOmegaSST models are ported; anything else raises."""
-    from . import ras  # noqa: F401  (registers the ported RAS models)
+    of RASProperties/LESProperties. The incompressible laminar, RAS
+    (ras.py) and LES (les.py, les2.py) models are ported; anything else
+    raises."""
+    from . import les, les2, ras  # noqa: F401  (register the models)
 
     if compressible:
         raise NotImplementedError(
@@ -150,5 +153,12 @@ def select(props: FoamDict, nu: float, kind: str = "RAS",
         raise NotImplementedError(
             f"turbulence model {name!r} is not ported to foamtpu_torch "
             f"yet (ported: {sorted(_REGISTRY)})")
+    if kind == "LES":
+        # the reference reads no delta and always takes cubeRootVol
+        delta = str(props.get("delta", "cubeRootVol"))
+        if delta != "cubeRootVol":
+            raise NotImplementedError(
+                f"LES delta {delta!r} is not ported to foamtpu_torch yet "
+                "(ported: cubeRootVol)")
     coeffs = props.get(name + "Coeffs", FoamDict())
     return _REGISTRY[name](nu, coeffs)

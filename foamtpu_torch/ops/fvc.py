@@ -179,6 +179,12 @@ def grad_of(mesh, field: VolField, scheme: str = "Gauss linear") -> Any:
     raise ValueError(f"unknown gradScheme {scheme!r}")
 
 
+def grad_component(mesh, data: Any, bvals: Any) -> Any:
+    """Gauss gradient of raw per-cell data [nC(,C)] with the given
+    boundary face values [nBf(,C)] -> [nC,3(,C)]."""
+    return slot_mod.grad(mesh, data, bvals)
+
+
 def flux(mesh, field: VolField) -> Any:
     """Face flux of a vector field: phi = Sf . interp(U), masked on empty
     patches (fvc::flux)."""

@@ -8,9 +8,11 @@ OpenFOAM-format output at write times and leaves the last state in
 pimpleFoam, simpleFoam, interFoam (with LTSInterFoam's `lts=True`), their
 rotating-frame and porous variants (MRFSimpleFoam, MRFPimpleFoam,
 SRFSimpleFoam, SRFPimpleFoam, porousSimpleFoam, MRFInterFoam,
-porousInterFoam) and the basic solvers laplacianFoam, scalarTransportFoam
-and potentialFoam; `run(case)` picks among them by controlDict's
-`application`.
+porousInterFoam), channelFoam (pimpleFoam with an LES model, as the
+reference registers it), boundaryFoam and the basic solvers
+laplacianFoam, scalarTransportFoam and potentialFoam; `run(case)` picks
+among them by controlDict's `application`. The turbulence model comes
+from constant/RASProperties or constant/LESProperties.
 
     from foamtpu_torch.core.case import Case
     from foamtpu_torch.solvers.apps import run
@@ -609,6 +611,82 @@ def laplacian_foam(case, max_steps: Optional[int] = None) -> None:
                 case.read_field("T"), max_steps)
 
 
+def boundary_foam(case, max_steps: Optional[int] = None) -> None:
+    """boundaryFoam (incompressible/boundaryFoam): steady 1D
+    fully-developed channel or boundary-layer flow. Momentum diffusion
+    only (no convection), relaxed as UEqn.relax() does; after each solve
+    the axial pressure gradient is adjusted to hold transportProperties'
+    Ubar, and the turbulence model is corrected on the 1D profile (steady,
+    zero flux, its own equations unrelaxed, as in the reference). Logs
+    the Ux solve and the pressure gradient each iteration; writes U and
+    the turbulence fields at write times and at the end."""
+    from ..core.dimensions import dimViscosity
+    from ..ops import fvm
+    from . import linear
+
+    mesh = case.mesh
+    tp = case.transport_properties()
+    _, nu = dimensioned_scalar(tp["nu"])
+    ubar_e = tp.get("Ubar")
+    ub = np.asarray([float(x) for x in ubar_e[-1]]) \
+        if isinstance(ubar_e, list) and isinstance(ubar_e[-1], list) \
+        else np.asarray([1.0, 0.0, 0.0])
+    mag_ub = float(np.linalg.norm(ub))
+    fdir = ub / max(mag_ub, 1e-30)
+    model, tstate = _load_turbulence(case, nu)
+    U = case.read_field("U")
+    u_ctl = case.solver_controls("U")
+    alpha_u = _relaxation(case).get("U", 0.5)
+    flow_dir = torch.tensor(fdir, dtype=mesh.v.dtype, device=mesh.device)
+    phi0 = mesh.v.new_zeros((mesh.n_faces,))
+    vtot = torch.sum(mesh.v)
+    dt1 = torch.ones((), dtype=mesh.v.dtype, device=mesh.device)
+
+    def one(U, tstate, gradP):
+        if model is not None:
+            visc_mat, visc_expl = model.div_dev_reff(mesh, tstate, U)
+            UEqn = visc_mat.add_source(-visc_expl, mesh)
+        else:
+            UEqn = -fvm.laplacian(mesh, piso_mod._as_scalar(mesh, nu), U,
+                                  gamma_dims=dimViscosity)
+        # UEqn.relax(): without it the gradP fixed point oscillates
+        UEqn = UEqn.relax(mesh, alpha_u, U.data)
+        Umat = UEqn.add_source(
+            torch.broadcast_to(gradP * flow_dir, U.data.shape), mesh)
+        data, perf = linear.solve(mesh, Umat, U.data, u_ctl)
+        U = U.with_data(data)
+        # adjust gradP to hold Ubar (boundaryFoam.C)
+        rAU = 1.0 / UEqn.A(mesh)
+        magUbarStar = torch.sum(mesh.v * (U.data @ flow_dir)) / vtot
+        rAUw = torch.sum(mesh.v * rAU) / vtot
+        dG = (mag_ub - magUbarStar) / rAUw
+        U = U.with_data(U.data + (rAU * dG)[:, None] * flow_dir[None, :])
+        gradP = gradP + dG
+        if model is not None:
+            tstate, _ = model.correct(mesh, tstate, U, phi0, dt1,
+                                      steady=True)
+        return U, tstate, gradP, perf
+
+    def fields(U, tstate):
+        return [U] + (list(tstate.values()) if tstate else [])
+
+    gradP = mesh.v.new_zeros(())
+    log.info(f"Starting loop: boundaryFoam, {mesh.n_cells} cells\n")
+    for t in case.time.loop():
+        U, tstate, gradP, perf = one(U, tstate, gradP)
+        log.info(f"Time = {t.name}")
+        log.info(log.solver_line("Ux", perf))
+        log.info(f"Uncorrected Ubar = ..., pressure gradient = "
+                 f"{float(gradP):.6g}\n")
+        if t.write_time():
+            case.write_fields(fields(U, tstate))
+        if max_steps is not None and t.index >= max_steps:
+            break
+    case.write_fields(fields(U, tstate))
+    case.final_state = {"U": U, "turb": tstate, "gradP": gradP}
+    log.info("End\n")
+
+
 def potential_foam(case, max_steps: Optional[int] = None) -> None:
     """potentialFoam: potential-flow initialisation (basic/potentialFoam):
     solve laplacian(Phi) = div(phi0) for the velocity potential Phi with
@@ -668,6 +746,11 @@ APPLICATIONS = {
     "porousSimpleFoam": simplefoam,
     "MRFInterFoam": interfoam_app,
     "porousInterFoam": interfoam_app,
+    # channelFoam is pimpleFoam with an LES model, as in the reference,
+    # whose channelFoam reads no Ubar: nothing holds the bulk velocity
+    # (OpenFOAM's channelFoam adjusts gradP to hold it)
+    "channelFoam": pimplefoam,
+    "boundaryFoam": boundary_foam,
     "laplacianFoam": laplacian_foam,
     "scalarTransportFoam": scalar_transport_foam,
     "potentialFoam": potential_foam,

@@ -22,7 +22,7 @@ Then the application layer itself: `Time.loop` / `adjust_delta_t` /
 `write_time` / `register_write` (purgeWrite) against the reference's Time
 on the same controlDict, the log lines against the reference's
 formatters, and the cases that must raise: an unknown application, a
-function object of a type that is not ported, a compressible MRF
+function object of a type that is not ported (surfaces), a compressible MRF
 application, a codedSource snippet that uses jnp.
 """
 
@@ -345,9 +345,11 @@ def test_run_rejects_an_unknown_application(cavity):
 
 
 @pytest.mark.parametrize("where,text,word", [
+    # sets is ported since the turbulence slice (tests/test_torch_sampling.py);
+    # surfaces is not
     (("system", "controlDict"),
-     "\nfunctions { lines { type sets; fields (p); } }\n",
-     "'sets'"),
+     "\nfunctions { cuts { type surfaces; fields (p); } }\n",
+     "'surfaces'"),
     # MRFZones and fvOptions are read since the rotating-frame slice
     # (tests/test_torch_mrf.py); the compressible MRF family and a coded
     # snippet written for jax are not

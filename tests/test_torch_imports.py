@@ -39,7 +39,11 @@ def test_no_source_imports_jax_or_the_reference():
     assert n > 50 and bad == [], bad
     sources = {os.path.relpath(p, REPO) for p in _sources()}
     assert {"foamtpu_torch/models/fvoptions.py",
-            "foamtpu_torch/models/mrf.py"} <= sources
+            "foamtpu_torch/models/mrf.py",
+            "foamtpu_torch/models/turbulence/les.py",
+            "foamtpu_torch/models/turbulence/les2.py",
+            "foamtpu_torch/functionobjects/sampling.py",
+            "foamtpu_torch/bc/derived2.py"} <= sources
     # the pattern does catch the imports it is there for
     assert IMPORT.search("import jax.numpy as jnp")
     assert IMPORT.search("    from foamtpu.ops import fvc")
@@ -51,9 +55,13 @@ import importlib, pkgutil, sys
 import foamtpu_torch
 names = [m.name for m in pkgutil.walk_packages(foamtpu_torch.__path__,
                                                "foamtpu_torch.")]
-# the rotating-frame and porous slice's modules are among them
-assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf"} <= set(
-    names), names
+# the rotating-frame and porous slice's modules and the turbulence
+# slice's are among them
+assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf",
+        "foamtpu_torch.models.turbulence.les",
+        "foamtpu_torch.models.turbulence.les2",
+        "foamtpu_torch.functionobjects.sampling",
+        "foamtpu_torch.bc.derived2"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")

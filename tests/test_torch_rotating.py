@@ -107,7 +107,10 @@ def test_rotating_applications_are_registered():
         assert tapps.APPLICATIONS[app] in (tapps.simplefoam,
                                            tapps.pimplefoam,
                                            tapps.interfoam_app)
-    # still outside the port: LES, snappyHexMesh, the compressible family
-    for app in ("channelFoam", "windSimpleFoam", "rhoPorousSimpleFoam",
+    # channelFoam (pimpleFoam with an LES model) is ported since the
+    # turbulence slice (tests/test_torch_channel.py); still outside the
+    # port: dnsFoam, snappyHexMesh, the compressible family
+    assert tapps.APPLICATIONS["channelFoam"] is tapps.pimplefoam
+    for app in ("dnsFoam", "windSimpleFoam", "rhoPorousSimpleFoam",
                 "rhoPorousMRFSimpleFoam", "rhoPorousMRFPimpleFoam"):
         assert app not in tapps.APPLICATIONS
