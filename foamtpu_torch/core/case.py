@@ -63,6 +63,10 @@ class Case:
         return self._mesh
 
     # -- dictionaries -----------------------------------------------------------
+    def properties(self, name: str) -> FoamDict:
+        """A dictionary of constant/ (dynamicMeshDict, RASProperties, ...)."""
+        return parse_file(self.const_path(name))
+
     def transport_properties(self) -> FoamDict:
         return parse_file(self.const_path("transportProperties"))
 

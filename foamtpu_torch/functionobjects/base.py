@@ -20,10 +20,9 @@ cellSource, faceSource, systemCall, abortCalculation, nearWallFields
 (values.py); forces, forceCoeffs (forces.py); probes (probes.py);
 readFields, surfaceInterpolateFields, regionSizeDistribution,
 fieldCoordinateSystemTransform, CourantNo, writeDictionary,
-timeActivatedFileUpdate (misc.py); yPlus, yPlusRAS, wallShearStress,
-sets, streamLine (sampling.py). The reference's other types (surfaces,
-sampledSurfaces, coded) raise
-NotImplementedError naming themselves when the list is built; a type
+timeActivatedFileUpdate, coded, codedFunctionObject (misc.py); yPlus,
+yPlusRAS, wallShearStress, sets, streamLine (sampling.py); surfaces,
+sampledSurfaces (surfaces.py): every type of the reference. A type
 neither package knows is skipped with a message, as the reference does.
 """
 
@@ -39,16 +38,6 @@ import torch
 from ..core.dictionary import FoamDict
 
 _TYPES: Dict[str, Callable] = {}
-
-# the reference's types that the port does not carry, by where they live
-NOT_PORTED = {
-    "surfaces": "functionobjects/surfaces.py",
-    "sampledSurfaces": "functionobjects/surfaces.py",
-    # the user's code is written against numpy and jax.numpy
-    "coded": "functionobjects/misc.py (coded)",
-    "codedFunctionObject": "functionobjects/misc.py (coded)",
-}
-
 
 def register(name: str, cls) -> None:
     _TYPES[name] = cls
@@ -105,7 +94,8 @@ class FunctionObjectList:
 
 def make_function_objects(case) -> FunctionObjectList:
     """Build from the controlDict `functions {}` block (functionObjectList)."""
-    from . import field, forces, misc, probes, sampling, values  # noqa: F401
+    from . import (field, forces, misc, probes, sampling,  # noqa: F401
+                   surfaces, values)
 
     objs: List[FunctionObject] = []
     fns = case.control_dict.get("functions")
@@ -114,10 +104,6 @@ def make_function_objects(case) -> FunctionObjectList:
             if not isinstance(spec, FoamDict):
                 continue
             t = str(spec.get("type", ""))
-            if t in NOT_PORTED:
-                raise NotImplementedError(
-                    f"functionObject type {t!r} ({name}; "
-                    f"{NOT_PORTED[t]}) is not ported to foamtpu_torch yet")
             if t in _TYPES:
                 objs.append(_TYPES[t](str(name), spec, case))
             else:

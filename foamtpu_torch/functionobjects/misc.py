@@ -16,9 +16,15 @@ src/postProcessing/functionObjects/{field,utilities}/):
 Host fetches per execute: surfaceInterpolateFields and
 fieldCoordinateSystemTransform one per field (they write whole fields),
 regionSizeDistribution one (its union-find runs on the host), CourantNo
-one (two numbers); the others none. `coded` is not ported (its user code
-is written against numpy and jax.numpy): functionobjects/base.py
-refuses it.
+one (two numbers); the others none.
+
+  coded, codedFunctionObject      a user's Python snippet run every
+                                  execute (np, and jnp as the port's
+                                  jax.numpy subset, utils/tnp.py)
+
+As in the reference, an exception of the snippet propagates to the
+list, which prints it and keeps the run going (the silent failure of the
+reference's coded object); the port's list also counts it in `failures`.
 """
 
 from __future__ import annotations
@@ -247,6 +253,51 @@ class TimeActivatedFileUpdate(FunctionObject):
                           f"at t={time_name}")
 
 
+class Coded(FunctionObject):
+    """User-coded functionObject (the codedFunctionObject `coded` type;
+    there a C++ snippet compiled by wmake and dlopened, here a Python
+    snippet). The `codeExecute` (or `code`) snippet runs every execute()
+    with this namespace:
+
+        np, jnp     numpy / the port's jax.numpy subset (utils/tnp.py)
+        mesh        the device mesh
+        state       the live solver-state dict (read AND write)
+        time_name   current time as written (str), time (float or None)
+        store       a dict persisting across calls
+        output(s)   append a line to postProcessing/<name>/0/<name>.dat
+        case        the case
+
+    Exceptions propagate to FunctionObjectList, which keeps the run
+    going."""
+
+    def __init__(self, name, spec, case):
+        super().__init__(name, spec, case)
+        code = spec.get("codeExecute", spec.get("code", ""))
+        self.code = compile(str(code), f"<codedFunctionObject:{name}>",
+                            "exec")
+        self.store: dict = {}
+        self.path = os.path.join(self.out_dir, "0", f"{name}.dat")
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+
+    def execute(self, time_name, state):
+        from ..utils import tnp
+
+        def output(s):
+            with open(self.path, "a") as f:
+                f.write(str(s).rstrip("\n") + "\n")
+
+        try:
+            t = float(time_name)
+        except ValueError:
+            t = None
+        ns = {"np": np, "jnp": tnp, "mesh": self.case.mesh,
+              "state": state, "time_name": time_name, "time": t,
+              "store": self.store, "output": output, "case": self.case}
+        exec(self.code, ns)  # noqa: S102 (the dynamicCode analogue)
+
+
+register("coded", Coded)
+register("codedFunctionObject", Coded)
 register("readFields", ReadFields)
 register("surfaceInterpolateFields", SurfaceInterpolateFields)
 register("regionSizeDistribution", RegionSizeDistribution)

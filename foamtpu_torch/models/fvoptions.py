@@ -17,6 +17,7 @@ Option types:
                             from twist/chord blade tables and a cl/cd
                             lookup profile (trimModel fixed)
 - codedSource               a Python `codeAddSup` snippet run once at parse
+                            (np, and jnp as utils/tnp.py)
 - fixedTemperatureConstraint, temperatureLimitsConstraint
 - MRFSource                 the MRF zone's Coriolis term -(omega x U)
 
@@ -28,7 +29,6 @@ waits on the host) lives in the solver state under state["fvopt"].
 
 from __future__ import annotations
 
-import ast
 import dataclasses
 import os
 from typing import Any, Dict, List, Optional, Tuple
@@ -327,20 +327,20 @@ def _porosity(name, mask, dvec, fvec, nu, R) -> Option:
 
 
 def _coded_source(mesh, name: str, code: str) -> np.ndarray:
-    """Run a codedSource snippet once with np, C [nC,3] (cell centres) and
-    V [nC] in scope; it assigns `source` ([nC] or [nC,3], per volume)."""
-    text = str(code)
-    if any(isinstance(n, ast.Name) and n.id == "jnp"
-           for n in ast.walk(ast.parse(text))):
-        raise NotImplementedError(
-            f"fvOptions codedSource {name!r}: a snippet that uses jnp is not "
-            "ported to foamtpu_torch yet (the port runs it with np, C and V)")
-    ns = {"np": np, "C": _host(mesh.c), "V": _host(mesh.v), "source": None}
-    exec(compile(text, f"<codedSource:{name}>", "exec"), ns)  # noqa: S102
+    """Run a codedSource snippet once with np, jnp (the port's jax.numpy
+    subset over torch, utils/tnp.py), C [nC,3] (cell centres) and V [nC]
+    in scope; it assigns `source` ([nC] or [nC,3], per volume)."""
+    from ..utils import tnp
+
+    ns = {"np": np, "jnp": tnp, "C": _host(mesh.c), "V": _host(mesh.v),
+          "source": None}
+    exec(compile(str(code), f"<codedSource:{name}>", "exec"), ns)  # noqa: S102
     src = ns.get("source")
     if src is None:
         raise ValueError(f"codedSource {name!r}: the snippet must "
                          "assign `source`")
+    if isinstance(src, torch.Tensor):
+        src = src.detach().cpu().numpy()
     return np.asarray(src, dtype=float)
 
 

@@ -9,9 +9,11 @@ pimpleFoam, simpleFoam, interFoam (with LTSInterFoam's `lts=True`), their
 rotating-frame and porous variants (MRFSimpleFoam, MRFPimpleFoam,
 SRFSimpleFoam, SRFPimpleFoam, porousSimpleFoam, MRFInterFoam,
 porousInterFoam), channelFoam (pimpleFoam with an LES model, as the
-reference registers it), boundaryFoam and the basic solvers
-laplacianFoam, scalarTransportFoam and potentialFoam; `run(case)` picks
-among them by controlDict's `application`. The turbulence model comes
+reference registers it), boundaryFoam, the basic solvers laplacianFoam,
+scalarTransportFoam and potentialFoam, buoyantBoussinesqSimpleFoam and
+buoyantBoussinesqPimpleFoam, and on solid-body moving meshes
+pimpleDyMFoam and interDyMFoam; `run(case)` picks among them by
+controlDict's `application`. The turbulence model comes
 from constant/RASProperties or constant/LESProperties.
 
     from foamtpu_torch.core.case import Case
@@ -24,9 +26,10 @@ flow solvers, as in the reference (functionobjects/; the list is left in
 do not. constant/MRFZones, constant/SRFProperties, system/fvOptions,
 constant/fvOptions and constant/porousZones are read by the flow
 solvers, so the MRF*, SRF* and porous* applications are aliases of
-their base solvers, as in the reference. The moving-mesh interDyMFoam is
-outside the ported slice: asking for it raises NotImplementedError, as
-does a function-object type that is not ported, before the first step.
+their base solvers, as in the reference. The sixDoF and attachDetach
+variants of pimpleDyMFoam and interDyMFoam's dynamicRefineFvMesh are
+outside the ported slice and raise NotImplementedError naming the
+reference's function for them, before the first step.
 """
 
 from __future__ import annotations
@@ -505,11 +508,16 @@ def _inter_config(case, lts: bool = False):
 def interfoam_app(case, max_steps: Optional[int] = None,
                   lts: bool = False, dym: bool = False) -> None:
     """interFoam from case files (multiphase/interFoam); lts=True is
-    LTSInterFoam. dym=True (interDyMFoam) is not ported."""
+    LTSInterFoam, dym=True interDyMFoam on a solidBodyMotionFvMesh
+    (constant/dynamicMeshDict; dynamicRefineFvMesh is not ported)."""
     from . import interfoam as inter_mod
 
     if dym:
-        _not_ported("interDyMFoam (dym=True, mesh/moving.py)")
+        dmd = case.properties("dynamicMeshDict")
+        if str(dmd.get("dynamicFvMesh", "")) == "dynamicRefineFvMesh":
+            _not_ported("interDyMFoam with dynamicRefineFvMesh (the "
+                        "reference's _inter_amr_run: mesh/topo.py, "
+                        "mesh/refine.py)")
     fol = _function_objects(case)
     mesh = case.mesh
     cfg = _inter_config(case, lts=lts)
@@ -520,8 +528,15 @@ def interfoam_app(case, max_steps: Optional[int] = None,
             alpha = case.read_field(nm)
             break
     p_rgh = case.read_field("p_rgh")
-    step = inter_mod.make_step(mesh, cfg)
-    state = inter_mod.initial_state(mesh, U, p_rgh, alpha, cfg)
+    if dym:
+        # interDyMFoam: solid-body mesh motion, relative fluxes
+        pts_fn, umesh_fn = _dym_motion(case)
+        step = inter_mod.make_dym_step(mesh, cfg, pts_fn, umesh_fn)
+        state = inter_mod.interdym_initial_state(
+            case.poly_mesh, mesh, U, p_rgh, alpha, cfg, umesh_fn)
+    else:
+        step = inter_mod.make_step(mesh, cfg)
+        state = inter_mod.initial_state(mesh, U, p_rgh, alpha, cfg)
 
     def fields(state):
         return [state["U"], state["p_rgh"], state["alpha"]]
@@ -544,6 +559,241 @@ def interfoam_app(case, max_steps: Optional[int] = None,
     case.write_fields(fields(state))
     case.final_state = state
     log.info("End\n")
+
+
+# ---------------------------------------------------------------------------
+# moving meshes
+# ---------------------------------------------------------------------------
+
+
+def _dym_motion(case):
+    """(pts_fn, umesh_fn) from constant/dynamicMeshDict solid-body
+    motion coefficients (shared by pimpleDyMFoam / interDyMFoam)."""
+    from ..mesh import moving
+
+    dmd = case.properties("dynamicMeshDict")
+    coeffs = dmd.get("solidBodyMotionFvMeshCoeffs", dmd)
+    fn = str(coeffs.get("solidBodyMotionFunction", "linearMotion"))
+    c = coeffs.get(fn + "Coeffs", FoamDict())
+
+    def vec(key, default=(0.0, 0.0, 0.0)):
+        return tuple(float(q) for q in c.get(key, default))
+
+    def scal(key, default=1.0):
+        v = c.get(key, default)
+        if isinstance(v, (list, tuple)):
+            v = v[-1]
+        return float(v)
+
+    if fn == "oscillatingLinearMotion":
+        return moving.oscillating_linear_motion(vec("amplitude"),
+                                                scal("omega"))
+    if fn == "rotatingMotion":
+        return moving.rotating_motion(vec("origin"),
+                                      vec("axis", (0.0, 0.0, 1.0)),
+                                      scal("omega"))
+    if fn == "linearMotion":
+        return moving.linear_motion(vec("velocity"))
+    raise ValueError(f"unsupported solidBodyMotionFunction {fn!r}")
+
+
+def pimple_dym_foam(case, max_steps: Optional[int] = None) -> None:
+    """pimpleDyMFoam (incompressible/pimpleFoam/pimpleDyMFoam) on a
+    solidBodyMotionFvMesh: linear, oscillatingLinear or rotating motion
+    from constant/dynamicMeshDict. Laminar, as the reference (no
+    turbulence on the moving-mesh path), and with no function objects,
+    as the reference's. The sixDoFRigidBodyMotion solver and the
+    attachDetach topology changer are not ported."""
+    from . import pimpledym as dym_mod
+
+    mesh = case.mesh
+    dmd = case.properties("dynamicMeshDict")
+    solver_nm = str(dmd.get("motionSolverLibs", ""))
+    msd = dmd.get("motionSolver", dmd.get("solver", ""))
+    if (str(msd) == "sixDoFRigidBodyMotion"
+            or "sixDoFRigidBodyMotion" in solver_nm):
+        _not_ported("pimpleDyMFoam with sixDoFRigidBodyMotion (the "
+                    "reference's _pimple_dym_sixdof, models/sixdof.py)")
+    if (str(dmd.get("topoChanger", "")) == "attachDetach"
+            or "attachDetachCoeffs" in dmd):
+        _not_ported("pimpleDyMFoam with attachDetach (the reference's "
+                    "_pimple_attach_detach, mesh/topo.py)")
+    coeffs = dmd.get("solidBodyMotionFvMeshCoeffs", dmd)
+    fn = str(coeffs.get("solidBodyMotionFunction", "linearMotion"))
+    pts_fn, umesh_fn = _dym_motion(case)
+
+    _, nu = dimensioned_scalar(case.transport_properties()["nu"])
+    cdict = case.pimple_controls("PIMPLE")
+    cfg = dym_mod.DyMConfig(
+        nu=nu, pts_fn=pts_fn, umesh_fn=umesh_fn,
+        n_correctors=int(cdict.get("nCorrectors", 2)),
+        n_non_orth=int(cdict.get("nNonOrthogonalCorrectors", 0)),
+        corrected=case.laplacian_corrected(),
+        div_scheme=case.div_scheme("div(phi,U)"),
+        p_ref_cell=int(cdict.get("pRefCell", 0)),
+        p_ref_value=float(cdict.get("pRefValue", 0.0)),
+        p_controls=case.solver_controls("p"),
+        u_controls=case.solver_controls("U"))
+    U = case.read_field("U")
+    p = case.read_field("p")
+    state = dym_mod.initial_state(case.poly_mesh, mesh, U, p, umesh_fn)
+    step = dym_mod.make_step(mesh, cfg)
+    log.info(f"Starting loop: pimpleDyMFoam ({fn}), "
+             f"{mesh.n_cells} cells\n")
+    cumulative = 0.0
+    t = case.time
+    max_iter = max(int(round((t.end_time - t.start_time) / t.delta_t)), 1)
+    if max_steps is not None:
+        max_iter = min(max_iter, max_steps)
+    dt = torch.tensor(t.delta_t, dtype=mesh.v.dtype, device=mesh.device)
+
+    def write(state):
+        case.write_fields([state["U"], state["p"]])
+
+    while (t.index < max_iter and not t.stop_now
+           and t.value < t.end_time - 1e-12):
+        state, diag = step(state, dt)
+        t.index += 1
+        t.value = t.start_time + t.index * t.delta_t
+        t.current_dt = float(dt)
+        cumulative = _log_step(case, t, diag, cumulative)
+        if t.write_time():
+            write(state)
+    write(state)
+    log.info("End\n")
+    case.final_state = state
+
+
+# ---------------------------------------------------------------------------
+# heat transfer: buoyantBoussinesq{Simple,Pimple}Foam
+# ---------------------------------------------------------------------------
+
+
+def _read_gravity(case):
+    """constant/g (uniformDimensionedVectorField g)."""
+    path = case.const_path("g")
+    if os.path.exists(path):
+        v = np.asarray(parse_file(path).get("value")).reshape(-1)
+        return (float(v[0]), float(v[1]), float(v[2]))
+    return (0.0, -9.81, 0.0)
+
+
+def _boussinesq_config(case, steady: bool, nu: float, model=None):
+    """The BoussinesqConfig of a buoyantBoussinesq*Foam case: the
+    transport properties (beta, TRef, Pr, Prt), constant/g, the SIMPLE or
+    PIMPLE dict, the relaxation factors, the schemes and the p_rgh
+    (p_rghFinal), U, T and k controls."""
+    from . import buoyant as buoy_mod
+
+    tp = case.transport_properties()
+    relax = _relaxation(case)
+    cdict = case.pimple_controls("SIMPLE" if steady else "PIMPLE")
+    turb_ctl = None
+    try:
+        turb_ctl = case.solver_controls("k")
+    except KeyError:
+        pass
+    try:
+        pf_ctl = case.solver_controls("p_rghFinal")
+    except KeyError:
+        pf_ctl = None
+    return buoy_mod.BoussinesqConfig(
+        nu=nu,
+        beta=_dim_scalar_of(tp, "beta", 3e-3),
+        t_ref=_dim_scalar_of(tp, "TRef", 300.0),
+        pr=_dim_scalar_of(tp, "Pr", 0.7),
+        prt=_dim_scalar_of(tp, "Prt", 0.85),
+        g=_read_gravity(case),
+        steady=steady,
+        n_outer=int(cdict.get("nOuterCorrectors", 1)),
+        n_correctors=int(cdict.get("nCorrectors", 2)),
+        n_non_orth=int(cdict.get("nNonOrthogonalCorrectors", 0)),
+        corrected=case.laplacian_corrected(),
+        div_scheme=case.div_scheme("div(phi,U)"),
+        div_scheme_t=case.div_scheme("div(phi,T)"),
+        ddt_scheme=case.ddt_scheme(),
+        grad_scheme=case.grad_scheme("grad(p_rgh)"),
+        p_ref_cell=int(cdict.get("pRefCell", 0)),
+        p_ref_value=float(cdict.get("pRefValue", 0.0)),
+        alpha_u=relax.get("U", 0.3 if steady else 1.0),
+        alpha_p=relax.get("p_rgh", 0.7 if steady else 1.0),
+        alpha_t=relax.get("T", 0.5 if steady else 1.0),
+        p_controls=case.solver_controls("p_rgh"),
+        p_controls_final=pf_ctl,
+        u_controls=case.solver_controls("U"),
+        t_controls=case.solver_controls("T"),
+        turb=model,
+        turb_controls=turb_ctl,
+        turb_relax=relax.get("k", 0.7),
+    )
+
+
+def _boussinesq_run(case, steady: bool, max_steps: Optional[int]) -> None:
+    """The shared loop of buoyantBoussinesq{Simple,Pimple}Foam
+    (heatTransfer/): chunks of FOAMTPU_CHUNK iterations or steps (default
+    10) between log lines, the function objects after each chunk, SIMPLE
+    stopped by residualControl."""
+    from . import buoyant as buoy_mod
+
+    fol = _function_objects(case)
+    mesh = case.mesh
+    _, nu = dimensioned_scalar(case.transport_properties()["nu"])
+    model, tstate = _load_turbulence(case, nu)
+    cname = "SIMPLE" if steady else "PIMPLE"
+    cfg = _boussinesq_config(case, steady, nu, model)
+    U = case.read_field("U")
+    p_rgh = case.read_field("p_rgh")
+    T = case.read_field("T")
+    state = buoy_mod.initial_state(mesh, U, p_rgh, T, turb_state=tstate,
+                                   steady=steady)
+    chunk_n = int(os.environ.get("FOAMTPU_CHUNK", "10"))
+    chunk = buoy_mod.make_chunk(mesh, cfg, chunk_n)
+    res_ctl = _residual_control(case, cname)
+    extra = model.field_names[:-1] if model else ()
+    name = ("buoyantBoussinesqSimpleFoam" if steady
+            else "buoyantBoussinesqPimpleFoam")
+    log.info(f"Starting loop: {name}, {mesh.n_cells} cells\n")
+    cumulative = 0.0
+    t = case.time
+    max_iter = max(int(round((t.end_time - t.start_time) / t.delta_t)), 1)
+    if max_steps is not None:
+        max_iter = min(max_iter, max_steps)
+    dt = torch.tensor(1.0 if steady else t.delta_t, dtype=mesh.v.dtype,
+                      device=mesh.device)
+
+    def write(state):
+        fields = [state["U"], state["p_rgh"], state["T"]]
+        if "turb" in state and state["turb"]:
+            fields += list(state["turb"].values())
+        case.write_fields(fields)
+
+    while (t.index < max_iter and not t.stop_now
+           and t.value < t.end_time - 1e-12):
+        state, diag = chunk(state, dt)
+        t.index += chunk_n
+        t.value = t.start_time + t.index * t.delta_t
+        t.current_dt = float(dt)
+        cumulative = _log_step(case, t, diag, cumulative, extra)
+        log.info(log.solver_line("T", diag["T"]))
+        fol.execute(t.name, state)
+        if t.write_time():
+            write(state)
+        if steady and simple_mod.converged(diag, res_ctl):
+            log.info(f"SIMPLE solution converged in {t.index} iterations\n")
+            break
+    write(state)
+    log.info("End\n")
+    case.final_state = state
+
+
+def buoyant_boussinesq_simplefoam(case, max_steps: Optional[int] = None):
+    """buoyantBoussinesqSimpleFoam (heatTransfer/): steady SIMPLE."""
+    _boussinesq_run(case, steady=True, max_steps=max_steps)
+
+
+def buoyant_boussinesq_pimplefoam(case, max_steps: Optional[int] = None):
+    """buoyantBoussinesqPimpleFoam (heatTransfer/): transient PIMPLE."""
+    _boussinesq_run(case, steady=False, max_steps=max_steps)
 
 
 # ---------------------------------------------------------------------------
@@ -754,6 +1004,11 @@ APPLICATIONS = {
     "laplacianFoam": laplacian_foam,
     "scalarTransportFoam": scalar_transport_foam,
     "potentialFoam": potential_foam,
+    "buoyantBoussinesqSimpleFoam": buoyant_boussinesq_simplefoam,
+    "buoyantBoussinesqPimpleFoam": buoyant_boussinesq_pimplefoam,
+    "pimpleDyMFoam": pimple_dym_foam,
+    "interDyMFoam": lambda case, max_steps=None: interfoam_app(
+        case, max_steps, dym=True),
 }
 
 

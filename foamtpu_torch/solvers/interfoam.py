@@ -17,8 +17,9 @@ goes through the SpMV kernel. `lts=True` is LTSInterFoam's per-cell
 pseudo-time stepping. MRF zones (MRFInterFoam: the rho-weighted Coriolis
 term, the flat relative flux) and fvOptions (porousInterFoam: the porous
 drag with the mixture's rho and mu) enter the momentum equation and the
-flux. The moving-mesh variant (interDyMFoam) is outside the ported slice
-and raises NotImplementedError naming itself.
+flux. interDyMFoam (`interdym_step`) moves the mesh rigidly every step
+(mesh/moving.py) and carries the relative flux: the step subtracts
+state["mesh_phi"] from phiHbyA, as the reference does.
 """
 
 from __future__ import annotations
@@ -66,14 +67,6 @@ class InterConfig(NamedTuple):
     # porousInterFoam / MRFInterFoam
     fv_options: Any = None   # models/fvoptions.OptionList
     mrf: Any = None          # models/mrf.MRFZones
-
-
-def check_supported(state: Dict, cfg: InterConfig) -> None:
-    """Raise NotImplementedError for any feature outside the slice."""
-    if "mesh_phi" in state:
-        raise NotImplementedError(
-            "the moving-mesh flux of interDyMFoam (state['mesh_phi']) is not "
-            "ported to foamtpu_torch yet")
 
 
 def mixture(cfg: InterConfig, alpha: Any) -> Tuple[Any, Any]:
@@ -124,7 +117,6 @@ def interfoam_step(mesh, state: Dict, dt: Any, cfg: InterConfig
     """One interFoam time step. state: {"U", "p_rgh", "alpha": VolField,
     "phi": [nF], "rho": [nC], "U0"}. dt is a scalar, or per cell [nC]
     under local time stepping. Returns (new_state, diagnostics)."""
-    check_supported(state, cfg)
     p_ctrl = cfg.p_controls or {"solver": "PCG", "tolerance": 1e-7,
                                 "relTol": 0.05}
     u_ctrl = cfg.u_controls or {"solver": "PBiCGStab", "tolerance": 1e-7,
@@ -202,6 +194,10 @@ def interfoam_step(mesh, state: Dict, dt: Any, cfg: InterConfig
         phiHbyA_i = (torch.sum(mesh.sf[:nif] * hf, dim=1)
                      * mesh.face_active[:nif])
         phiHbyA = torch.cat([phiHbyA_i, boundary_flux(mesh, U)], dim=0)
+        if "mesh_phi" in state:
+            # moving mesh (interDyMFoam): continuity and advection run
+            # on the RELATIVE flux (fvc::makeRelative)
+            phiHbyA = phiHbyA - state["mesh_phi"]
         if cfg.mrf:
             phiHbyA = cfg.mrf.make_relative_flat(mesh, phiHbyA)
         phig = rAf * (st_flux + buoy_flux)
@@ -313,25 +309,55 @@ def lts_interfoam_step(mesh, state, dt_unused, cfg: InterConfig):
 
 
 # ---------------------------------------------------------------------------
-# interDyMFoam: interFoam on a (solid-body) moving mesh. It needs the
-# reference's mesh/moving.py, which is outside the ported slice.
+# interDyMFoam: interFoam on a (solid-body) moving mesh
+# (multiphase/interFoam/interDyMFoam: mesh.update(); fvc::makeRelative(phi,
+# U)). The geometry is recomputed on the device each step
+# (mesh/moving.py) and the state carries the RELATIVE flux, so
+# makeRelative/makeAbsolute collapse to one subtraction. Rigid motions
+# keep cell volumes exact, so the space conservation law holds
+# identically.
 # ---------------------------------------------------------------------------
 
 
-def _no_dym(name):
-    raise NotImplementedError(
-        f"{name} (interDyMFoam, mesh/moving.py) is not ported to "
-        "foamtpu_torch yet")
-
-
 def interdym_step(mesh, state, dt, cfg: InterConfig, pts_fn, umesh_fn):
-    _no_dym("interdym_step")
+    """One interDyMFoam step; `mesh` is the mesh at its load position."""
+    from ..mesh import moving
+
+    dt = torch.as_tensor(dt, dtype=mesh.v.dtype, device=mesh.device)
+    t = state["t"] + dt
+    mesh_t = moving.update_geometry(mesh, pts_fn(state["points0"], t),
+                                    state["topo"])
+    mesh_phi = moving.mesh_flux(mesh_t, umesh_fn, t) * mesh_t.face_active
+    st = dict(state)
+    st["mesh_phi"] = mesh_phi
+    new_state, diag = interfoam_step(mesh_t, st, dt, cfg)
+    new_state["t"] = t
+    new_state["mesh_phi"] = mesh_phi
+    return new_state, diag
 
 
 def interdym_initial_state(pm, mesh, U, p_rgh, alpha, cfg: InterConfig,
                            umesh_fn=None):
-    _no_dym("interdym_initial_state")
+    """initial_state plus the topology tables of `pm` (the host
+    PolyMesh), the load-time points, t = 0 and the relative flux."""
+    from ..mesh import moving
+
+    dtype, dev = mesh.v.dtype, mesh.device
+    st = initial_state(mesh, U, p_rgh, alpha, cfg)
+    st["topo"] = moving.topo_from_poly(pm, dtype, dev)
+    st["points0"] = torch.tensor(pm.points, dtype=dtype, device=dev)
+    st["t"] = torch.zeros((), dtype=dtype, device=dev)
+    mp = (moving.mesh_flux(mesh, umesh_fn, st["t"]) * mesh.face_active
+          if umesh_fn is not None
+          else torch.zeros(mesh.n_faces, dtype=dtype, device=dev))
+    st["mesh_phi"] = mp
+    st["phi"] = st["phi"] - mp     # carry the relative flux
+    return st
 
 
 def make_dym_step(mesh, cfg: InterConfig, pts_fn, umesh_fn):
-    _no_dym("make_dym_step")
+    """(state, dt) -> (state, diag) for one interDyMFoam step."""
+    def step(state, dt):
+        return interdym_step(mesh, state, dt, cfg, pts_fn, umesh_fn)
+
+    return step

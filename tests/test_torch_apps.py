@@ -21,9 +21,9 @@ epsilon: see seed_turbulence and the test.
 Then the application layer itself: `Time.loop` / `adjust_delta_t` /
 `write_time` / `register_write` (purgeWrite) against the reference's Time
 on the same controlDict, the log lines against the reference's
-formatters, and the cases that must raise: an unknown application, a
-function object of a type that is not ported (surfaces), a compressible MRF
-application, a codedSource snippet that uses jnp.
+formatters, and the cases that must raise: an unknown application, the
+compressible buoyantSimpleFoam and MRF applications, a codedSource snippet
+that uses a jnp name outside the port's subset (utils/tnp.py).
 """
 
 import contextlib
@@ -345,20 +345,21 @@ def test_run_rejects_an_unknown_application(cavity):
 
 
 @pytest.mark.parametrize("where,text,word", [
-    # sets is ported since the turbulence slice (tests/test_torch_sampling.py);
-    # surfaces is not
-    (("system", "controlDict"),
-     "\nfunctions { cuts { type surfaces; fields (p); } }\n",
-     "'surfaces'"),
+    # surfaces and coded are ported since the moving-mesh slice
+    # (tests/test_torch_surfaces.py, tests/test_torch_coded.py), and so is
+    # buoyantBoussinesqSimpleFoam; the compressible buoyantSimpleFoam is not
+    (("system", "controlDict"), "\napplication buoyantSimpleFoam;\n",
+     "buoyantSimpleFoam"),
     # MRFZones and fvOptions are read since the rotating-frame slice
-    # (tests/test_torch_mrf.py); the compressible MRF family and a coded
-    # snippet written for jax are not
+    # (tests/test_torch_mrf.py); the compressible MRF family is not, nor a
+    # coded snippet that uses a jnp name outside the port's subset
     (("system", "controlDict"), "\napplication rhoPorousMRFSimpleFoam;\n",
      "rhoPorousMRFSimpleFoam"),
     (("system", "fvOptions"),
      "src { type vectorCodedSource; selectionMode all; fields (U);\n"
-     "codeAddSup #{\nsource = jnp.zeros((V.shape[0], 3))\n#}; }\n",
-     "codedSource"),
+     "codeAddSup #{\nsource = jnp.cumsum(jnp.zeros((V.shape[0], 3)))\n"
+     "#}; }\n",
+     "jnp.cumsum"),
 ])
 def test_run_rejects_features_outside_slice(cavity, where, text, word):
     _append(os.path.join(cavity, *where), text)

@@ -16,9 +16,14 @@ along y).
 Then, in float32 in this process: abortCalculation stops the run at the
 first step, the two-blob regionSizeDistribution of the reference's test,
 readFields and timeActivatedFileUpdate, nearWallFields' values, the host
-fetches each object makes per execute, the failure count of the list,
-and every type of the reference that the port does not carry raising
-NotImplementedError naming itself before the first step.
+fetches each object makes per execute, and the failure count of the list.
+Every function-object type of the reference is ported since the
+moving-mesh slice
+(surfaces.py and coded: tests/test_torch_surfaces.py,
+tests/test_torch_coded.py); what the cavity can still ask for and the
+port refuses before the first step is a mesh motion that changes the
+mesh by more than a rigid motion (sixDoFRigidBodyMotion, attachDetach,
+dynamicRefineFvMesh) and an LES filter width other than cubeRootVol.
 """
 
 import contextlib
@@ -36,7 +41,6 @@ import torch
 
 from foamtpu_torch.apps.cli import main as tcli
 from foamtpu_torch.core.case import Case as TCase
-from foamtpu_torch.functionobjects.base import NOT_PORTED
 from foamtpu_torch.solvers import apps as tapps
 
 from test_torch_simple import REPO
@@ -322,14 +326,39 @@ def meshed_cavity(tmp_path_factory):
     return cavity(tmp_path_factory.mktemp("refuse"), "cavity", funcs="")
 
 
-@pytest.mark.parametrize("kind", sorted(NOT_PORTED))
+# a case the cavity can be turned into that the port refuses before its
+# first step: (application, constant/<file>, its text, the word raised)
+REFUSED = {
+    "sixDoFRigidBodyMotion": (
+        "pimpleDyMFoam", "dynamicMeshDict",
+        "dynamicFvMesh dynamicMotionSolverFvMesh;\n"
+        "motionSolverLibs ( \"libsixDoFRigidBodyMotion.so\" );\n"
+        "solver sixDoFRigidBodyMotion;\n", "sixDoFRigidBodyMotion"),
+    "attachDetach": (
+        "pimpleDyMFoam", "dynamicMeshDict",
+        "dynamicFvMesh dynamicMotionSolverFvMesh;\n"
+        "topoChanger attachDetach;\n",
+        "attachDetach"),
+    "dynamicRefineFvMesh": (
+        "interDyMFoam", "dynamicMeshDict",
+        "dynamicFvMesh dynamicRefineFvMesh;\n", "_inter_amr_run"),
+    "vanDriest": (
+        "pisoFoam", "LESProperties",
+        "LESModel Smagorinsky;\ndelta vanDriest;\n", "vanDriest"),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(REFUSED))
 def test_unported_types_are_refused_before_the_first_step(
         meshed_cavity, tmp_path, kind):
+    app, fname, text, word = REFUSED[kind]
     d = str(tmp_path / "case")
     shutil.copytree(meshed_cavity, d)
     with open(os.path.join(d, "system", "controlDict"), "a") as f:
-        f.write(f"\nfunctions {{ x {{ type {kind}; fields ( p ); }} }}\n")
+        f.write(f"\napplication {app};\n")
+    with open(os.path.join(d, "constant", fname), "w") as f:
+        f.write(text)
     case = TCase(d, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"'{kind}'"):
+    with pytest.raises(NotImplementedError, match=word):
         tapps.run(case, max_steps=1)
     assert case.time.index == 0 and not hasattr(case, "final_state")

@@ -30,8 +30,10 @@ the reference's calls jitted where they are traced:
   drag, silently.
 
 In process: the codedSource snippet gives the same source as the
-reference's test, and a snippet that names jnp raises NotImplementedError
-naming codedSource.
+reference's test, written with np and with jnp (the port's subset,
+utils/tnp.py; tests/test_torch_coded.py holds more jnp snippets against
+the reference), and a jnp name outside the subset raises
+NotImplementedError naming itself.
 """
 
 import contextlib
@@ -616,8 +618,8 @@ boundary ( walls { type wall; faces ((3 7 6 2) (1 5 4 0) (0 4 7 3)
 
 
 def test_coded_source_snippet():
-    """tests/test_fvoptions.py's snippet (np only) gives its source; a
-    snippet that uses jnp is refused by name."""
+    """tests/test_fvoptions.py's snippet gives its source with np and with
+    jnp; a jnp name outside the port's subset is refused by name."""
     from foamtpu_torch.models import fvoptions as tfvo
     from foamtpu_torch.core.fields import vol_scalar
     from foamtpu_torch.ops import fvm
@@ -636,8 +638,12 @@ def test_coded_source_snippet():
     assert hot.any() and (~hot).any()
     np.testing.assert_allclose(ds[hot], 5.0 * v[hot], rtol=1e-6)
     np.testing.assert_allclose(ds[~hot], 0.0)
-    bad = code.replace("np.where", "jnp.where")
-    with pytest.raises(NotImplementedError, match="codedSource"):
+    with_jnp = tfvo.from_dict(mesh, tparse(code.replace("np.where",
+                                                        "jnp.where")))
+    ds_jnp = (with_jnp.add_to(mesh, eqn, "T", T).source - eqn.source).numpy()
+    np.testing.assert_array_equal(ds_jnp, ds)
+    bad = code.replace("np.where", "jnp.select")
+    with pytest.raises(NotImplementedError, match="jnp.select"):
         tfvo.from_dict(mesh, tparse(bad))
 
 

@@ -43,7 +43,12 @@ def test_no_source_imports_jax_or_the_reference():
             "foamtpu_torch/models/turbulence/les.py",
             "foamtpu_torch/models/turbulence/les2.py",
             "foamtpu_torch/functionobjects/sampling.py",
-            "foamtpu_torch/bc/derived2.py"} <= sources
+            "foamtpu_torch/bc/derived2.py",
+            "foamtpu_torch/solvers/buoyant.py",
+            "foamtpu_torch/solvers/pimpledym.py",
+            "foamtpu_torch/mesh/moving.py",
+            "foamtpu_torch/functionobjects/surfaces.py",
+            "foamtpu_torch/utils/tnp.py"} <= sources
     # the pattern does catch the imports it is there for
     assert IMPORT.search("import jax.numpy as jnp")
     assert IMPORT.search("    from foamtpu.ops import fvc")
@@ -55,13 +60,16 @@ import importlib, pkgutil, sys
 import foamtpu_torch
 names = [m.name for m in pkgutil.walk_packages(foamtpu_torch.__path__,
                                                "foamtpu_torch.")]
-# the rotating-frame and porous slice's modules and the turbulence
-# slice's are among them
+# the rotating-frame and porous slice's modules, the turbulence slice's
+# and the moving-mesh slice's are among them
 assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf",
         "foamtpu_torch.models.turbulence.les",
         "foamtpu_torch.models.turbulence.les2",
         "foamtpu_torch.functionobjects.sampling",
-        "foamtpu_torch.bc.derived2"} <= set(names), names
+        "foamtpu_torch.bc.derived2", "foamtpu_torch.solvers.buoyant",
+        "foamtpu_torch.solvers.pimpledym", "foamtpu_torch.mesh.moving",
+        "foamtpu_torch.functionobjects.surfaces",
+        "foamtpu_torch.utils.tnp"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")

@@ -201,9 +201,15 @@ def test_written_fields_are_read_back_by_both_packages(tmp_path, fmt):
 
 def test_interfoam_rejects_features_outside_slice(tmp_path):
     dst = dam_case(tmp_path)
+    # interDyMFoam runs on a solidBodyMotionFvMesh since the moving-mesh slice
+    # (tests/test_torch_movingmesh.py); adaptive refinement is refused by
+    # the name of the reference's function, before the first step
+    with open(os.path.join(dst, "constant", "dynamicMeshDict"), "w") as f:
+        f.write("dynamicFvMesh dynamicRefineFvMesh;\n")
     case = TCase(dst, device="cpu")
-    with pytest.raises(NotImplementedError, match="interDyMFoam"):
+    with pytest.raises(NotImplementedError, match="_inter_amr_run"):
         interfoam_app(case, max_steps=1, dym=True)
+    assert case.time.index == 0
     mesh = case.mesh
     cfg = tinter.InterConfig(rho1=1000.0, rho2=1.0, nu1=1e-6, nu2=1e-5,
                              sigma=0.07)
@@ -228,11 +234,15 @@ def test_interfoam_rejects_features_outside_slice(tmp_path):
         new, _ = tinter.interfoam_step(mesh, state, 1e-3,
                                        cfg._replace(**{name: value}))
         assert bool(torch.isfinite(new["U"].data).all()), name
-    with pytest.raises(NotImplementedError, match="mesh_phi"):
-        tinter.interfoam_step(mesh, dict(state, mesh_phi=state["phi"]),
-                              1e-3, cfg)
-    with pytest.raises(NotImplementedError, match="interDyMFoam"):
-        tinter.make_dym_step(mesh, cfg, None, None)
+    # the moving-mesh flux is subtracted from phiHbyA (fvc::makeRelative):
+    # a zero mesh flux leaves the step as it was
+    still, _ = tinter.interfoam_step(mesh, state, 1e-3, cfg)
+    zero, _ = tinter.interfoam_step(
+        mesh, dict(state, mesh_phi=torch.zeros_like(state["phi"])), 1e-3,
+        cfg)
+    for name in ("U", "p_rgh", "alpha"):
+        assert torch.equal(still[name].data, zero[name].data), name
+    assert torch.equal(still["phi"], zero["phi"])
     # a contact-angle wall: the BC kind raises where the file is read and
     # where the interface normals would use it
     alpha = case.read_field("alpha1")

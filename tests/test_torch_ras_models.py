@@ -111,13 +111,25 @@ def make(tag, name, cli):
         cs.ras_channel_case(dst, "kOmega", steps=steps)
         with open(os.path.join(dst, "system", "controlDict"), "a") as f:
             f.write(SAMPLE_FUNCS)
+    elif kind == "hotroom":
+        # seeded, the PIMPLE tutorial with the Euler ddt
+        return cs.hotroom_case(os.getcwd(), dst, cs.HOTROOM_APPS[name], cli,
+                               seed=cs.HOTROOM_SEED, euler=name == "pimple",
+                               write_precision=17)
+    elif kind in ("box", "interdym", "surfaces"):
+        # oscillatingBox, damBreak with a dynamicMeshDict, the
+        # cavity with a sampledSurfaces object
+        return cs.SLICE9_CASES[kind](
+            os.getcwd(), dst, cli,
+            device=("-device", "cpu") if cli is tcli else ())
     with contextlib.redirect_stdout(io.StringIO()):
         assert cli(["blockMesh", "-case", dst]) == 0
     return dst
 
 
 def arrays(state, host):
-    out = {n: host(state[n].data) for n in ("U", "p") if n in state}
+    out = {n: host(state[n].data)
+           for n in ("U", "p", "p_rgh", "T", "alpha") if n in state}
     if "phi" in state:
         out["phi"] = host(state["phi"])
     for n, f in (state.get("turb") or {}).items():
@@ -197,7 +209,17 @@ for name in names:
         na, nb = numbers_of_dir(a), numbers_of_dir(b)
         files[sub] = {"names": [sorted(na), sorted(nb)],
                       "ok": {f: close(na.get(f, []), nb[f], 1e-9, 1e-12)
-                             for f in nb}}
+                             for f in nb},
+                      # the largest difference over the file's largest
+                      # number (or inf when the counts differ)
+                      "scaled": {f: float(np.abs(np.subtract(
+                          na[f], nb[f])).max() / max(np.abs(nb[f]).max(),
+                                                     1e-300))
+                                 if len(na.get(f, [])) == len(nb[f])
+                                 and nb[f] else
+                                 (0.0 if na.get(f) == nb[f] else
+                                  float("inf"))
+                                 for f in nb}}
     rec["files"] = files
     if KIND.get(name, kind) == "les" and name == names[0]:
         # the test filter alone on seeded random fields of this mesh
@@ -222,6 +244,7 @@ for name in names:
                                              1e-9, 1e-15),
                                  "scale": float(np.abs(np.asarray(r[p])).max())}
                              for p in r}
+    if KIND.get(name, kind) in ("sampling", "surfaces"):
         rec["fetches"] = tc.function_objects.fetches()
         rec["executes"] = tc.function_objects.executes
         rec["failures"] = tc.function_objects.failures
@@ -230,21 +253,27 @@ print(json.dumps(out))
 """
 
 
-def parity(kind, steps, names, timeout=600):
+def parity(kind, steps, names, timeout=600, env=None, tail="", lines=1):
     """Both packages' run(case) on `kind`'s case for each of `names` (a
     name "other:name" on the case of kind `other`), in float64, in a
-    process of its own; the comparison record per name."""
-    env = dict(os.environ)
-    env.update(FOAMTPU_X64="1", JAX_ENABLE_X64="1", JAX_PLATFORMS="cpu")
-    r = subprocess.run([sys.executable, "-c", PARITY_BODY, kind, str(steps),
-                        *names], env=env, cwd=REPO, capture_output=True,
-                       text=True, timeout=timeout)
+    process of its own; the comparison record per name. `env` adds
+    variables, `tail` code run after the body (each printing one JSON
+    line), and `lines` > 1 returns the last `lines` records."""
+    full = dict(os.environ)
+    full.update(FOAMTPU_X64="1", JAX_ENABLE_X64="1", JAX_PLATFORMS="cpu")
+    full.update(env or {})
+    r = subprocess.run([sys.executable, "-c", PARITY_BODY + tail, kind,
+                        str(steps), *names], env=full, cwd=REPO,
+                       capture_output=True, text=True, timeout=timeout)
     assert r.returncode == 0, r.stderr[-3000:]
-    return json.loads(r.stdout.strip().splitlines()[-1])
+    recs = [json.loads(x) for x in r.stdout.strip().splitlines()[-lines:]]
+    return recs[0] if lines == 1 else recs
 
 
-def assert_parity(rec, steps, what):
-    """What every parity record must show (see the module docstring)."""
+def assert_parity(rec, steps, what, files_scaled=False):
+    """What every parity record must show (see the module docstring).
+    With `files_scaled`, written numbers are held as the fields are: at
+    1e-9 of the file's largest number."""
     assert rec["time"][0] == rec["time"][1] == steps, (what, rec["time"])
     assert rec["time"][2] == rec["time"][3], (what, rec["time"])
     assert rec["fields"][0] == rec["fields"][1], (what, rec["fields"])
@@ -258,7 +287,10 @@ def assert_parity(rec, steps, what):
     assert rec["files"], what
     for sub, f in rec["files"].items():
         assert f["names"][0] == f["names"][1], (what, sub, f["names"])
-        bad = [n for n, ok in f["ok"].items() if not ok]
+        if files_scaled:
+            bad = [n for n, e in f["scaled"].items() if not e <= 1e-9]
+        else:
+            bad = [n for n, ok in f["ok"].items() if not ok]
         assert not bad, (what, sub, bad)
 
 

@@ -10,8 +10,8 @@ digits for the wall terms and 8 for sets and tracks, so the printed
 numbers are equal), and the wall shear itself from both packages'
 `_wall_shear` on the final state at 1e-9. Each wall object fetches one
 small table per call; sets one gather per call. surfaces, sampledSurfaces
-and coded still raise NotImplementedError naming themselves
-(tests/test_torch_functionobjects.py holds them).
+and coded are held by tests/test_torch_surfaces.py and
+tests/test_torch_coded.py.
 """
 
 import contextlib
@@ -78,10 +78,15 @@ def test_wall_objects_fetch_one_table_per_call(run):
 
 
 def test_sampling_types_are_ported():
+    from foamtpu_torch.functionobjects import misc, surfaces
+
     for t in TYPES:
-        assert t not in fo_base.NOT_PORTED
-    assert set(fo_base.NOT_PORTED) == {"surfaces", "sampledSurfaces",
-                                       "coded", "codedFunctionObject"}
+        assert fo_base._TYPES[t].__module__ == sampling.__name__
+    # and since the moving-mesh slice the rest of the reference's types:
+    # no list of unported types is left
+    assert not hasattr(fo_base, "NOT_PORTED")
+    assert fo_base._TYPES["surfaces"] is surfaces.SampledSurfaces
+    assert fo_base._TYPES["coded"] is misc.Coded
 
 
 def test_yplus_on_a_laminar_state(tmp_path):
