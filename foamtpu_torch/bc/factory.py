@@ -11,6 +11,13 @@ symmetry and wedge (one value rule). Any other `type` raises
 NotImplementedError naming it
 (the reference degrades unknown types to calculated/zeroGradient; the
 port refuses instead).
+
+The compressible names are the reference's aliases (copied from
+openfoam-2.2.x_tpu/bc/factory.py::from_dict): a `compressible::` prefix
+is dropped, the mut* wall functions are the nut* kinds (the compressible
+models evaluate them on nu = mu/rho and scale by rho), and
+alphatWallFunction is calculated. An alias whose target is not ported
+(mutkRoughWallFunction) raises under the name the case gave.
 """
 
 from __future__ import annotations
@@ -55,14 +62,27 @@ def parse_value(entry: Any, size: int, rank: int, dtype, device="cpu"):
     return torch.tensor(np.asarray(arr), dtype=dtype, device=device)
 
 
+# the compressible names of the ported kinds
+ALIASES = {"mutkWallFunction": "nutkWallFunction",
+           "mutUWallFunction": "nutUWallFunction",
+           "mutkRoughWallFunction": "nutkRoughWallFunction",
+           "mutUSpaldingWallFunction": "nutUSpaldingWallFunction",
+           "mutLowReWallFunction": "nutLowReWallFunction",
+           "alphatWallFunction": "calculated"}
+
+
 def from_dict(spec: FoamDict, patch, rank: int, dtype, device="cpu"
               ) -> PatchField:
-    kind = str(spec["type"])
+    given = str(spec["type"])
+    kind = given
+    if kind.startswith("compressible::"):
+        kind = kind[len("compressible::"):]
+    kind = ALIASES.get(kind, kind)
     if kind not in KINDS:
         raise NotImplementedError(
-            f"boundary condition kind {kind!r} is not ported to "
+            f"boundary condition kind {given!r} is not ported to "
             "foamtpu_torch yet")
-    # nutLowReWallFunction: nut = 0 at the wall of a wall-resolved mesh
+    # nut/mutLowReWallFunction: nut = 0 at the wall of a wall-resolved mesh
     if kind == "nutLowReWallFunction":
         return make("fixedValue", ref_value=0.0, vfrac=1.0)
     size = patch.size

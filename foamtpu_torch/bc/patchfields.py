@@ -290,6 +290,21 @@ def normalize_bcs(mesh, bcs, rank: int,
     return tuple(out)
 
 
+def shift_value_bcs(bcs, delta) -> Tuple[PatchField, ...]:
+    """Every BC's ref_value shifted by a constant: the compressible
+    pressure solves run on p - pRef in float32 (kinds that do not use
+    ref_value, or hold a jump in it, stay as they are)."""
+    out = []
+    for bc in bcs:
+        if bc.kind in ("zeroGradient", "fixedGradient", "empty",
+                       "symmetry", "symmetryPlane", "wedge", "slip",
+                       "cyclicAMI", "fixedJump", "fixedJumpAMI", "fan"):
+            out.append(bc)
+        else:
+            out.append(bc.replace(ref_value=bc.ref_value + delta))
+    return tuple(out)
+
+
 def default_bcs(mesh, rank: int) -> Tuple[PatchField, ...]:
     """zeroGradient everywhere except constraint patches get their type."""
     out = []

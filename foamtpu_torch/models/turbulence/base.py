@@ -5,10 +5,11 @@ openfoam-2.2.x_tpu/models/turbulence/base.py: `TurbulenceModel`,
 A model is a static config object whose methods are plain functions of
 (mesh, tstate, U, phi); its fields (k, epsilon, nut, ...) live in the
 solver state under 'turb'. `select` builds the ported models only: the
-nine incompressible RAS models of ras.py and the six LES models of les.py
+nine incompressible RAS models of ras.py, the six LES models of les.py
 and les2.py (with LESProperties' `delta cubeRootVol`, the one filter
-width they compute); any other model, a compressible one, or another LES
-delta raises NotImplementedError naming it.
+width they compute) and the five compressible models of compressible.py;
+any other model, a compressible model of the reference's compressible2.py,
+or another LES delta raises NotImplementedError naming it.
 """
 
 from __future__ import annotations
@@ -135,20 +136,30 @@ def select(props: FoamDict, nu: float, kind: str = "RAS",
            compressible: bool = False) -> TurbulenceModel:
     """turbulenceModel::New: dispatch on the RASModel/LESModel keyword
     of RASProperties/LESProperties. The incompressible laminar, RAS
-    (ras.py) and LES (les.py, les2.py) models are ported; anything else
-    raises."""
-    from . import les, les2, ras  # noqa: F401  (register the models)
+    (ras.py) and LES (les.py, les2.py) models and the compressible models
+    of compressible.py are ported; anything else raises.
 
-    if compressible:
-        raise NotImplementedError(
-            "compressible turbulence models are not ported to "
-            "foamtpu_torch yet")
+    compressible=True (`nu` is then the dynamic viscosity mu) takes
+    `compressible::<name>` where that is registered, else the
+    incompressible model, as the reference does (its namespace comes
+    from the library the solver links, not from the dictionary). The
+    reference's compressible2.py models (COMPRESSIBLE2) raise."""
+    from . import compressible as _comp, les, les2, ras  # noqa: F401
+
     if str(props.get("simulationType", kind)) == "laminar":
         return TurbulenceModel(nu)
     name = str(props.get("RASModel", props.get("LESModel", "laminar")))
     if name == "laminar" or str(props.get("turbulence", "on")) in ("off",
                                                                    "no"):
         return TurbulenceModel(nu)
+    if compressible and name in COMPRESSIBLE2:
+        raise NotImplementedError(
+            f"turbulence model compressible::{name} (the reference's "
+            "models/turbulence/compressible2.py) is not ported to "
+            "foamtpu_torch yet (ported compressible models: "
+            f"{sorted(n for n in _REGISTRY if '::' in n)})")
+    if compressible and f"compressible::{name}" in _REGISTRY:
+        name = f"compressible::{name}"
     if name not in _REGISTRY:
         raise NotImplementedError(
             f"turbulence model {name!r} is not ported to foamtpu_torch "
@@ -160,5 +171,13 @@ def select(props: FoamDict, nu: float, kind: str = "RAS",
             raise NotImplementedError(
                 f"LES delta {delta!r} is not ported to foamtpu_torch yet "
                 "(ported: cubeRootVol)")
-    coeffs = props.get(name + "Coeffs", FoamDict())
+    coeffs = props.get(name.split("::")[-1] + "Coeffs", FoamDict())
     return _REGISTRY[name](nu, coeffs)
+
+
+# the compressible models of the reference's compressible2.py, which
+# `select(..., compressible=True)` refuses (the reference would take them
+# in place of the incompressible twin)
+COMPRESSIBLE2 = ("RNGkEpsilon", "realizableKE", "SpalartAllmaras", "LRR",
+                 "LaunderGibsonRSTM", "v2f", "dynOneEqEddy",
+                 "lowReOneEqEddy", "DeardorffDiffStress")

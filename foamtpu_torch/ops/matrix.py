@@ -165,6 +165,13 @@ class FvMatrix:
             return torch.sum(off[:, :, None] * psi[mesh.cnbr], dim=1)
         return torch.sum(off * psi[mesh.cnbr], dim=1)
 
+    def H1(self, mesh) -> Any:
+        """H at psi == 1 with no source: -(sum of the off-diagonal
+        coefficients)/V (fvMatrix::H1, the SIMPLEC rAtU = 1/(A - H1))."""
+        ones = torch.ones(self.diag.shape[0], dtype=mesh.v.dtype,
+                          device=mesh.device)
+        return -self.off_mul(mesh, ones) / mesh.v
+
     def H(self, mesh, psi: Any) -> Any:
         """(source_eff - offdiag*psi + (Dav - Dc)*psi) / V
         (reference: fvMatrix::H)."""

@@ -11,10 +11,16 @@ SRFSimpleFoam, SRFPimpleFoam, porousSimpleFoam, MRFInterFoam,
 porousInterFoam), channelFoam (pimpleFoam with an LES model, as the
 reference registers it), boundaryFoam, the basic solvers laplacianFoam,
 scalarTransportFoam and potentialFoam, buoyantBoussinesqSimpleFoam and
-buoyantBoussinesqPimpleFoam, and on solid-body moving meshes
-pimpleDyMFoam and interDyMFoam; `run(case)` picks among them by
-controlDict's `application`. The turbulence model comes
-from constant/RASProperties or constant/LESProperties.
+buoyantBoussinesqPimpleFoam, on solid-body moving meshes pimpleDyMFoam
+and interDyMFoam, and the compressible family: rhoSimpleFoam,
+rhoPimpleFoam, rhoSimplecFoam, rhoPimplecFoam and sonicFoam with their
+porous/MRF aliases (rhoPorousSimpleFoam, rhoPorousMRFSimpleFoam,
+rhoPorousMRFPimpleFoam, rhoPorousMRFLTSPimpleFoam), rhoCentralFoam,
+rhoCentralDyMFoam, buoyantSimpleFoam and buoyantPimpleFoam; `run(case)`
+picks among them by controlDict's `application`. The turbulence model
+comes from constant/RASProperties or constant/LESProperties (the
+compressible applications take the models of compressible.py where the
+case ships 0/mut).
 
     from foamtpu_torch.core.case import Case
     from foamtpu_torch.solvers.apps import run
@@ -58,7 +64,14 @@ def _load_turbulence(case, nu: float, compressible: bool = False):
     """Read RASProperties/LESProperties/turbulenceProperties and build
     the model + its field state from the start-time directory; (None,
     None) for a laminar case. A model that needs the wall distance gets
-    it on the case mesh's device."""
+    it on the case mesh's device.
+
+    compressible=True (`nu` is then the dynamic viscosity mu) selects the
+    rho-weighted model of compressible.py where one is registered; it
+    reads the model's optional fields (alphat) when the case has them.
+    When the case ships no field the compressible model needs (0/mut),
+    the incompressible twin is taken instead, as in the reference: its
+    solvers then run rho*(nu + nut) on the volumetric flux."""
     for fname, kind in (("RASProperties", "RAS"), ("LESProperties", "LES"),
                         ("turbulenceProperties", "RAS")):
         path = case.const_path(fname)
@@ -67,16 +80,42 @@ def _load_turbulence(case, nu: float, compressible: bool = False):
             break
     else:
         return None, None
-    model = turb_mod.select(props, nu, kind=kind, compressible=compressible)
-    model.corrected = case.laplacian_corrected()
-    model.corr_limit = case.corr_limit()
-    try:
-        model.div_scheme = case.div_scheme("div(phi,k)")
-    except KeyError:
-        pass
+
+    def build(compressible):
+        model = turb_mod.select(props, nu, kind=kind,
+                                compressible=compressible)
+        model.corrected = case.laplacian_corrected()
+        model.corr_limit = case.corr_limit()
+        try:
+            model.div_scheme = case.div_scheme("div(phi,k)")
+        except KeyError:
+            pass
+        return model
+
+    def read_state(model):
+        tstate = {}
+        optional = getattr(model, "optional_fields", ())
+        for name in model.field_names + tuple(
+                f for f in optional if f not in model.field_names):
+            try:
+                tstate[name] = case.read_field(name)
+            except (FileNotFoundError, KeyError, OSError):
+                if name not in optional:
+                    raise
+        return tstate
+
+    model = build(compressible)
     if not model.field_names:
         return None, None
-    tstate = {name: case.read_field(name) for name in model.field_names}
+    try:
+        tstate = read_state(model)
+    except (FileNotFoundError, KeyError, OSError):
+        if not getattr(model, "compressible_form", False):
+            raise
+        model = build(False)
+        if not model.field_names:
+            return None, None
+        tstate = read_state(model)
     if hasattr(model, "init_wall_distance"):
         model.init_wall_distance(case.poly_mesh, case.mesh.v.dtype,
                                  device=case.mesh.device)
@@ -797,6 +836,375 @@ def buoyant_boussinesq_pimplefoam(case, max_steps: Optional[int] = None):
 
 
 # ---------------------------------------------------------------------------
+# compressible: rhoSimpleFoam, rhoPimpleFoam, their SIMPLEC twins, sonicFoam
+# and the porous/MRF variants; rhoCentralFoam(DyM); buoyant{Simple,Pimple}Foam
+# ---------------------------------------------------------------------------
+
+
+def _has_solver(case, name) -> bool:
+    try:
+        case.solver_controls(name)
+        return True
+    except KeyError:
+        return False
+
+
+def _thermo(case):
+    from ..models import thermo as thermo_mod
+
+    return thermo_mod.from_dict(case.properties("thermophysicalProperties"))
+
+
+def _rho_loop(case, step, state, steady, name, max_steps, res_ctl, fol,
+              fields):
+    """The loop of the pressure-based compressible applications: one
+    iteration or step at a time with its log lines (T's solve too), the
+    function objects, the fields `fields(state)` written at write times
+    and at the end, SIMPLE stopped by residualControl."""
+    mesh = case.mesh
+    log.info(f"Starting loop: {name}, {mesh.n_cells} cells\n")
+    cumulative = 0.0
+    t = case.time
+    max_iter = max(int(round((t.end_time - t.start_time) / t.delta_t)), 1)
+    if max_steps is not None:
+        max_iter = min(max_iter, max_steps)
+    dt = torch.tensor(1.0 if steady else t.delta_t, dtype=mesh.v.dtype,
+                      device=mesh.device)
+
+    def write(state):
+        out = fields(state)
+        if "turb" in state and state["turb"]:
+            out += list(state["turb"].values())
+        case.write_fields(out)
+
+    while (t.index < max_iter and not t.stop_now
+           and t.value < t.end_time - 1e-12):
+        state, diag = step(state, dt)
+        t.index += 1
+        t.value = t.start_time + t.index * t.delta_t
+        t.current_dt = float(dt)
+        cumulative = _log_step(case, t, diag, cumulative)
+        log.info(log.solver_line("T", diag["T"]))
+        fol.execute(t.name, state)
+        if t.write_time():
+            write(state)
+        if steady and simple_mod.converged(diag, res_ctl):
+            log.info(f"SIMPLE solution converged in {t.index} iterations\n")
+            break
+    write(state)
+    log.info("End\n")
+    case.final_state = state
+
+
+def _rho_pimple_config(case, th, steady: bool, transonic: bool,
+                       consistent: bool = False, model=None):
+    """The RhoPimpleConfig of a rhoSimpleFoam / rhoPimpleFoam / sonicFoam
+    case: the SIMPLE or PIMPLE dict (its `transonic` switch), the
+    relaxation factors, the schemes, the p/pFinal/U/T controls, the
+    turbulence model, fvOptions and porousZones, and the MRF zones."""
+    from . import rhopimple as rp_mod
+
+    relax = _relaxation(case)
+    cdict = case.pimple_controls("SIMPLE" if steady else "PIMPLE")
+    try:
+        pf_ctl = case.solver_controls("pFinal")
+    except KeyError:
+        pf_ctl = None
+    return rp_mod.RhoPimpleConfig(
+        thermo=th,
+        steady=steady,
+        consistent=consistent,
+        transonic=transonic or str(cdict.get("transonic", "no")) in _TRUE,
+        n_outer=int(cdict.get("nOuterCorrectors", 1)),
+        n_correctors=int(cdict.get("nCorrectors", 2)),
+        n_non_orth=int(cdict.get("nNonOrthogonalCorrectors", 0)),
+        corrected=case.laplacian_corrected(),
+        div_scheme=case.div_scheme("div(phi,U)"),
+        div_scheme_e=case.div_scheme("div(phi,e)"),
+        ddt_scheme=case.ddt_scheme(),
+        grad_scheme=case.grad_scheme("grad(p)"),
+        alpha_u=relax.get("U", 0.7 if steady else 1.0),
+        alpha_p=relax.get("p", 0.3 if steady else 1.0),
+        alpha_e=relax.get("e", relax.get("h", 0.7 if steady else 1.0)),
+        p_ref_cell=int(cdict.get("pRefCell", 0)),
+        p_ref_value=float(cdict.get("pRefValue", 1e5)),
+        p_controls=case.solver_controls("p"),
+        p_controls_final=pf_ctl,
+        u_controls=case.solver_controls("U"),
+        e_controls=(case.solver_controls("T") if _has_solver(case, "T")
+                    else None),
+        turb=model,
+        turb_relax=relax.get("k", 0.7),
+        fv_options=_load_fvoptions(case, th.mu),
+        mrf=_load_mrf(case),
+    )
+
+
+def _rho_pimple_state(case, cfg, tstate=None):
+    """The first state of a rhoPimple-family case: U with the MRF zones'
+    rotating walls, the mass flux made relative to the zones
+    (rho-weighted), and the fvOptions' state."""
+    from ..ops import slot as slot_mod
+    from ..ops import surface
+    from . import rhopimple as rp_mod
+
+    mesh = case.mesh
+    th = cfg.thermo
+    U = _read_u(case, cfg.mrf)
+    p = case.read_field("p")
+    T = case.read_field("T")
+    state = rp_mod.initial_state(mesh, U, p, T, th, turb_state=tstate,
+                                 steady=cfg.steady)
+    if cfg.mrf:
+        rho_c = th.rho(p.data, T.data)
+        rho_slot = slot_mod.interpolate(
+            mesh, rho_c, bv=surface.owner_to_b(mesh, rho_c))
+        sl = cfg.mrf.make_relative(
+            mesh, slot_mod.from_flat(mesh, state["phi"]), rho_slot=rho_slot)
+        state["phi"] = slot_mod.to_flat(mesh, sl)
+        state["phi_slot"] = (sl.sv, sl.fb)
+    if cfg.fv_options:
+        state["fvopt"] = cfg.fv_options.init_state(mesh)
+    return state
+
+
+def _rho_pimple_run(case, steady: bool, transonic: bool,
+                    max_steps: Optional[int],
+                    consistent: bool = False) -> None:
+    """The shared driver of rhoSimpleFoam, rhoPimpleFoam, their SIMPLEC
+    twins and sonicFoam (compressible/); it reads constant/porousZones,
+    system/fvOptions and constant/MRFZones, so the porous and MRF
+    applications are aliases of it."""
+    from . import rhopimple as rp_mod
+
+    fol = _function_objects(case)
+    mesh = case.mesh
+    th = _thermo(case)
+    model, tstate = _load_turbulence(case, max(th.mu, 1e-12),
+                                     compressible=True)
+    cfg = _rho_pimple_config(case, th, steady, transonic, consistent, model)
+    state = _rho_pimple_state(case, cfg, tstate)
+    name = ("rhoSimpleFoam" if steady
+            else ("sonicFoam" if cfg.transonic else "rhoPimpleFoam"))
+    _rho_loop(case, rp_mod.make_step(mesh, cfg), state, steady, name,
+              max_steps, _residual_control(
+                  case, "SIMPLE" if steady else "PIMPLE"),
+              fol, lambda st: [st["U"], st["p"], st["T"]])
+
+
+def rho_simplefoam(case, max_steps: Optional[int] = None):
+    """rhoSimpleFoam (compressible/rhoSimpleFoam): steady SIMPLE."""
+    _rho_pimple_run(case, steady=True, transonic=False, max_steps=max_steps)
+
+
+def rho_pimplefoam(case, max_steps: Optional[int] = None):
+    """rhoPimpleFoam (compressible/rhoPimpleFoam): transient PIMPLE."""
+    _rho_pimple_run(case, steady=False, transonic=False, max_steps=max_steps)
+
+
+def rho_simplecfoam(case, max_steps: Optional[int] = None):
+    """rhoSimplecFoam (compressible/rhoSimpleFoam/rhoSimplecFoam):
+    SIMPLEC-consistent rhoSimpleFoam."""
+    _rho_pimple_run(case, steady=True, transonic=False,
+                    max_steps=max_steps, consistent=True)
+
+
+def rho_pimplecfoam(case, max_steps: Optional[int] = None):
+    """rhoPimplecFoam (compressible/rhoPimpleFoam/rhoPimplecFoam):
+    SIMPLEC-consistent rhoPimpleFoam."""
+    _rho_pimple_run(case, steady=False, transonic=False,
+                    max_steps=max_steps, consistent=True)
+
+
+def sonicfoam(case, max_steps: Optional[int] = None):
+    """sonicFoam (compressible/sonicFoam): the transonic pressure
+    equation, implicit div(phid, p)."""
+    _rho_pimple_run(case, steady=False, transonic=True, max_steps=max_steps)
+
+
+def _rho_central_setup(case):
+    """The thermo, the config (fvSchemes' fluxScheme) and rho's VolField
+    (zeroGradient and constraint BCs) of a rhoCentralFoam case, with its
+    U and T."""
+    from ..bc.patchfields import default_bcs
+    from ..core.fields import VolField
+    from ..core.dimensions import DimensionSet
+    from . import rhocentral as rc_mod
+
+    mesh = case.mesh
+    th = _thermo(case)
+    U = case.read_field("U")
+    T = case.read_field("T")
+    p_f = case.read_field("p")
+    rho = VolField(data=th.rho(p_f.data, T.data), bcs=default_bcs(mesh, 0),
+                   name="rho", dims=DimensionSet.of(1, -3, 0))
+    scheme = str(case.fv_schemes.get("fluxScheme", "Kurganov"))
+    cfg = rc_mod.RhoCentralConfig(thermo=th, flux_scheme=scheme)
+    return cfg, rho, U, T
+
+
+def rhocentralfoam_app(case, max_steps: Optional[int] = None) -> None:
+    """rhoCentralFoam (compressible/rhoCentralFoam): chunks of
+    FOAMTPU_CHUNK steps (default 10) between log lines; a run of fewer
+    steps than a chunk still runs the whole chunk, as the reference's."""
+    from . import rhocentral as rc_mod
+
+    mesh = case.mesh
+    cfg, rho, U, T = _rho_central_setup(case)
+    chunk_n = int(os.environ.get("FOAMTPU_CHUNK", "10"))
+    chunk = rc_mod.make_chunk(mesh, cfg, chunk_n)
+    state = rc_mod.initial_state(mesh, rho, U, T, cfg)
+
+    log.info(f"Starting time loop: rhoCentralFoam, {mesh.n_cells} cells\n")
+    t = case.time
+    n_steps = max(int(round((t.end_time - t.start_time) / t.delta_t)), 1)
+    if max_steps is not None:
+        n_steps = min(n_steps, max_steps)
+    dt = torch.tensor(t.delta_t, dtype=mesh.v.dtype, device=mesh.device)
+    while t.index < n_steps:
+        state, diag = chunk(state, dt)
+        t.index += chunk_n
+        t.value = t.start_time + t.index * t.delta_t
+        log.info(f"Time = {t.name}  Courant = "
+                 f"{float(diag['courant_max']):.4g}  rho: "
+                 f"[{float(diag['rho_min']):.4g}, "
+                 f"{float(diag['rho_max']):.4g}]")
+        if t.write_time():
+            case.write_fields([state["U"], state["T"], state["rho"]])
+    case.write_fields([state["U"], state["T"], state["rho"]])
+    case.final_state = state
+    log.info("End\n")
+
+
+def rhocentral_dym_foam(case, max_steps: Optional[int] = None) -> None:
+    """rhoCentralDyMFoam (compressible/rhoCentralFoam/rhoCentralDyMFoam):
+    the KNP step on a solid-body moving mesh from constant/
+    dynamicMeshDict (relative convection, absolute pressure work; rigid
+    motions only, see solvers/rhocentral.py)."""
+    from ..mesh import moving
+    from . import rhocentral as rc_mod
+
+    mesh = case.mesh
+    cfg, rho, U, T = _rho_central_setup(case)
+    pts_fn, umesh_fn = _dym_motion(case)
+    pm = case.poly_mesh
+    state = rc_mod.initial_state(mesh, rho, U, T, cfg)
+    state["topo"] = moving.topo_from_poly(pm, mesh.v.dtype, mesh.device)
+    state["points0"] = torch.tensor(pm.points, dtype=mesh.v.dtype,
+                                    device=mesh.device)
+    state["t"] = mesh.v.new_zeros(())
+    log.info(f"Starting time loop: rhoCentralDyMFoam, "
+             f"{mesh.n_cells} cells\n")
+    for t in case.time.loop():
+        state, diag = rc_mod.rhocentraldym_step(
+            mesh, state, torch.tensor(t.current_dt, dtype=mesh.v.dtype,
+                                      device=mesh.device),
+            cfg, pts_fn, umesh_fn)
+        log.info(f"Time = {t.name}  Courant = "
+                 f"{float(diag['courant_max']):.4g}\n")
+        if t.write_time():
+            case.write_fields([state["U"], state["T"], state["rho"]])
+        if max_steps is not None and t.index >= max_steps:
+            break
+    case.write_fields([state["U"], state["T"], state["rho"]])
+    case.final_state = state
+    log.info("End\n")
+
+
+def _load_radiation(case):
+    """constant/radiationProperties: None when the case has none or
+    switches radiation off (or names no P1/fvDOM model); P1 and fvDOM
+    raise NotImplementedError, since models/radiation.py is not ported
+    (the reference returns its P1Config / FvDOMConfig)."""
+    rad_path = case.const_path("radiationProperties")
+    if not os.path.exists(rad_path):
+        return None
+    rd = parse_file(rad_path)
+    if str(rd.get("radiation", "on")) not in ("on", "yes", "true"):
+        return None
+    model = str(rd.get("radiationModel", "none"))
+    if model in ("P1", "fvDOM"):
+        _not_ported(f"radiation model {model!r} (the reference's "
+                    "models/radiation.py)")
+    return None
+
+
+def _buoyant_rho_config(case, th, steady: bool, model=None):
+    """The BuoyantRhoConfig of a buoyantSimpleFoam / buoyantPimpleFoam
+    case: constant/g, the SIMPLE or PIMPLE dict, the relaxation factors
+    (h or e for the energy), the schemes and the p_rgh/p_rghFinal/U/T
+    controls."""
+    from . import buoyantrho as br_mod
+
+    relax = _relaxation(case)
+    cdict = case.pimple_controls("SIMPLE" if steady else "PIMPLE")
+    try:
+        pf_ctl = case.solver_controls("p_rghFinal")
+    except KeyError:
+        pf_ctl = None
+    return br_mod.BuoyantRhoConfig(
+        thermo=th,
+        g=_read_gravity(case),
+        steady=steady,
+        n_outer=int(cdict.get("nOuterCorrectors", 1)),
+        n_correctors=int(cdict.get("nCorrectors", 2)),
+        n_non_orth=int(cdict.get("nNonOrthogonalCorrectors", 0)),
+        corrected=case.laplacian_corrected(),
+        div_scheme=case.div_scheme("div(phi,U)"),
+        div_scheme_e=case.div_scheme("div(phi,e)"),
+        grad_scheme=case.grad_scheme("grad(p_rgh)"),
+        alpha_u=relax.get("U", 0.3 if steady else 1.0),
+        alpha_p=relax.get("p_rgh", 0.7 if steady else 1.0),
+        alpha_e=relax.get("h", relax.get("e", 0.3 if steady else 1.0)),
+        p_ref_cell=int(cdict.get("pRefCell", 0)),
+        p_ref_value=float(cdict.get("pRefValue", 1e5)),
+        p_controls=case.solver_controls("p_rgh"),
+        p_controls_final=pf_ctl,
+        u_controls=case.solver_controls("U"),
+        e_controls=(case.solver_controls("T") if _has_solver(case, "T")
+                    else None),
+        turb=model,
+        turb_relax=relax.get("k", 0.7),
+    )
+
+
+def _buoyant_rho_run(case, steady: bool, max_steps: Optional[int]) -> None:
+    """The shared driver of buoyantSimpleFoam and buoyantPimpleFoam
+    (heatTransfer/): compressible buoyant heat transfer, one iteration or
+    step at a time."""
+    from . import buoyantrho as br_mod
+
+    rad = _load_radiation(case)
+    fol = _function_objects(case)
+    mesh = case.mesh
+    th = _thermo(case)
+    model, tstate = _load_turbulence(case, max(th.mu, 1e-12),
+                                     compressible=True)
+    cfg = _buoyant_rho_config(case, th, steady, model)
+    if rad is not None:
+        cfg = cfg._replace(radiation=rad)
+    state = br_mod.initial_state(mesh, case.read_field("U"),
+                                 case.read_field("p_rgh"),
+                                 case.read_field("T"), th, g=cfg.g,
+                                 turb_state=tstate, steady=steady)
+    name = "buoyantSimpleFoam" if steady else "buoyantPimpleFoam"
+    _rho_loop(case, br_mod.make_step(mesh, cfg), state, steady, name,
+              max_steps, _residual_control(
+                  case, "SIMPLE" if steady else "PIMPLE"),
+              fol, lambda st: [st["U"], st["p_rgh"], st["T"]])
+
+
+def buoyant_simplefoam(case, max_steps: Optional[int] = None):
+    """buoyantSimpleFoam (heatTransfer/): steady SIMPLE."""
+    _buoyant_rho_run(case, steady=True, max_steps=max_steps)
+
+
+def buoyant_pimplefoam(case, max_steps: Optional[int] = None):
+    """buoyantPimpleFoam (heatTransfer/): transient PIMPLE."""
+    _buoyant_rho_run(case, steady=False, max_steps=max_steps)
+
+
+# ---------------------------------------------------------------------------
 # basic solvers
 # ---------------------------------------------------------------------------
 
@@ -1009,6 +1417,25 @@ APPLICATIONS = {
     "pimpleDyMFoam": pimple_dym_foam,
     "interDyMFoam": lambda case, max_steps=None: interfoam_app(
         case, max_steps, dym=True),
+    "LTSInterFoam": lambda case, max_steps=None: interfoam_app(
+        case, max_steps, lts=True),
+    # the compressible family
+    "rhoSimpleFoam": rho_simplefoam,
+    "rhoPimpleFoam": rho_pimplefoam,
+    "rhoSimplecFoam": rho_simplecfoam,
+    "rhoPimplecFoam": rho_pimplecfoam,
+    "sonicFoam": sonicfoam,
+    # its porous/MRF variants read constant/{porousZones,MRFZones}; the
+    # LTS one runs rho_pimplefoam without local time stepping, as the
+    # reference registers it
+    "rhoPorousSimpleFoam": rho_simplefoam,
+    "rhoPorousMRFSimpleFoam": rho_simplefoam,
+    "rhoPorousMRFPimpleFoam": rho_pimplefoam,
+    "rhoPorousMRFLTSPimpleFoam": rho_pimplefoam,
+    "rhoCentralFoam": rhocentralfoam_app,
+    "rhoCentralDyMFoam": rhocentral_dym_foam,
+    "buoyantSimpleFoam": buoyant_simplefoam,
+    "buoyantPimpleFoam": buoyant_pimplefoam,
 }
 
 

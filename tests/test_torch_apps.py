@@ -21,9 +21,10 @@ epsilon: see seed_turbulence and the test.
 Then the application layer itself: `Time.loop` / `adjust_delta_t` /
 `write_time` / `register_write` (purgeWrite) against the reference's Time
 on the same controlDict, the log lines against the reference's
-formatters, and the cases that must raise: an unknown application, the
-compressible buoyantSimpleFoam and MRF applications, a codedSource snippet
-that uses a jnp name outside the port's subset (utils/tnp.py).
+formatters, and the cases that must raise: an unknown application,
+chtMultiRegionFoam and sonicDyMFoam (outside the compressible slice), a
+codedSource snippet that uses a jnp name outside the port's subset
+(utils/tnp.py).
 """
 
 import contextlib
@@ -339,22 +340,25 @@ def test_run_rejects_an_unknown_application(cavity):
     with open(path) as f:
         text = f.read()
     with open(path, "w") as f:
-        f.write(text.replace("icoFoam", "rhoCentralFoam"))
-    with pytest.raises(NotImplementedError, match="rhoCentralFoam"):
+        f.write(text.replace("icoFoam", "sonicLiquidFoam"))
+    with pytest.raises(NotImplementedError, match="sonicLiquidFoam"):
         tapps.run(TCase(cavity, device="cpu"), max_steps=1)
 
 
 @pytest.mark.parametrize("where,text,word", [
     # surfaces and coded are ported since the moving-mesh slice
-    # (tests/test_torch_surfaces.py, tests/test_torch_coded.py), and so is
-    # buoyantBoussinesqSimpleFoam; the compressible buoyantSimpleFoam is not
-    (("system", "controlDict"), "\napplication buoyantSimpleFoam;\n",
-     "buoyantSimpleFoam"),
+    # (tests/test_torch_surfaces.py, tests/test_torch_coded.py), and the
+    # compressible buoyantSimpleFoam since the compressible slice
+    # (tests/test_torch_buoyantrho.py); chtMultiRegionFoam is not
+    (("system", "controlDict"), "\napplication chtMultiRegionFoam;\n",
+     "chtMultiRegionFoam"),
     # MRFZones and fvOptions are read since the rotating-frame slice
-    # (tests/test_torch_mrf.py); the compressible MRF family is not, nor a
-    # coded snippet that uses a jnp name outside the port's subset
-    (("system", "controlDict"), "\napplication rhoPorousMRFSimpleFoam;\n",
-     "rhoPorousMRFSimpleFoam"),
+    # (tests/test_torch_mrf.py), and the compressible MRF family runs since
+    # the compressible slice (tests/test_torch_rhopimple.py); sonicDyMFoam
+    # (solvers/engine.py) is not, nor a coded snippet that uses a jnp name
+    # outside the port's subset
+    (("system", "controlDict"), "\napplication sonicDyMFoam;\n",
+     "sonicDyMFoam"),
     (("system", "fvOptions"),
      "src { type vectorCodedSource; selectionMode all; fields (U);\n"
      "codeAddSup #{\nsource = jnp.cumsum(jnp.zeros((V.shape[0], 3)))\n"

@@ -48,7 +48,12 @@ def test_no_source_imports_jax_or_the_reference():
             "foamtpu_torch/solvers/pimpledym.py",
             "foamtpu_torch/mesh/moving.py",
             "foamtpu_torch/functionobjects/surfaces.py",
-            "foamtpu_torch/utils/tnp.py"} <= sources
+            "foamtpu_torch/utils/tnp.py",
+            "foamtpu_torch/models/thermo.py",
+            "foamtpu_torch/models/turbulence/compressible.py",
+            "foamtpu_torch/solvers/rhopimple.py",
+            "foamtpu_torch/solvers/rhocentral.py",
+            "foamtpu_torch/solvers/buoyantrho.py"} <= sources
     # the pattern does catch the imports it is there for
     assert IMPORT.search("import jax.numpy as jnp")
     assert IMPORT.search("    from foamtpu.ops import fvc")
@@ -60,8 +65,8 @@ import importlib, pkgutil, sys
 import foamtpu_torch
 names = [m.name for m in pkgutil.walk_packages(foamtpu_torch.__path__,
                                                "foamtpu_torch.")]
-# the rotating-frame and porous slice's modules, the turbulence slice's
-# and the moving-mesh slice's are among them
+# the rotating-frame and porous slice's modules, the turbulence slice's,
+# the moving-mesh slice's and the compressible slice's are among them
 assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf",
         "foamtpu_torch.models.turbulence.les",
         "foamtpu_torch.models.turbulence.les2",
@@ -69,7 +74,10 @@ assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf",
         "foamtpu_torch.bc.derived2", "foamtpu_torch.solvers.buoyant",
         "foamtpu_torch.solvers.pimpledym", "foamtpu_torch.mesh.moving",
         "foamtpu_torch.functionobjects.surfaces",
-        "foamtpu_torch.utils.tnp"} <= set(names), names
+        "foamtpu_torch.utils.tnp", "foamtpu_torch.models.thermo",
+        "foamtpu_torch.models.turbulence.compressible",
+        "foamtpu_torch.solvers.rhopimple", "foamtpu_torch.solvers.rhocentral",
+        "foamtpu_torch.solvers.buoyantrho"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")

@@ -632,3 +632,21 @@ def test_f64_interfoam_parity(f64_run, mode, n_steps):
             assert e["ok"], (mode, i, k, e)
         assert -1e-6 < st["alpha_range"][0] and st["alpha_range"][1] < 1.0 + 1e-3
     assert steps[-1]["maxU"] > 0.0
+
+
+def test_ltsinterfoam_application_matches_reference_f64():
+    """LTSInterFoam is registered as the reference registers it
+    (interfoam_app with lts=True): both packages' run(case) on the
+    LTSInterFoam damBreak tutorial (blockMesh, setFields) for 3 steps in
+    float64 (tests/test_torch_ras_models.py's PARITY_BODY): U, p_rgh,
+    alpha and phi at rtol 1e-9, every p_rgh solve with the same iteration
+    count, the log lines and the written fields. The case caps the local
+    time step at the tutorial's deltaT (maxDeltaT 0.001): as shipped it
+    sets none, the still water's local step is 1e6 s, and |U| reaches 3e11
+    in the first step in both packages (chip_smoke.SLICE10_CASES)."""
+    from test_torch_ras_models import assert_parity, parity
+
+    rec = parity("slice10", 3, ["LTSInterFoam"])["LTSInterFoam"]
+    assert_parity(rec, 3, "LTSInterFoam", files_scaled=True)
+    assert {"U", "p_rgh", "alpha", "phi"} == set(rec["errs"])
+    assert [n for n, _ in rec["solves"][0]] == ["p_rgh"] * 3

@@ -116,6 +116,12 @@ def make(tag, name, cli):
         return cs.hotroom_case(os.getcwd(), dst, cs.HOTROOM_APPS[name], cli,
                                seed=cs.HOTROOM_SEED, euler=name == "pimple",
                                write_precision=17)
+    elif kind == "slice10":
+        # the compressible family's tutorials and LTSInterFoam
+        # (chip_smoke.SLICE10_CASES: seeded, coarsened where named)
+        return cs.slice10_case(
+            os.getcwd(), dst, name, cli,
+            device=("-device", "cpu") if cli is tcli else ())
     elif kind in ("box", "interdym", "surfaces"):
         # oscillatingBox, damBreak with a dynamicMeshDict, the
         # cavity with a sampledSurfaces object
@@ -128,8 +134,12 @@ def make(tag, name, cli):
 
 
 def arrays(state, host):
-    out = {n: host(state[n].data)
+    out = {n: host(getattr(state[n], "data", state[n]))
            for n in ("U", "p", "p_rgh", "T", "alpha") if n in state}
+    if "rhoE" in state:
+        # rhoCentralFoam's conservative state (its p is a plain array)
+        out.update(rho=host(state["rho"].data), rhoU=host(state["rhoU"]),
+                   rhoE=host(state["rhoE"]))
     if "phi" in state:
         out["phi"] = host(state["phi"])
     for n, f in (state.get("turb") or {}).items():

@@ -108,9 +108,15 @@ def test_rotating_applications_are_registered():
                                            tapps.pimplefoam,
                                            tapps.interfoam_app)
     # channelFoam (pimpleFoam with an LES model) is ported since the
-    # turbulence slice (tests/test_torch_channel.py); still outside the
-    # port: dnsFoam, snappyHexMesh, the compressible family
+    # turbulence slice (tests/test_torch_channel.py), the compressible
+    # porous/MRF family since the compressible slice
+    # (tests/test_torch_rhopimple.py); still outside the port: dnsFoam,
+    # snappyHexMesh, sonicDyMFoam
     assert tapps.APPLICATIONS["channelFoam"] is tapps.pimplefoam
-    for app in ("dnsFoam", "windSimpleFoam", "rhoPorousSimpleFoam",
-                "rhoPorousMRFSimpleFoam", "rhoPorousMRFPimpleFoam"):
+    assert tapps.APPLICATIONS["rhoPorousSimpleFoam"] is tapps.rho_simplefoam
+    assert tapps.APPLICATIONS["rhoPorousMRFSimpleFoam"] is \
+        tapps.rho_simplefoam
+    assert tapps.APPLICATIONS["rhoPorousMRFPimpleFoam"] is \
+        tapps.rho_pimplefoam
+    for app in ("dnsFoam", "windSimpleFoam", "sonicDyMFoam"):
         assert app not in tapps.APPLICATIONS
