@@ -135,6 +135,21 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      direction (1,032,192 cells), 50 steps in chunks of 10: steps/s, one
      profiled chunk, the bow shock, the mean density and one step's mass
      balance against its boundary fluxes.
+ 28. solvers_small: the single-equation applications (electrostaticFoam,
+     magneticFoam, mhdFoam, financialFoam, shallowWaterFoam,
+     solidEquilibriumDisplacementFoam, potentialFreeSurfaceFoam,
+     adjointShapeOptimizationFoam, dnsFoam after boxTurb) and pimpleFoam's
+     fanDuct (after topoSet and createBaffles: the fan on a retained
+     cyclicAMI pair) from their tutorials through run(case), cut where
+     SMALL_RUNS says, to goldens from the JAX package; the oracles of the
+     JAX package's tests for each on their own setups; the SpMV kernel
+     held to its plain version at plateTension's D and fanDuct's p and
+     timed there.
+ 29. mhd_headline: mhdFoam's hartmann at 1536 x 512 (786,432 cells) in
+     memory at Ha = 20, deltaT scaled to an Alfven Courant number of 0.5:
+     a warm-up step (GAMG p and pB where the shipped PCG reaches
+     its cap), three timed 5-step chunks, the SpMV held and timed at the
+     p and B operands, one profiled step.
 Every timed SpMV shape (kernel, plain version, one CSR product from
 torch.sparse as the library yardstick) gets its device time per call
 from torch.profiler, back to back with the operands warm in L2 and
@@ -169,6 +184,7 @@ import time
 import numpy as np
 import torch
 
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "foamtpu_torch/csrc/spmv_stencil.cu"
 KERNEL_REPLACES = "openfoam-2.2.x_tpu/ops/pallas_spmv.py:109"
 PITZ_CASE = os.path.join("tutorials", "incompressible", "simpleFoam",
@@ -727,11 +743,15 @@ class SolveLog:
     def __exit__(self, *exc):
         self._linear.solve = self._orig
 
+    def _name(self, mat):
+        name = self.names.get(mat.dims)
+        check(name is not None, f"a solve of unnamed dimensions {mat.dims}")
+        return name
+
     def _solve(self, mesh, mat, psi, controls):
         from torch.profiler import record_function
 
-        name = self.names.get(mat.dims)
-        check(name is not None, f"a solve of unnamed dimensions {mat.dims}")
+        name = self._name(mat)
         self.calls[name] += 1
         self.matrices.setdefault(name, mat)
         with (record_function(f"solve_{name}") if self.ranges
@@ -745,6 +765,28 @@ class SolveLog:
                 self.seconds[name] += time.perf_counter() - t0
         self.iterations[name].append(out[1].n_iterations)
         return out
+
+
+class StepLog(SolveLog):
+    """A SolveLog that names each solve by its place in the step, `cycle`
+    repeating after the `lead` solves (mhdFoam's B and U equations share
+    their dimensions; a PISO state starts with the pcorr solve of its
+    initial flux projection)."""
+
+    def __init__(self, cycle, fence=False, ranges=False, lead=()):
+        self.cycle, self.lead, self.k = tuple(cycle), tuple(lead), 0
+        names = list(dict.fromkeys(self.lead + self.cycle))
+        self.fence, self.ranges = fence, ranges
+        self.calls = dict.fromkeys(names, 0)
+        self.seconds = dict.fromkeys(names, 0.0)
+        self.iterations = {name: [] for name in names}
+        self.matrices = {}
+
+    def _name(self, mat):
+        k, self.k = self.k, self.k + 1
+        if k < len(self.lead):
+            return self.lead[k]
+        return self.cycle[(k - len(self.lead)) % len(self.cycle)]
 
 
 def solve_operands(log, mesh, prefix):
@@ -1286,7 +1328,7 @@ def solver_iterations(diag):
 
 
 def profile_chunk(spmv, phase, mesh, chunk, state, n, sec_per_iter, top=12,
-                  solves=True):
+                  solves=True, log=None):
     """One n-iteration chunk under torch.profiler (CPU + CUDA), each
     linear solve in a record_function range named after its field, with
     the SpMV launches counted over the same chunk, and among them those
@@ -1300,12 +1342,15 @@ def profile_chunk(spmv, phase, mesh, chunk, state, n, sec_per_iter, top=12,
     the busy share divides it by the unprofiled time per iteration. A
     solve's device ms counts the kernels of the torch ops inside its
     range: the SpMV kernels, launched through ctypes, are not attributed
-    to ranges and have their own line."""
+    to ranges and have their own line. `log` replaces the SolveLog (a
+    StepLog with ranges, where dimensions do not name the solves)."""
     from torch.profiler import ProfilerActivity, profile
 
     launches0, fb0 = spmv.LAUNCHES, spmv.FB_LAUNCHES
-    with (SolveLog(state, ranges=True) if solves
-          else contextlib.nullcontext()) as log:
+    if log is None:
+        log = (SolveLog(state, ranges=True) if solves
+               else contextlib.nullcontext())
+    with log as log:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
@@ -5953,6 +5998,1537 @@ def phase_rhocentral_headline(spmv, here, root):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the single-equation applications and fanDuct
+# ---------------------------------------------------------------------------
+
+SLICE11_TUTORIALS = {
+    "electrostaticFoam": ("electromagnetics", "electrostaticFoam",
+                          "chargedPlate"),
+    "magneticFoam": ("electromagnetics", "magneticFoam", "barMagnet"),
+    "mhdFoam": ("electromagnetics", "mhdFoam", "hartmann"),
+    "financialFoam": ("financial", "financialFoam", "europeanCall"),
+    "shallowWaterFoam": ("shallowWater", "shallowWaterFoam", "squareBump"),
+    "solidEquilibriumDisplacementFoam": ("stressAnalysis",
+                                         "solidDisplacementFoam",
+                                         "plateTension"),
+    "potentialFreeSurfaceFoam": ("multiphase", "potentialFreeSurfaceFoam",
+                                 "movingOscillatingBox"),
+    "adjointShapeOptimizationFoam": ("incompressible",
+                                     "adjointShapeOptimizationFoam",
+                                     "pitzDaily"),
+    "dnsFoam": ("DNS", "dnsFoam", "boxTurb16"),
+    "fanDuct": ("incompressible", "pimpleFoam", "fanDuct"),
+}
+# the commands of each tutorial's Allrun after blockMesh
+SLICE11_COMMANDS = {"dnsFoam": ("boxTurb",),
+                    "fanDuct": ("topoSet", "createBaffles")}
+SLICE11_SEED = 11
+# per tutorial, the fields a seeded start perturbs: (field, velocity
+# scale of the perturbation of x and y, or None for a scalar's relative
+# scale); uniform starts under upwind weights follow the sign of
+# round-off, and a start at rest goes nowhere
+SLICE11_SEEDS = {
+    "shallowWaterFoam": (("hU", 0.05), ("h", 0.01)),
+    "potentialFreeSurfaceFoam": (("U", 0.01),),
+    "adjointShapeOptimizationFoam": (("U", 0.5),),
+}
+# solver controls that converge each solve of a parity case: a Krylov
+# solve stopped early by relTol amplifies round-off of 1e-14 (the two
+# packages' summation orders) into 1e-6 of the field within a step in
+# either package. fanDuct's shipped GAMG (which a cyclicAMI coupling turns
+# into polynomial BiCGStab, relTol 0.01) does so from 1e-21, hartmann's
+# polynomial PCG (relTol 0.01, ~110 iterations on the 20 x 20 mesh of
+# 1 x 0.1 cells) from 4e-14
+TIGHT_CONTROLS = {
+    "fanDuct": {"p": "solver GAMG; tolerance 1e-11; relTol 0; maxIter 500;"},
+    "mhdFoam": {k: "solver PCG; preconditioner polynomial; tolerance 1e-11; "
+                   "relTol 0; maxIter 2000;" for k in ("p", "pB")},
+}
+
+
+# adjoint fields for pitzDaily, which ships none (the application then
+# starts Ua and pa at zero with zeroGradient BCs, and they stay zero): the
+# BCs of tests/test_adjoint.py, Ua = -U on the inlet (the power-dissipation
+# objective) and 0 on the walls, pa fixed at the outlet
+ADJOINT_FIELDS = {
+    "Ua": ("volVectorField", "[0 1 -1 0 0 0 0]", "(0 0 0)", {
+        "inlet": "type fixedValue; value uniform (-10 0 0);",
+        "outlet": "type zeroGradient;",
+        "upperWall": "type fixedValue; value uniform (0 0 0);",
+        "lowerWall": "type fixedValue; value uniform (0 0 0);",
+        "frontAndBack": "type empty;"}),
+    "pa": ("volScalarField", "[0 2 -2 0 0 0 0]", "0", {
+        "inlet": "type zeroGradient;",
+        "outlet": "type fixedValue; value uniform 0;",
+        "upperWall": "type zeroGradient;",
+        "lowerWall": "type zeroGradient;",
+        "frontAndBack": "type empty;"}),
+}
+
+
+def slice11_case(here, dst, name, cli, device=(), app=None, seed=None,
+                 scale=None, write_precision=None, write_interval=None,
+                 controls=None, adjoint_fields=False):
+    """The tutorial `name` of SLICE11_TUTORIALS copied to dst, meshed by
+    `cli`'s blockMesh and the Allrun's other commands (SLICE11_COMMANDS;
+    boxTurb gets `device`; cli None: not meshed). `app` replaces the
+    controlDict's application (solidDisplacementFoam on plateTension),
+    `scale` multiplies the x and y cell counts of every block,
+    `write_precision` and `write_interval` set the controlDict's,
+    `controls` ({field: entry}) replaces fields'
+    fvSolution solver entries, `adjoint_fields` writes ADJOINT_FIELDS
+    into 0/, and `seed` perturbs the fields of SLICE11_SEEDS from numpy's
+    generator. Returns dst."""
+    shutil.copytree(os.path.join(here, "tutorials",
+                                 *SLICE11_TUTORIALS[name]), dst)
+    control = os.path.join(dst, "system", "controlDict")
+    if app is not None:
+        _edit(control, r"application\s+\w+;", f"application {app};")
+    if write_precision is not None:
+        with open(control, "a") as f:
+            f.write(f"\nwritePrecision {write_precision};\n")
+    if write_interval is not None:
+        _edit(control, r"writeInterval\s+[^;]+;",
+              f"writeInterval {write_interval};")
+    if adjoint_fields:
+        for field, (cls, dims, value, bf) in ADJOINT_FIELDS.items():
+            body = "".join(f"    {k} {{ {v} }}\n" for k, v in bf.items())
+            _write_text(dst, os.path.join("0", field),
+                        _foam_header(cls, field)
+                        + f"dimensions {dims};\ninternalField uniform "
+                        f"{value};\nboundaryField\n{{\n{body}}}\n")
+    for field, entry in (controls or {}).items():
+        _edit(os.path.join(dst, "system", "fvSolution"),
+              rf"(\s){field}\s*\{{[^}}]*\}}",
+              lambda m: f"{m.group(1)}{field} {{ {entry} }}", count=1)
+    if scale not in (None, 1):
+        def blocks(m):
+            nx, ny, nz = (int(x) for x in m.group(2).split())
+            return (f"{m.group(1)}({max(int(round(nx * scale)), 1)} "
+                    f"{max(int(round(ny * scale)), 1)} {nz})")
+        bm = os.path.join(dst, "constant", "polyMesh", "blockMeshDict")
+        if not os.path.exists(bm):
+            bm = os.path.join(dst, "system", "blockMeshDict")
+        _edit(bm, r"(hex\s*\([^)]*\)\s*)\(([^)]*)\)", blocks)
+    if cli is not None:
+        with quiet():
+            check(cli(["blockMesh", "-case", dst]) == 0, "blockMesh failed")
+            for cmd in SLICE11_COMMANDS.get(name, ()):
+                extra = device if cmd == "boxTurb" else ()
+                check(cli([cmd, "-case", dst, *extra]) == 0,
+                      f"{cmd} failed")
+    if seed is not None:
+        from foamtpu_torch.core.case import Case
+
+        case = Case(dst, device="cpu")
+        n = case.mesh.n_cells
+        rng = np.random.default_rng(seed)
+        for field, s in SLICE11_SEEDS[name]:
+            a = case.read_field(field).data.double().numpy().copy()
+            if a.ndim == 2:
+                a[:, :2] += s * rng.standard_normal((n, 2))
+            else:
+                a = a * (1.0 + s * rng.random(n))
+            set_internal(dst, field, a)
+    return dst
+
+
+# the cases of the slice's f64 parity tests (tests/test_torch_*.py of the
+# single-equation applications and fanDuct): name -> (tutorial,
+# slice11_case options)
+SLICE11_CASES = {
+    "electrostaticFoam": ("electrostaticFoam", {}),
+    "magneticFoam": ("magneticFoam", {}),
+    "financialFoam": ("financialFoam", {}),
+    "shallowWaterFoam": ("shallowWaterFoam", {"seed": SLICE11_SEED}),
+    "solidEquilibriumDisplacementFoam": ("solidEquilibriumDisplacementFoam",
+                                         {}),
+    "solidDisplacementFoam": ("solidEquilibriumDisplacementFoam",
+                              {"app": "solidDisplacementFoam"}),
+    "potentialFreeSurfaceFoam": ("potentialFreeSurfaceFoam",
+                                 {"seed": SLICE11_SEED}),
+    # pitzDaily coarsened 2x per direction (3,056 cells)
+    "adjointShapeOptimizationFoam": ("adjointShapeOptimizationFoam",
+                                     {"seed": SLICE11_SEED, "scale": 0.5,
+                                      "adjoint_fields": True,
+                                      "write_interval": 1}),
+    "dnsFoam": ("dnsFoam", {}),
+    "mhdFoam": ("mhdFoam", {"controls": TIGHT_CONTROLS["mhdFoam"]}),
+    "fanDuct": ("fanDuct", {"controls": TIGHT_CONTROLS["fanDuct"]}),
+}
+
+
+def slice11_parity_case(here, dst, name, cli, device=()):
+    """The case `name` of SLICE11_CASES, fields written with 17 digits."""
+    tut, opts = SLICE11_CASES[name]
+    return slice11_case(here, dst, tut, cli, device=device,
+                        write_precision=17, **opts)
+
+
+# The physics oracles of the reference tests, each on its own setup
+# through the port (the case writers copy those tests' dictionaries):
+# tests/test_misc_solvers.py::test_electrostatic_capacitor,
+# test_solver_batch4.py::test_magnetic_foam_bar_magnet,
+# test_mhd.py::test_hartmann_profile,
+# test_financial.py::test_black_scholes_european_call,
+# test_shallowwater.py (the seiche, the lake at rest),
+# test_soliddisplacement.py::test_uniaxial_tension_plane_stress,
+# test_potentialfreesurface.py (the sloshing wave, the flat surface at
+# rest), test_adjoint.py::test_adjoint_optimization_converges_and_bounds_
+# alpha, test_randomprocesses.py (boxTurb, the forced box) and
+# test_fanduct.py. Each returns (record, {check: bool}).
+
+def _case_files(dst, blockmesh, files, cli):
+    """A case of `files` ({rel: (body, class)}) with `blockmesh` as
+    constant/polyMesh/blockMeshDict, meshed by `cli`'s blockMesh."""
+    for rel, (body, cls) in dict(
+            files, **{"constant/polyMesh/blockMeshDict":
+                      (blockmesh, "dictionary")}).items():
+        _write_text(dst, rel, _foam_header(cls, os.path.basename(rel))
+                    + body)
+    with quiet():
+        check(cli(["blockMesh", "-case", dst]) == 0, "blockMesh failed")
+    return dst
+
+
+ORACLE_CHANNEL = """
+convertToMeters 1;
+vertices
+(
+    (0 0 0) (1 0 0) (1 0.1 0) (0 0.1 0)
+    (0 0 0.01) (1 0 0.01) (1 0.1 0.01) (0 0.1 0.01)
+);
+blocks ( hex (0 1 2 3 4 5 6 7) (40 1 1) simpleGrading (1 1 1) );
+boundary
+(
+    left  { type patch; faces ((0 4 7 3)); }
+    right { type patch; faces ((2 6 5 1)); }
+    walls { type wall; faces ((1 5 4 0) (3 7 6 2)); }
+    frontAndBack { type empty; faces ((0 3 2 1) (4 5 6 7)); }
+);
+"""
+ORACLE_CONTROL = """
+application     {app};
+startFrom       startTime;
+startTime       0;
+stopAt          endTime;
+endTime         {end};
+deltaT          {dt};
+writeControl    timeStep;
+writeInterval   1000;
+writeFormat     ascii;
+"""
+ORACLE_SCHEMES = """
+ddtSchemes {{ default {ddt}; }}
+gradSchemes {{ default Gauss linear; }}
+divSchemes {{ default none; div(phi,U) Gauss upwind; div(rhoFlux,rho) Gauss upwind; }}
+laplacianSchemes {{ default Gauss linear corrected; }}
+interpolationSchemes {{ default linear; }}
+snGradSchemes {{ default corrected; }}
+"""
+
+
+def oracle_capacitor(root, cli, device):
+    """Uniform space charge between grounded plates: phi follows the 1D
+    Poisson parabola rho/(2 eps0) x (x - L) to 2% of its extreme."""
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.solvers.apps import run
+
+    eps0, rho0, L = 8.85418782e-12, 1e-8, 1.0
+    d = _case_files(os.path.join(root, "capacitor"), ORACLE_CHANNEL, {
+        "system/controlDict": (ORACLE_CONTROL.format(
+            app="electrostaticFoam", end=1, dt=1), "dictionary"),
+        "system/fvSchemes": (ORACLE_SCHEMES.format(ddt="Euler"),
+                             "dictionary"),
+        "system/fvSolution": ("solvers { phi { solver PCG; preconditioner "
+                              "DIC; tolerance 1e-10; relTol 0; } rho { "
+                              "solver PBiCGStab; preconditioner DILU; "
+                              "tolerance 1e-10; relTol 0; } }\n",
+                              "dictionary"),
+        "constant/physicalProperties": (
+            "epsilon0 epsilon0 [ -1 -3 4 0 0 2 0 ] 8.85418782e-12;\n"
+            "k k [ -1 0 2 0 0 1 0 ] 0;\n", "dictionary"),
+        "0/phi": ("dimensions [1 2 -3 0 0 -1 0];\ninternalField uniform 0;\n"
+                  "boundaryField { left { type fixedValue; value uniform 0; }"
+                  " right { type fixedValue; value uniform 0; } walls { type "
+                  "zeroGradient; } frontAndBack { type empty; } }\n",
+                  "volScalarField"),
+        "0/rho": ("dimensions [0 -3 1 0 0 1 0];\ninternalField uniform 1e-8;\n"
+                  "boundaryField { left { type zeroGradient; } right { type "
+                  "zeroGradient; } walls { type zeroGradient; } frontAndBack "
+                  "{ type empty; } }\n", "volScalarField")}, cli)
+    case = Case(d, device=device)
+    with quiet():
+        run(case, max_steps=1)
+    phi = case.final_state["phi"].data.double().cpu().numpy()
+    x = case.mesh.c[:, 0].double().cpu().numpy()
+    exact = rho0 / (2 * eps0) * x * (x - L)
+    err = float(np.abs(phi - exact).max() / np.abs(exact).max())
+    return {"phi_rel_err": err}, {"phi on the Poisson parabola (< 2%)":
+                                  err < 0.02}
+
+
+ORACLE_MAGNET_BM = """
+convertToMeters 1;
+vertices
+(
+    (-1 -1 0) (1 -1 0) (1 1 0) (-1 1 0)
+    (-1 -1 0.1) (1 -1 0.1) (1 1 0.1) (-1 1 0.1)
+);
+blocks ( hex (0 1 2 3 4 5 6 7) (40 40 1) simpleGrading (1 1 1) );
+boundary
+(
+    sides { type patch; faces ((0 4 7 3) (2 6 5 1) (1 5 4 0) (3 7 6 2)); }
+    frontAndBack { type empty; faces ((0 3 2 1) (4 5 6 7)); }
+);
+"""
+
+
+def oracle_bar_magnet(root, cli, device):
+    """A bar magnet magnetised along +x: B along +x inside it (more than
+    5% of mu0 Mr), the return field above and below it opposing."""
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.solvers.apps import run
+
+    mu0, Mr = 4e-7 * np.pi, 8e5
+    d = _case_files(os.path.join(root, "magnet"), ORACLE_MAGNET_BM, {
+        "system/controlDict": (ORACLE_CONTROL.format(
+            app="magneticFoam", end=1, dt=1), "dictionary"),
+        "system/fvSchemes": (ORACLE_SCHEMES.format(ddt="steadyState"),
+                             "dictionary"),
+        "system/fvSolution": ("solvers { psi { solver PCG; preconditioner "
+                              "DIC; tolerance 1e-8; relTol 0; maxIter 2000; "
+                              "} }\nSIMPLE { nNonOrthogonalCorrectors 0; }\n",
+                              "dictionary"),
+        "constant/transportProperties": (
+            "magnets ( { box ((-0.25 -0.1 -1) (0.25 0.1 1)); mur 1; "
+            "Mr 8e5; orientation (1 0 0); } );\n", "dictionary"),
+        "0/psi": ("dimensions [0 1 0 0 0 1 0];\ninternalField uniform 0;\n"
+                  "boundaryField { sides { type zeroGradient; } "
+                  "frontAndBack { type empty; } }\n", "volScalarField")},
+        cli)
+    case = Case(d, device=device)
+    with quiet():
+        run(case)
+    B = case.final_state["B"].double().cpu().numpy()
+    c = case.mesh.c.double().cpu().numpy()
+    inside = (np.abs(c[:, 0]) < 0.2) & (np.abs(c[:, 1]) < 0.08)
+    side = (np.abs(c[:, 0]) < 0.2) & (np.abs(c[:, 1]) > 0.5)
+    bx_in, bx_side = float(B[inside, 0].mean()), float(B[side, 0].mean())
+    return {"bx_inside": bx_in, "bx_return": bx_side}, {
+        "B finite": bool(np.isfinite(B).all()),
+        "Bx inside > 0.05 mu0 Mr": bx_in > 0.05 * mu0 * Mr,
+        "return field opposes": bx_side < 0.0}
+
+
+ORACLE_HARTMANN = """
+convertToMeters 1;
+vertices (
+    (0 -1 0) (20 -1 0) (20 1 0) (0 1 0)
+    (0 -1 0.1) (20 -1 0.1) (20 1 0.1) (0 1 0.1)
+);
+blocks ( hex (0 1 2 3 4 5 6 7) (20 24 1) simpleGrading (1 1 1) );
+boundary (
+    inlet  { type patch; faces ((0 4 7 3)); }
+    outlet { type patch; faces ((2 6 5 1)); }
+    walls  { type wall; faces ((1 5 4 0) (3 7 6 2)); }
+    frontAndBack { type empty; faces ((0 3 2 1) (4 5 6 7)); }
+);
+"""
+# tests/test_mhd.py runs 150 steps; the profile is developed after 60
+# (profile error 0.00528 at 60 steps, 0.00530 at 100, on the CPU)
+HARTMANN_STEPS = 60
+
+
+def hartmann_fields(mesh, By=20.0):
+    """U, p, B, pB of tests/test_mhd.py's Hartmann channel (U = 1 at the
+    inlet, no slip on the walls, p fixed at the outlet, B = (0 By 0)
+    everywhere on the boundary, pB fixed on the walls)."""
+    from foamtpu_torch.bc import patchfields as pf
+    from foamtpu_torch.core.dimensions import DimensionSet, dimVelocity
+    from foamtpu_torch.core.fields import vol_scalar, vol_vector
+
+    def vec(*v):
+        return torch.tensor(v, dtype=mesh.v.dtype, device=mesh.device)
+
+    ubcs, pbcs, bbcs, pbbcs = [], [], [], []
+    for p in mesh.patches:
+        if p.type == "empty":
+            for lst in (ubcs, pbcs, bbcs, pbbcs):
+                lst.append(pf.PatchField(kind="empty", vfrac=0.0))
+            continue
+        bbcs.append(pf.fixed_value(vec(0.0, By, 0.0)))
+        if p.name == "inlet":
+            ubcs.append(pf.fixed_value(vec(1.0, 0.0, 0.0)))
+            pbcs.append(pf.zero_gradient())
+            pbbcs.append(pf.zero_gradient())
+        elif p.name == "outlet":
+            ubcs.append(pf.zero_gradient())
+            pbcs.append(pf.fixed_value(0.0))
+            pbbcs.append(pf.zero_gradient())
+        else:
+            ubcs.append(pf.fixed_value(vec(0.0, 0.0, 0.0)))
+            pbcs.append(pf.zero_gradient())
+            pbbcs.append(pf.fixed_value(0.0))
+    kin = DimensionSet.of(0, 2, -2)
+    return (vol_vector(mesh, vec(1.0, 0.0, 0.0), name="U", dims=dimVelocity,
+                       bcs=tuple(ubcs)),
+            vol_scalar(mesh, 0.0, name="p", dims=kin, bcs=tuple(pbcs)),
+            vol_vector(mesh, vec(0.0, By, 0.0), name="B", dims=dimVelocity,
+                       bcs=tuple(bbcs)),
+            vol_scalar(mesh, 0.0, name="pB", dims=kin, bcs=tuple(pbbcs)))
+
+
+def oracle_hartmann(root, cli, device, steps=HARTMANN_STEPS):
+    """Fully developed MHD channel flow with a transverse B at Ha = 20
+    (HARTMANN_STEPS steps): past the development length the core profile
+    follows (cosh Ha -
+    cosh(Ha y/L)) / (cosh Ha - 1) to 0.1, the core is flat (> 0.9), and
+    div(B) stays below 1e-3."""
+    from foamtpu_torch.core.dictionary import parse_string
+    from foamtpu_torch.mesh import blockmesh, to_device
+    from foamtpu_torch.solvers import mhd
+
+    mesh = to_device(blockmesh.generate(parse_string(ORACLE_HARTMANN)),
+                     device)
+    Ha = 20.0
+    cfg = mhd.MhdConfig(nu=1.0, rho=1.0, mu_mag=1.0, sigma_c=1.0,
+                        n_correctors=2)
+    state = mhd.initial_state(mesh, *hartmann_fields(mesh))
+    step = mhd.make_step(mesh, cfg)
+    diag = None
+    for _ in range(steps):
+        state, diag = step(state, 0.005)
+    u = state["U"].data.double().cpu().numpy()
+    c = mesh.c.double().cpu().numpy()
+    sel = np.abs(c[:, 0] - 15.5) < 0.5
+    order = np.argsort(c[sel, 1])
+    y, ux = c[sel, 1][order], u[sel, 0][order]
+    prof = ux / ux.max()
+    exact = (np.cosh(Ha) - np.cosh(Ha * y)) / (np.cosh(Ha) - 1.0)
+    core = np.abs(y) < 0.8
+    err = float(np.abs(prof[core] - exact[core]).max())
+    div_b = float(diag["divB"])
+    return {"profile_err": err, "divB": div_b,
+            "core_min": float(prof[np.abs(y) < 0.5].min())}, {
+        "U finite": bool(np.isfinite(u).all()), "div(B) < 1e-3": div_b < 1e-3,
+        "cosh profile to 0.1": err < 0.1,
+        "flat core > 0.9": float(prof[np.abs(y) < 0.5].min()) > 0.9}
+
+
+def oracle_black_scholes(root, cli, device):
+    """A European call (K 50, r 0.05, sigma 0.2, tau 0.5) on 300 cells:
+    V within 0.15 of Black-Scholes for 25 < S < 100, 0.05 on average."""
+    import math
+
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.solvers.apps import run
+
+    K, r, sigma, tau = 50.0, 0.05, 0.2, 0.5
+    S = 1.0 + (np.arange(300) + 0.5) * (149.0 / 300.0)
+    bm = """
+convertToMeters 1;
+vertices ( (1 0 0) (150 0 0) (150 1 0) (1 1 0)
+           (1 0 1) (150 0 1) (150 1 1) (1 1 1) );
+blocks ( hex (0 1 2 3 4 5 6 7) (300 1 1) simpleGrading (1 1 1) );
+boundary (
+  low  { type patch; faces ((0 4 7 3)); }
+  high { type patch; faces ((2 6 5 1)); }
+  empty1 { type empty; faces ((1 5 4 0) (3 7 6 2) (0 3 2 1) (4 5 6 7)); }
+);
+"""
+    payoff = "\n".join(repr(float(max(s - K, 0.0))) for s in S)
+    d = _case_files(os.path.join(root, "call"), bm, {
+        "system/controlDict": (
+            f"application financialFoam; startFrom startTime; startTime 0;"
+            f"\nstopAt endTime; endTime {tau}; deltaT 0.005;\nwriteControl "
+            "timeStep; writeInterval 1000; writeFormat ascii;\n",
+            "dictionary"),
+        "system/fvSchemes": (
+            "ddtSchemes { default Euler; } gradSchemes { default Gauss "
+            "linear; }\ndivSchemes { default none; div(phi,V) Gauss linear; "
+            "}\nlaplacianSchemes { default Gauss linear orthogonal; }\n"
+            "interpolationSchemes { default linear; } snGradSchemes { "
+            "default orthogonal; }\n", "dictionary"),
+        "system/fvSolution": ("solvers { V { solver PBiCGStab; tolerance "
+                              "1e-10; relTol 0; maxIter 500; } }\n",
+                              "dictionary"),
+        "constant/financialProperties": (f"sigma {sigma};\nr {r};\n",
+                                         "dictionary"),
+        "0/V": ("dimensions [0 0 0 0 0 0 0];\ninternalField nonuniform "
+                f"List<scalar>\n300\n(\n{payoff}\n)\n;\nboundaryField\n{{\n"
+                "    low { type fixedValue; value uniform 0; }\n"
+                "    high { type fixedValue; value uniform "
+                f"{150.0 - K * math.exp(-r * tau)}; }}\n"
+                "    empty1 { type empty; }\n}\n", "volScalarField")}, cli)
+    case = Case(d, device=device)
+    with quiet():
+        run(case)
+
+    def bs(s):
+        d1 = ((math.log(s / K) + (r + 0.5 * sigma ** 2) * tau)
+              / (sigma * math.sqrt(tau)))
+        d2 = d1 - sigma * math.sqrt(tau)
+        n = lambda x: 0.5 * (1.0 + math.erf(x / math.sqrt(2)))  # noqa: E731
+        return s * n(d1) - K * math.exp(-r * tau) * n(d2)
+
+    V = case.final_state["V"].data.double().cpu().numpy()
+    exact = np.array([bs(s) for s in S])
+    sel = (S > 25) & (S < 100)
+    err = np.abs(V[sel] - exact[sel])
+    return {"err_max": float(err.max()), "err_mean": float(err.mean())}, {
+        "|V - BS| < 0.15": float(err.max()) < 0.15,
+        "mean |V - BS| < 0.05": float(err.mean()) < 0.05}
+
+
+ORACLE_BASIN_SW = """
+convertToMeters 1;
+vertices
+(
+    (0 0 0) (10 0 0) (10 1 0) (0 1 0)
+    (0 0 1) (10 0 1) (10 1 1) (0 1 1)
+);
+blocks ( hex (0 1 2 3 4 5 6 7) (40 4 1) simpleGrading (1 1 1) );
+boundary
+(
+    sides { type wall; faces ((0 4 7 3) (2 6 5 1) (1 5 4 0) (3 7 6 2)); }
+    frontAndBack { type empty; faces ((0 3 2 1) (4 5 6 7)); }
+);
+"""
+
+
+def _sw_setup(device, h_init, h0):
+    from foamtpu_torch.bc import patchfields as pf
+    from foamtpu_torch.core.dictionary import parse_string
+    from foamtpu_torch.core.dimensions import DimensionSet
+    from foamtpu_torch.core.fields import vol_scalar, vol_vector
+    from foamtpu_torch.mesh import blockmesh, to_device
+
+    mesh = to_device(blockmesh.generate(parse_string(ORACLE_BASIN_SW)),
+                     device)
+    c = mesh.c.double().cpu().numpy()
+    hb, ub = [], []
+    for patch in mesh.patches:
+        if patch.type == "empty":
+            hb.append(pf.PatchField(kind="empty", vfrac=0.0))
+            ub.append(pf.PatchField(kind="empty", vfrac=0.0))
+        else:
+            hb.append(pf.zero_gradient())
+            ub.append(pf.PatchField(kind="slip", vfrac=0.0))
+    h = vol_scalar(mesh, 1.0, name="h", dims=DimensionSet.of(0, 1, 0),
+                   bcs=tuple(hb)).with_data(torch.tensor(
+                       h_init(c), dtype=mesh.v.dtype, device=mesh.device))
+    hU = vol_vector(mesh, (0.0, 0.0, 0.0), name="hU",
+                    dims=DimensionSet.of(0, 2, -1), bcs=tuple(ub))
+    return mesh, c, h, hU, h0(c)
+
+
+def oracle_shallow_water(root, cli, device):
+    """The seiche: a cosine surface in a closed flat basin flips sign
+    after half a period L/sqrt(gH) (correlation < -0.6, amplitude kept
+    above 30%) and conserves volume to 1e-4; the lake at rest: a bed bump
+    under a flat surface stays at rest (|U| < 5e-3 after 50 steps, the
+    surface within 2e-3)."""
+    import math
+
+    from foamtpu_torch.solvers import shallowwater as sw
+
+    amp, H, L = 0.01, 1.0, 10.0
+    mesh, c, h, hU, h0 = _sw_setup(
+        device, lambda c: H + amp * np.cos(math.pi * c[:, 0] / L),
+        lambda c: np.zeros(c.shape[0]))
+    pert0 = amp * np.cos(math.pi * c[:, 0] / L)
+    cfg = sw.ShallowWaterConfig(n_outer=2, n_correctors=2,
+                                div_scheme="linear")
+    state = sw.initial_state(mesh, h, hU, torch.tensor(
+        h0, dtype=mesh.v.dtype, device=mesh.device))
+    v = mesh.v.double().cpu().numpy()
+    vol0 = float((h.data.double().cpu().numpy() * v).sum())
+    step = sw.make_step(mesh, cfg)
+    for _ in range(int(round(L / math.sqrt(9.81 * H) / 0.02))):
+        state, _ = step(state, 0.02)
+    hd = state["h"].data.double().cpu().numpy()
+    pert1 = hd - H
+    corr = float((pert0 * pert1).sum()
+                 / max(np.linalg.norm(pert0) * np.linalg.norm(pert1), 1e-30))
+    dvol = abs(float((hd * v).sum()) - vol0) / vol0
+    rec = {"seiche_corr": corr, "seiche_dvol": dvol,
+           "seiche_amp": float(np.abs(pert1).max())}
+    ck = {"seiche finite": bool(np.isfinite(hd).all()),
+          "seiche volume to 1e-4": dvol < 1e-4,
+          "seiche phase flip (corr < -0.6)": corr < -0.6,
+          "seiche not over-damped": rec["seiche_amp"] > 0.3 * amp}
+
+    bump = lambda c: 0.3 * np.exp(-((c[:, 0] - 5.0) / 1.5) ** 2)  # noqa
+    mesh, c, h, hU, h0 = _sw_setup(device, lambda c: 1.0 - bump(c), bump)
+    cfg = sw.ShallowWaterConfig(n_outer=1, n_correctors=2,
+                                div_scheme="linear")
+    state = sw.initial_state(mesh, h, hU, torch.tensor(
+        h0, dtype=mesh.v.dtype, device=mesh.device))
+    step = sw.make_step(mesh, cfg)
+    for _ in range(50):
+        state, _ = step(state, 0.02)
+    U = state["U"].data.double().cpu().numpy()
+    surf = state["h"].data.double().cpu().numpy() + h0
+    rec.update(lake_u_max=float(np.abs(U).max()),
+               lake_surface_dev=float(np.abs(surf - 1.0).max()))
+    ck.update({"lake finite": bool(np.isfinite(U).all()),
+               "lake at rest (|U| < 5e-3)": rec["lake_u_max"] < 5e-3,
+               "lake surface flat to 2e-3": rec["lake_surface_dev"] < 2e-3})
+    return rec, ck
+
+
+ORACLE_PLATE = """
+convertToMeters 1;
+vertices
+(
+    (0 0 0) (1 0 0) (1 0.5 0) (0 0.5 0)
+    (0 0 0.01) (1 0 0.01) (1 0.5 0.01) (0 0.5 0.01)
+);
+blocks ( hex (0 1 2 3 4 5 6 7) (20 10 1) simpleGrading (1 1 1) );
+boundary
+(
+    left   { type symmetryPlane; faces ((0 4 7 3)); }
+    right  { type patch; faces ((2 6 5 1)); }
+    bottom { type symmetryPlane; faces ((1 5 4 0)); }
+    top    { type patch; faces ((3 7 6 2)); }
+    frontAndBack { type empty; faces ((0 3 2 1) (4 5 6 7)); }
+);
+"""
+
+
+def oracle_tension(root, cli, device):
+    """A quarter plate under uniaxial tension (plane stress, 1 MPa, steel)
+    after 6 outer blocks of 20 corrections: Dx = (S/E) x and Dy =
+    -(nu S/E) y to 5% of S/E, sigma_xx = S to 2% on average and 10%
+    everywhere, sigma_yy below 10% of S."""
+    from foamtpu_torch.bc import patchfields as pf
+    from foamtpu_torch.core.dictionary import parse_string
+    from foamtpu_torch.core.dimensions import DimensionSet
+    from foamtpu_torch.core.fields import vol_vector
+    from foamtpu_torch.mesh import blockmesh, to_device
+    from foamtpu_torch.solvers import soliddisplacement as sd
+
+    E, NU, RHO, SIGMA = 2e11, 0.3, 7854.0, 1e6
+    mesh = to_device(blockmesh.generate(parse_string(ORACLE_PLATE)), device)
+    zero3 = torch.zeros(3, dtype=mesh.v.dtype, device=mesh.device)
+    bcs, traction = [], []
+    for patch in mesh.patches:
+        if patch.type == "empty":
+            bcs.append(pf.PatchField(kind="empty", vfrac=0.0))
+            traction.append(None)
+        elif patch.name in ("left", "bottom"):
+            bcs.append(pf.PatchField(kind="symmetryPlane", vfrac=0.0))
+            traction.append(None)
+        else:
+            bcs.append(pf.fixed_gradient(zero3))
+            traction.append((np.array([SIGMA if patch.name == "right"
+                                       else 0.0, 0.0, 0.0]) / RHO, 0.0))
+    D = vol_vector(mesh, zero3, name="D", dims=DimensionSet.of(0, 1, 0),
+                   bcs=tuple(bcs))
+    cfg = sd.SolidConfig(rho=RHO, E=E, nu=NU, plane_stress=True,
+                         steady=True, n_corr=20, traction=tuple(traction))
+    state = sd.initial_state(mesh, D, steady=True)
+    step = sd.make_step(mesh, cfg)
+    for _ in range(6):
+        state, _ = step(state, 1.0)
+    Dd = state["D"].data.double().cpu().numpy()
+    c = mesh.c.double().cpu().numpy()
+    eps = SIGMA / E
+    sig = sd.sigma_of(mesh, state["D"], cfg).double().cpu().numpy()
+    rec = {"dx_err": float(np.abs(Dd[:, 0] - eps * c[:, 0]).max() / eps),
+           "dy_err": float(np.abs(Dd[:, 1] + NU * eps * c[:, 1]).max() / eps),
+           "sxx_mean_err": abs(float(sig[:, 0, 0].mean()) - SIGMA) / SIGMA,
+           "sxx_max_err": float(np.abs(sig[:, 0, 0] - SIGMA).max()) / SIGMA,
+           "syy_max": float(np.abs(sig[:, 1, 1]).max()) / SIGMA}
+    return rec, {"Dx linear to 5%": rec["dx_err"] < 0.05,
+                 "Dy linear to 5%": rec["dy_err"] < 0.05,
+                 "sigma_xx mean to 2%": rec["sxx_mean_err"] < 0.02,
+                 "sigma_xx to 10%": rec["sxx_max_err"] < 0.1,
+                 "sigma_yy < 10%": rec["syy_max"] < 0.1}
+
+
+ORACLE_BASIN_PFS = """
+convertToMeters 1;
+vertices
+(
+    (0 0 0) (1 0 0) (1 0.5 0) (0 0.5 0)
+    (0 0 0.05) (1 0 0.05) (1 0.5 0.05) (0 0.5 0.05)
+);
+blocks ( hex (0 1 2 3 4 5 6 7) (20 10 1) simpleGrading (1 1 1) );
+boundary
+(
+    freeSurface { type patch; faces ((3 7 6 2)); }
+    walls { type wall; faces ((2 6 5 1) (0 4 7 3) (1 5 4 0)); }
+    frontAndBack { type empty; faces ((0 3 2 1) (4 5 6 7)); }
+);
+"""
+
+
+def _pfs_setup(device, zeta_amp):
+    from foamtpu_torch.core.dictionary import parse_string
+    from foamtpu_torch.core.fields import vol_scalar, vol_vector
+    from foamtpu_torch.mesh import blockmesh, to_device
+    from foamtpu_torch.solvers import piso
+    from foamtpu_torch.solvers import potentialfreesurface as pfs
+
+    mesh = to_device(blockmesh.generate(parse_string(ORACLE_BASIN_PFS)),
+                     device)
+    fs = next(i for i, p in enumerate(mesh.patches)
+              if p.name == "freeSurface")
+    cfg = pfs.FreeSurfaceConfig(
+        flow=piso.PisoConfig(nu=1e-6, n_correctors=2,
+                             momentum_predictor=False),
+        fs_patch=fs, g_mag=9.81)
+    xf = mesh.cf[mesh.patches[fs].slice, 0].double().cpu().numpy()
+    state = pfs.initial_state(
+        mesh, vol_vector(mesh, (0.0, 0.0, 0.0), name="U"),
+        vol_scalar(mesh, 0.0, name="p"), cfg,
+        zeta0=zeta_amp * np.cos(np.pi * xf))
+    return mesh, state, cfg, xf
+
+
+def oracle_free_surface(root, cli, device):
+    """A tilted surface sloshes: in 80 steps of 0.01 s the elevation at
+    the left end falls below -10% of its start (a sign flip), stays below
+    3x its start, and the surface volume stays at zero (< 1e-8); a flat
+    surface stays at rest (|U| < 1e-6, |zeta| < 1e-8 after 5 steps)."""
+    from foamtpu_torch.solvers import potentialfreesurface as pfs
+
+    mesh, state, cfg, xf = _pfs_setup(device, 0.01)
+    step = pfs.make_step(mesh, cfg)
+    i0 = int(np.argmin(xf))
+    left0 = float(state["zeta"][i0])
+    z = []
+    for _ in range(80):
+        state, _ = step(state, 0.01)
+        z.append(float(state["zeta"][i0]))
+    z = np.asarray(z)
+    w = mesh.mag_sf[mesh.patches[cfg.fs_patch].slice].double()
+    vol = abs(float((state["zeta"].double() * w).sum()))
+    rec = {"left0": left0, "left_min": float(z.min()),
+           "left_abs_max": float(np.abs(z).max()), "surface_volume": vol}
+    ck = {"wave: sign flip": left0 > 0 and rec["left_min"] < -0.1 * left0,
+          "wave: bounded (< 3x)": rec["left_abs_max"] < 3.0 * left0,
+          "surface volume < 1e-8": vol < 1e-8}
+    mesh, state, cfg, _ = _pfs_setup(device, 0.0)
+    step = pfs.make_step(mesh, cfg)
+    for _ in range(5):
+        state, _ = step(state, 0.01)
+    rec["rest_u_max"] = float(torch.abs(state["U"].data).max())
+    rec["rest_zeta_max"] = float(torch.abs(state["zeta"]).max())
+    ck.update({"flat surface at rest (|U| < 1e-6)": rec["rest_u_max"] < 1e-6,
+               "flat surface stays (< 1e-8)": rec["rest_zeta_max"] < 1e-8})
+    return rec, ck
+
+
+ORACLE_DUCT = """
+convertToMeters 1;
+vertices
+(
+    (0 0 0) (1 0 0) (1 0.2 0) (0 0.2 0)
+    (0 0 0.02) (1 0 0.02) (1 0.2 0.02) (0 0.2 0.02)
+);
+blocks ( hex (0 1 2 3 4 5 6 7) (25 10 1) simpleGrading (1 1 1) );
+boundary
+(
+    inlet  { type patch; faces ((0 4 7 3)); }
+    outlet { type patch; faces ((2 6 5 1)); }
+    walls  { type wall; faces ((1 5 4 0) (3 7 6 2)); }
+    frontAndBack { type empty; faces ((0 3 2 1) (4 5 6 7)); }
+);
+"""
+
+
+def oracle_adjoint(root, cli, device, sweeps=30):
+    """30 optimisation sweeps of tests/test_adjoint.py's duct: the primal
+    p residual halves, alpha stays in [0, 200] and at zero in the inlet
+    cells, the adjoint velocity responds and the objective is finite (it
+    is recorded: as alpha fills the pocket its alpha U^2 term grows)."""
+    from foamtpu_torch.bc import patchfields as pf
+    from foamtpu_torch.core.dictionary import parse_string
+    from foamtpu_torch.core.fields import vol_scalar, vol_vector
+    from foamtpu_torch.mesh import blockmesh, to_device
+    from foamtpu_torch.solvers import adjoint
+    from foamtpu_torch.solvers import simple as simple_mod
+
+    mesh = to_device(blockmesh.generate(parse_string(ORACLE_DUCT)), device)
+
+    def vec(*v):
+        return torch.tensor(v, dtype=mesh.v.dtype, device=mesh.device)
+
+    ub, pb, uab, pab = [], [], [], []
+    for pt in mesh.patches:
+        if pt.type == "empty":
+            for lst in (ub, pb, uab, pab):
+                lst.append(pf.PatchField(kind="empty", vfrac=0.0))
+        elif pt.name == "inlet":
+            ub.append(pf.fixed_value(vec(1.0, 0.0, 0.0)))
+            pb.append(pf.zero_gradient())
+            uab.append(pf.fixed_value(vec(-1.0, 0.0, 0.0)))
+            pab.append(pf.zero_gradient())
+        elif pt.name == "outlet":
+            ub.append(pf.zero_gradient())
+            pb.append(pf.fixed_value(0.0))
+            uab.append(pf.zero_gradient())
+            pab.append(pf.fixed_value(0.0))
+        else:
+            ub.append(pf.fixed_value(vec(0.0, 0.0, 0.0)))
+            pb.append(pf.zero_gradient())
+            uab.append(pf.fixed_value(vec(0.0, 0.0, 0.0)))
+            pab.append(pf.zero_gradient())
+    U = vol_vector(mesh, (1.0, 0.0, 0.0), name="U", bcs=tuple(ub))
+    p = vol_scalar(mesh, 0.0, name="p", bcs=tuple(pb))
+    Ua = vol_vector(mesh, (0.0, 0.0, 0.0), name="Ua", bcs=tuple(uab))
+    pa = vol_scalar(mesh, 0.0, name="pa", bcs=tuple(pab))
+    inlet = mesh.patch("inlet")
+    inlet_cells = torch.unique(mesh.owner[inlet.slice])
+    cfg = adjoint.AdjointConfig(
+        flow=simple_mod.SimpleConfig(nu=1e-3, alpha_u=0.7, alpha_p=0.3),
+        lam=1e3, alpha_max=200.0, alpha_relax=0.1,
+        zero_alpha_cells=inlet_cells)
+    state = adjoint.initial_state(mesh, U, p, Ua, pa, cfg)
+    step = adjoint.make_step(mesh, cfg)
+    objectives, first = [], None
+    for i in range(sweeps):
+        state, diag = step(state)
+        objectives.append(float(diag["objective"]))
+        if i == 0:
+            first = float(torch.max(torch.as_tensor(diag["p_initial"])))
+    last = float(torch.max(torch.as_tensor(diag["p_initial"])))
+    a = state["alpha"].double().cpu().numpy()
+    rec = {"p_initial_first": first, "p_initial_last": last,
+           "objective_first": objectives[0], "objective_last": objectives[-1],
+           "alpha_max": float(a.max()),
+           "ua_max": float(torch.abs(state["Ua"].data).max())}
+    return rec, {
+        "primal converging (p residual halves)": last < 0.5 * first,
+        "0 <= alpha <= alphaMax": bool(a.min() >= 0.0 and a.max() <= 200.0),
+        "alpha 0 at the inlet": float(np.abs(
+            a[inlet_cells.cpu().numpy()]).max()) == 0.0,
+        "adjoint responds": rec["ua_max"] > 1e-6,
+        "objective finite": bool(np.isfinite(objectives).all())}
+
+
+def _dns_box(dst, cli, device):
+    """tests/test_randomprocesses.py::test_dnsfoam_forced_box's 16^3 box,
+    meshed and filled by boxTurb (Ea 0.5, k0 12, seed 2)."""
+    box = ("convertToMeters 1;\nvertices ( (0 0 0) (1 0 0) (1 1 0) (0 1 0) "
+           "(0 0 1) (1 0 1) (1 1 1) (0 1 1) );\nblocks ( hex (0 1 2 3 4 5 6 "
+           "7) (16 16 16) simpleGrading (1 1 1) );\nboundary ( walls { type "
+           "wall;\n  faces ((0 4 7 3) (2 6 5 1) (1 5 4 0) (3 7 6 2) (0 3 2 "
+           "1) (4 5 6 7)); } );\n")
+    _case_files(dst, box, {
+        "system/controlDict": (
+            "application dnsFoam; startFrom startTime; startTime 0;\nstopAt "
+            "endTime; endTime 1; deltaT 0.005;\nwriteControl timeStep; "
+            "writeInterval 1000; writeFormat ascii;\n", "dictionary"),
+        "system/fvSchemes": (
+            "ddtSchemes { default Euler; } gradSchemes { default Gauss "
+            "linear; }\ndivSchemes { default none; div(phi,U) Gauss linear; "
+            "}\nlaplacianSchemes { default Gauss linear corrected; }\n"
+            "interpolationSchemes { default linear; } snGradSchemes { "
+            "default corrected; }\n", "dictionary"),
+        "system/fvSolution": (
+            "solvers\n{\n    p { solver PCG; preconditioner DIC; tolerance "
+            "1e-6; relTol 0.05; }\n    U { solver smoothSolver; smoother "
+            "GaussSeidel; tolerance 1e-6; relTol 0; nSweeps 2; }\n}\nPISO "
+            "{ nCorrectors 2; }\n", "dictionary"),
+        "constant/transportProperties": (
+            "transportModel Newtonian;\nnu nu [0 2 -1 0 0 0 0] 0.0025;\n",
+            "dictionary"),
+        "constant/boxTurbDict": ("Ea 0.5; k0 12; seed 2;\n", "dictionary"),
+        "0/U": ("dimensions [0 1 -1 0 0 0 0];\ninternalField uniform (0 0 0)"
+                ";\nboundaryField { walls { type slip; } }\n",
+                "volVectorField"),
+        "0/p": ("dimensions [0 2 -2 0 0 0 0];\ninternalField uniform 0;\n"
+                "boundaryField { walls { type zeroGradient; } }\n",
+                "volScalarField")}, cli)
+    with quiet():
+        check(cli(["boxTurb", "-case", dst, "-device", device]) == 0,
+              "boxTurb failed")
+    return dst
+
+
+def oracle_dns(root, cli, device, steps=20):
+    """boxTurb on a 32^3 grid (Ea 2, k0 8 pi, seed 3) is divergence-free
+    to 1e-10 with k = 3 to 1e-6 and isotropic within 1.6; the boxTurb
+    command writes k = 0.75 to 1e-3 on the 16^3 box; the forced box
+    through run(case) for 20 steps stays finite with 0.05 < k < 5."""
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.models import randomprocesses as rp
+    from foamtpu_torch.solvers.apps import run
+
+    u = rp.box_turb((32, 32, 32), (1.0, 1.0, 1.0), Ea=2.0, k0=8 * np.pi,
+                    seed=3)
+    tke = 0.5 * float(np.mean(np.sum(u * u, axis=-1)))
+    e = np.mean(u ** 2, axis=(0, 1, 2))
+    div = rp.div_rms(u, (1.0, 1.0, 1.0))
+    case = Case(_dns_box(os.path.join(root, "dns"), cli, device),
+                device=device)
+    U0 = case.read_field("U").data.double().cpu().numpy()
+    k0 = 0.5 * float(np.mean(np.sum(U0 * U0, axis=1)))
+    with quiet():
+        run(case, max_steps=steps)
+    U = case.final_state["U"].data.double().cpu().numpy()
+    k1 = 0.5 * float(np.mean(np.sum(U * U, axis=1)))
+    rec = {"boxturb_k": tke, "boxturb_div_rms": div,
+           "boxturb_anisotropy": float(e.max() / e.min()),
+           "cli_k": k0, "forced_k": k1, "steps": case.time.index}
+    return rec, {"boxTurb k = 3": abs(tke - 3.0) < 1e-6,
+                 "boxTurb div-free": div < 1e-10,
+                 "boxTurb isotropic": rec["boxturb_anisotropy"] < 1.6,
+                 "boxTurb command k = 0.75 to 1e-3":
+                 abs(k0 - 0.75) / 0.75 < 1e-3,
+                 "forced box finite": bool(np.isfinite(U).all()),
+                 "forced box alive (0.05 < k < 5)": 0.05 < k1 < 5.0}
+
+
+FANDUCT_STEPS = 60
+
+
+def oracle_fanduct(root, cli, device, steps=FANDUCT_STEPS):
+    """fanDuct as its Allrun makes it (blockMesh, topoSet, createBaffles)
+    through run(case) for 60 steps: the fan (jump 0.05 - Q) blows +x
+    (mean Ux > 1e-3) and the pressure downstream exceeds upstream by
+    0.01."""
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.solvers.apps import run
+
+    case = Case(slice11_case(REPO_DIR,
+                             os.path.join(root, "fanDuct"), "fanDuct", cli),
+                device=device)
+    with quiet():
+        run(case, max_steps=steps)
+    U = case.final_state["U"].data.double().cpu().numpy()
+    p = case.final_state["p"].data.double().cpu().numpy()
+    x = case.mesh.c[:, 0].double().cpu().numpy()
+    rec = {"ux_mean": float(U[:, 0].mean()),
+           "dp": float(p[x > 1.0].mean() - p[x < 1.0].mean()),
+           "steps": case.time.index}
+    return rec, {"finite": bool(np.isfinite(U).all() and np.isfinite(p).all()),
+                 "mean Ux > 1e-3": rec["ux_mean"] > 1e-3,
+                 "p downstream > upstream + 0.01": rec["dp"] > 0.01}
+
+
+SLICE11_ORACLES = {
+    "electrostaticFoam": oracle_capacitor,
+    "magneticFoam": oracle_bar_magnet,
+    "mhdFoam": oracle_hartmann,
+    "financialFoam": oracle_black_scholes,
+    "shallowWaterFoam": oracle_shallow_water,
+    "solidEquilibriumDisplacementFoam": oracle_tension,
+    "potentialFreeSurfaceFoam": oracle_free_surface,
+    "adjointShapeOptimizationFoam": oracle_adjoint,
+    "dnsFoam": oracle_dns,
+    "fanDuct": oracle_fanduct,
+}
+
+
+# The runs of the solvers_small phase: name -> (tutorial, slice11_case
+# options, steps; None runs the tutorial's own endTime). Cut: hartmann
+# 200 -> 20 steps (as shipped it returns NaN at step 33 in the JAX
+# package), squareBump 500 -> 50, movingOscillatingBox 100 -> 20 (it
+# ships water at rest), adjoint's pitzDaily 2000 -> 5 sweeps (its primal
+# runs linear convection in both packages, |U| 1709 m/s after 5 sweeps
+# from an inlet of 10), fanDuct 100 -> 60 (tests/test_fanduct.py's
+# depth), plateTension 100 -> 20 iterations (in float32 the D residual
+# stays above its 1e-6 tolerance in both packages, so it would run all
+# 100, 32 s on the card; in float64 it stops after 2).
+SMALL_RUNS = {
+    "electrostaticFoam": ("electrostaticFoam", {}, None),
+    "magneticFoam": ("magneticFoam", {}, None),
+    "mhdFoam": ("mhdFoam", {}, 20),
+    "financialFoam": ("financialFoam", {}, None),
+    "shallowWaterFoam": ("shallowWaterFoam", {}, 50),
+    "solidEquilibriumDisplacementFoam": ("solidEquilibriumDisplacementFoam",
+                                         {}, 20),
+    "potentialFreeSurfaceFoam": ("potentialFreeSurfaceFoam", {}, 20),
+    "adjointShapeOptimizationFoam": ("adjointShapeOptimizationFoam", {}, 5),
+    "dnsFoam": ("dnsFoam", {}, None),
+    "fanDuct": ("fanDuct", {}, FANDUCT_STEPS),
+}
+# the fields each run's scalars read from its final state
+SMALL_FIELDS = {
+    "electrostaticFoam": ("phi", "rho"), "magneticFoam": ("psi", "B"),
+    "mhdFoam": ("U", "p", "B", "pB"), "financialFoam": ("V",),
+    "shallowWaterFoam": ("h", "hU"),
+    "solidEquilibriumDisplacementFoam": ("D",),
+    "potentialFreeSurfaceFoam": ("U", "p"),
+    "adjointShapeOptimizationFoam": ("U", "p", "Ua", "alpha"),
+    "dnsFoam": ("U", "p"), "fanDuct": ("U", "p"),
+}
+
+
+def small_arrays(name, final_state, host):
+    """SMALL_FIELDS[name] of a run's final state as float64 numpy."""
+    st = final_state.get("state", final_state)
+    if not isinstance(st, dict):
+        st = final_state
+    return {k: np.asarray(host(getattr(st[k], "data", st[k])),
+                          dtype=np.float64) for k in SMALL_FIELDS[name]}
+
+
+def small_scalars(a, v):
+    """Per field: the volume mean and the extremes (scalars), the volume
+    mean of the x component and of the magnitude and the largest
+    magnitude (vectors)."""
+    out, vol = {}, v.sum()
+    for k, x in a.items():
+        if x.ndim == 2:
+            mag = np.linalg.norm(x, axis=1)
+            out.update({f"{k}x_mean": float((x[:, 0] * v).sum() / vol),
+                        f"{k}_mag_mean": float((mag * v).sum() / vol),
+                        f"{k}_mag_max": float(mag.max())})
+        else:
+            out.update({f"{k}_mean": float((x * v).sum() / vol),
+                        f"{k}_min": float(x.min()), f"{k}_max": float(x.max())})
+    return out
+
+
+# goldens from the JAX package (CPU, float32) and its spread under
+# round-off (the larger of |float32 - float64| and the change a 1e-7
+# perturbation of the start makes in float32): `python
+# tests/test_torch_electromagnetics.py goldens [--perturb]`
+SMALL_GOLDEN = {
+    'electrostaticFoam': {
+        'phi_mean': -44.58802816227079,
+        'phi_min': -95.85265350341797,
+        'phi_max': 83.38238525390625,
+        'rho_mean': 9.99999993922529e-09,
+        'rho_min': 9.99999993922529e-09,
+        'rho_max': 9.99999993922529e-09,
+    },
+    'magneticFoam': {
+        'psi_mean': -5.802154541459714e-05,
+        'psi_min': -7835.83447265625,
+        'psi_max': 7835.83447265625,
+        'Bx_mean': -0.33590922954081176,
+        'B_mag_mean': 0.3552082484288425,
+        'B_mag_max': 9.75567840490065,
+    },
+    'mhdFoam': {
+        'Ux_mean': 1.0021675823541591,
+        'U_mag_mean': 1.2958639090095527,
+        'U_mag_max': 8.75234926270192,
+        'p_mean': 446.116308235824,
+        'p_min': -564.2538452148438,
+        'p_max': 1117.93505859375,
+        'Bx_mean': -3.764382564316361e-07,
+        'B_mag_mean': 20.768937672615095,
+        'B_mag_max': 44.80885575257322,
+        'pB_mean': 0.845020953132771,
+        'pB_min': -0.17843596637248993,
+        'pB_max': 2.2134110927581787,
+    },
+    'financialFoam': {
+        'V_mean': 34.5950642263326,
+        'V_min': -2.0335225391027745e-36,
+        'V_max': 100.99732208251953,
+    },
+    'shallowWaterFoam': {
+        'h_mean': 1.0000009163618087,
+        'h_min': 0.6866312623023987,
+        'h_max': 1.3611342906951904,
+        'hUx_mean': 0.3610961887985468,
+        'hU_mag_mean': 0.38387707337174487,
+        'hU_mag_max': 0.9948621392250149,
+    },
+    'solidEquilibriumDisplacementFoam': {
+        'Dx_mean': 5.000050892238762e-06,
+        'D_mag_mean': 5.128191924610428e-06,
+        'D_mag_max': 9.982825150667954e-06,
+    },
+    'potentialFreeSurfaceFoam': {
+        'Ux_mean': 0.0,
+        'U_mag_mean': 0.0,
+        'U_mag_max': 0.0,
+        'p_mean': 0.0,
+        'p_min': 0.0,
+        'p_max': 0.0,
+    },
+    'adjointShapeOptimizationFoam': {
+        'Ux_mean': 7.681876345360851,
+        'U_mag_mean': 9.848587126886002,
+        'U_mag_max': 1709.203669176814,
+        'p_mean': 58.87727890948244,
+        'p_min': -405557.5625,
+        'p_max': 32941.95703125,
+        'Uax_mean': 0.0,
+        'Ua_mag_mean': 0.0,
+        'Ua_mag_max': 0.0,
+        'alpha_mean': 0.0,
+        'alpha_min': 0.0,
+        'alpha_max': 0.0,
+    },
+    'dnsFoam': {
+        'Ux_mean': 0.00037524018917878266,
+        'U_mag_mean': 0.925445573142785,
+        'U_mag_max': 2.9641292813455546,
+        'p_mean': -0.5116129353163608,
+        'p_min': -2.72687029838562,
+        'p_max': 1.445785403251648,
+    },
+    'fanDuct': {
+        'Ux_mean': 0.007436449007946066,
+        'U_mag_mean': 0.007436449020984053,
+        'U_mag_max': 0.008225809857896074,
+        'p_mean': 2.811032311811154e-05,
+        'p_min': -0.024323243647813797,
+        'p_max': 0.024336161091923714,
+    },
+}
+SMALL_SPREAD = {
+    'electrostaticFoam': {
+        'phi_mean': 1.8844288170782875e-05,
+        'phi_min': 4.040143694794551e-05,
+        'phi_max': 2.1514920973686458e-06,
+        'rho_mean': 2.2066521607176687e-15,
+        'rho_min': 2.2066482878580407e-15,
+        'rho_max': 2.206655050886729e-15,
+    },
+    'magneticFoam': {
+        'psi_mean': 5.802154427772876e-05,
+        'psi_min': 0.0009233767250407254,
+        'psi_max': 0.0009233767359546619,
+        'Bx_mean': 2.35080488408812e-08,
+        'B_mag_mean': 2.5285150306864068e-08,
+        'B_mag_max': 1.8848828329254275e-06,
+    },
+    'mhdFoam': {
+        'Ux_mean': 6.64655788584767e-06,
+        'U_mag_mean': 3.5719681727997e-05,
+        'U_mag_max': 0.000470642760761919,
+        'p_mean': 1.2699364166675764,
+        'p_min': 0.209228515625,
+        'p_max': 1.9486070456266589,
+        'Bx_mean': 1.3099052022201572e-07,
+        'B_mag_mean': 3.184208483375528e-05,
+        'B_mag_max': 0.0010452717156255176,
+        'pB_mean': 0.00013620538398484427,
+        'pB_min': 0.00014182257906436568,
+        'pB_max': 6.718966731744658e-05,
+    },
+    'financialFoam': {
+        'V_mean': 0.0003212748666783227,
+        'V_min': 3.3789918376792634e-36,
+        'V_max': 9.362864591366815e-05,
+    },
+    'shallowWaterFoam': {
+        'h_mean': 9.073993720853935e-07,
+        'h_min': 5.45424545972395e-07,
+        'h_max': 1.6115710366193525e-06,
+        'hUx_mean': 2.2032810370609113e-07,
+        'hU_mag_mean': 1.8995141953803696e-07,
+        'hU_mag_max': 1.6512602296625545e-06,
+    },
+    'solidEquilibriumDisplacementFoam': {
+        'Dx_mean': 5.3054427134539676e-11,
+        'D_mag_mean': 5.410523662888975e-11,
+        'D_mag_max': 1.6307178723410764e-10,
+    },
+    'potentialFreeSurfaceFoam': {
+        'Ux_mean': 0.0,
+        'U_mag_mean': 0.0,
+        'U_mag_max': 0.0,
+        'p_mean': 0.0,
+        'p_min': 0.0,
+        'p_max': 0.0,
+    },
+    'adjointShapeOptimizationFoam': {
+        'Ux_mean': 0.0001021645825698414,
+        'U_mag_mean': 5.9341467625984023e-05,
+        'U_mag_max': 0.0001617418058685871,
+        'p_mean': 0.013986476394293845,
+        'p_min': 0.714139455172699,
+        'p_max': 0.8401605588660459,
+        'Uax_mean': 0.0,
+        'Ua_mag_mean': 0.0,
+        'Ua_mag_max': 0.0,
+        'alpha_mean': 0.0,
+        'alpha_min': 0.0,
+        'alpha_max': 0.0,
+    },
+    'dnsFoam': {
+        'Ux_mean': 1.2791360759012785e-08,
+        'U_mag_mean': 3.217327567694994e-07,
+        'U_mag_max': 5.406649616901404e-07,
+        'p_mean': 0.0001547031288967604,
+        'p_min': 0.0001526983909760915,
+        'p_max': 0.00015781691545235788,
+    },
+    'fanDuct': {
+        'Ux_mean': 4.969405318668019e-09,
+        'U_mag_mean': 4.9693839694262e-09,
+        'U_mag_max': 2.0585178561391415e-07,
+        'p_mean': 3.401473477287044e-08,
+        'p_min': 1.8220308468236412e-07,
+        'p_max': 4.105581187519025e-08,
+    },
+}
+SMALL_TOL_SPREAD = 10.0       # the golden tolerance: 10x the spread,
+SMALL_TOL_FLOOR = 1e-4        # at least 1e-4 of the golden
+SMALL_FLOOR_SCALE = 1e-4      # and 1e-4 of the field's largest value
+
+
+def small_golden_errs(got, gold, spread, scales):
+    """(|error|, tolerance) of each golden scalar: the tolerance is
+    SMALL_TOL_SPREAD times the JAX package's spread under round-off (the
+    larger of |float32 - float64| and the change a 1e-7 perturbation of
+    the start makes in float32), at least SMALL_TOL_FLOOR of the golden
+    and SMALL_FLOOR_SCALE of its field's largest value (a mean of a
+    signed field, or a field at rest, is near zero, and two float32
+    summation orders move a mean of fanDuct's p, +-0.024, by 8.4e-7 and
+    of barMagnet's psi, +-7836, by 0.058, where float32 against float64
+    moves them by 3.4e-8 and 5.8e-5)."""
+    out = {}
+    for k, g in gold.items():
+        field = k.split("_")[0]
+        field = field if field in scales else field[:-1]
+        out[k] = (abs(got[k] - g),
+                  max(SMALL_TOL_SPREAD * spread[k], SMALL_TOL_FLOOR * abs(g),
+                      SMALL_FLOOR_SCALE * scales.get(field, 0.0)))
+    return out
+
+
+def field_scales(a):
+    return {k: float(np.abs(x).max()) for k, x in a.items()}
+
+
+def mat_operand(mesh, mat, name):
+    """(name, slot coefficients, diag_eff, remainder coefficients) of a
+    kept matrix: its own slot form, or, for a flat one, the stencil the
+    solver builds from it (stencil.mesh_stencil)."""
+    if mat.soff is not None:
+        return (name, mat.soff, mat.diag_eff(mesh), mat.sfb)
+    from foamtpu_torch.ops import stencil
+
+    st = stencil.mesh_stencil(mesh, mat.upper, mat.lower)
+    return (name, st.off, mat.diag_eff(mesh), st.fb_coeffs)
+
+
+# each run's solves in the order of a step, for its StepLog, after its
+# lead solves (fanDuct's state projects its initial flux: one pcorr solve)
+SMALL_CYCLES = {"mhdFoam": ("U", "p", "p", "B", "pB"),
+                "solidEquilibriumDisplacementFoam": ("D",),
+                "fanDuct": ("U", "p", "p", "U", "p", "p")}
+SMALL_LEAD = {"fanDuct": ("pcorr",)}
+
+
+def phase_solvers_small(spmv, here, root, flush):
+    """The single-equation applications and fanDuct from their tutorials
+    through run(case) on the card (SMALL_RUNS, float32; blockMesh and the
+    Allrun's other commands first), each held to goldens from the JAX
+    package (SMALL_GOLDEN, at small_golden_errs) and finite; the reference
+    tests' oracles on their own setups (SLICE11_ORACLES; fanDuct's on its
+    run here); and the SpMV kernel held to its plain version at
+    plateTension's D and fanDuct's p (whose AMI term is plain torch
+    beside it), timed there."""
+    from foamtpu_torch.apps.cli import main as cli
+    from foamtpu_torch.core.case import Case
+
+    results, checks = {}, {}
+    launches_total = fb_total = 0
+    logs = {}
+    for name, (tut, opts, steps) in SMALL_RUNS.items():
+        dst = slice11_case(here, os.path.join(root, "small", name), tut, cli,
+                           device=("-device", "cuda"), **opts)
+        case = Case(dst, device="cuda")
+        cycle = SMALL_CYCLES.get(name)
+        with (StepLog(cycle, lead=SMALL_LEAD.get(name, ())) if cycle
+              else contextlib.nullcontext()) as log:
+            run_s, text, launches, fb = app_run(spmv, case, steps)
+        logs[name] = (case, log)
+        launches_total += launches
+        fb_total += fb
+        a = small_arrays(name, case.final_state,
+                         lambda t: t.double().cpu().numpy())
+        v = case.mesh.v.double().cpu().numpy()
+        finite = all(bool(np.isfinite(x).all()) for x in a.values())
+        got = small_scalars(a, v) if finite else {}
+        rec = {"tutorial": "/".join(SLICE11_TUTORIALS[tut]),
+               "n_cells": case.mesh.n_cells, "steps": case.time.index,
+               "run_s": run_s,
+               "sec_per_step": run_s / max(case.time.index, 1),
+               "scalars": got, "iterations_max": {
+                   k: max(x) for k, x in solve_iterations(text).items()},
+               "spmv_launches": launches, "spmv_fb_launches": fb}
+        ck = {"finite": finite, "spmv launched": launches > 0}
+        if steps is not None:
+            ck["steps"] = case.time.index == steps
+        if finite:
+            errs = small_golden_errs(got, SMALL_GOLDEN[name],
+                                     SMALL_SPREAD[name], field_scales(a))
+            rec["golden_err_tol"] = errs
+            ck.update({f"golden {k}": e <= t for k, (e, t) in errs.items()})
+        results[name] = rec
+        checks.update({f"{name} {k}": x for k, x in ck.items()})
+        progress("solvers_small", f"{name}: {run_s:.1f} s, {launches} SpMV "
+                 "launches")
+
+    t0 = time.perf_counter()
+    oracles = {}
+    for name, fn in SLICE11_ORACLES.items():
+        l0, f0 = spmv.LAUNCHES, spmv.FB_LAUNCHES
+        t1 = time.perf_counter()
+        if name == "fanDuct":
+            case = logs["fanDuct"][0]
+            U = case.final_state["U"].data.double().cpu().numpy()
+            p = case.final_state["p"].data.double().cpu().numpy()
+            x = case.mesh.c[:, 0].double().cpu().numpy()
+            rec = {"ux_mean": float(U[:, 0].mean()),
+                   "dp": float(p[x > 1.0].mean() - p[x < 1.0].mean())}
+            ck = {"mean Ux > 1e-3": rec["ux_mean"] > 1e-3,
+                  "p downstream > upstream + 0.01": rec["dp"] > 0.01}
+        else:
+            rec, ck = fn(os.path.join(root, "oracles"), cli, "cuda")
+        launches_total += spmv.LAUNCHES - l0
+        fb_total += spmv.FB_LAUNCHES - f0
+        rec["seconds"] = time.perf_counter() - t1
+        oracles[name] = rec
+        checks.update({f"oracle {name}: {k}": x for k, x in ck.items()})
+    results["reference_tests"] = {"seconds": time.perf_counter() - t0,
+                                  "records": oracles}
+    progress("solvers_small", f"oracles {time.perf_counter() - t0:.1f} s")
+
+    cases, max_err, timings = [], 0.0, []
+    for name, kind, prefix in (
+            ("solidEquilibriumDisplacementFoam", "D", "plateTension_D"),
+            ("fanDuct", "p", "fanDuct_p")):
+        case, log = logs[name]
+        mesh = case.mesh
+        op = mat_operand(mesh, log.matrices[kind], prefix)
+        deltas = tuple(mesh.st_deltas)
+        for dtype in (torch.float32, torch.float64):
+            err = check_operands(spmv, [op], mesh, deltas, dtype,
+                                 np.random.default_rng(111), cases)
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+        _, soff, diag, sfb = op
+        timings += time_shape(spmv, prefix, diag.contiguous(),
+                              operand_x(diag, 112), soff.contiguous(),
+                              deltas, flush,
+                              fb=mesh_remainder(spmv, mesh, sfb, diag.dtype)
+                              if mesh.fb_cells.shape[0] else None)
+        checks[f"{prefix} operand's columns"] = (
+            diag.ndim == (2 if kind == "D" else 1))
+        if name == "fanDuct":
+            checks["fanDuct p matrix AMI-coupled"] = (
+                log.matrices["p"].ami_coef is not None and mesh.has_ami)
+    out = {"phase": "solvers_small", "dtype": "torch.float32",
+           "runs": results, "kernel_cases": cases, "max_abs_err_f32": max_err,
+           "timings": timings, "spmv_launches_total": launches_total,
+           "spmv_fb_launches_total": fb_total, "checks": checks}
+    emit(out)
+    for name, ok in checks.items():
+        check(ok, f"solvers_small check {name}: {out}")
+    return out, max_err, timings
+
+
+MHD_HEAD_BLOCKS = (1536, 512)     # 786,432 cells on hartmann's 20 x 2
+# hartmann as shipped (sigma 500, Ha = 447) returns NaN at step 33 in the
+# JAX package at its 20 x 20 (step 41 in float64), and within 20 steps at
+# any finer mesh tried (40 x 20 to 192 x 64): the headline takes the
+# Ha = 20 of tests/test_mhd.py (sigma 1). The explicit Lorentz force and
+# stretching term carry Alfven waves (|B| = 20 in velocity units), whose
+# Courant number at the tutorial's deltaT 0.005 grows with the cell
+# height: 1 at 20 x 20, 25.6 at this mesh, where the port on the CPU
+# returns NaN within 5 steps (and at 384 x 128 within 10). deltaT is
+# scaled with the cell height to an Alfven Courant number of 0.5 (the
+# flow's 0.008): at 1, which holds for 30 steps at 384 x 128 and 15 at
+# 768 x 256 on the card, this mesh's continuity error reaches 5 in the
+# second step on the card (and U 20), with GAMG or with PCG p
+MHD_HEAD_DT = 0.005 * 20 / MHD_HEAD_BLOCKS[1] / 2
+MHD_HEAD_SIGMA = 1.0
+MHD_HEAD_WARMUP = 1
+MHD_HEAD_TRIALS = 3
+MHD_HEAD_CHUNK = 2
+MHD_HEAD_PROFILE = 1
+# bench.py's tight GAMG controls (its bench_tight row), for p where the
+# shipped polynomial PCG reaches its cap of 1000 iterations at this width
+# (p and pB, in the first step, on the card). A p solve stopped early
+# (PCG at its cap, or GAMG at relTol 0.01) leaves a continuity error that
+# grows step by step until the run diverges, in 10 steps at 768 x 256 on
+# the CPU; converged it stays at ~1e-4. pB keeps the shipped PCG: it
+# only cleans div(B), and GAMG there stalls at its cap of 1000 cycles
+MHD_HEAD_GAMG = {"solver": "GAMG", "tolerance": 1e-6, "relTol": 0.0,
+                 "maxIter": 1000}
+
+
+def phase_mhd_headline(spmv, here, root, flush):
+    """mhdFoam's hartmann at MHD_HEAD_BLOCKS (786,432 cells) meshed in
+    memory, deltaT MHD_HEAD_DT (an Alfven Courant number of 0.5), the
+    tutorial's BCs, schemes, controls and properties but sigma
+    (MHD_HEAD_SIGMA: Ha = 20, as tests/test_mhd.py):
+    the application's config and first state, one warm-up
+    step; where a p solve of it reaches the cap of 1000 polynomial PCG
+    iterations, bench.py's tight GAMG p controls (MHD_HEAD_GAMG) and the
+    warm-up again from the first state; then
+    MHD_HEAD_TRIALS timed chunks of MHD_HEAD_CHUNK steps with every
+    solve's iterations, the SpMV kernel held to its plain version and
+    timed at the p and B operands, and one profiled chunk of
+    MHD_HEAD_PROFILE steps last; held to finiteness, the continuity error
+    of a step (sum |div phi| deltaT / V, the log's "sum local") below
+    1e-3 and max |div B| V below 1e-2 of the largest face flux of B."""
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.solvers import apps, mhd
+    from foamtpu_torch.solvers.linear.gamg import GAMG
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dst = slice11_case(here, os.path.join(root, "hartmann_big"), "mhdFoam",
+                       None)
+    _edit(os.path.join(dst, "system", "blockMeshDict"), r"\(20 20 1\)",
+          "({} {} 1)".format(*MHD_HEAD_BLOCKS))
+    _edit(os.path.join(dst, "constant", "transportProperties"),
+          r"(sigma\s+sigma\s+\[[^]]*\])\s*[^;]+;",
+          lambda m: f"{m.group(1)} {MHD_HEAD_SIGMA!r};")
+    case = memory_mesh(Case(dst, device="cuda"))
+    mesh = case.mesh
+    n = MHD_HEAD_BLOCKS[0] * MHD_HEAD_BLOCKS[1]
+    check(mesh.n_cells == n, mesh.n_cells)
+    tp = case.transport_properties()
+    cdict = case.pimple_controls("PISO")
+    cfg = mhd.MhdConfig(
+        nu=apps._dim_scalar_of(tp, "nu", 1e-6),
+        rho=apps._dim_scalar_of(tp, "rho", 1.0),
+        mu_mag=apps._dim_scalar_of(tp, "mu", 1.0),
+        sigma_c=apps._dim_scalar_of(tp, "sigma", 1.0),
+        n_correctors=int(cdict.get("nCorrectors", 2)),
+        corrected=case.laplacian_corrected(),
+        p_controls=case.solver_controls("p"),
+        u_controls=case.solver_controls("U"),
+        pb_controls=case.solver_controls("pB"))
+    def first_state():
+        return mhd.initial_state(mesh, case.read_field("U"),
+                                 case.read_field("p"), case.read_field("B"),
+                                 case.read_field("pB"))
+
+    state = first_state()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    progress("mhd_headline", f"set-up {setup_s:.1f} s, {n} cells")
+    cycle = SMALL_CYCLES["mhdFoam"]
+    cap = int(cfg.p_controls.get("maxIter", 1000))
+
+    def chunk_of(cfg, k):
+        step = mhd.make_step(mesh, cfg)
+
+        def chunk(st):
+            diag = None
+            for _ in range(k):
+                st, diag = step(st, MHD_HEAD_DT)
+            return st, diag
+        return chunk
+
+    spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with StepLog(cycle) as wlog:
+        state, diag = chunk_of(cfg, MHD_HEAD_WARMUP)(state)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_its = {k: [int(i) for i in v] for k, v in wlog.iterations.items()}
+    at_cap = max(warm_its["p"]) >= cap
+    controls = "shipped polynomial PCG"
+    if at_cap:
+        # from the first state again: a step whose p solves stopped at
+        # the cap leaves a flux that is not divergence-free
+        cfg = cfg._replace(p_controls=dict(MHD_HEAD_GAMG, _gamg=GAMG(mesh)))
+        controls = ("p: bench.py's tight GAMG (tolerance 1e-6, relTol 0), "
+                    "the shipped PCG having reached its cap in the warm-up "
+                    "step; pB: the shipped PCG")
+        state, diag = chunk_of(cfg, MHD_HEAD_WARMUP)(first_state())
+    progress("mhd_headline", f"warm-up {warm_s:.1f} s, iterations "
+             f"{warm_its}; {controls}")
+    secs = []
+    l_timed = spmv.LAUNCHES
+    with StepLog(cycle) as log:
+        for _ in range(MHD_HEAD_TRIALS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, diag = chunk_of(cfg, MHD_HEAD_CHUNK)(state)
+            torch.cuda.synchronize()
+            secs.append((time.perf_counter() - t0) / MHD_HEAD_CHUNK)
+            progress("mhd_headline", f"chunk {secs[-1]:.3f} s/step, "
+                     f"divB {float(diag['divB']):.3g}, iterations "
+                     f"{ {k: v[-5:] for k, v in log.iterations.items()} }")
+    sec = statistics.median(secs)
+    timed_steps = MHD_HEAD_TRIALS * MHD_HEAD_CHUNK
+    launches = spmv.LAUNCHES
+    per_step = (launches - l_timed) / timed_steps
+    cont, div_b = float(diag["continuity"]), float(diag["divB"])
+    cases, max_err, timings = [], 0.0, []
+    deltas = tuple(mesh.st_deltas)
+    for kind in ("p", "B"):
+        op = mat_operand(mesh, log.matrices[kind], f"hartmann_{kind}")
+        for dtype in (torch.float32, torch.float64):
+            err = check_operands(spmv, [op], mesh, deltas, dtype,
+                                 np.random.default_rng(113), cases)
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+        _, soff, dg, sfb = op
+        timings += time_shape(spmv, f"hartmann_{kind}", dg.contiguous(),
+                              operand_x(dg, 114), soff.contiguous(), deltas,
+                              flush)
+    b_mat = log.matrices["B"]
+    l1, f1 = spmv.LAUNCHES, spmv.FB_LAUNCHES
+    state, prof = profile_chunk(spmv, "mhd_headline_profile", mesh,
+                                chunk_of(cfg, MHD_HEAD_PROFILE), state,
+                                MHD_HEAD_PROFILE, sec,
+                                log=StepLog(cycle, ranges=True))
+    launches += spmv.LAUNCHES - l1
+    fb_launches = spmv.FB_LAUNCHES
+    a = {k: state[k].data.double().cpu().numpy() for k in ("U", "p", "B")}
+    finite = all(bool(np.isfinite(x).all()) for x in a.values())
+    from foamtpu_torch.ops import surface
+
+    # max over cells of |div B| V (the net B flux out of a cell), against
+    # the largest face flux of B
+    div_bv = surface.surface_sum(mesh, state["phiB"]).abs()
+    phib_max = float(state["phiB"].abs().max())
+    its = {k: [int(i) for i in v] for k, v in log.iterations.items()}
+    out = {"phase": "mhd_headline",
+           "case": "mhdFoam hartmann, block ({} {} 1), deltaT {}, sigma {} "
+                   "(Ha 20): the tutorial's BCs, schemes and controls".format(
+                       *MHD_HEAD_BLOCKS, MHD_HEAD_DT, MHD_HEAD_SIGMA),
+           "n_cells": n, "dtype": str(mesh.v.dtype), "setup_s": setup_s,
+           "warmup_s": warm_s, "warmup_iterations": warm_its,
+           "p_controls": controls, "sec_per_step": sec,
+           "sec_per_step_trials": secs, "m_cells_per_sec": n / sec / 1e6,
+           "iterations_per_solve": {k: statistics.mean(v)
+                                    for k, v in its.items() if v},
+           "iterations_max": {k: max(v) for k, v in its.items() if v},
+           "spmv_launches_per_step": per_step,
+           "continuity": cont, "divB": div_b,
+           "max_divB_times_V": float(div_bv.max()),
+           "max_face_flux_B": phib_max,
+           "courant_max": float(diag["courant_max"]),
+           "b_matrix_symmetric": bool(b_mat.symmetric),
+           "cuda_launch_kernel_per_step": prof["cuda_launch_kernel_per_iter"],
+           "device_ms_per_step": prof["device_ms_per_iter"],
+           "device_busy_share": prof["device_busy_share_unprofiled"],
+           "spmv_device_ms_per_step": prof["spmv_device_ms_per_iter"],
+           "spmv_launches_per_step_profiled": prof["spmv_launches_per_iter"],
+           "top_kernels_ms_per_step": prof["top_kernels_ms_per_iter"][:8],
+           "spmv_launches_total": launches,
+           "spmv_fb_launches_total": fb_launches,
+           "kernel_cases": cases, "max_abs_err_f32": max_err,
+           "timings": timings,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    checks = {"finite": finite, "spmv launched": launches > 0,
+              "continuity of a step < 1e-3": cont * MHD_HEAD_DT < 1e-3,
+              "max|div B| V < 1e-2 of the largest face flux of B":
+              out["max_divB_times_V"] < 1e-2 * phib_max,
+              "B operand non-symmetric": not b_mat.symmetric,
+              "Courant < 1": out["courant_max"] < 1.0}
+    out["checks"] = checks
+    emit(out)
+    for name, ok in checks.items():
+        check(ok, f"mhd_headline check {name}: {out}")
+    return out, max_err, timings
+
+
 T_START = time.perf_counter()
 TIMELINE = {}
 
@@ -6054,6 +7630,11 @@ def main() -> int:
         stamp("compressible_headline")
         rch = phase_rhocentral_headline(spmv, here, root)
         stamp("rhocentral_headline")
+        small, err_small, t_small = phase_solvers_small(spmv, here, root,
+                                                        flush)
+        stamp("solvers_small")
+        mhdh, err_mhd, t_mhd = phase_mhd_headline(spmv, here, root, flush)
+        stamp("mhd_headline")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "timeline", "seconds": TIMELINE,
@@ -6069,14 +7650,15 @@ def main() -> int:
     main_shape = next(t for t in t_duct if t["shape"] == "duct_p_whole")
     paths = (head, pitz, duct, ras, pras, phead, dam, basic, cross, heated,
              rot, mrf, turb, les, thermal, bouss, dym, dymh, surf, comp,
-             chead, rch)
+             chead, rch, small, mhdh)
     emit({"kernels": [{
         "name": "spmv_stencil", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": sum(p["spmv_launches_total"] for p in paths),
         "fb_launches": sum(p["spmv_fb_launches_total"] for p in paths),
         "max_abs_err": max(max_err, err_duct, err_dam, err_heat, err_mrf,
-                           err_les, err_bh, err_dh, err_comp, err_ch),
+                           err_les, err_bh, err_dh, err_comp, err_ch,
+                           err_small, err_mhd),
         "ms": main_shape["kernel_ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
@@ -6091,7 +7673,7 @@ def main() -> int:
             "plain_ms_l2_warm", "library_ms", "library_ms_l2_warm",
             "bound_ms", "bound_by", "bound_share")}
             for t in timings + t_duct + t_dam + t_heat + t_mrf + t_les
-            + t_bh + t_dh + t_comp + t_ch]}]})
+            + t_bh + t_dh + t_comp + t_ch + t_small + t_mhd]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,11 @@
 """Command-line utilities (port of openfoam-2.2.x_tpu/apps/cli.py:
-`blockMesh` and `setFields`).
+`blockMesh`, `setFields`, `topoSet`, `createBaffles` and `boxTurb`).
 
     python -m foamtpu_torch.apps.cli blockMesh -case <dir>
     python -m foamtpu_torch.apps.cli setFields -case <dir> [-device cpu]
+    python -m foamtpu_torch.apps.cli topoSet -case <dir>
+    python -m foamtpu_torch.apps.cli createBaffles -case <dir>
+    python -m foamtpu_torch.apps.cli boxTurb -case <dir> [-device cpu]
 
 Every other command of the reference CLI is outside the ported slice
 and raises NotImplementedError naming it.
@@ -111,7 +114,83 @@ def set_fields(argv) -> int:
     return 0
 
 
-COMMANDS = {"blockMesh": block_mesh, "setFields": set_fields}
+def topo_set_cmd(argv) -> int:
+    """topoSet: create cell/face sets from system/topoSetDict
+    (mesh/manipulation/topoSet)."""
+    args = _case_arg(argv)
+    from . import meshutils
+
+    names = meshutils.topo_set(args.case)
+    print(f"topoSet: wrote sets {names}")
+    return 0
+
+
+def create_baffles_cmd(argv) -> int:
+    """createBaffles: faceSet internal faces -> twin baffle patches
+    (mesh/manipulation/createBaffles)."""
+    args = _case_arg(argv)
+    from . import meshutils3
+
+    out = meshutils3.create_baffles_cmd(args.case)
+    print(f"createBaffles: patches now "
+          f"{[(p.name, p.size) for p in out.patches]}")
+    return 0
+
+
+def box_turb(argv) -> int:
+    """boxTurb: a divergence-free synthetic turbulence initial U
+    (preProcessing/boxTurb, constant/boxTurbDict {Ea; k0; seed;}) on a
+    uniform single-box mesh, its grid dimensions inferred from the cell
+    centres; the spectrum is made on the host (models/randomprocesses)."""
+    import numpy as np
+    import torch
+
+    from ..core import runtime
+    from ..core.case import Case
+    from ..core.dictionary import parse_file
+    from ..core.precision import DEFAULT_DEVICE
+    from ..io import fields as field_io
+    from ..models import randomprocesses as rp
+
+    args = _case_arg(argv)
+    case = Case(args.case, device=args.device or DEFAULT_DEVICE)
+    mesh = case.mesh
+    d = parse_file(os.path.join(args.case, "constant", "boxTurbDict"))
+    Ea = float(d.get("Ea", 1.0))
+    k0 = float(d.get("k0", 5.0))
+    seed = int(d.get("seed", 0))
+
+    c = mesh.c.detach().cpu().numpy()
+    lo, hi = c.min(axis=0), c.max(axis=0)
+    dims = []
+    for ax in range(3):
+        u = np.unique(np.round((c[:, ax] - lo[ax]) /
+                               max(hi[ax] - lo[ax], 1e-30) * 1e6))
+        dims.append(len(u))
+    nx, ny, nz = dims
+    assert nx * ny * nz == mesh.n_cells, (
+        f"boxTurb needs a uniform box mesh; inferred {dims} vs "
+        f"{mesh.n_cells} cells")
+    L = hi - lo + (hi - lo) / (np.maximum(np.asarray(dims), 2) - 1 + 1e-30)
+    u = rp.box_turb((nx, ny, nz), L, Ea, k0, seed)
+    # grid -> cell ordering by index lookup
+    span = np.maximum(hi - lo, 1e-30)
+    idx = np.round((c - lo) / span * (np.asarray(dims) - 1)).astype(int)
+    flat = u[idx[:, 0], idx[:, 1], idx[:, 2], :]
+    U = case.read_field("U")
+    U = U.with_data(torch.tensor(flat, dtype=mesh.v.dtype,
+                                 device=mesh.device))
+    tname = runtime.time_name(case.time.start_time)
+    field_io.write_field(U, mesh, case.dir, tname)
+    tke = 0.5 * float(np.mean(np.sum(flat * flat, axis=1)))
+    print(f"boxTurb: wrote U ({nx}x{ny}x{nz}), k = {tke:.4g} "
+          f"(target {1.5 * Ea:.4g})")
+    return 0
+
+
+COMMANDS = {"blockMesh": block_mesh, "setFields": set_fields,
+            "topoSet": topo_set_cmd, "createBaffles": create_baffles_cmd,
+            "boxTurb": box_turb}
 
 
 def main(argv=None) -> int:

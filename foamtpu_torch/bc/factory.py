@@ -2,15 +2,23 @@
 openfoam-2.2.x_tpu/bc/factory.py: `parse_value` and the part of
 `from_dict` that builds the kinds of the ported slice).
 
-Ported kinds: fixedValue, zeroGradient, calculated, empty, inletOutlet,
-totalPressure, pressureInletOutletVelocity, nutkWallFunction,
-nutUWallFunction, nutUSpaldingWallFunction, nutLowReWallFunction (fixed
-value 0, as the reference sets it), kqRWallFunction,
-epsilonWallFunction, omegaWallFunction, and slip, symmetryPlane,
-symmetry and wedge (one value rule). Any other `type` raises
+Ported kinds: fixedValue, zeroGradient, fixedGradient, mixed, calculated,
+empty, inletOutlet, totalPressure, pressureInletOutletVelocity,
+nutkWallFunction, nutUWallFunction, nutUSpaldingWallFunction,
+nutLowReWallFunction (fixed value 0, as the reference sets it),
+kqRWallFunction, epsilonWallFunction, omegaWallFunction, slip,
+symmetryPlane, symmetry and wedge (one value rule), and on a retained
+cyclic pair cyclicAMI, fixedJump and fan. Any other `type` raises
 NotImplementedError naming it
 (the reference degrades unknown types to calculated/zeroGradient; the
 port refuses instead).
+
+The reference's explicit aliases of these kinds are mapped as it maps
+them: tractionDisplacement is fixedGradient (the solid solvers rewrite
+its gradient), waveSurfacePressure is mixed (potentialFreeSurfaceFoam
+rewrites its value from the surface elevation each step), cyclic is
+cyclicAMI (a cyclic pair that reaches the factory was retained because
+its partner field carries a jump) and fixedJumpAMI is fixedJump.
 
 The compressible names are the reference's aliases (copied from
 openfoam-2.2.x_tpu/bc/factory.py::from_dict): a `compressible::` prefix
@@ -35,7 +43,8 @@ KINDS = ("fixedValue", "zeroGradient", "calculated", "empty", "inletOutlet",
          "totalPressure", "pressureInletOutletVelocity", "nutkWallFunction",
          "nutUWallFunction", "nutUSpaldingWallFunction",
          "nutLowReWallFunction", "kqRWallFunction", "epsilonWallFunction",
-         "omegaWallFunction", "slip", "symmetryPlane", "symmetry", "wedge")
+         "omegaWallFunction", "slip", "symmetryPlane", "symmetry", "wedge",
+         "fixedGradient", "mixed", "cyclicAMI", "fixedJump", "fan")
 
 
 def parse_value(entry: Any, size: int, rank: int, dtype, device="cpu"):
@@ -68,11 +77,17 @@ ALIASES = {"mutkWallFunction": "nutkWallFunction",
            "mutkRoughWallFunction": "nutkRoughWallFunction",
            "mutUSpaldingWallFunction": "nutUSpaldingWallFunction",
            "mutLowReWallFunction": "nutLowReWallFunction",
-           "alphatWallFunction": "calculated"}
+           "alphatWallFunction": "calculated",
+           "tractionDisplacement": "fixedGradient",
+           "waveSurfacePressure": "mixed",
+           "cyclic": "cyclicAMI",
+           "fixedJumpAMI": "fixedJump"}
 
 
-def from_dict(spec: FoamDict, patch, rank: int, dtype, device="cpu"
-              ) -> PatchField:
+def from_dict(spec: FoamDict, patch, rank: int, dtype, device="cpu",
+              mesh=None) -> PatchField:
+    """The PatchField of one boundaryField entry; `mesh` (its patches)
+    tells the master side of a jump pair."""
     given = str(spec["type"])
     kind = given
     if kind.startswith("compressible::"):
@@ -100,6 +115,43 @@ def from_dict(spec: FoamDict, patch, rank: int, dtype, device="cpu"
             iv = val
         kw["ref_value"] = iv if iv is not None else 0.0
         kw["vfrac"] = 1.0
+    elif kind == "fixedGradient":
+        grad = parse_value(spec.get("gradient"), size, rank, dtype, device)
+        kw["ref_grad"] = grad if grad is not None else 0.0
+        kw["vfrac"] = 0.0
+    elif kind == "mixed":
+        rv = parse_value(spec.get("refValue"), size, rank, dtype, device)
+        rg = parse_value(spec.get("refGradient"), size, rank, dtype, device)
+        vf = parse_value(spec.get("valueFraction"), size, 0, dtype, device)
+        kw["ref_value"] = rv if rv is not None else 0.0
+        kw["ref_grad"] = rg if rg is not None else 0.0
+        kw["vfrac"] = vf if vf is not None else 1.0
+    elif kind == "cyclicAMI":
+        kw["vfrac"] = 0.0
+    elif kind in ("fixedJump", "fan"):
+        kw["vfrac"] = 0.0
+        # master side: the pair member listed first in the boundary
+        # (jumpCyclic applies +jump on the owner patch)
+        master = True
+        if mesh is not None and getattr(patch, "neighbour_patch", None):
+            names = [p.name for p in mesh.patches]
+            try:
+                master = names.index(patch.name) < names.index(
+                    patch.neighbour_patch)
+            except ValueError:
+                pass
+        kw["master"] = master
+        if kind == "fixedJump":
+            jv = parse_value(spec.get("jump"), size, rank, dtype, device)
+            kw["ref_value"] = jv if jv is not None else 0.0
+        else:
+            # the 2.2 fan curve: `f (c0 c1 ...)`, a polynomial in the
+            # volumetric flow rate (fan::calcFanJump)
+            fco = spec.get("f", spec.get("fanCoeffs"))
+            if fco is not None:
+                kw["fanPoly"] = tuple(
+                    float(x) for x in np.asarray(fco, float).reshape(-1))
+            kw["ref_value"] = 0.0
     elif kind == "totalPressure":
         p0 = parse_value(spec.get("p0"), size, 0, dtype, device)
         kw["ref_value"] = p0 if p0 is not None else 0.0

@@ -5,12 +5,15 @@ Each BC kind supplies value coefficients (vf = vic*psi_c + vbc); the
 gradient coefficients and evaluation follow from them exactly as in the
 reference module. The ported slice covers the kinds of the icoFoam
 cavity, the simpleFoam pitzDaily case, the kOmegaSST tet duct and the
-interFoam damBreak case: fixedValue, zeroGradient, empty, calculated,
-mixed, inletOutlet, totalPressure (incompressible form),
+interFoam damBreak case: fixedValue, zeroGradient, fixedGradient, empty,
+calculated, mixed, inletOutlet, totalPressure (incompressible form),
 pressureInletOutletVelocity, the nutk/nutU/nutUSpalding/kqR/epsilon/omega
 wall functions,
 and slip with the kinds that share its value coefficients
-(symmetryPlane, symmetry, wedge). Derived kinds re-evaluate their
+(symmetryPlane, symmetry, wedge); and the coupled kinds of a cyclicAMI
+pair: cyclicAMI, with the jumpCyclic family fixedJump and fan on a pair
+retained as coincident AMI faces (ami_values, jump_signed, the fan
+curve's update `_up_fan`). Derived kinds re-evaluate their
 mixed triple through the update registry (`update` /
 `register_update`; the turbulence models register their wall-function
 rules). Any other kind raises NotImplementedError naming it.
@@ -89,6 +92,58 @@ def _vc_zero_gradient(bc, mesh, patch, vi):
     return torch.ones_like(vi), torch.zeros_like(vi)
 
 
+def _vc_fixed_gradient(bc, mesh, patch, vi):
+    dc = _col(mesh.delta_coeffs[patch.slice], vi)
+    return torch.ones_like(vi), _bcast(bc.ref_grad, vi) / dc
+
+
+def ami_values(mesh, internal):
+    """cyclicAMI interpolated values on ALL boundary faces [nBf,(C)]:
+    sum_j w_ij psi_own(Bj) on AMI faces, zero elsewhere
+    (cyclicAMIFvPatchField::patchNeighbourField)."""
+    src = internal[mesh.ami_entry_cell]
+    w = mesh.ami_entry_w
+    contrib = (w[:, None] * src) if internal.ndim == 2 else w * src
+    out = internal.new_zeros((mesh.n_boundary_faces,)
+                             + tuple(internal.shape[1:]))
+    return out.index_add(0, mesh.ami_entry_face, contrib)
+
+
+def _ami_patch_values(mesh, patch, internal):
+    """AMI-interpolated values for one patch [size,(C)]."""
+    rel = patch.start - mesh.n_internal_faces
+    return ami_values(mesh, internal)[rel:rel + patch.size]
+
+
+def _ami_wown(mesh, patch, like):
+    """The own-side blend weight of the patch's coupled face values."""
+    rel = patch.start - mesh.n_internal_faces
+    w = mesh.ami_wown[rel:rel + patch.size]
+    return w[:, None] if like.ndim == 2 else w
+
+
+_JUMP_KINDS = ("fixedJump", "fixedJumpAMI", "fan")
+_COUPLED_KINDS = ("cyclicAMI",) + _JUMP_KINDS
+
+
+def jump_signed(bc: PatchField, like) -> Any:
+    """Signed jump of the jumpCyclic family: the master side sees the
+    partner value MINUS the jump, the slave PLUS it
+    (jumpCyclicFvPatchField::patchNeighbourField), i.e. psi rises by
+    +jump from master to slave: a fan with a positive curve blows
+    master -> slave."""
+    s = -1.0 if bc.opt("master", True) else 1.0
+    return s * _bcast(bc.ref_value, like)
+
+
+def _coupled_nbr(bc, mesh, patch, internal):
+    """The partner side's interpolated values, offset by the jump."""
+    vb = _ami_patch_values(mesh, patch, internal)
+    if bc.kind in _JUMP_KINDS:
+        vb = vb + jump_signed(bc, vb)
+    return vb
+
+
 def _vc_symmetry(bc, mesh, patch, vi):
     """Scalars: zero gradient. Vectors: vf = vi - n (n . vi), its
     diagonal part (1 - n_c^2) implicit and the rest explicit."""
@@ -104,6 +159,7 @@ _VALUE_COEFFS: Dict[str, Callable] = {
     "mixed": _vc_mixed,
     "fixedValue": _vc_fixed_value,
     "zeroGradient": _vc_zero_gradient,
+    "fixedGradient": _vc_fixed_gradient,
     "calculated": _vc_fixed_value,
     "empty": _vc_zero_gradient,
     "inletOutlet": _vc_mixed,
@@ -143,6 +199,14 @@ def _empty_shape(patch, internal):
 
 
 def value_coeffs(bc: PatchField, mesh, patch, internal) -> Tuple[Any, Any]:
+    if bc.kind in _COUPLED_KINDS:
+        # the coupled face value: distance-weighted blend of the own
+        # cell and the interpolated neighbour cells, the jump kinds'
+        # neighbour offset by their jump (cyclicAMIFvPatchField::evaluate;
+        # the implicit coupling rides the matrix's ami_coef)
+        vb = _coupled_nbr(bc, mesh, patch, internal)
+        w = _ami_wown(mesh, patch, vb)
+        return torch.broadcast_to(w, vb.shape), (1.0 - w) * vb
     fn = _value_fn(bc)
     if bc.kind == "empty":
         # empty patches are masked out by every consumer: skip the
@@ -155,10 +219,16 @@ def value_coeffs(bc: PatchField, mesh, patch, internal) -> Tuple[Any, Any]:
 
 
 def grad_coeffs(bc: PatchField, mesh, patch, internal) -> Tuple[Any, Any]:
-    fn = _value_fn(bc)
     if bc.kind == "empty":
         z = internal.new_zeros(_empty_shape(patch, internal))
         return z, z
+    if bc.kind in _COUPLED_KINDS:
+        vi = _patch_internal(mesh, patch, internal)
+        vb = _coupled_nbr(bc, mesh, patch, internal)
+        dc = _col(mesh.delta_coeffs[patch.slice], vi)
+        return (torch.broadcast_to(-dc, vi.shape),
+                torch.broadcast_to(dc * vb, vi.shape))
+    fn = _value_fn(bc)
     vi = _patch_internal(mesh, patch, internal)
     vic, vbc = fn(bc, mesh, patch, vi)
     dc = mesh.delta_coeffs[patch.slice]
@@ -169,6 +239,11 @@ def grad_coeffs(bc: PatchField, mesh, patch, internal) -> Tuple[Any, Any]:
 
 
 def evaluate(bc: PatchField, mesh, patch, internal) -> Any:
+    if bc.kind in _COUPLED_KINDS:
+        vb = _coupled_nbr(bc, mesh, patch, internal)
+        vi = _patch_internal(mesh, patch, internal)
+        w = _ami_wown(mesh, patch, vb)
+        return w * vi + (1.0 - w) * vb
     fn = _value_fn(bc)
     if bc.kind == "empty":
         return internal.new_zeros(_empty_shape(patch, internal))
@@ -224,7 +299,30 @@ def _up_pressure_io_velocity(bc, mesh, patch, internal, *, phi=None, **ctx):
     return bc.replace(ref_value=Un, vfrac=(phib < 0.0).to(phib.dtype))
 
 
+def _up_fan(bc, mesh, patch, internal, *, phi=None, **ctx):
+    """fan: the pressure jump from the fan curve at the current
+    volumetric flow rate through the pair (derived/fan: jump = sum_i
+    f_i Q^i with the 2.2 `f` coefficients), clipped at zero. Both sides
+    carry the same curve; Q is the total flow through the pair, measured
+    on the MASTER side with outflow positive so that the sides agree."""
+    if phi is None:
+        return bc
+    coeffs = bc.opt("fanPoly")
+    if coeffs is None:
+        return bc
+    phib = phi[patch.slice]
+    s = 1.0 if bc.opt("master", True) else -1.0
+    Q = s * torch.sum(phib * mesh.face_active[patch.slice])
+    jump = phib.new_zeros(())
+    for c in coeffs[::-1]:
+        jump = jump * Q + c
+    like = _patch_internal(mesh, patch, internal)
+    return bc.replace(ref_value=torch.broadcast_to(
+        torch.clamp(jump, min=0.0), like.shape))
+
+
 _UPDATE: Dict[str, Callable] = {
+    "fan": _up_fan,
     "inletOutlet": _up_inlet_outlet,
     "totalPressure": _up_total_pressure,
     "pressureInletOutletVelocity": _up_pressure_io_velocity,
@@ -232,7 +330,8 @@ _UPDATE: Dict[str, Callable] = {
 
 
 def update(bc: PatchField, mesh, patch, internal, **ctx) -> PatchField:
-    _value_fn(bc)
+    if bc.kind not in _COUPLED_KINDS:
+        _value_fn(bc)
     fn = _UPDATE.get(bc.kind)
     return fn(bc, mesh, patch, internal, **ctx) if fn else bc
 
@@ -255,6 +354,11 @@ def fixed_value(value, **opts) -> PatchField:
 def zero_gradient(**opts) -> PatchField:
     return PatchField(ref_value=0.0, ref_grad=0.0, vfrac=0.0,
                       kind="zeroGradient", opts=tuple(opts.items()))
+
+
+def fixed_gradient(grad, **opts) -> PatchField:
+    return PatchField(ref_grad=grad, vfrac=0.0, kind="fixedGradient",
+                      opts=tuple(opts.items()))
 
 
 def make(kind: str, **kw) -> PatchField:

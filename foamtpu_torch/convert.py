@@ -19,7 +19,7 @@ import torch
 from .bc.patchfields import PatchField
 from .core.dimensions import DimensionSet
 from .core.fields import VolField
-from .core.precision import label_dtype, scalar_dtype
+from .core.precision import DEFAULT_DEVICE, label_dtype, scalar_dtype
 from .mesh.core import (ARRAY_FIELDS, STATIC_FIELDS, FvMesh, Patch,
                         from_arrays)
 from .ops.matrix import FvMatrix
@@ -32,7 +32,7 @@ def _get(src, key, default=None):
     return getattr(src, key, default)
 
 
-def tensor(a, device="cpu") -> torch.Tensor:
+def tensor(a, device=DEFAULT_DEVICE) -> torch.Tensor:
     """numpy-readable array -> tensor: floats in the scalar dtype,
     integers as int64, bools as bool."""
     a = np.asarray(a)
@@ -51,11 +51,8 @@ def _patch(p) -> Patch:
                  attrs=tuple(p.attrs))
 
 
-def mesh_from_numpy(src, device="cpu") -> FvMesh:
+def mesh_from_numpy(src, device=DEFAULT_DEVICE) -> FvMesh:
     """The port's FvMesh from the reference FvMesh's fields."""
-    if _get(src, "has_ami", False):
-        raise NotImplementedError(
-            "cyclicAMI meshes are not ported to foamtpu_torch yet")
     arrays = {k: np.asarray(_get(src, k)) for k in ARRAY_FIELDS}
     static = {k: _get(src, k) for k in STATIC_FIELDS}
     static.update(
@@ -64,7 +61,8 @@ def mesh_from_numpy(src, device="cpu") -> FvMesh:
         n_cells=int(static["n_cells"]), n_faces=int(static["n_faces"]),
         n_internal_faces=int(static["n_internal_faces"]),
         max_faces=int(static["max_faces"]),
-        orthogonal=bool(static["orthogonal"]), has_ami=False)
+        orthogonal=bool(static["orthogonal"]),
+        has_ami=bool(static["has_ami"]))
     zones = {k: np.asarray(v)
              for k, v in (_get(src, "cell_zone_masks") or {}).items()}
     return from_arrays(arrays, static, zones, device)
@@ -81,7 +79,7 @@ def _py(obj):
     return obj
 
 
-def levels_from_numpy(levels, device="cpu") -> List[Level]:
+def levels_from_numpy(levels, device=DEFAULT_DEVICE) -> List[Level]:
     """The port's GAMG Levels from the reference's."""
     out = []
     for lv in levels:
@@ -108,7 +106,7 @@ def _dims(d) -> DimensionSet:
                           for f in dataclasses.fields(DimensionSet)])
 
 
-def field_from_numpy(field, device="cpu") -> VolField:
+def field_from_numpy(field, device=DEFAULT_DEVICE) -> VolField:
     """The port's VolField (data and per-patch BC data) from the
     reference's."""
     bcs = tuple(PatchField(ref_value=tensor(bc.ref_value, device),
@@ -120,13 +118,10 @@ def field_from_numpy(field, device="cpu") -> VolField:
                     name=field.name, dims=_dims(field.dims))
 
 
-def matrix_from_numpy(mat, device="cpu") -> FvMatrix:
+def matrix_from_numpy(mat, device=DEFAULT_DEVICE) -> FvMatrix:
     """The port's FvMatrix from the reference's (slot and flat
-    coefficients and the non-orthogonal flux correction; cyclicAMI
-    terms are outside the slice and raise)."""
-    if _get(mat, "ami_coef") is not None:
-        raise NotImplementedError(
-            "ami_coef matrices are not ported to foamtpu_torch yet")
+    coefficients, the non-orthogonal flux correction and the cyclicAMI
+    coupling coefficients)."""
 
     def t(name):
         v = _get(mat, name)
@@ -135,7 +130,7 @@ def matrix_from_numpy(mat, device="cpu") -> FvMatrix:
     return FvMatrix(diag=t("diag"), lower=t("lower"), upper=t("upper"),
                     source=t("source"), ic=t("ic"), bc=t("bc"),
                     fcorr=t("fcorr"), soff=t("soff"), sfb=t("sfb"),
-                    dims=_dims(mat.dims),
+                    ami_coef=t("ami_coef"), dims=_dims(mat.dims),
                     symmetric=bool(mat.symmetric))
 
 
@@ -146,7 +141,7 @@ _TURB_FIELDS = ("k", "epsilon", "omega", "nuTilda", "nut")
 _STATE_ARRAYS = ("phi", "U0", "U00", "rdt0", "ddt0_U", "rho", "lts_rdt")
 
 
-def state_from_numpy(state, device="cpu") -> Dict[str, Any]:
+def state_from_numpy(state, device=DEFAULT_DEVICE) -> Dict[str, Any]:
     """The port's solver state from the reference's. PISO/PIMPLE/SIMPLE:
     U, p, phi, phi_slot and U0, the `backward` / `CrankNicolson` history
     (U00, rdt0, ddt0_U), plus the turbulence fields (k, epsilon, omega,

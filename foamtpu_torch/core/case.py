@@ -1,6 +1,8 @@
 """Case: load an OpenFOAM case directory (port of
 openfoam-2.2.x_tpu/core/case.py: `Case` without `request_parallel` and
 multi-region cases; the application registry is `solvers.apps.run`).
+Cyclic pairs that carry a jump BC (fan, fixedJump) are kept as
+coincident cyclicAMI patches, as in the reference.
 
 A Case owns system/ (controlDict with its Time, fvSchemes, fvSolution),
 constant/ (polyMesh, read once and moved to the case's device, and the
@@ -52,14 +54,68 @@ class Case:
             self._poly = mesh_io.read(self.const_path("polyMesh"))
         return self._poly
 
+    def latest_time_name(self) -> str:
+        """Name of the latest time directory (falls back to start)."""
+        t = self.time.latest_time()
+        if t is None:
+            t = self.time.start_time
+        return runtime.time_name(t, self.time.time_precision)
+
+    def _retain_jump_cyclics(self, pm):
+        """Scan the latest time's fields for jumpCyclic-family BCs (fan,
+        fixedJump) on cyclic patches, and retype those pairs to cyclicAMI,
+        so that they are RETAINED as coincident coupled boundary patches
+        (an identity AMI) instead of being internalised: the jump then
+        enters through the fixedJump/fan patch fields (createBaffles'
+        cyclic pairs feeding derived/fan)."""
+        import dataclasses
+
+        jump_names = set()
+        tdir = os.path.join(self.dir, self.latest_time_name())
+        if not os.path.isdir(tdir):
+            return pm
+        cyc = {p.name: p for p in pm.patches if p.type == "cyclic"}
+        if not cyc:
+            return pm
+        for fn in sorted(os.listdir(tdir)):
+            path = os.path.join(tdir, fn)
+            if not os.path.isfile(path):
+                continue
+            try:
+                bf = parse_file(path).get("boundaryField")
+            except Exception:
+                continue
+            if not hasattr(bf, "items"):
+                continue
+            for pname, spec in bf.items():
+                if not hasattr(spec, "get"):
+                    continue
+                if str(spec.get("type", "")) in ("fan", "fixedJump",
+                                                 "fixedJumpAMI") \
+                        and str(pname) in cyc:
+                    p = cyc[str(pname)]
+                    jump_names.add(p.name)
+                    nbr = p.neighbour_patch
+                    if nbr is None:
+                        for q in cyc.values():
+                            if q.neighbour_patch == p.name:
+                                nbr = q.name
+                    if nbr:
+                        jump_names.add(nbr)
+        if not jump_names:
+            return pm
+        patches = tuple(
+            dataclasses.replace(p, type="cyclicAMI") if p.name in jump_names
+            else p for p in pm.patches)
+        return dataclasses.replace(pm, patches=patches)
+
     @property
     def mesh(self):
         if self._mesh is None:
-            # cyclic pairs are internalised by to_device; the reference's
-            # retyping of pairs with jump BCs (fan/fixedJump) to
-            # cyclicAMI is outside the slice (those kinds raise in the
-            # BC factory)
-            self._mesh = to_device(self.poly_mesh, self.device)
+            # cyclic pairs are internalised by to_device, except those
+            # that carry a jump BC, retained as coincident cyclicAMI
+            self._mesh = to_device(self._retain_jump_cyclics(
+                self.poly_mesh), self.device)
         return self._mesh
 
     # -- dictionaries -----------------------------------------------------------

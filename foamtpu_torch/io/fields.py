@@ -146,7 +146,8 @@ def read_field(path: str, mesh, name: Optional[str] = None) -> VolField:
         internal = internal[None, :].expand(mesh.n_cells, 3).clone()
 
     bf = d["boundaryField"]
-    bcs = [factory.from_dict(bf.match(p.name), p, rank, dtype, device)
+    bcs = [factory.from_dict(bf.match(p.name), p, rank, dtype, device,
+                             mesh=mesh)
            for p in mesh.patches]
     return VolField(data=internal, bcs=normalize_bcs(mesh, tuple(bcs), rank),
                     name=name, dims=dims)

@@ -617,11 +617,9 @@ def from_arrays(arrays: Dict[str, np.ndarray], static: Dict[str, Any],
 
 def to_device(mesh: PolyMesh, device=DEFAULT_DEVICE) -> FvMesh:
     """Build the torch FvMesh on `device` (twin of the reference's
-    mesh/core.py::to_device). Cyclic patch pairs are internalised here.
-    cyclicAMI interfaces are outside the ported slice and raise."""
-    if any(p.type == "cyclicAMI" for p in mesh.patches):
-        raise NotImplementedError(
-            "cyclicAMI patches are not ported to foamtpu_torch yet")
+    mesh/core.py::to_device). Cyclic patch pairs are internalised here;
+    cyclicAMI pairs get their interpolation tables (mesh/ami.py) and
+    the two-sided delta coefficients of their faces."""
     if any(p.type == "cyclic" for p in mesh.patches):
         mesh = internalize_cyclics(mesh)
 
@@ -701,12 +699,35 @@ def to_device(mesh: PolyMesh, device=DEFAULT_DEVICE) -> FvMesh:
     ab_owner = mesh.owner[nif:][ab_rel]
     ab_sf = mesh.sf[nif:][ab_rel]
 
-    # cyclicAMI tables: empty (no AMI interfaces reach here)
-    nbf_ = mesh.n_faces - nif
+    # cyclicAMI interpolation tables
+    from . import ami as ami_mod
+
+    ami = ami_mod.build(mesh)
+    dcs_all = mesh.delta_coeffs
+    nodcs_all = mesh.non_orth_delta_coeffs
+    if ami is None:
+        nbf_ = mesh.n_faces - nif
+        ami_tabs = dict(
+            ami_entry_face=np.zeros(0, dtype=np.int64),
+            ami_entry_row=np.zeros(0, dtype=np.int64),
+            ami_entry_cell=np.zeros(0, dtype=np.int64),
+            ami_entry_w=np.zeros(0), ami_mask=np.zeros(nbf_),
+            ami_wown=np.ones(nbf_))
+    else:
+        ami_tabs = dict(
+            ami_entry_face=ami.entry_face, ami_entry_row=ami.entry_row,
+            ami_entry_cell=ami.entry_cell, ami_entry_w=ami.entry_w,
+            ami_mask=ami.face_mask, ami_wown=ami.w_own)
+        # coupled faces carry the two-sided (cell-to-cell) delta
+        dcs_all = dcs_all.copy()
+        nodcs_all = nodcs_all.copy()
+        on = ami.face_mask > 0
+        dcs_all[nif:][on] = ami.dc_eff[on]
+        nodcs_all[nif:][on] = ami.dc_eff[on]
     arrays = dict(
         sf=mesh.sf, mag_sf=mesh.mag_sf, cf=mesh.cf, c=mesh.c, v=mesh.v,
-        weights=mesh.weights, delta_coeffs=mesh.delta_coeffs,
-        non_orth_delta_coeffs=mesh.non_orth_delta_coeffs,
+        weights=mesh.weights, delta_coeffs=dcs_all,
+        non_orth_delta_coeffs=nodcs_all,
         correction_vecs=mesh.correction_vecs, face_active=face_active,
         owner=mesh.owner, neighbour=mesh.neighbour,
         cface=tabs["cface"], csign=tabs["csign"], cnbr=tabs["cnbr"],
@@ -721,12 +742,7 @@ def to_device(mesh: PolyMesh, device=DEFAULT_DEVICE) -> FvMesh:
         fb_sf=fb_sf, fb_corr=fb_corr, ex_own_lin=ex_own_lin,
         ex_fb_faces=ex_fb_faces, ex_fb_idx=ex_fb_idx, wall_mask=wall_mask,
         wall_y=wall_y, wall_cnt=np.maximum(wall_cnt, 1.0), ab_rel=ab_rel,
-        ab_owner=ab_owner, ab_sf=ab_sf,
-        ami_entry_face=np.zeros(0, dtype=np.int64),
-        ami_entry_row=np.zeros(0, dtype=np.int64),
-        ami_entry_cell=np.zeros(0, dtype=np.int64),
-        ami_entry_w=np.zeros(0), ami_mask=np.zeros(nbf_),
-        ami_wown=np.ones(nbf_),
+        ab_owner=ab_owner, ab_sf=ab_sf, **ami_tabs,
     )
     # round through the scalar dtype on the host, exactly as the
     # reference's farr() does before its device_put
@@ -741,7 +757,7 @@ def to_device(mesh: PolyMesh, device=DEFAULT_DEVICE) -> FvMesh:
         max_faces=int(tabs["max_faces"]),
         patches=tuple(mesh.patches),
         orthogonal=orthogonal,
-        has_ami=False,
+        has_ami=ami is not None,
     )
     zones = {
         name: np.bincount(np.asarray(ids, dtype=np.int64),

@@ -13,8 +13,9 @@ Boundary faces fold the BC linearisation into internalCoeffs (ic) and
 boundaryCoeffs (bc). A corrected laplacian on a non-orthogonal mesh
 moves the explicit correction to the source and stashes its face flux
 in `fcorr` (unless the caller defers the correction, as the pressure
-equations do). Coupled-interface (cyclicAMI/jump) laplacian terms are
-outside the ported slice.
+equations do). On a cyclicAMI pair (and its fixedJump/fan kinds) the
+laplacian couples implicitly: the own side on the diagonal, the
+interpolated neighbour in the matrix's ami_coef, a jump in the source.
 """
 
 from __future__ import annotations
@@ -291,7 +292,30 @@ def laplacian(
 
     gb = gamma_f * mesh.mag_sf * act
     ics, bcs = [], []
+    ami_coef = None
     for p, bc in zip(mesh.patches, field.bcs):
+        if bc.kind in pf._COUPLED_KINDS:
+            # implicit coupled-interface diffusion: the own side on the
+            # diagonal here, the interpolated neighbour as the matrix's
+            # ami_coef in every product
+            # (cyclicAMIFvPatchField::updateInterfaceMatrix). The jump
+            # kinds add their constant jump through the boundary source:
+            # the coupled snGrad is dc*(nbr + jump - own)
+            # (jumpCyclicFvPatchField::updateInterfaceMatrix).
+            gbp = _colv(gb[p.slice], field.data)
+            dcp_c = _colv(dc[p.slice], field.data)
+            shape = (p.size,) + tuple(field.data.shape[1:])
+            ics.append(torch.broadcast_to(gbp * (-dcp_c), shape))
+            if bc.kind in pf._JUMP_KINDS:
+                j = pf.jump_signed(bc, diag.new_zeros(shape))
+                bcs.append(-gbp * dcp_c * j)
+            else:
+                bcs.append(diag.new_zeros(shape))
+            if ami_coef is None:
+                ami_coef = diag.new_zeros(mesh.n_faces - nif)
+            rel = p.start - nif
+            ami_coef[rel:rel + p.size] = (gb * dc)[p.slice]
+            continue
         gic, gbc = pf.grad_coeffs(bc, mesh, p, field.data)
         gbp = _colv(gb[p.slice], field.data)
         ics.append(gbp * gic)
@@ -302,8 +326,8 @@ def laplacian(
     gdims = gamma_dims if gamma_dims is not None else dimless
     dims = gdims * field.dims * dimLength
     return FvMatrix(diag=diag, lower=lower, upper=upper, source=src, ic=ic,
-                    bc=bcc, fcorr=fcorr, soff=soff, sfb=sfb, dims=dims,
-                    symmetric=True)
+                    bc=bcc, fcorr=fcorr, soff=soff, sfb=sfb,
+                    ami_coef=ami_coef, dims=dims, symmetric=True)
 
 
 def Sp(mesh, sp: Any, field: VolField, sp_dims=None) -> FvMatrix:

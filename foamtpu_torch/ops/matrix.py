@@ -10,9 +10,11 @@ and boundary coefficients carry one column per component. soff [nC,M] /
 sfb [nfb] are the slot-form off-diagonals (ops/slot.py). fcorr [nF(,C)]
 is the explicit non-orthogonal face-flux correction a corrected
 laplacian stashes (fvMatrix::faceFluxCorrectionPtr_); `flux` adds it.
-
-The reference's cyclicAMI coupling (ami_coef) is outside the ported
-slice: no ported operator produces it.
+ami_coef [nBf] is the cyclicAMI implicit coupling coefficient per
+boundary face (zero off the AMI patches): the owner row of AMI face f
+gains ami_coef[f] * sum_j w_fj psi[cell_j] in every product
+(cyclicAMIFvPatchField::updateInterfaceMatrix), a gather and a
+scatter-add over the mesh's ami_entry_* tables beside the stencil.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ class FvMatrix:
     fcorr: Any = None
     soff: Any = None
     sfb: Any = None
+    ami_coef: Any = None
     dims: DimensionSet = dimless   # of source (= op * volume)
     symmetric: bool = True
 
@@ -72,6 +75,7 @@ class FvMatrix:
             fcorr=_addn(self.fcorr, other.fcorr),
             soff=so,
             sfb=sf,
+            ami_coef=_addn(self.ami_coef, other.ami_coef),
             dims=d,
             symmetric=self.symmetric and other.symmetric,
         )
@@ -85,6 +89,7 @@ class FvMatrix:
             fcorr=None if self.fcorr is None else -self.fcorr,
             soff=None if self.soff is None else -self.soff,
             sfb=None if self.sfb is None else -self.sfb,
+            ami_coef=None if self.ami_coef is None else -self.ami_coef,
             dims=self.dims, symmetric=self.symmetric,
         )
 
@@ -126,6 +131,33 @@ class FvMatrix:
         lo = self.lower[mesh.cface_i]
         return torch.where(mesh.csign > 0, up, lo) * mesh.cnbr_valid
 
+    def ami_entry_coeffs(self, mesh) -> Any:
+        """The cyclicAMI off-diagonal coefficient of each interpolation
+        entry [nE] (None without an AMI coupling)."""
+        if self.ami_coef is None or not mesh.has_ami:
+            return None
+        c = self.ami_coef if self.ami_coef.ndim == 1 else self.ami_coef[:, 0]
+        return c[mesh.ami_entry_face] * mesh.ami_entry_w
+
+    def ami_mul(self, mesh, psi: Any) -> Any:
+        """cyclicAMI off-diagonal product [nC,(C)] (zero without AMI)."""
+        ce = self.ami_entry_coeffs(mesh)
+        if ce is None:
+            return 0.0
+        src = psi[mesh.ami_entry_cell]
+        contrib = ce[:, None] * src if psi.ndim == 2 else ce * src
+        return torch.zeros_like(psi).index_add(0, mesh.ami_entry_row,
+                                               contrib)
+
+    def _ami_row_sum(self, mesh, rs: Any) -> Any:
+        """rs plus each row's sum of cyclicAMI coefficients."""
+        ce = self.ami_entry_coeffs(mesh)
+        if ce is None:
+            return rs
+        add = rs.new_zeros(mesh.n_cells).index_add(0, mesh.ami_entry_row,
+                                                   ce)
+        return rs + (add[:, None] if rs.ndim == 2 else add)
+
     def amul(self, mesh, psi: Any, diag_eff: Optional[Any] = None) -> Any:
         """A @ psi for a scalar psi [nC]."""
         if diag_eff is None:
@@ -142,8 +174,10 @@ class FvMatrix:
                 off_row = off_row.index_add(0, mesh.fb_cells, self.sfb)
             if off_row.ndim == 1 and diag_eff.ndim == 2:
                 off_row = off_row[:, None]
-            return diag_eff + off_row
-        return diag_eff + torch.sum(self.off_coeffs(mesh), dim=1)
+            rs = diag_eff + off_row
+        else:
+            rs = diag_eff + torch.sum(self.off_coeffs(mesh), dim=1)
+        return self._ami_row_sum(mesh, rs)
 
     # ---- PISO/SIMPLE operator splits ----------------------------------------
     def A(self, mesh) -> Any:
@@ -155,15 +189,17 @@ class FvMatrix:
 
     def off_mul(self, mesh, psi: Any) -> Any:
         """Off-diagonal product sum_f off(f)*psi[nbr(f)]: the stencil
-        kernel when soff is present, the gather path otherwise."""
+        kernel when soff is present, the gather path otherwise; plus the
+        cyclicAMI term."""
+        ami = self.ami_mul(mesh, psi) if self.ami_coef is not None else 0.0
         if self.soff is not None:
             from . import slot as slot_mod
 
-            return slot_mod.off_apply(mesh, self.soff, self.sfb, psi)
+            return slot_mod.off_apply(mesh, self.soff, self.sfb, psi) + ami
         off = self.off_coeffs(mesh)
         if psi.ndim == 2:
-            return torch.sum(off[:, :, None] * psi[mesh.cnbr], dim=1)
-        return torch.sum(off * psi[mesh.cnbr], dim=1)
+            return torch.sum(off[:, :, None] * psi[mesh.cnbr], dim=1) + ami
+        return torch.sum(off * psi[mesh.cnbr], dim=1) + ami
 
     def H1(self, mesh) -> Any:
         """H at psi == 1 with no source: -(sum of the off-diagonal
@@ -190,6 +226,14 @@ class FvMatrix:
         f_int = (self.upper * psi[mesh.neighbour]
                  - self.lower * psi[mesh.owner[:nif]])
         f_bnd = self.ic * surface.owner_to_b(mesh, psi) - self.bc
+        if self.ami_coef is not None and mesh.has_ami:
+            # the coupled face's flux gains its interpolated neighbour
+            av = psi.new_zeros(mesh.n_boundary_faces).index_add(
+                0, mesh.ami_entry_face,
+                mesh.ami_entry_w * psi[mesh.ami_entry_cell])
+            c = (self.ami_coef if self.ami_coef.ndim == 1
+                 else self.ami_coef[:, 0])
+            f_bnd = f_bnd + c * av
         out = torch.cat([f_int, f_bnd], dim=0)
         if self.fcorr is not None:
             # the deferred non-orthogonal correction is part of the
@@ -251,8 +295,12 @@ class FvMatrix:
             s = torch.sum(torch.abs(self.soff), dim=1)
             if mesh.fb_cells.shape[0]:
                 s = s.index_add(0, mesh.fb_cells, torch.abs(self.sfb))
-            return s
-        return torch.sum(torch.abs(self.off_coeffs(mesh)), dim=1)
+        else:
+            s = torch.sum(torch.abs(self.off_coeffs(mesh)), dim=1)
+        ce = self.ami_entry_coeffs(mesh)
+        if ce is not None:
+            s = s.index_add(0, mesh.ami_entry_row, torch.abs(ce))
+        return s
 
     def relax(self, mesh, alpha: float, psi: Any) -> "FvMatrix":
         """Under-relaxation (fvMatrix::relax): add the boundary internal

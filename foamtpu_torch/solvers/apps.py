@@ -16,8 +16,12 @@ and interDyMFoam, and the compressible family: rhoSimpleFoam,
 rhoPimpleFoam, rhoSimplecFoam, rhoPimplecFoam and sonicFoam with their
 porous/MRF aliases (rhoPorousSimpleFoam, rhoPorousMRFSimpleFoam,
 rhoPorousMRFPimpleFoam, rhoPorousMRFLTSPimpleFoam), rhoCentralFoam,
-rhoCentralDyMFoam, buoyantSimpleFoam and buoyantPimpleFoam; `run(case)`
-picks among them by controlDict's `application`. The turbulence model
+rhoCentralDyMFoam, buoyantSimpleFoam and buoyantPimpleFoam, and the
+single-equation applications: electrostaticFoam, magneticFoam, mhdFoam,
+financialFoam, shallowWaterFoam, solidDisplacementFoam,
+solidEquilibriumDisplacementFoam, potentialFreeSurfaceFoam,
+adjointShapeOptimizationFoam and dnsFoam; `run(case)` picks among them
+by controlDict's `application`. The turbulence model
 comes from constant/RASProperties or constant/LESProperties (the
 compressible applications take the models of compressible.py where the
 case ships 0/mut).
@@ -1387,6 +1391,591 @@ def potential_foam(case, max_steps: Optional[int] = None) -> None:
     log.info("End\n")
 
 
+# ---------------------------------------------------------------------------
+# the single-equation applications
+# ---------------------------------------------------------------------------
+
+
+def _tensor(mesh, a):
+    return torch.as_tensor(np.asarray(a), dtype=mesh.v.dtype,
+                           device=mesh.device)
+
+
+def financial_foam(case, max_steps: Optional[int] = None) -> None:
+    """financialFoam (financial/financialFoam): Black-Scholes option
+    pricing on a 1-D stock-price mesh,
+
+        ddt(V) + 0.5 sigma^2 S^2 d2V/dS2 + r S dV/dS - r V = 0,
+
+    marched backwards from expiry (tau = T - t), S the mesh x coordinate.
+    The conservative form div(0.5 s^2 S^2 grad V) = 0.5 s^2 S^2 V'' +
+    s^2 S V' shifts the drift to (r - s^2) S and the sink to (2r - s^2) V,
+    as in the reference. constant/financialProperties: sigma, r."""
+    from ..core.dimensions import dimViscosity
+    from ..ops import fvm
+    from . import linear
+
+    mesh = case.mesh
+    fp = case.properties("financialProperties")
+    sigma = _dim_scalar_of(fp, "sigma", 0.2)
+    r = _dim_scalar_of(fp, "r", 0.05)
+    V = case.read_field("V")
+    ctl = case.solver_controls("V")
+    Sf = mesh.cf[:, 0]
+    gamma_f = 0.5 * sigma * sigma * Sf * Sf
+    phi = (r - sigma * sigma) * Sf * mesh.sf[:, 0] * mesh.face_active
+    sink = mesh.v.new_full((mesh.n_cells,), 2.0 * r - sigma * sigma)
+
+    def step(V, dt):
+        rdt = 1.0 / piso_mod._as_scalar(mesh, dt)
+        # in tau: dV/dtau = 0.5 s^2 S^2 V'' + r S V' - r V
+        eqn = (fvm.ddt(mesh, V, V.data, rdt)
+               - fvm.laplacian(mesh, gamma_f, V, corrected=False,
+                               gamma_dims=dimViscosity)
+               - fvm.div(mesh, phi, V)
+               + fvm.Sp(mesh, sink, V))
+        data, perf = linear.solve(mesh, eqn, V.data, ctl)
+        return V.with_data(data), perf
+
+    for t in case.time.loop():
+        V, perf = step(V, t.current_dt)
+        log.info(f"Time = {t.name}")
+        log.info(log.solver_line("V", perf))
+        if t.write_time():
+            case.write_fields([V])
+        if max_steps is not None and t.index >= max_steps:
+            break
+    case.write_fields([V])
+    case.final_state = {"V": V}
+    log.info("End\n")
+
+
+def electrostatic_foam(case, max_steps: Optional[int] = None) -> None:
+    """electrostaticFoam (electromagnetics/electrostaticFoam): the Poisson
+    equation of the electric potential and the drift transport of the
+    space charge,
+
+        laplacian(phi) == rho/epsilon0
+        rhoFlux = -k * magSf * snGrad(phi)
+        ddt(rho) + div(rhoFlux, rho) = 0   (upwind)
+
+    constant/physicalProperties: epsilon0, k."""
+    from ..core.dimensions import DimensionSet, dimless
+    from ..ops import fvc, fvm, schemes
+    from . import linear
+
+    mesh = case.mesh
+    pp = case.properties("physicalProperties")
+    eps0 = _dim_scalar_of(pp, "epsilon0", 8.85418782e-12)
+    k_mob = _dim_scalar_of(pp, "k", 1.9e-9)
+    phiE = case.read_field("phi")   # the electric potential
+    rho = case.read_field("rho")    # the space charge density
+    phi_ctl = case.solver_controls("phi")
+    rho_ctl = case.solver_controls("rho")
+    corrected = case.laplacian_corrected()
+
+    def step(phiE, rho, dt):
+        rdt = 1.0 / piso_mod._as_scalar(mesh, dt)
+        eqn = fvm.laplacian(mesh, 1.0, phiE, corrected=corrected,
+                            gamma_dims=dimless)
+        eqn = eqn.add_source(rho.data / eps0, mesh)
+        data, pperf = linear.solve(mesh, eqn, phiE.data, phi_ctl)
+        phiE = phiE.with_data(data)
+        # the drift flux on the faces
+        rho_flux = (-k_mob * mesh.mag_sf * fvc.sn_grad(mesh, phiE)
+                    * mesh.face_active)
+        w = schemes.weights(mesh, rho_flux, "upwind", rho)
+        req = (fvm.ddt(mesh, rho, rho.data, rdt)
+               + fvm.div(mesh, rho_flux, rho, weights=w,
+                         phi_dims=DimensionSet.of(0, 3, -1)))
+        rdata, rperf = linear.solve(mesh, req, rho.data, rho_ctl)
+        return phiE, rho.with_data(rdata), pperf, rperf
+
+    for t in case.time.loop():
+        phiE, rho, pperf, rperf = step(phiE, rho, t.current_dt)
+        log.info(f"Time = {t.name}")
+        log.info(log.solver_line("phi", pperf))
+        log.info(log.solver_line("rho", rperf))
+        if t.write_time():
+            case.write_fields([phiE, rho])
+        if max_steps is not None and t.index >= max_steps:
+            break
+    case.write_fields([phiE, rho])
+    case.final_state = {"phi": phiE, "rho": rho}
+    log.info("End\n")
+
+
+def _magnets(case, mesh):
+    """(mur [nC], M [nC,3]) from constant/transportProperties' `magnets`:
+    a list of { box ((x0 y0 z0) (x1 y1 z1)); mur; Mr; orientation; } -
+    the cells are selected by box, as in the reference, in place of
+    OpenFOAM's cellZone names (its documented deviation)."""
+    tp = case.transport_properties()
+    mur = np.ones(mesh.n_cells)
+    M = np.zeros((mesh.n_cells, 3))
+    c = mesh.c.detach().cpu().numpy()
+    mags = tp.get("magnets", [])
+    # the list form `( magnet1 { ... } ... )` parses as alternating
+    # name / body items: keep the bodies
+    entries = (list(mags.values()) if isinstance(mags, FoamDict)
+               else [e for e in list(mags) if hasattr(e, "get")])
+    for spec in entries:
+        box = np.asarray(spec.get("box")).reshape(2, 3)
+        inside = np.all((c >= box[0]) & (c <= box[1]), axis=1)
+        ori = np.asarray(spec.get("orientation", (0.0, 0.0, 1.0)),
+                         dtype=float).reshape(3)
+        ori = ori / max(np.linalg.norm(ori), 1e-30)
+        mur[inside] = float(spec.get("mur", 1.0))
+        M[inside] = float(spec.get("Mr", 0.0)) * ori
+    return _tensor(mesh, mur), _tensor(mesh, M)
+
+
+def magnetic_foam(case, max_steps: Optional[int] = None) -> None:
+    """magneticFoam (electromagnetics/magneticFoam): magnetostatics by the
+    scalar potential psi,
+
+        laplacian(murf, psi) == div(murf * M . Sf),  H = -grad(psi),
+        B = mu0 (mur H + M),
+
+    with nNonOrthogonalCorrectors + 1 psi solves (SIMPLE dict); the
+    magnets come from `_magnets`. Logs max|B|."""
+    from ..core.dimensions import dimless
+    from ..ops import fvc, fvm, slot as slot_mod, surface
+    from . import linear
+
+    mesh = case.mesh
+    mu0 = 4.0e-7 * np.pi
+    mur, M = _magnets(case, mesh)
+    psi = case.read_field("psi")
+    psi_ctl = case.solver_controls("psi")
+    n_non_orth = int(case.pimple_controls("SIMPLE").get(
+        "nNonOrthogonalCorrectors", 0))
+    corrected = case.laplacian_corrected()
+
+    def solve_psi(psi):
+        mur_slot = slot_mod.interpolate(mesh, mur,
+                                        bv=surface.owner_to_b(mesh, mur))
+        # div(murf * M_f . Sf), the remanence source: the magnets are
+        # interior bodies, so its boundary flux is zero
+        m_flux = slot_mod.flux_of(
+            mesh, M, bv=mesh.v.new_zeros(mesh.n_boundary_faces))
+        mflux = slot_mod.SlotFace(mur_slot.sv * m_flux.sv,
+                                  mur_slot.fb * m_flux.fb, m_flux.bv)
+        src = slot_mod.surface_sum(mesh, mflux)
+        eqn = fvm.laplacian(mesh, slot_mod.to_flat(mesh, mur_slot), psi,
+                            corrected=corrected, gamma_dims=dimless,
+                            gamma_slot=mur_slot)
+        eqn = eqn.replace_fields(source=eqn.source + src)
+        eqn, ctl = linear.prep_pressure(
+            eqn, piso_mod.needs_reference(psi, mesh), dict(psi_ctl), 0, 0.0)
+        data, perf = linear.solve(mesh, eqn, psi.data, ctl)
+        psi = psi.with_data(data).correct_boundary_conditions(mesh)
+        # div(B) = 0 with B = mu0 (mur H + M) and H = -grad(psi)
+        H = -fvc.grad(mesh, psi)
+        return psi, H, mu0 * (mur[:, None] * H + M), perf
+
+    for _ in range(max(n_non_orth, 0) + 1):
+        psi, H, B, perf = solve_psi(psi)
+        log.info(log.solver_line("psi", perf))
+    case.write_fields([psi])
+    case.final_state = {"psi": psi, "H": H, "B": B}
+    log.info(f"max|B| = {float(torch.max(torch.linalg.norm(B, dim=1))):.6g}\n")
+    log.info("End\n")
+
+
+def _fixed_steps(case, max_steps):
+    """The number of steps of the fixed-deltaT loops (mhdFoam and the
+    solid solvers): endTime/deltaT, capped by max_steps."""
+    t = case.time
+    max_iter = max(int(round((t.end_time - t.start_time) / t.delta_t)), 1)
+    return min(max_iter, max_steps) if max_steps is not None else max_iter
+
+
+def mhd_foam(case, max_steps: Optional[int] = None) -> None:
+    """mhdFoam (electromagnetics/mhdFoam): incompressible MHD, solvers/mhd.py.
+    constant/transportProperties: nu, rho, mu (magnetic permeability),
+    sigma (conductivity); fields U, p, B (Alfven-velocity units), pB."""
+    from . import mhd as mhd_mod
+
+    mesh = case.mesh
+    tp = case.transport_properties()
+    cdict = case.pimple_controls("PISO")
+    cfg = mhd_mod.MhdConfig(
+        nu=_dim_scalar_of(tp, "nu", 1e-6),
+        rho=_dim_scalar_of(tp, "rho", 1.0),
+        mu_mag=_dim_scalar_of(tp, "mu", 1.0),
+        sigma_c=_dim_scalar_of(tp, "sigma", 1.0),
+        n_correctors=int(cdict.get("nCorrectors", 2)),
+        n_non_orth=int(cdict.get("nNonOrthogonalCorrectors", 0)),
+        corrected=case.laplacian_corrected(),
+        p_controls=case.solver_controls("p"),
+        u_controls=case.solver_controls("U"),
+        pb_controls=case.solver_controls("pB")
+        if _has_solver(case, "pB") else None)
+    state = mhd_mod.initial_state(mesh, case.read_field("U"),
+                                  case.read_field("p"), case.read_field("B"),
+                                  case.read_field("pB"))
+    step = mhd_mod.make_step(mesh, cfg)
+    log.info(f"Starting loop: mhdFoam, {mesh.n_cells} cells\n")
+    cumulative = 0.0
+    t = case.time
+    max_iter = _fixed_steps(case, max_steps)
+    dt = t.delta_t
+
+    def write(state):
+        case.write_fields([state["U"], state["p"], state["B"],
+                           state["pB"]])
+
+    while (t.index < max_iter and not t.stop_now
+           and t.value < t.end_time - 1e-12):
+        state, diag = step(state, dt)
+        t.index += 1
+        t.value = t.start_time + t.index * t.delta_t
+        t.current_dt = float(dt)
+        cumulative = _log_step(case, t, diag, cumulative)
+        log.info(log.solver_line("Bx", diag["Bx"]))
+        if t.write_time():
+            write(state)
+    write(state)
+    log.info("End\n")
+    case.final_state = state
+
+
+def shallow_water_foam(case, max_steps: Optional[int] = None) -> None:
+    """shallowWaterFoam (shallowWater/shallowWaterFoam): solvers/
+    shallowwater.py. constant/gravitationalProperties (magg, rotating,
+    Omega), 0/h, 0/hU and the optional bed 0/h0; deltaT follows the
+    Courant number when the controlDict asks."""
+    from . import shallowwater as sw_mod
+
+    mesh = case.mesh
+    try:
+        gp = case.properties("gravitationalProperties")
+    except OSError:
+        gp = FoamDict()
+    magg = _dim_scalar_of(gp, "magg", 9.81)
+    rotating = str(gp.get("rotating", "no")) in ("yes", "true", "on")
+    om = gp.get("Omega")
+    omega = (0.0, 0.0, 0.0)
+    if isinstance(om, list):
+        v = np.asarray(om[-1] if isinstance(om[-1], (list, np.ndarray))
+                       else om, dtype=float).reshape(-1)[-3:]
+        omega = (float(v[0]), float(v[1]), float(v[2]))
+    h = case.read_field("h")
+    hU = case.read_field("hU")
+    try:
+        h0 = case.read_field("h0").data
+    except OSError:
+        h0 = mesh.v.new_zeros(mesh.n_cells)
+    pdict = case.pimple_controls("PIMPLE")
+    cfg = sw_mod.ShallowWaterConfig(
+        g=magg, rotating=rotating, omega=omega,
+        n_outer=int(pdict.get("nOuterCorrectors", 1)),
+        n_correctors=int(pdict.get("nCorrectors", 2)),
+        n_non_orth=int(pdict.get("nNonOrthogonalCorrectors", 0)),
+        div_scheme=case.div_scheme("div(phiv,hU)"),
+        h_controls=case.solver_controls("h"),
+        hu_controls=case.solver_controls("hU"),
+    )
+    state = sw_mod.initial_state(mesh, h, hU, h0)
+    step = sw_mod.make_step(mesh, cfg)
+    log.info(f"Starting loop: shallowWaterFoam, {mesh.n_cells} cells\n")
+    cumulative = 0.0
+    for t in case.time.loop():
+        state, diag = step(state, t.current_dt)
+        cumulative = _log_step(case, t, diag, cumulative)
+        t.adjust_delta_t(float(diag["courant_max"]))
+        if t.write_time():
+            case.write_fields([state["h"], state["hU"], state["U"]])
+        if max_steps is not None and t.index >= max_steps:
+            break
+    case.write_fields([state["h"], state["hU"], state["U"]])
+    log.info("End\n")
+    case.final_state = state
+
+
+def _traction(case, mesh, rho):
+    """Per patch (traction, pressure) / rho of the tractionDisplacement
+    patches of the raw 0/D boundaryField, None elsewhere (in the field's
+    precision, as the reference parses them)."""
+    from ..bc.factory import parse_value
+
+    raw = parse_file(os.path.join(case.dir, "0", "D"))
+    bf = raw.get("boundaryField", FoamDict())
+    out = []
+    for patch in mesh.patches:
+        spec = bf.get(patch.name) if isinstance(bf, FoamDict) else None
+        if (isinstance(spec, FoamDict)
+                and str(spec.get("type")) == "tractionDisplacement"):
+            tv = parse_value(spec.get("traction"), patch.size, 1,
+                             mesh.v.dtype)
+            pv = parse_value(spec.get("pressure"), patch.size, 0,
+                             mesh.v.dtype)
+            tv = np.zeros(3) if tv is None else tv.numpy().astype(float)
+            pv = 0.0 if pv is None else pv.numpy().astype(float)
+            out.append((tv / rho, pv / rho))
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+def _solid_run(case, steady: bool, max_steps: Optional[int]) -> None:
+    """solidDisplacementFoam / solidEquilibriumDisplacementFoam
+    (stressAnalysis/): solvers/soliddisplacement.py. The steady one stops
+    when the first D solve's initial residual falls below the
+    stressAnalysis dict's D tolerance. thermalStress yes raises."""
+    from . import soliddisplacement as sd_mod
+
+    mesh = case.mesh
+    mp = case.properties("mechanicalProperties")
+    rho = _dim_scalar_of(mp, "rho", 7854.0)
+    E = _dim_scalar_of(mp, "E", 2e11)
+    nu = _dim_scalar_of(mp, "nu", 0.3)
+    plane_stress = str(mp.get("planeStress", "no")) in _TRUE
+    try:
+        thp = case.properties("thermalProperties")
+    except OSError:
+        thp = FoamDict()
+    if str(thp.get("thermalStress", "no")) in ("yes", "true", "on"):
+        raise NotImplementedError(
+            "thermalStress coupling not implemented yet (as in the "
+            "reference)")
+    D = case.read_field("D")
+    sdict = case.pimple_controls("stressAnalysis")
+    cfg = sd_mod.SolidConfig(
+        rho=rho, E=E, nu=nu, plane_stress=plane_stress, steady=steady,
+        n_corr=max(int(sdict.get("nCorrectors", 1)), 1),
+        tolerance=float(sdict.get("D", 1e-6)),
+        d_controls=case.solver_controls("D"),
+        traction=_traction(case, mesh, rho))
+    state = sd_mod.initial_state(mesh, D, steady=steady)
+    step = sd_mod.make_step(mesh, cfg)
+    name = ("solidEquilibriumDisplacementFoam" if steady
+            else "solidDisplacementFoam")
+    log.info(f"Starting loop: {name}, {mesh.n_cells} cells\n")
+    t = case.time
+    max_iter = _fixed_steps(case, max_steps)
+    dt = 1.0 if steady else t.delta_t
+    while (t.index < max_iter and not t.stop_now
+           and t.value < t.end_time - 1e-12):
+        state, diag = step(state, dt)
+        t.index += 1
+        t.value = t.start_time + t.index * t.delta_t
+        t.current_dt = float(dt)
+        log.info(f"Time = {t.name}\n")
+        log.info(log.solver_line("Dx", diag["D"]))
+        if t.write_time():
+            case.write_fields([state["D"]])
+        res = float(torch.max(torch.as_tensor(
+            diag["D"].initial_residual)))
+        if steady and res < cfg.tolerance:
+            log.info(f"Converged in {t.index} iterations\n")
+            break
+    case.write_fields([state["D"]])
+    log.info("End\n")
+    case.final_state = state
+
+
+def solid_displacement_foam(case, max_steps: Optional[int] = None):
+    _solid_run(case, steady=False, max_steps=max_steps)
+
+
+def solid_equilibrium_displacement_foam(case,
+                                        max_steps: Optional[int] = None):
+    _solid_run(case, steady=True, max_steps=max_steps)
+
+
+def potential_free_surface_foam(case, max_steps: Optional[int] = None
+                                ) -> None:
+    """potentialFreeSurfaceFoam (multiphase/potentialFreeSurfaceFoam):
+    pisoFoam with the waveSurfacePressure free surface,
+    solvers/potentialfreesurface.py. The free-surface patch is the one
+    whose p_gh (or p) boundary type is waveSurfacePressure, else a patch
+    named freeSurface."""
+    from . import potentialfreesurface as pfs_mod
+
+    mesh = case.mesh
+    _, nu = dimensioned_scalar(case.transport_properties()["nu"])
+    pname = "p_gh" if os.path.exists(os.path.join(case.dir, "0",
+                                                  "p_gh")) else "p"
+    raw = parse_file(os.path.join(case.dir, "0", pname))
+    bf = raw.get("boundaryField", FoamDict())
+    fs_idx = None
+    for i, p in enumerate(mesh.patches):
+        ent = bf.get(p.name)
+        if (isinstance(ent, FoamDict)
+                and str(ent.get("type")) == "waveSurfacePressure"):
+            fs_idx = i
+            break
+    if fs_idx is None:
+        for i, p in enumerate(mesh.patches):
+            if p.name == "freeSurface":
+                fs_idx = i
+                break
+    if fs_idx is None:
+        raise ValueError("potentialFreeSurfaceFoam: no "
+                         "waveSurfacePressure patch found")
+    g = _read_gravity(case)
+    pdict = case.pimple_controls("PIMPLE")
+    flow = piso_mod.PisoConfig(
+        nu=nu,
+        n_correctors=int(pdict.get("nCorrectors", 2)),
+        n_non_orth=int(pdict.get("nNonOrthogonalCorrectors", 0)),
+        p_controls=case.solver_controls(pname))
+    cfg = pfs_mod.FreeSurfaceConfig(
+        flow=flow, fs_patch=fs_idx,
+        g_mag=float(np.linalg.norm(np.asarray(g))))
+    state = pfs_mod.initial_state(mesh, case.read_field("U"),
+                                  case.read_field(pname), cfg)
+    step = pfs_mod.make_step(mesh, cfg)
+    log.info("Starting loop: potentialFreeSurfaceFoam\n")
+    diag = None
+    for t in case.time.loop():
+        state, diag = step(state, t.current_dt)
+        log.info(f"Time = {t.name}\nzeta: min = "
+                 f"{float(diag['zeta_min']):.6g} max = "
+                 f"{float(diag['zeta_max']):.6g}\n")
+        if t.write_time():
+            case.write_fields([state["U"], state["p"]])
+        if max_steps is not None and t.index >= max_steps:
+            break
+    case.write_fields([state["U"], state["p"]])
+    case.final_state = {"state": state, "diag": diag}
+    log.info("End\n")
+
+
+def adjoint_shape_optimization_foam(case,
+                                    max_steps: Optional[int] = None
+                                    ) -> None:
+    """adjointShapeOptimizationFoam (incompressible/
+    adjointShapeOptimizationFoam): primal and adjoint SIMPLE with a
+    porosity design variable, solvers/adjoint.py. lambda and alphaMax
+    from constant/transportProperties; Ua and pa from the case, else zero
+    with default BCs; alpha held at zero in the cells next to the inlet
+    patches (a `patch` whose name holds "in")."""
+    from ..core.fields import vol_scalar, vol_vector
+    from . import adjoint as adj_mod
+
+    mesh = case.mesh
+    tp = case.transport_properties()
+    _, nu = dimensioned_scalar(tp["nu"])
+    relax = _relaxation(case)
+    flow = simple_mod.SimpleConfig(
+        nu=nu,
+        alpha_u=float(relax.get("U", 0.7)),
+        alpha_p=float(relax.get("p", 0.3)),
+        p_controls=case.solver_controls("p"),
+        u_controls=case.solver_controls("U"))
+    U = case.read_field("U")
+    p = case.read_field("p")
+    try:
+        Ua = case.read_field("Ua")
+        pa = case.read_field("pa")
+    except Exception:
+        Ua = vol_vector(mesh, (0.0, 0.0, 0.0), name="Ua")
+        pa = vol_scalar(mesh, 0.0, name="pa")
+    owner = mesh.owner.detach().cpu().numpy()
+    inlet_cells = [np.unique(owner[pt.slice]) for pt in mesh.patches
+                   if pt.type == "patch" and "in" in pt.name.lower()]
+    zc = (torch.as_tensor(np.concatenate(inlet_cells), dtype=torch.int64,
+                          device=mesh.device) if inlet_cells else None)
+    cfg = adj_mod.AdjointConfig(
+        flow=flow,
+        lam=_dim_scalar_of(tp, "lambda", 1e5),
+        alpha_max=_dim_scalar_of(tp, "alphaMax", 200.0),
+        zero_alpha_cells=zc)
+    state = adj_mod.initial_state(mesh, U, p, Ua, pa, cfg)
+    step = adj_mod.make_step(mesh, cfg)
+    log.info("Starting loop: adjointShapeOptimizationFoam\n")
+    diag = None
+    for t in case.time.loop():
+        state, diag = step(state)
+        log.info(f"Time = {t.name}\nobjective = "
+                 f"{float(diag['objective']):.6g}  alpha_max = "
+                 f"{float(diag['alpha_max_val']):.4g}\n")
+        if t.write_time():
+            alpha_f = vol_scalar(mesh, 0.0, name="alpha").with_data(
+                state["alpha"])
+            case.write_fields([state["U"], state["p"], state["Ua"],
+                               state["pa"], alpha_f])
+        if max_steps is not None and t.index >= max_steps:
+            break
+    case.final_state = {"state": state, "diag": diag}
+    log.info("End\n")
+
+
+def dns_forcing(mesh, seed: int = 1):
+    """dnsFoam's forcing: an Ornstein-Uhlenbeck process
+    (models/randomprocesses.UOProcess, alpha 0.81, sigma 0.09) on the 26
+    modes of the first wavenumber shell of the box, each projected
+    divergence-free, summed on the host into a body force [nC,3] per
+    step (forceGen = Kmesh + UOprocess). Returns dt -> force (numpy)."""
+    from ..models import randomprocesses as rp
+
+    c = mesh.c.detach().cpu().numpy()
+    lo, hi = c.min(axis=0), c.max(axis=0)
+    L = np.maximum(hi - lo, 1e-30)
+    k1 = 2 * np.pi / L
+    kvecs = np.asarray([[kx * k1[0], ky * k1[1], kz * k1[2]]
+                        for kx in (-1, 0, 1) for ky in (-1, 0, 1)
+                        for kz in (-1, 0, 1) if (kx, ky, kz) != (0, 0, 0)])
+    uo = rp.UOProcess(len(kvecs), alpha=0.81, sigma=0.09, seed=seed)
+    phase = c @ kvecs.T                       # [nC, nK]
+    cosk = np.cos(phase)
+    sink = np.sin(phase)
+    khat = kvecs / np.linalg.norm(kvecs, axis=1, keepdims=True)
+
+    def force(dt):
+        w = uo.update(dt)                     # [nK,3] complex
+        # each mode divergence-free: w -= (w.khat) khat
+        w = (w - khat * np.einsum("kd,kd->k", w.real, khat)[:, None]
+             - 1j * khat * np.einsum("kd,kd->k", w.imag, khat)[:, None])
+        return cosk @ w.real + sink @ w.imag  # [nC,3]
+
+    return force
+
+
+def dns_foam(case, max_steps: Optional[int] = None) -> None:
+    """dnsFoam (DNS/dnsFoam): isotropic box turbulence, icoFoam's PISO
+    step plus the host forcing of `dns_forcing`, added as U += dt f after
+    each step (explicit, as the reference adds the force). Logs the
+    kinetic energy k each step."""
+    mesh = case.mesh
+    _, nu = dimensioned_scalar(case.transport_properties()["nu"])
+    pdict = case.pimple_controls("PISO")
+    cfg = piso_mod.PisoConfig(
+        nu=nu,
+        n_correctors=int(pdict.get("nCorrectors", 2)),
+        n_non_orth=int(pdict.get("nNonOrthogonalCorrectors", 0)),
+        div_scheme=case.div_scheme("div(phi,U)"),
+        p_controls=case.solver_controls("p"),
+        u_controls=case.solver_controls("U"),
+    )
+    state = piso_mod.initial_state(mesh, case.read_field("U"),
+                                   case.read_field("p"), ddt_scheme="Euler")
+    step = piso_mod.make_step(mesh, cfg)
+    force = dns_forcing(mesh)
+    log.info(f"Starting time loop: dnsFoam, {mesh.n_cells} cells\n")
+    cumulative = 0.0
+    for t in case.time.loop():
+        dt = piso_mod._as_scalar(mesh, t.current_dt)
+        state, diag = step(state, dt)
+        f = _tensor(mesh, force(float(t.current_dt)))
+        state = dict(state)
+        state["U"] = state["U"].with_data(state["U"].data + dt * f)
+        cumulative = _log_step(case, t, diag, cumulative)
+        k_tke = 0.5 * float(torch.mean(torch.sum(state["U"].data ** 2,
+                                                 dim=1)))
+        log.info(f"k = {k_tke:.6g}\n")
+        if t.write_time():
+            _write_state(case, state)
+        if max_steps is not None and t.index >= max_steps:
+            break
+    _write_state(case, state)
+    log.info("End\n")
+    case.final_state = state
+
+
 APPLICATIONS = {
     "icoFoam": icofoam,
     "nonNewtonianIcoFoam": non_newtonian_icofoam,
@@ -1436,6 +2025,17 @@ APPLICATIONS = {
     "rhoCentralDyMFoam": rhocentral_dym_foam,
     "buoyantSimpleFoam": buoyant_simplefoam,
     "buoyantPimpleFoam": buoyant_pimplefoam,
+    # the single-equation applications
+    "electrostaticFoam": electrostatic_foam,
+    "magneticFoam": magnetic_foam,
+    "mhdFoam": mhd_foam,
+    "financialFoam": financial_foam,
+    "shallowWaterFoam": shallow_water_foam,
+    "solidDisplacementFoam": solid_displacement_foam,
+    "solidEquilibriumDisplacementFoam": solid_equilibrium_displacement_foam,
+    "potentialFreeSurfaceFoam": potential_free_surface_foam,
+    "adjointShapeOptimizationFoam": adjoint_shape_optimization_foam,
+    "dnsFoam": dns_foam,
 }
 
 

@@ -2,9 +2,13 @@
 openfoam-2.2.x_tpu/solvers/linear/__init__.py).
 
 Every matrix-vector product goes through the offset-stencil operator
-(ops/stencil.py), i.e. the CUDA kernel on the card. Vector equations
-solve as one multi-RHS system. The reference's explicit-halo, cyclicAMI
-and transposed-layout branches are outside the ported slice.
+(ops/stencil.py), i.e. the CUDA kernel on the card. A matrix with a
+cyclicAMI coupling (FvMatrix.ami_coef, on a mesh with AMI interfaces)
+adds its coupled term beside the kernel in every product: a gather of
+the interpolation entries and a scatter-add into their owner rows, as
+the reference computes it outside its Pallas kernel. Vector equations
+solve as one multi-RHS system. The reference's explicit-halo and
+transposed-layout branches are outside the ported slice.
 """
 
 from __future__ import annotations
@@ -52,7 +56,9 @@ def prepare_controls(mesh, mat, *controls_list):
             out.append(None)
             continue
         ctl2 = dict(ctl)
-        if str(ctl2.get("solver", "")) == "GAMG" and "_gamg" in ctl2:
+        if (str(ctl2.get("solver", "")) == "GAMG" and "_gamg" in ctl2
+                and mat.ami_coef is None):
+            # (an AMI-coupled matrix is solved by Krylov, see `solve`)
             if prep is None:
                 prep = ctl2["_gamg"].prepare(mesh, mat)
             ctl2["_prep"] = prep
@@ -64,6 +70,13 @@ def solve(mesh, mat, psi: Any, controls: Dict) -> Tuple[Any, SolverPerf]:
     """Solve mat*psi = source for the field data psi [nC,(3)]; returns
     (new_psi, perf)."""
     name = str(controls.get("solver", "PCG"))
+    if name == "GAMG" and mat.ami_coef is not None:
+        # the Galerkin coarsening does not carry the AMI interface:
+        # polynomial-preconditioned BiCGStab sees the whole coupled
+        # operator through its products, as in the reference
+        name = "PBiCGStab"
+        controls = dict(controls)
+        controls.setdefault("preconditioner", "polynomial")
     if name == "GAMG":
         from .gamg import solve_gamg
 
@@ -92,6 +105,16 @@ def solve(mesh, mat, psi: Any, controls: Dict) -> Tuple[Any, SolverPerf]:
     if st.fb_cells.shape[0]:
         row_off = row_off.index_add(0, st.fb_cells, st.fb_coeffs)
     apply_off = st.apply_off
+    ami_ce = mat.ami_entry_coeffs(mesh)
+    if ami_ce is not None:
+        rows, cells = mesh.ami_entry_row, mesh.ami_entry_cell
+
+        def apply_off(x):
+            contrib = (ami_ce[:, None] * x[cells] if x.ndim == 2
+                       else ami_ce * x[cells])
+            return st.apply_off(x).index_add(0, rows, contrib)
+
+        row_off = row_off.index_add(0, rows, ami_ce)
 
     if name == "smoothSolver":
         if mat.symmetric:
@@ -114,8 +137,12 @@ def solve(mesh, mat, psi: Any, controls: Dict) -> Tuple[Any, SolverPerf]:
     d = mat.diag_eff(mesh)        # [nC] or [nC,C]
     b = mat.source_eff(mesh)
 
-    def amul(x):
-        return st.matvec(d, x)
+    if ami_ce is not None:
+        def amul(x):
+            return d * x + apply_off(x)
+    else:
+        def amul(x):
+            return st.matvec(d, x)
 
     rs = d + (row_off if psi.ndim == 1 else row_off[:, None])
     return fn(amul, psi, b, d, row_sum=rs, amul_off=apply_off, **kw)

@@ -20,8 +20,9 @@ A step is eager torch, like piso.piso_step; a non-Newtonian viscosity
 (nu_fn) enters as in PISO (piso.add_viscous), and so do fvOptions and
 MRF zones (piso.add_sources before the relaxation, the relative phiHbyA
 before adjustPhi; fvOptions correct U after each outer iteration's
-correctors: MRFPimpleFoam, SRFPimpleFoam). Fan BCs are outside the
-ported slice and raise NotImplementedError (piso.check_supported).
+correctors: MRFPimpleFoam, SRFPimpleFoam). A fan pair's jump is
+re-evaluated from the current flux at the start of every outer
+iteration (fanDuct).
 """
 
 from __future__ import annotations
@@ -92,8 +93,15 @@ def pimple_step(mesh, state: Dict, dt: Any, cfg: PimpleConfig
     else:
         phi_slot = slot_mod.from_flat(mesh, phi)
 
+    # fan jump pairs re-evaluate their curve at the current flow rate
+    # before the pressure assembly sees the BCs (fan updateCoeffs)
+    has_fan = any(bc.kind == "fan" for bc in p.bcs)
+
     for outer in range(cfg.n_outer):
         final_outer = outer == cfg.n_outer - 1
+        if has_fan:
+            p = p.correct_boundary_conditions(
+                mesh, phi=slot_mod.to_flat(mesh, phi_slot))
 
         # -- momentum predictor (rebuilt each outer iteration) -------------
         w_slot = (None if cfg.div_scheme == "linear" else

@@ -117,10 +117,6 @@ def check_supported(mesh, state: Dict, cfg) -> None:
         no("corrected=True on a non-orthogonal mesh")
     if "mom_src" in state:
         no("a lagrangian momentum source (state['mom_src'])")
-    for field in (state["U"], state["p"]):
-        for bc in field.bcs:
-            if bc.kind == "fan":
-                no("the fan boundary condition")
 
 
 def needs_reference(p: VolField, mesh) -> bool:
@@ -203,6 +199,11 @@ def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
         phi_slot = slot_mod.SlotFace(*state["phi_slot"], bv=phi[nif:])
     else:
         phi_slot = slot_mod.from_flat(mesh, phi)
+
+    # fan jump pairs re-evaluate their curve at the current flow rate
+    # (fan updateCoeffs); nothing happens without fan BCs
+    if any(bc.kind == "fan" for bc in p.bcs):
+        p = p.correct_boundary_conditions(mesh, phi=phi)
 
     # -- momentum equation (laminar diffusion or turbulence divDevReff) ----
     w_slot = (None if cfg.div_scheme == "linear" else

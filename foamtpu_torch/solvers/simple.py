@@ -11,8 +11,8 @@ program; here an iteration is eager torch and a chunk is a plain loop.
 fvOptions (porousSimpleFoam's porous zones among them) enter the momentum
 equation and correct U after the corrector, MRF zones add their Coriolis
 term before the relaxation and make phiHbyA relative before adjustPhi
-(MRFSimpleFoam, SRFSimpleFoam). The adjoint porosity sink is outside the
-ported slice and raises NotImplementedError.
+(MRFSimpleFoam, SRFSimpleFoam). adjointShapeOptimizationFoam's porosity
+design variable (state['alpha_sink']) adds fvm::Sp(alpha, U) there too.
 """
 
 from __future__ import annotations
@@ -72,17 +72,8 @@ def adjust_phi(mesh, phi_b: Any, U: VolField) -> Any:
     return torch.where((phi_b > 0) & (adj > 0), phi_b * scale, phi_b)
 
 
-def check_supported(state: Dict, cfg: SimpleConfig) -> None:
-    """Raise NotImplementedError for any feature outside the slice."""
-    if "alpha_sink" in state:
-        raise NotImplementedError(
-            "the adjoint porosity sink (state['alpha_sink']) is not "
-            "ported to foamtpu_torch yet")
-
-
 def simple_step(mesh, state: Dict, cfg: SimpleConfig) -> Tuple[Dict, Dict]:
     """One SIMPLE outer iteration."""
-    check_supported(state, cfg)
     p_ctrl = cfg.p_controls or {"solver": "PCG", "tolerance": 1e-6,
                                 "relTol": 0.01}
     u_ctrl = cfg.u_controls or {"solver": "smoothSolver", "tolerance": 1e-5,
@@ -118,6 +109,10 @@ def simple_step(mesh, state: Dict, cfg: SimpleConfig) -> Tuple[Dict, Dict]:
     # fvOptions and the Coriolis term before relax, so that the H/A split
     # sees them
     UEqn = add_sources(mesh, UEqn, U, state.get("fvopt"), cfg)
+    if "alpha_sink" in state:
+        # the adjoint porosity design variable (its UEqn.H's
+        # `fvm::Sp(alpha, U)`)
+        UEqn = UEqn + fvm.Sp(mesh, state["alpha_sink"], U)
     UEqn = UEqn.relax(mesh, cfg.alpha_u, U.data)
     grad_p = fvc.grad_of(mesh, p, cfg.grad_scheme)
     Umat = UEqn.add_source(-grad_p, mesh)

@@ -129,11 +129,11 @@ from foamtpu_torch.models import transport as ttr
 
 jm = jto_device(jblockmesh.generate(
     jparse(CAVITY_BLOCKMESH.replace("{n}", "16"))))
-tm = mesh_from_numpy(jm)
+tm = mesh_from_numpy(jm, device="cpu")
 rng = np.random.default_rng(3)
 u = rng.standard_normal((jm.n_cells, 3)) * [1.0, 1.0, 0.0]
 jU = jvv(jm, jnp.zeros(3)).with_data(jnp.asarray(u))
-tU = field_from_numpy(jU)
+tU = field_from_numpy(jU, device="cpu")
 
 
 def rel(g, r):

@@ -133,7 +133,7 @@ def _matrix_pair(jm, tm, field, kind):
     jeq = jfvm.ddt(jm, field, field.data, 10.0)
     if kind == "T":
         jeq = jeq - jfvm.laplacian(jm, 0.3, field, gamma_dims=dimViscosity)
-    return jeq, matrix_from_numpy(jeq)
+    return jeq, matrix_from_numpy(jeq, device="cpu")
 
 
 def _matrix_errs(teq, jeq):
@@ -161,14 +161,15 @@ def kinds_parity():
     from test_fvoptions import T_bcs, _channel
 
     jm, jU, _ = _channel()
-    tm = mesh_from_numpy(jm)
+    tm = mesh_from_numpy(jm, device="cpu")
     rng = np.random.default_rng(7)
     n = jm.n_cells
     jU = jU.with_data(jnp.asarray(rng.standard_normal((n, 3))
                                   * [1.0, 0.5, 0.0] + [1.0, 0.0, 0.0]))
     jT = jvs(jm, 300.0, name="T", bcs=T_bcs(jm)).with_data(
         jnp.asarray(300.0 + 40.0 * rng.standard_normal(n)))
-    tU, tT = field_from_numpy(jU), field_from_numpy(jT)
+    tU = field_from_numpy(jU, device="cpu")
+    tT = field_from_numpy(jT, device="cpu")
     rho = rng.uniform(1.0, 1000.0, n)
     mu = rng.uniform(1e-5, 1e-3, n)
     jd, td = jparse(KINDS), tparse(KINDS)
@@ -235,7 +236,7 @@ def mean_velocity_piso():
         meanVelocityForceCoeffs { selectionMode all; fieldNames (U);
                                   Ubar (1 0 0); } }"""
     jm, jU, jp = _channel()
-    tm = mesh_from_numpy(jm)
+    tm = mesh_from_numpy(jm, device="cpu")
     # a seeded disturbance, so that p and Uy are flow and not round-off
     # (on the uniform start both stay at 1e-15 and their solves' counts
     # are decided by round-off)
@@ -254,7 +255,8 @@ def mean_velocity_piso():
                             u_controls=uctl)
     js = jpiso.initial_state(jm, jU, jp, project=False)
     js["fvopt"] = jo.init_state(jm)
-    ts = tpiso.initial_state(tm, field_from_numpy(jU), field_from_numpy(jp),
+    ts = tpiso.initial_state(tm, field_from_numpy(jU, device="cpu"),
+                             field_from_numpy(jp, device="cpu"),
                              project=False)
     ts["fvopt"] = to.init_state(tm)
     jstep = jax.jit(lambda s, d_: jpiso.piso_step(jm, s, d_, jcfg))
@@ -305,9 +307,9 @@ boundary ( walls { type wall; faces ((2 6 5 1) (0 4 7 3) (1 5 4 0)
       coordinateSystem { coordinateRotation {
         e1 (0.7071067811865476 0.7071067811865476 0); e3 (0 0 1); } } } } }"""
     jm = jto(jbm.generate(jparse(box4)))
-    tm = mesh_from_numpy(jm)
+    tm = mesh_from_numpy(jm, device="cpu")
     jU = jvv(jm, (1.0, 0.0, 0.0), name="U")
-    tU = field_from_numpy(jU)
+    tU = field_from_numpy(jU, device="cpu")
     dims = DimensionSet.of(0, 4, -2)
     jeq = jfvo.from_dict(jm, jparse(spec), nu=1.0).add_to(
         jm, jzero(jm, 3, dims=dims), "U", jU, U=jU)
@@ -321,14 +323,14 @@ boundary ( walls { type wall; faces ((2 6 5 1) (0 4 7 3) (1 5 4 0)
                     "src_per_v": (teq.source[0] / v0).tolist()}
 
     jm = R._mesh_U()[0]
-    tm = mesh_from_numpy(jm)
+    tm = mesh_from_numpy(jm, device="cpu")
     rng = np.random.default_rng(11)
     n = jm.n_cells
     # |U| up to ~3x the tip speed: inflow angles on both sides of the
     # table's ends
     u = rng.standard_normal((n, 3)) * [40.0, 40.0, 60.0]
     jU = jvv(jm, jnp.zeros(3), name="U").with_data(jnp.asarray(u))
-    tU = field_from_numpy(jU)
+    tU = field_from_numpy(jU, device="cpu")
     rot = {}
     for tag, over in (("default", {}), ("table3", {"rhoRef": 1000.0}),
                       ("rhoRef", {"rhoRef": 1000.0})):

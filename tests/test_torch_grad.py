@@ -137,10 +137,10 @@ meshes = {
     "tet": jto_device(tet_box(4, 3, 3)),
 }
 for mname, jm in meshes.items():
-    tm = mesh_from_numpy(jm)
+    tm = mesh_from_numpy(jm, device="cpu")
     rng = np.random.default_rng(7)
     for fname, jf in zip(("scalar", "vector"), fields(jm, rng)):
-        tf = field_from_numpy(jf)
+        tf = field_from_numpy(jf, device="cpu")
         key = f"{mname}/{fname}"
         ref = ref_grads(jm, jf)
         out[f"{key}/leastSquares"] = rel(tfvc.grad_least_squares(tm, tf),
@@ -155,11 +155,11 @@ for mname, jm in meshes.items():
                                             ref[f"grad_of {s}"])
 
 jm = meshes["cavity16"]
-tm = mesh_from_numpy(jm)
+tm = mesh_from_numpy(jm, device="cpu")
 for kind in KINDS:
     rng = np.random.default_rng(11)
     for fname, jf in zip(("scalar", "vector"), fields(jm, rng, kind)):
-        tf = field_from_numpy(jf)
+        tf = field_from_numpy(jf, device="cpu")
         got = []
         for p, tbc in zip(tm.patches, tf.bcs):
             if tbc.kind == kind:

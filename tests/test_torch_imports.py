@@ -53,7 +53,16 @@ def test_no_source_imports_jax_or_the_reference():
             "foamtpu_torch/models/turbulence/compressible.py",
             "foamtpu_torch/solvers/rhopimple.py",
             "foamtpu_torch/solvers/rhocentral.py",
-            "foamtpu_torch/solvers/buoyantrho.py"} <= sources
+            "foamtpu_torch/solvers/buoyantrho.py",
+            "foamtpu_torch/solvers/mhd.py",
+            "foamtpu_torch/solvers/shallowwater.py",
+            "foamtpu_torch/solvers/soliddisplacement.py",
+            "foamtpu_torch/solvers/potentialfreesurface.py",
+            "foamtpu_torch/solvers/adjoint.py",
+            "foamtpu_torch/models/randomprocesses.py",
+            "foamtpu_torch/mesh/ami.py",
+            "foamtpu_torch/apps/meshutils.py",
+            "foamtpu_torch/apps/meshutils3.py"} <= sources
     # the pattern does catch the imports it is there for
     assert IMPORT.search("import jax.numpy as jnp")
     assert IMPORT.search("    from foamtpu.ops import fvc")
@@ -66,7 +75,8 @@ import foamtpu_torch
 names = [m.name for m in pkgutil.walk_packages(foamtpu_torch.__path__,
                                                "foamtpu_torch.")]
 # the rotating-frame and porous slice's modules, the turbulence slice's,
-# the moving-mesh slice's and the compressible slice's are among them
+# the moving-mesh slice's, the compressible slice's and the
+# single-equation slice's are among them
 assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf",
         "foamtpu_torch.models.turbulence.les",
         "foamtpu_torch.models.turbulence.les2",
@@ -77,7 +87,14 @@ assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf",
         "foamtpu_torch.utils.tnp", "foamtpu_torch.models.thermo",
         "foamtpu_torch.models.turbulence.compressible",
         "foamtpu_torch.solvers.rhopimple", "foamtpu_torch.solvers.rhocentral",
-        "foamtpu_torch.solvers.buoyantrho"} <= set(names), names
+        "foamtpu_torch.solvers.buoyantrho", "foamtpu_torch.solvers.mhd",
+        "foamtpu_torch.solvers.shallowwater",
+        "foamtpu_torch.solvers.soliddisplacement",
+        "foamtpu_torch.solvers.potentialfreesurface",
+        "foamtpu_torch.solvers.adjoint",
+        "foamtpu_torch.models.randomprocesses", "foamtpu_torch.mesh.ami",
+        "foamtpu_torch.apps.meshutils",
+        "foamtpu_torch.apps.meshutils3"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -93,3 +110,29 @@ def test_every_port_module_imports_without_jax():
     r = subprocess.run([sys.executable, "-c", BODY], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr[-2000:]
+
+
+def test_entry_points_default_to_the_card():
+    """Every function that builds port objects from outside data takes
+    `device` defaulting to DEFAULT_DEVICE ("cuda"): convert.py's helpers
+    (the JAX package's arrays), Case, to_device and make_cavity; boxTurb
+    and setFields take `-device`, defaulting to the same."""
+    import inspect
+
+    from foamtpu_torch import convert
+    from foamtpu_torch.apps import cases, cli
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.core.precision import DEFAULT_DEVICE
+    from foamtpu_torch.mesh import to_device
+
+    assert DEFAULT_DEVICE == "cuda"
+    fns = [getattr(convert, n) for n in (
+        "tensor", "mesh_from_numpy", "levels_from_numpy", "field_from_numpy",
+        "matrix_from_numpy", "state_from_numpy")]
+    fns += [Case.__init__, to_device, cases.make_cavity]
+    for fn in fns:
+        dev = inspect.signature(fn).parameters["device"].default
+        assert dev == DEFAULT_DEVICE, fn.__qualname__
+    for cmd in (cli.box_turb, cli.set_fields):
+        src = inspect.getsource(cmd)
+        assert "args.device or DEFAULT_DEVICE" in src, cmd.__name__

@@ -114,7 +114,7 @@ def jax_meshes():
 @pytest.fixture(scope="module")
 def meshes():
     jm = jax_meshes()
-    return {k: (m, mesh_from_numpy(m)) for k, m in jm.items()}
+    return {k: (m, mesh_from_numpy(m, device="cpu")) for k, m in jm.items()}
 
 
 @pytest.mark.parametrize("which", ["dam24", "tet433"])
@@ -127,7 +127,8 @@ def test_mules_f32_matches_reference(meshes, which):
                        for x in mules_inputs(jm, 7))
     jl = jmules.limiter(jm, jnp.asarray(a), jnp.asarray(bd),
                         jnp.asarray(corr), jnp.asarray(dt))
-    tl = tmules.limiter(tm, tensor(a), tensor(bd), tensor(corr),
+    tl = tmules.limiter(tm, tensor(a, device="cpu"), tensor(bd, device="cpu"),
+                        tensor(corr, device="cpu"),
                         torch.tensor(dt))
     assert float(tl.min()) >= 0.0 and float(tl.max()) <= 1.0
     assert 0.0 < float(tl.mean()) < 1.0          # the limiter is at work
@@ -135,7 +136,9 @@ def test_mules_f32_matches_reference(meshes, which):
                                atol=1e-6)
     jn, jf = jmules.explicit_solve(jm, jnp.asarray(a), jnp.asarray(bd),
                                    jnp.asarray(corr), jnp.asarray(dt))
-    tn, tf = tmules.explicit_solve(tm, tensor(a), tensor(bd), tensor(corr),
+    tn, tf = tmules.explicit_solve(tm, tensor(a, device="cpu"),
+                                   tensor(bd, device="cpu"),
+                                   tensor(corr, device="cpu"),
                                    torch.tensor(dt))
     for got, ref in ((tn, jn), (tf, jf)):
         ref = np.asarray(ref)
@@ -183,9 +186,12 @@ def test_written_fields_are_read_back_by_both_packages(tmp_path, fmt):
     rng = np.random.default_rng(2)
     n = case.mesh.n_cells
     fields = [
-        case.read_field("U").with_data(tensor(rng.standard_normal((n, 3)))),
-        case.read_field("p_rgh").with_data(tensor(rng.standard_normal(n))),
-        case.read_field("alpha1").with_data(tensor(rng.random(n))),
+        case.read_field("U").with_data(tensor(rng.standard_normal((n, 3)),
+                                              device="cpu")),
+        case.read_field("p_rgh").with_data(tensor(rng.standard_normal(n),
+                                                  device="cpu")),
+        case.read_field("alpha1").with_data(tensor(rng.random(n),
+                                                   device="cpu")),
     ]
     case.write_fields(fields, "0.25")
     assert case.time._written == ["0.25"]
@@ -359,7 +365,7 @@ def err(got, ref, rtol):
 
 
 jms = jax_meshes()
-tms = {k: mesh_from_numpy(m) for k, m in jms.items()}
+tms = {k: mesh_from_numpy(m, device="cpu") for k, m in jms.items()}
 
 # -- MULES -------------------------------------------------------------------
 for which, jm in jms.items():
@@ -367,11 +373,13 @@ for which, jm in jms.items():
     a, bd, corr, dt = mules_inputs(jm, 7)
     jl = jmules.limiter(jm, jnp.asarray(a), jnp.asarray(bd),
                         jnp.asarray(corr), jnp.asarray(dt))
-    tl = tmules.limiter(tm, tensor(a), tensor(bd), tensor(corr), dt)
+    tl = tmules.limiter(tm, tensor(a, device="cpu"), tensor(bd, device="cpu"),
+                        tensor(corr, device="cpu"), dt)
     jn, jf = jmules.explicit_solve(jm, jnp.asarray(a), jnp.asarray(bd),
                                    jnp.asarray(corr), jnp.asarray(dt))
-    tn, tf = tmules.explicit_solve(tm, tensor(a), tensor(bd), tensor(corr),
-                                   dt)
+    tn, tf = tmules.explicit_solve(tm, tensor(a, device="cpu"),
+                                   tensor(bd, device="cpu"),
+                                   tensor(corr, device="cpu"), dt)
     out["mules_" + which] = {
         "lambda": err(tl, jl, 1e-12), "psi": err(tn, jn, 1e-12),
         "phi_psi": err(tf, jf, 1e-12),
@@ -419,8 +427,8 @@ def fields(jm, seed):
 for which, jm in jms.items():
     tm = tms[which]
     U, p, al, phi, rng = fields(jm, 11)
-    tU, tp, tal = (field_from_numpy(f) for f in (U, p, al))
-    jphi, tphi = jnp.asarray(phi), tensor(phi)
+    tU, tp, tal = (field_from_numpy(f, device="cpu") for f in (U, p, al))
+    jphi, tphi = jnp.asarray(phi), tensor(phi, device="cpu")
     fv = rng.standard_normal(jm.n_faces)
     fvv = rng.standard_normal((jm.n_faces, 3))
     gam = 1.0 + rng.random(jm.n_faces)
@@ -438,10 +446,10 @@ for which, jm in jms.items():
         jiface.compression_flux(jm, jphi, al, 1.0), 1e-12)
     # ops/fvc.py
     res["surface_integrate"] = err(
-        tfvc.surface_integrate(tm, tensor(fv)),
+        tfvc.surface_integrate(tm, tensor(fv, device="cpu")),
         jfvc.surface_integrate(jm, jnp.asarray(fv)), 1e-12)
     res["surface_integrate_vec"] = err(
-        tfvc.surface_integrate(tm, tensor(fvv)),
+        tfvc.surface_integrate(tm, tensor(fvv, device="cpu")),
         jfvc.surface_integrate(jm, jnp.asarray(fvv)), 1e-12)
     res["div_surface"] = err(tfvc.div_surface(tm, tphi),
                              jfvc.div_surface(jm, jphi), 1e-12)
@@ -458,12 +466,13 @@ for which, jm in jms.items():
             tfvc.sn_grad(tm, tU, corrected=corrected),
             jfvc.sn_grad(jm, U, corrected=corrected), 1e-12)
         res["laplacian" + tag] = err(
-            tfvc.laplacian(tm, tensor(gam), tp, corrected=corrected),
+            tfvc.laplacian(tm, tensor(gam, device="cpu"), tp,
+                           corrected=corrected),
             jfvc.laplacian(jm, jnp.asarray(gam), p, corrected=corrected),
             1e-12)
-    res["average"] = err(tfvc.average(tm, tensor(fv)),
+    res["average"] = err(tfvc.average(tm, tensor(fv, device="cpu")),
                          jfvc.average(jm, jnp.asarray(fv)), 1e-12)
-    res["average_vec"] = err(tfvc.average(tm, tensor(fvv)),
+    res["average_vec"] = err(tfvc.average(tm, tensor(fvv, device="cpu")),
                              jfvc.average(jm, jnp.asarray(fvv)), 1e-12)
     res["reconstruct"] = err(tfvc.reconstruct(tm, tphi),
                              jfvc.reconstruct(jm, jphi), 1e-12)
@@ -482,7 +491,7 @@ for which, jm in jms.items():
     jp2 = p.correct_boundary_conditions(jm, phi=jphi, U=U.data,
                                         rho_b=jnp.asarray(rho))
     tp2 = tp.correct_boundary_conditions(tm, phi=tphi, U=tU.data,
-                                         rho_b=tensor(rho))
+                                         rho_b=tensor(rho, device="cpu"))
     jU2 = U.correct_boundary_conditions(jm, phi=jphi)
     tU2 = tU.correct_boundary_conditions(tm, phi=tphi)
     bc = {}
@@ -523,7 +532,7 @@ p = p.with_data(jnp.zeros_like(p.data))
 
 def run(cfg, n):
     jst = jinter.initial_state(jm, U, p, al, cfg)
-    tst = state_from_numpy(jst)
+    tst = state_from_numpy(jst, device="cpu")
     tcfg = config_from_reference(tinter.InterConfig, cfg)
 
     @jax.jit

@@ -86,7 +86,7 @@ def test_blend_functions():
     signs, spanning the near-wall and free-stream branches."""
     pm = jtet_box(6, 3, 3)
     jm = jto_device(pm)
-    tm = mesh_from_numpy(jm)
+    tm = mesh_from_numpy(jm, device="cpu")
     ref = jselect(_props(), NU)
     ref.init_wall_distance(pm, np.float32)
     model = tbase.select(tparse("RASModel kOmegaSST;"), NU)
@@ -117,7 +117,7 @@ def test_omega_wall_function_parses_like_reference():
                                   np.asarray(ref.ref_value))
     assert float(got.vfrac) == float(ref.vfrac)
     # a flux-free face: the wall value is the cell value
-    omega = field_from_numpy(_omega_field(jm))
+    omega = field_from_numpy(_omega_field(jm), device="cpu")
     vals = tras.pf.evaluate(omega.bcs[2], tm, patch, omega.data)
     cells = tm.owner[patch.slice].numpy()
     np.testing.assert_array_equal(vals.numpy(), omega.data.numpy()[cells])
@@ -256,7 +256,7 @@ out = {}
 
 # -- one KOmegaSST.correct from a seeded state on tet_box(6,3,3) ----------
 jm, jcfg, jst = jax_duct(6, 3, 3)
-tm = mesh_from_numpy(jm)
+tm = mesh_from_numpy(jm, device="cpu")
 rng = np.random.default_rng(3)
 n = jm.n_cells
 turb = dict(jst["turb"])
@@ -268,7 +268,7 @@ Ud = 1.0 + 0.3 * rng.standard_normal((n, 3))
 jst = dict(jst, turb=turb, U=jst["U"].with_data(jnp.asarray(Ud)))
 phi = rng.standard_normal(jm.n_faces) * 1e-3 * np.asarray(jm.face_active)
 jst["phi"] = jnp.asarray(phi)
-tst = state_from_numpy(jst)
+tst = state_from_numpy(jst, device="cpu")
 jmodel = jcfg.turb
 tmodel = tbase.select(tparse("RASModel kOmegaSST;"), NU)
 tmodel.init_wall_distance(tet_box(6, 3, 3, size=(4.0, 1.0, 1.0)),

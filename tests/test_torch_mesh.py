@@ -86,7 +86,7 @@ def test_fvmesh_arrays_equal_reference(kind):
 
 def test_mesh_from_numpy_roundtrip():
     ref = _ref_mesh(20)
-    got = mesh_from_numpy(ref)
+    got = mesh_from_numpy(ref, device="cpu")
     for name in ARRAY_FIELDS:
         _same(getattr(got, name), getattr(ref, name), name)
     assert got.st_deltas == tuple(ref.st_deltas)
@@ -124,4 +124,4 @@ def test_gamg_levels_equal_reference(monkeypatch):
     assert len(ref) == 4
     assert all(lv.plane_ok for lv in got)
     _compare_levels(got, ref)
-    _compare_levels(levels_from_numpy(ref), ref)
+    _compare_levels(levels_from_numpy(ref, device="cpu"), ref)

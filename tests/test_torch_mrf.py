@@ -124,19 +124,20 @@ def zone_units():
     from test_mrf import _annulus_dict, _couette_bcs
 
     jm = jto(jbm.generate(_annulus_dict()))
-    tm = mesh_from_numpy(jm)
+    tm = mesh_from_numpy(jm, device="cpu")
     rng = np.random.default_rng(3)
     n, nf = jm.n_cells, jm.n_faces
     ub, pb = _couette_bcs(jm, jnp.asarray([0.3, -0.2, 0.0]))
     jU = jvv(jm, jnp.zeros(3), name="U", dims=dimVelocity, bcs=ub).with_data(
         jnp.asarray(rng.standard_normal((n, 3)) * [1.0, 1.0, 0.0]))
     jp = jvs(jm, 0.0, name="p", bcs=pb)
-    tU, tp = field_from_numpy(jU), field_from_numpy(jp)
+    tU = field_from_numpy(jU, device="cpu")
+    tp = field_from_numpy(jp, device="cpu")
     phi = rng.standard_normal(nf)
     rho = rng.uniform(1.0, 1000.0, n)
     rho_f = rng.uniform(1.0, 1000.0, nf)
     jeq = jfvm.div(jm, jnp.asarray(phi), jU)
-    teq = matrix_from_numpy(jeq)
+    teq = matrix_from_numpy(jeq, device="cpu")
     out = {}
     for name, text in ZONES.items():
         jz = jmrf.from_dict(jm, jparse(text))
@@ -149,9 +150,9 @@ def zone_units():
                                 list(tz.zones[0].patch_rotating)],
              "face_corr": _rel(tz.zones[0].face_corr, jz.zones[0].face_corr)}
         jsl, tsl = jslot.from_flat(jm, jnp.asarray(phi)), tslot.from_flat(
-            tm, tensor(phi))
+            tm, tensor(phi, device="cpu"))
         jrs, trs = (jslot.from_flat(jm, jnp.asarray(rho_f)),
-                    tslot.from_flat(tm, tensor(rho_f)))
+                    tslot.from_flat(tm, tensor(rho_f, device="cpu")))
         for tag, jo, to in (
                 ("relative", jz.make_relative(jm, jsl),
                  tz.make_relative(tm, tsl)),
@@ -163,16 +164,17 @@ def zone_units():
                  tz.make_absolute(tm, tsl, trs))):
             r[tag] = max(_rel(getattr(to, k), getattr(jo, k))
                          for k in ("sv", "fb", "bv"))
-        r["relative_flat"] = _rel(tz.make_relative_flat(tm, tensor(phi)),
-                                  jz.make_relative_flat(jm, jnp.asarray(phi)))
+        r["relative_flat"] = _rel(
+            tz.make_relative_flat(tm, tensor(phi, device="cpu")),
+            jz.make_relative_flat(jm, jnp.asarray(phi)))
         nif = jm.n_internal_faces
         r["relative_flux_b"] = _rel(
-            tz.relative_flux_b(tm, tensor(phi[nif:])),
+            tz.relative_flux_b(tm, tensor(phi[nif:], device="cpu")),
             jz.relative_flux_b(jm, jnp.asarray(phi[nif:])))
         r["coriolis"] = _rel(tz.add_coriolis(tm, teq, tU).source,
                              jz.add_coriolis(jm, jeq, jU).source)
         r["coriolis_rho"] = _rel(
-            tz.add_coriolis(tm, teq, tU, rho=tensor(rho)).source,
+            tz.add_coriolis(tm, teq, tU, rho=tensor(rho, device="cpu")).source,
             jz.add_coriolis(jm, jeq, jU, rho=jnp.asarray(rho)).source)
         jU2, tU2 = (jz.correct_boundary_velocity(jm, jU),
                     tz.correct_boundary_velocity(tm, tU))

@@ -50,7 +50,7 @@ def _jmesh(kind):
 def case(request):
     """(jmesh, tmesh, jfields, tfields, rng arrays) on one mesh."""
     jm = _jmesh(request.param)
-    tm = mesh_from_numpy(jm)
+    tm = mesh_from_numpy(jm, device="cpu")
     rng = np.random.default_rng(7)
     nC = jm.n_cells
     ubcs, pbcs = [], []
@@ -73,7 +73,8 @@ def case(request):
         bvec=rng.standard_normal((jm.n_faces - jm.n_internal_faces, 3))
         .astype(np.float32),
     )
-    return jm, tm, (jU, jp), (field_from_numpy(jU), field_from_numpy(jp)), \
+    return jm, tm, (jU, jp), (field_from_numpy(jU, device="cpu"),
+                              field_from_numpy(jp, device="cpu")), \
         extra
 
 
@@ -265,3 +266,66 @@ def test_matrix_ops(case):
                   "set_reference")
     _close_matrix(tP - tP.set_reference(0, 1.0),
                   jP - jP.set_reference(0, 1.0), "sub")
+
+
+def test_fixed_gradient_and_mixed_bcs(case):
+    """The fixedGradient and mixed kinds (and the reference's aliases
+    tractionDisplacement -> fixedGradient, waveSurfacePressure -> mixed)
+    from boundaryField entries, their value and gradient coefficients,
+    face values, and the laplacian and convection matrices they give, on
+    random per-face data; a kind outside the port still raises."""
+    from foamtpu.bc import factory as jfactory
+    from foamtpu_torch.bc import factory as tfactory
+    from foamtpu_torch.bc import patchfields as tpf
+    from foamtpu_torch.core.dictionary import parse_string as tparse
+
+    jm, tm, (jU, jp), (tU, tp), ex = case
+    rng = np.random.default_rng(11)
+    walls = [i for i, p in enumerate(jm.patches) if p.type != "empty"]
+    specs = {}
+    for n, i in enumerate(walls):
+        size = jm.patches[i].size
+        vals = " ".join(repr(float(x)) for x in rng.standard_normal(size))
+        fracs = " ".join(repr(float(x)) for x in rng.random(size))
+        specs[i] = [
+            f"type fixedGradient; gradient nonuniform List<scalar> {size} "
+            f"({vals});",
+            f"type mixed; refValue uniform 0.7; refGradient nonuniform "
+            f"List<scalar> {size} ({vals}); valueFraction nonuniform "
+            f"List<scalar> {size} ({fracs});",
+            "type tractionDisplacement; gradient uniform 0.3; traction "
+            "uniform (1 0 0); pressure uniform 0;",
+            "type waveSurfacePressure; value uniform 0;"][n % 4]
+    jb, tb = list(jp.bcs), list(tp.bcs)
+    for i, text in specs.items():
+        j = jfactory.from_dict(jparse(text), jm.patches[i], 0, np.float32)
+        t = tfactory.from_dict(tparse(text), tm.patches[i], 0,
+                               torch.float32)
+        assert t.kind == j.kind and t.kind in ("fixedGradient", "mixed")
+        for key in ("ref_value", "ref_grad", "vfrac"):
+            close(torch.as_tensor(getattr(t, key)), getattr(j, key),
+                  f"{t.kind}.{key}")
+        jb[i], tb[i] = j, t
+    jf = jp.replace(bcs=jpf.normalize_bcs(jm, tuple(jb), 0))
+    tf = tp.replace(bcs=tpf.normalize_bcs(tm, tuple(tb), 0))
+    for i in walls:
+        jpatch, tpatch = jm.patches[i], tm.patches[i]
+        close(tpf.value_coeffs(tf.bcs[i], tm, tpatch, tf.data),
+              jpf.value_coeffs(jf.bcs[i], jm, jpatch, jf.data), "value")
+        close(tpf.grad_coeffs(tf.bcs[i], tm, tpatch, tf.data),
+              jpf.grad_coeffs(jf.bcs[i], jm, jpatch, jf.data), "grad")
+        close(tpf.evaluate(tf.bcs[i], tm, tpatch, tf.data),
+              jpf.evaluate(jf.bcs[i], jm, jpatch, jf.data), "evaluate")
+    g_j, g_t = jnp.asarray(ex["gamma"]), _t(ex["gamma"])
+    _close_matrix(
+        fvm.laplacian(tm, g_t, tf, corrected=False, gamma_dims=tdims.dimTime,
+                      gamma_slot=slot.from_flat(tm, g_t)),
+        jfvm.laplacian(jm, g_j, jf, corrected=False, gamma_dims=dimTime,
+                       gamma_slot=jslot.from_flat(jm, g_j)), "laplacian")
+    phi_j, phi_t = jnp.asarray(ex["phi"]), _t(ex["phi"])
+    _close_matrix(fvm.div(tm, phi_t, tf, phi_slot=slot.from_flat(tm, phi_t)),
+                  jfvm.div(jm, phi_j, jf, phi_slot=jslot.from_flat(jm, phi_j)),
+                  "div")
+    with pytest.raises(NotImplementedError, match="fixedMean"):
+        tfactory.from_dict(tparse("type fixedMean; meanValue 1;"),
+                           tm.patches[walls[0]], 0, torch.float32)

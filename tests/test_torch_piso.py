@@ -128,9 +128,10 @@ CTL = {"solver": "GAMG", "tolerance": 1e-8, "relTol": 0.0, "maxIter": 200}
 jm, jst, jcfg = jmake_cavity(N, p_solver=CTL)
 assert len(jcfg.p_controls["_gamg"].levels) == 4
 
-tm = mesh_from_numpy(jm)
-tst = state_from_numpy(jst)
-tg = GAMG(tm, levels=levels_from_numpy(jcfg.p_controls["_gamg"].levels))
+tm = mesh_from_numpy(jm, device="cpu")
+tst = state_from_numpy(jst, device="cpu")
+tg = GAMG(tm, levels=levels_from_numpy(jcfg.p_controls["_gamg"].levels,
+                                       device="cpu"))
 tcfg = tpiso.PisoConfig(nu=jcfg.nu, p_controls=dict(CTL, _gamg=tg),
                         u_controls=dict(jcfg.u_controls))
 assert tm.v.dtype == torch.float64
@@ -214,7 +215,7 @@ N = 16
 CTL = {"solver": "PCG", "preconditioner": "diagonal", "tolerance": 1e-9,
        "relTol": 0.0, "maxIter": 2000}
 jm, jst0, jcfg0 = jmake_cavity(N, p_solver=CTL)
-tm = mesh_from_numpy(jm)
+tm = mesh_from_numpy(jm, device="cpu")
 
 
 def err(a, b, rtol):
@@ -243,7 +244,7 @@ for scheme in ("backward", "CrankNicolson 0.9"):
     jcfg = jcfg0._replace(ddt_scheme=scheme)
     tcfg = config_from_reference(tpiso.PisoConfig, jcfg)
     jst = jpiso.initial_state(jm, jst0["U"], jst0["p"], ddt_scheme=scheme)
-    tst = state_from_numpy(jst)
+    tst = state_from_numpy(jst, device="cpu")
     ti = tpiso.initial_state(tm, tst["U"], tst["p"], ddt_scheme=scheme)
     assert sorted(ti) == sorted(tst), (sorted(ti), sorted(tst))
 
@@ -278,32 +279,39 @@ jU = jst0["U"].with_data(jnp.asarray(rng.standard_normal((n, 3))))
 jp = jst0["p"].with_data(jnp.asarray(rng.standard_normal(n)))
 ops = {}
 for name, jf in (("U", jU), ("p", jp)):
-    tf = field_from_numpy(jf)
+    tf = field_from_numpy(jf, device="cpu")
     shape = tuple(np.asarray(jf.data).shape)
     old, old2, d0 = (rng.standard_normal(shape) for _ in range(3))
     mats = {
-        "d2dt2": (tfvm.d2dt2(tm, tf, tensor(old), tensor(old2), 200.0),
+        "d2dt2": (tfvm.d2dt2(tm, tf, tensor(old, device="cpu"),
+                             tensor(old2, device="cpu"), 200.0),
                   jfvm.d2dt2(jm, jf, jnp.asarray(old), jnp.asarray(old2),
                              200.0)),
-        "backward": (tfvm.ddt_backward(tm, tf, tensor(old), tensor(old2),
-                                       tensor(200.0), tensor(250.0)),
+        "backward": (tfvm.ddt_backward(tm, tf, tensor(old, device="cpu"),
+                                       tensor(old2, device="cpu"),
+                                       tensor(200.0, device="cpu"),
+                                       tensor(250.0, device="cpu")),
                      jfvm.ddt_backward(jm, jf, jnp.asarray(old),
                                        jnp.asarray(old2), jnp.asarray(200.0),
                                        jnp.asarray(250.0))),
         "backward_first": (
-            tfvm.ddt_backward(tm, tf, tensor(old), tensor(old2),
-                              tensor(200.0), tensor(1e-30)),
+            tfvm.ddt_backward(tm, tf, tensor(old, device="cpu"),
+                              tensor(old2, device="cpu"),
+                              tensor(200.0, device="cpu"),
+                              tensor(1e-30, device="cpu")),
             jfvm.ddt_backward(jm, jf, jnp.asarray(old), jnp.asarray(old2),
                               jnp.asarray(200.0), jnp.asarray(1e-30))),
-        "cn": (tfvm.ddt_crank_nicolson(tm, tf, tensor(old), tensor(d0),
-                                       tensor(200.0), 0.9,
-                                       rdt0=tensor(250.0)),
+        "cn": (tfvm.ddt_crank_nicolson(tm, tf, tensor(old, device="cpu"),
+                                       tensor(d0, device="cpu"),
+                                       tensor(200.0, device="cpu"), 0.9,
+                                       rdt0=tensor(250.0, device="cpu")),
                jfvm.ddt_crank_nicolson(jm, jf, jnp.asarray(old),
                                        jnp.asarray(d0), jnp.asarray(200.0),
                                        0.9, rdt0=jnp.asarray(250.0))),
-        "cn_first": (tfvm.ddt_crank_nicolson(tm, tf, tensor(old), tensor(d0),
-                                             tensor(200.0), 0.9,
-                                             rdt0=tensor(1e-30)),
+        "cn_first": (tfvm.ddt_crank_nicolson(tm, tf, tensor(old, device="cpu"),
+                                             tensor(d0, device="cpu"),
+                                             tensor(200.0, device="cpu"), 0.9,
+                                             rdt0=tensor(1e-30, device="cpu")),
                      jfvm.ddt_crank_nicolson(jm, jf, jnp.asarray(old),
                                              jnp.asarray(d0),
                                              jnp.asarray(200.0), 0.9,
@@ -315,9 +323,10 @@ for name, jf in (("U", jU), ("p", jp)):
         assert tmx.dims.exponents() == tuple(jmx.dims.exponents())
     for k, r0 in (("cn_update", 250.0), ("cn_update_first", 1e-30)):
         ops[f"{k}_{name}"] = err(
-            tfvm.ddt_cn_update(tf.data, tensor(old), tensor(d0),
-                               tensor(200.0), 0.9,
-                               rdt0=tensor(r0)),
+            tfvm.ddt_cn_update(tf.data, tensor(old, device="cpu"),
+                               tensor(d0, device="cpu"),
+                               tensor(200.0, device="cpu"), 0.9,
+                               rdt0=tensor(r0, device="cpu")),
             jfvm.ddt_cn_update(jf.data, jnp.asarray(old), jnp.asarray(d0),
                                jnp.asarray(200.0), 0.9,
                                rdt0=jnp.asarray(r0)), 1e-12)

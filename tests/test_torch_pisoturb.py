@@ -294,14 +294,15 @@ for name in ("k", "omega"):
         tstate[name].data * jnp.asarray(1.0 + 0.2 * rng.random(jm.n_cells)))
 jst = jpiso.initial_state(jm, U, p, turb_state=tstate)
 
-tm = mesh_from_numpy(jm)
+tm = mesh_from_numpy(jm, device="cpu")
 tmodel = tbase.select(tparse("RASModel kOmegaSST; turbulence on;"), jt.NU)
 tmodel.init_wall_distance(tblockmesh.generate(tparse(BLOCK)), torch.float64,
                           device="cpu")
 assert np.array_equal(tmodel.y_wall.numpy(), np.asarray(jmodel.y_wall))
 tcfg = tpiso.PisoConfig(nu=jt.NU, n_correctors=2,
                         div_scheme="limitedLinear 1", turb=tmodel, **ctl)
-out["channel"] = run(jm, jcfg, jst, tm, tcfg, state_from_numpy(jst), 0.02,
+out["channel"] = run(jm, jcfg, jst, tm, tcfg,
+                     state_from_numpy(jst, device="cpu"), 0.02,
                      ("k", "omega", "nut"))
 
 # -- pisoFoam cavityRAS from its case files ----------------------------------
@@ -329,12 +330,15 @@ tmodel, _ = tload(tc, nu)
 tcfg = _piso_config(tc, nu, tmodel)
 jg = jcfg.p_controls["_gamg"]
 tcfg = tcfg._replace(p_controls=dict(
-    tcfg.p_controls, _gamg=GAMG(tm, levels=levels_from_numpy(jg.levels),
+    tcfg.p_controls, _gamg=GAMG(tm,
+                                levels=levels_from_numpy(jg.levels,
+                                                         device="cpu"),
                                 smoother=jg.smoother, n_pre=jg.n_pre,
                                 n_post=jg.n_post)))
 assert tm.v.dtype == torch.float64
 dt = float(jc.control_dict["deltaT"])
-out["cavityRAS"] = run(jm, jcfg, jst, tm, tcfg, state_from_numpy(jst), dt,
+out["cavityRAS"] = run(jm, jcfg, jst, tm, tcfg,
+                       state_from_numpy(jst, device="cpu"), dt,
                        ("k", "epsilon", "nut"))
 print(json.dumps(out))
 """

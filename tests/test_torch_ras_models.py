@@ -116,6 +116,12 @@ def make(tag, name, cli):
         return cs.hotroom_case(os.getcwd(), dst, cs.HOTROOM_APPS[name], cli,
                                seed=cs.HOTROOM_SEED, euler=name == "pimple",
                                write_precision=17)
+    elif kind == "slice11":
+        # the single-equation applications and fanDuct
+        # (chip_smoke.SLICE11_CASES: seeded, coarsened where named)
+        return cs.slice11_parity_case(
+            os.getcwd(), dst, name, cli,
+            device=("-device", "cpu") if cli is tcli else ())
     elif kind == "slice10":
         # the compressible family's tutorials and LTSInterFoam
         # (chip_smoke.SLICE10_CASES: seeded, coarsened where named)
@@ -133,15 +139,28 @@ def make(tag, name, cli):
     return dst
 
 
+# the fields of the single-equation applications' states
+SLICE11_FIELDS = ("V", "psi", "H", "B", "pB", "phiB", "h", "hU", "D", "Ua",
+                  "pa", "zeta", "rho")
+
+
 def arrays(state, host):
+    if isinstance(state.get("state"), dict):
+        # potentialFreeSurfaceFoam and adjointShapeOptimizationFoam keep
+        # {"state": ..., "diag": ...}
+        state = state["state"]
     out = {n: host(getattr(state[n], "data", state[n]))
            for n in ("U", "p", "p_rgh", "T", "alpha") if n in state}
+    if kind == "slice11":
+        out.update({n: host(getattr(state[n], "data", state[n]))
+                    for n in SLICE11_FIELDS if n in state})
     if "rhoE" in state:
         # rhoCentralFoam's conservative state (its p is a plain array)
         out.update(rho=host(state["rho"].data), rhoU=host(state["rhoU"]),
                    rhoE=host(state["rhoE"]))
     if "phi" in state:
-        out["phi"] = host(state["phi"])
+        # (electrostaticFoam's phi is the potential, a field)
+        out["phi"] = host(getattr(state["phi"], "data", state["phi"]))
     for n, f in (state.get("turb") or {}).items():
         out[n] = host(f.data)
     if "gradP" in state:
@@ -207,6 +226,7 @@ for name in names:
     rec["solves"] = [[(s[0], s[3]) for s in ts], [(s[0], s[3]) for s in js]]
     rec["residuals_ok"] = close([s[1:3] for s in ts], [s[1:3] for s in js],
                                 1e-6, 1e-12)
+    rec["residuals"] = [[s[1:3] for s in ts], [s[1:3] for s in js]]
     rec["other_lines"] = [[o[0] for o in to], [o[0] for o in jo]]
     rec["other_numbers_ok"] = all(
         close(a[1], b[1], 1e-6, 1e-12) for a, b in zip(to, jo))

@@ -110,13 +110,15 @@ def test_rotating_applications_are_registered():
     # channelFoam (pimpleFoam with an LES model) is ported since the
     # turbulence slice (tests/test_torch_channel.py), the compressible
     # porous/MRF family since the compressible slice
-    # (tests/test_torch_rhopimple.py); still outside the port: dnsFoam,
-    # snappyHexMesh, sonicDyMFoam
+    # (tests/test_torch_rhopimple.py), dnsFoam since the single-equation
+    # slice (tests/test_torch_dns.py); still outside the port:
+    # twoPhaseEulerFoam, snappyHexMesh, sonicDyMFoam
     assert tapps.APPLICATIONS["channelFoam"] is tapps.pimplefoam
+    assert tapps.APPLICATIONS["dnsFoam"] is tapps.dns_foam
     assert tapps.APPLICATIONS["rhoPorousSimpleFoam"] is tapps.rho_simplefoam
     assert tapps.APPLICATIONS["rhoPorousMRFSimpleFoam"] is \
         tapps.rho_simplefoam
     assert tapps.APPLICATIONS["rhoPorousMRFPimpleFoam"] is \
         tapps.rho_pimplefoam
-    for app in ("dnsFoam", "windSimpleFoam", "sonicDyMFoam"):
+    for app in ("twoPhaseEulerFoam", "windSimpleFoam", "sonicDyMFoam"):
         assert app not in tapps.APPLICATIONS

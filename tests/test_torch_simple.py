@@ -95,9 +95,9 @@ def pitz(tmp_path_factory):
     dst = pitz_case(tmp_path_factory.mktemp("pitz"))
     jc = JCase(dst)
     jm = jc.mesh
-    tm = mesh_from_numpy(jm)
+    tm = mesh_from_numpy(jm, device="cpu")
     jf, phi = random_fields(jc)
-    tf = {k: field_from_numpy(v) for k, v in jf.items()}
+    tf = {k: field_from_numpy(v, device="cpu") for k, v in jf.items()}
     return dict(dir=dst, jc=jc, jm=jm, tm=tm, jf=jf, tf=tf, phi=phi)
 
 
@@ -335,7 +335,8 @@ def test_simple_rejects_features_outside_slice(pitz):
     state = {"U": pitz["tf"]["U"], "p": pitz["tf"]["p"],
              "phi": _t(pitz["phi"])}
     # fvOptions and MRF zones are ported (tests/test_torch_fvoptions.py,
-    # tests/test_torch_mrf.py); the adjoint porosity sink is not
+    # tests/test_torch_mrf.py), and so is the adjoint porosity sink
+    # (tests/test_torch_adjoint.py)
     from foamtpu_torch.models import fvoptions, mrf
 
     zones = mrf.from_dict(tm, parse_string(
@@ -349,8 +350,11 @@ def test_simple_rejects_features_outside_slice(pitz):
         assert value
         new, _ = simple.simple_step(tm, state, cfg._replace(**{name: value}))
         assert bool(torch.isfinite(new["U"].data).all()), name
-    with pytest.raises(NotImplementedError):
-        simple.simple_step(tm, dict(state, alpha_sink=None), cfg)
+    # a zero sink adds nothing to the momentum diagonal
+    ref, _ = simple.simple_step(tm, state, cfg)
+    new, _ = simple.simple_step(
+        tm, dict(state, alpha_sink=torch.zeros_like(tm.v)), cfg)
+    assert torch.equal(new["U"].data, ref["U"].data)
     # totalPressure came with the interFoam slice; a kind still outside
     # the port is refused by name
     bc = factory.from_dict(parse_string("type totalPressure; p0 uniform 0;"),
@@ -432,10 +436,10 @@ tc = TCase(dst, device="cpu")
 tm = tc.mesh
 jg = jcfg.p_controls["_gamg"]
 tp = dict(tc.solver_controls("p"))
-tp["_gamg"] = GAMG(tm, levels=levels_from_numpy(jg.levels),
+tp["_gamg"] = GAMG(tm, levels=levels_from_numpy(jg.levels, device="cpu"),
                    smoother=jg.smoother, n_pre=jg.n_pre, n_post=jg.n_post)
 tcfg, _ = config(tc, tload, trelax, tsimple, tp)
-tst = state_from_numpy(jst)
+tst = state_from_numpy(jst, device="cpu")
 assert tm.v.dtype == torch.float64
 
 

@@ -77,8 +77,8 @@ def build_systems():
     # the same operator without slot coefficients (GAMG's gather path)
     P_flat = jfvm.laplacian(jm, rAf, jp, corrected=False, gamma_dims=dimTime)
     P_flat = P_flat.replace_fields(source=P.source)
-    tm = mesh_from_numpy(jm)
-    tg = GAMG(tm, levels=levels_from_numpy(jg.levels))
+    tm = mesh_from_numpy(jm, device="cpu")
+    tg = GAMG(tm, levels=levels_from_numpy(jg.levels, device="cpu"))
     return dict(jm=jm, tm=tm, jg=jg, tg=tg, P=P, P_flat=P_flat, M=M,
                 U0=jU.data)
 
@@ -106,11 +106,11 @@ def test_pcg_matches_reference(systems, precond):
     ctl = {"solver": "PCG", "preconditioner": precond, "tolerance": 1e-6,
            "relTol": 0.0, "maxIter": 2000}
     jP, ctl_j = jlinear.prep_pressure(systems["P"], True, ctl, 0, 0.0)
-    tP, ctl_t = linear.prep_pressure(matrix_from_numpy(systems["P"]), True,
-                                     ctl, 0, 0.0)
+    tP, ctl_t = linear.prep_pressure(
+        matrix_from_numpy(systems["P"], device="cpu"), True, ctl, 0, 0.0)
     psi0 = np.zeros(jm.n_cells, np.float32)
     xj, pj = jlinear.solve(jm, jP, jnp.asarray(psi0), ctl_j)
-    xt, pt = linear.solve(tm, tP, tensor(psi0), ctl_t)
+    xt, pt = linear.solve(tm, tP, tensor(psi0, device="cpu"), ctl_t)
     _check(xt, xj, pt, pj, f"PCG {precond}")
 
 
@@ -124,7 +124,8 @@ def test_bicgstab_multi_rhs_matches_reference(systems, ctl):
     jm, tm = systems["jm"], systems["tm"]
     U0 = np.asarray(systems["U0"])
     xj, pj = jlinear.solve(jm, systems["M"], jnp.asarray(U0), ctl)
-    xt, pt = linear.solve(tm, matrix_from_numpy(systems["M"]), tensor(U0),
+    xt, pt = linear.solve(tm, matrix_from_numpy(systems["M"], device="cpu"),
+                          tensor(U0, device="cpu"),
                           ctl)
     assert xt.shape == (jm.n_cells, 3)
     _check(xt, xj, pt, pj, ctl["solver"])
@@ -157,14 +158,14 @@ def _gamg_pair(systems, tol, rel_tol):
     jP, ctl_j = jlinear.prep_pressure(
         systems["P"], True, dict(ctl, _gamg=systems["jg"]), 0, 0.0)
     tP, ctl_t = linear.prep_pressure(
-        matrix_from_numpy(systems["P"]), True,
+        matrix_from_numpy(systems["P"], device="cpu"), True,
         dict(ctl, _gamg=systems["tg"]), 0, 0.0)
     assert ctl_t["_singular"]
     ctl_j = jlinear.prepare_controls(jm, jP, ctl_j)
     ctl_t = linear.prepare_controls(tm, tP, ctl_t)
     psi0 = np.zeros(jm.n_cells, np.float32)
     xj, pj = jlinear.solve(jm, jP, jnp.asarray(psi0), ctl_j)
-    xt, pt = linear.solve(tm, tP, tensor(psi0), ctl_t)
+    xt, pt = linear.solve(tm, tP, tensor(psi0, device="cpu"), ctl_t)
     return xt, xj, pt, pj, tP
 
 
@@ -222,11 +223,11 @@ def test_gamg_variants_match_reference(systems, variant):
     ctl = {"solver": "GAMG", "tolerance": 1e-4, "relTol": 0.0,
            "maxIter": 200}
     jP, ctl_j = jlinear.prep_pressure(P, True, dict(ctl, _gamg=jg), 0, 0.0)
-    tP, ctl_t = linear.prep_pressure(matrix_from_numpy(P), True,
+    tP, ctl_t = linear.prep_pressure(matrix_from_numpy(P, device="cpu"), True,
                                      dict(ctl, _gamg=tg), 0, 0.0)
     psi0 = np.zeros(jm.n_cells, np.float32)
     xj, pj = jlinear.solve(jm, jP, jnp.asarray(psi0), ctl_j)
-    xt, pt = linear.solve(tm, tP, tensor(psi0), ctl_t)
+    xt, pt = linear.solve(tm, tP, tensor(psi0, device="cpu"), ctl_t)
     _check(xt, xj, pt, pj, f"GAMG {variant}")
 
 
@@ -235,7 +236,8 @@ def test_gamg_prepare_matches_reference(systems):
     level (the V-cycle's inputs)."""
     jm, tm = systems["jm"], systems["tm"]
     jprep = systems["jg"].prepare(jm, systems["P"])
-    tprep = systems["tg"].prepare(tm, matrix_from_numpy(systems["P"]))
+    tprep = systems["tg"].prepare(tm, matrix_from_numpy(systems["P"],
+                                                        device="cpu"))
     assert len(tprep["ops"]) == len(jprep["ops"]) == 5
     for (dt_, _, _), (dj, _, _), ot, oj in zip(
             tprep["mats"], jprep["mats"], tprep["ops"], jprep["ops"]):
@@ -298,7 +300,7 @@ def _prepare_and_solve(jm, tm, jP, tP, jg, tg, ctl, singular):
                                    err_msg=f"level {i} diag")
     psi0 = np.zeros(jm.n_cells, np.float32)
     xj, pj = jlinear.solve(jm, jP, jnp.asarray(psi0), ctl_j)
-    xt, pt = linear.solve(tm, tP, tensor(psi0), ctl_t)
+    xt, pt = linear.solve(tm, tP, tensor(psi0, device="cpu"), ctl_t)
     return xt, xj, pt, pj
 
 
@@ -317,7 +319,7 @@ def test_gamg_pairwise_levels_match_reference(systems):
     ctl = {"solver": "GAMG", "tolerance": 1e-4, "relTol": 0.0,
            "maxIter": 200}
     xt, xj, pt, pj = _prepare_and_solve(
-        jm, tm, systems["P"], matrix_from_numpy(systems["P"]),
+        jm, tm, systems["P"], matrix_from_numpy(systems["P"], device="cpu"),
         JGAMG(jm, levels=jlv), GAMG(tm, levels=tlv), ctl, True)
     _check(xt, xj, pt, pj, "GAMG pairwise")
 
@@ -334,7 +336,7 @@ def pitz_p(tmp_path_factory):
 
     jc = JCase(pitz_case(tmp_path_factory.mktemp("pitzp")))
     jm = jc.mesh
-    tm = mesh_from_numpy(jm)
+    tm = mesh_from_numpy(jm, device="cpu")
     rng = np.random.default_rng(5)
     rAf = jnp.asarray(1e-3 * (1.0 + rng.random(jm.n_faces)), jnp.float32)
     jp = jc.read_field("p")
@@ -357,7 +359,7 @@ def test_gamg_auto_levels_on_pitzdaily_match_reference(pitz_p):
     assert len(tlv) == 3 and tm.n_cells == 4160
     ctl = {"solver": "GAMG", "tolerance": 1e-6, "relTol": 0.05,
            "maxIter": 200}
-    tP = matrix_from_numpy(P)
+    tP = matrix_from_numpy(P, device="cpu")
     xt, xj, pt, pj = _prepare_and_solve(
         jm, tm, P, tP, JGAMG(jm, levels=jlv), GAMG(tm, levels=tlv), ctl,
         False)

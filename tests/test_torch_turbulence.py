@@ -49,8 +49,10 @@ def pitz(tmp_path_factory):
     jc = JCase(dst)
     jm = jc.mesh
     jf, phi = random_fields(jc, seed=11)
-    return dict(dir=dst, jc=jc, jm=jm, tm=mesh_from_numpy(jm), jf=jf,
-                tf={k: field_from_numpy(v) for k, v in jf.items()}, phi=phi)
+    return dict(dir=dst, jc=jc, jm=jm, tm=mesh_from_numpy(jm, device="cpu"),
+                jf=jf,
+                tf={k: field_from_numpy(v, device="cpu") for k,
+                    v in jf.items()}, phi=phi)
 
 
 def _t(a):
