@@ -173,6 +173,7 @@ import contextlib
 import io
 import json
 import os
+import pickle
 import re
 import shutil
 import statistics
@@ -180,6 +181,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -588,7 +590,7 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def duct_setup(nx, ny, nz, device="cuda"):
+def duct_setup(nx, ny, nz, device="cuda", pm=None):
     """bench.py's unstructured row (bench.py:417-486) through the port:
     the 6-tet split of an nx*ny*nz box of size 4x1x1, U=1 inlet with
     inletOutlet outlet and no-slip walls, simpleFoam + kOmegaSST with
@@ -609,7 +611,8 @@ def duct_setup(nx, ny, nz, device="cuda"):
 
     seconds = {}
     t0 = time.perf_counter()
-    pm = tet_box(nx, ny, nz, size=(4.0, 1.0, 1.0))
+    if pm is None:
+        pm = tet_box(nx, ny, nz, size=(4.0, 1.0, 1.0))
     seconds["mesh_build"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     mesh = to_device(pm, device)
@@ -1440,8 +1443,14 @@ def phase_duct(spmv, chunk=DUCT_CHUNK, trials=DUCT_TRIALS):
     torch.cuda.reset_peak_memory_stats()
     spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
     t0 = time.perf_counter()
-    mesh, cfg, state, setup = duct_setup(*DUCT, device="cuda")
+    pre = premeshed("duct")
+    mesh, cfg, state, setup = duct_setup(*DUCT, device="cuda",
+                                         pm=pre[0] if pre else None)
     setup_s = time.perf_counter() - t0
+    if pre:
+        # the tets were built beside the earlier phases
+        setup.update(mesh_build=pre[1]["mesh_s"],
+                     premesh_wait=pre[1]["premesh_wait_s"])
     step = simple.make_step(mesh, cfg)
     p_max_iter = cfg.p_controls["maxIter"]
     # warm-up chunk; its first iteration hands its matrices to SolveLog
@@ -2455,6 +2464,11 @@ def phase_cross_headline(spmv, here, root, trials=3, n_profile=5):
     return out
 
 
+def heated_edits():
+    return [("system/blockMeshDict", "(20 20 1)",
+             f"({HEATED_N} {HEATED_N} 1)")]
+
+
 def phase_heated(spmv, here, root, flush, n_profile=2):
     """heatedBlock at HEATED_N^2, meshed in memory: one step through
     run(case), then
@@ -2470,9 +2484,7 @@ def phase_heated(spmv, here, root, flush, n_profile=2):
     # meshed in memory (memory_mesh): the ascii polyMesh write and read of
     # 1,048,576 cells took 30-40 s of host time (PR 6-9)
     dst = copy_case(here, BASIC_CASES["laplacianFoam"][0], root,
-                    f"heated{HEATED_N}", edits=[
-                        ("system/blockMeshDict", "(20 20 1)",
-                         f"({HEATED_N} {HEATED_N} 1)")], mesh=False)
+                    f"heated{HEATED_N}", edits=heated_edits(), mesh=False)
     case = memory_mesh(Case(dst, device="cuda"))
     mesh = case.mesh
     check(mesh.n_cells == HEATED_N ** 2, mesh.n_cells)
@@ -3562,6 +3574,11 @@ def phase_turbulence_models(spmv, here, root):
     return out
 
 
+def les_head_edits():
+    return [("system/blockMeshDict", "(24 16 8)",
+             "({} {} {})".format(*LES_HEAD_BLOCKS))]
+
+
 def phase_les_headline(spmv, here, root, flush, trials=3):
     """channel395 with its block refined to LES_HEAD_BLOCKS (786,432
     cells; geometry, cyclic pairs, schemes and deltaT as shipped),
@@ -3583,8 +3600,8 @@ def phase_les_headline(spmv, here, root, flush, trials=3):
     blocks = "({} {} {})".format(*LES_HEAD_BLOCKS)
     # meshed in memory (memory_mesh), without the ascii polyMesh write and
     # read (24 s of PR 8-9's 38 s set-up)
-    dst = copy_case(here, CHANNEL395_CASE, root, "channel_big", edits=[
-        ("system/blockMeshDict", "(24 16 8)", blocks)], mesh=False)
+    dst = copy_case(here, CHANNEL395_CASE, root, "channel_big",
+                    edits=les_head_edits(), mesh=False)
     case = memory_mesh(Case(dst, device="cuda"))
     blockmesh_s = time.perf_counter() - t0
     mesh = case.mesh
@@ -4237,16 +4254,15 @@ surfaces
 
 def memory_mesh(case):
     """Give `case` its polyMesh straight from blockMesh in memory (the
-    case's blockMeshDict), without the ascii polyMesh files."""
+    case's blockMeshDict), without the ascii polyMesh files: the premesh
+    process's where it made that dictionary's mesh."""
     from foamtpu_torch.core.dictionary import parse_file
     from foamtpu_torch.mesh import blockmesh
 
-    for rel in ("constant/polyMesh/blockMeshDict", "system/blockMeshDict"):
-        path = os.path.join(case.dir, rel)
-        if os.path.exists(path):
-            case._poly = blockmesh.generate(parse_file(path))
-            return case
-    check(False, f"{case.dir}: no blockMeshDict")
+    path = blockmesh_dict(case.dir)
+    got = premeshed(dict_key(path))
+    case._poly = got[0] if got else blockmesh.generate(parse_file(path))
+    return case
 
 
 RB_BLOCKMESH = """
@@ -4708,6 +4724,19 @@ def phase_dym(spmv, here, root):
     return out
 
 
+def box_big_case(here, dst):
+    """The oscillatingBox tutorial copied to dst with its block at
+    BOX_HEAD_N^2 (not meshed, see memory_mesh)."""
+    shutil.copytree(os.path.join(here, BOX_CASE), dst)
+    path = os.path.join(dst, "system", "blockMeshDict")
+    with open(path) as f:
+        text = f.read()
+    check("(20 20 1)" in text, path)
+    with open(path, "w") as f:
+        f.write(text.replace("(20 20 1)", f"({BOX_HEAD_N} {BOX_HEAD_N} 1)"))
+    return dst
+
+
 def phase_dym_headline(spmv, here, root, flush):
     """oscillatingBox at BOX_HEAD_N^2 (1,048,576 cells) meshed in memory,
     deltaT BOX_HEAD_DT (the shipped Courant number), bench.py's GAMG p
@@ -4728,14 +4757,7 @@ def phase_dym_headline(spmv, here, root, flush):
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    dst = os.path.join(root, "box_big")
-    shutil.copytree(os.path.join(here, BOX_CASE), dst)
-    path = os.path.join(dst, "system", "blockMeshDict")
-    with open(path) as f:
-        text = f.read()
-    check("(20 20 1)" in text, path)
-    with open(path, "w") as f:
-        f.write(text.replace("(20 20 1)", f"({BOX_HEAD_N} {BOX_HEAD_N} 1)"))
+    dst = box_big_case(here, os.path.join(root, "box_big"))
     case = memory_mesh(Case(dst, device="cuda"))
     mesh = case.mesh
     n = BOX_HEAD_N ** 2
@@ -7356,6 +7378,15 @@ MHD_HEAD_GAMG = {"solver": "GAMG", "tolerance": 1e-6, "relTol": 0.0,
                  "maxIter": 1000}
 
 
+def hartmann_big_case(here, dst):
+    """hartmann copied to dst with its block at MHD_HEAD_BLOCKS (not
+    meshed, see memory_mesh)."""
+    dst = slice11_case(here, dst, "mhdFoam", None)
+    _edit(os.path.join(dst, "system", "blockMeshDict"), r"\(20 20 1\)",
+          "({} {} 1)".format(*MHD_HEAD_BLOCKS))
+    return dst
+
+
 def phase_mhd_headline(spmv, here, root, flush):
     """mhdFoam's hartmann at MHD_HEAD_BLOCKS (786,432 cells) meshed in
     memory, deltaT MHD_HEAD_DT (an Alfven Courant number of 0.5), the
@@ -7377,10 +7408,7 @@ def phase_mhd_headline(spmv, here, root, flush):
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    dst = slice11_case(here, os.path.join(root, "hartmann_big"), "mhdFoam",
-                       None)
-    _edit(os.path.join(dst, "system", "blockMeshDict"), r"\(20 20 1\)",
-          "({} {} 1)".format(*MHD_HEAD_BLOCKS))
+    dst = hartmann_big_case(here, os.path.join(root, "hartmann_big"))
     _edit(os.path.join(dst, "constant", "transportProperties"),
           r"(sigma\s+sigma\s+\[[^]]*\])\s*[^;]+;",
           lambda m: f"{m.group(1)} {MHD_HEAD_SIGMA!r};")
@@ -7529,6 +7557,902 @@ def phase_mhd_headline(spmv, here, root, flush):
     return out, max_err, timings
 
 
+# ---------------------------------------------------------------------------
+# snappyHexMesh and multi-region conjugate heat transfer
+# ---------------------------------------------------------------------------
+
+SLICE12_TUTORIALS = {
+    "bluffBody": ("incompressible", "simpleFoam", "bluffBody"),
+    "openTerrain": ("incompressible", "windSimpleFoam", "openTerrain"),
+    "heatedSlabs": ("heatTransfer", "chtMultiRegionFoam", "heatedSlabs"),
+    "heatedSlabsSimple": ("heatTransfer", "chtMultiRegionSimpleFoam",
+                          "heatedSlabs"),
+}
+SNAPPY_TUTORIALS = ("bluffBody", "openTerrain")
+# bluffBody and openTerrain run 60 of their 300 SIMPLE iterations: the
+# checks are the goldens and the body force, which need no converged
+# wake, and the run stops at the tutorial's residualControl in neither
+# package by then; heatedSlabs runs as shipped (40 steps, 200 iterations)
+SNAPPY_ITERS = 60
+SLICE12_RUNS = {
+    "bluffBody": ("bluffBody", SNAPPY_ITERS),
+    "openTerrain": ("openTerrain", SNAPPY_ITERS),
+    "chtMultiRegionFoam": ("heatedSlabs", None),
+    "chtMultiRegionSimpleFoam": ("heatedSlabsSimple", None),
+}
+CHT_APPS = ("chtMultiRegionFoam", "chtMultiRegionSimpleFoam")
+CHT_REGIONS = ("heater", "sink")
+SNAPPY_SEED_U = 0.05          # of the inlet's 5 m/s, the seeded start
+
+
+def slice12_case(here, dst, name, cli, blocks=None, seed=None,
+                 write_precision=None, write_interval=None):
+    """The tutorial `name` of SLICE12_TUTORIALS copied to dst; bluffBody
+    and openTerrain with their background's cell counts set to `blocks`
+    where given and meshed as their Allruns mesh them (`cli`'s blockMesh,
+    then snappyHexMesh; cli None: not meshed), `seed` adding a seeded
+    perturbation of SNAPPY_SEED_U times the inlet speed to U's x and y
+    components; `write_precision` and `write_interval` set the
+    controlDict's. heatedSlabs ships its two regions' meshes. Returns
+    dst."""
+    shutil.copytree(os.path.join(here, "tutorials",
+                                 *SLICE12_TUTORIALS[name]), dst)
+    control = os.path.join(dst, "system", "controlDict")
+    if write_precision is not None:
+        with open(control, "a") as f:
+            f.write(f"\nwritePrecision {write_precision};\n")
+    if write_interval is not None:
+        _edit(control, r"writeInterval\s+[^;]+;",
+              f"writeInterval {write_interval};")
+    if name not in SNAPPY_TUTORIALS:
+        return dst
+    if blocks is not None and tuple(blocks) != (48, 12, 12):
+        _edit(os.path.join(dst, "constant", "polyMesh", "blockMeshDict"),
+              r"\(48 12 12\)", "({} {} {})".format(*blocks))
+    if cli is not None:
+        with quiet():
+            check(cli(["blockMesh", "-case", dst]) == 0, "blockMesh failed")
+            check(cli(["snappyHexMesh", "-case", dst]) == 0,
+                  "snappyHexMesh failed")
+    if seed is not None:
+        from foamtpu_torch.core.case import Case
+
+        case = Case(dst, device="cpu")
+        a = case.read_field("U").data.double().numpy().copy()
+        rng = np.random.default_rng(seed)
+        a[:, :2] += SNAPPY_SEED_U * 5.0 * rng.standard_normal(
+            (a.shape[0], 2))
+        set_internal(dst, "U", a)
+    return dst
+
+
+def slice12_arrays(name, final_state, host):
+    """The fields of a run's final state as float64 numpy: per region
+    T<region> of the cht runs; U, p, k, epsilon and nut of simpleFoam."""
+    if name in CHT_APPS:
+        return {f"T{r}": np.asarray(host(final_state[r]["T"].data),
+                                    np.float64) for r in CHT_REGIONS}
+    turb = final_state["turb"]
+    out = {k: final_state[k] for k in ("U", "p")}
+    out.update({k: turb[k] for k in ("k", "epsilon", "nut")})
+    return {k: np.asarray(host(getattr(v, "data", v)), np.float64)
+            for k, v in out.items()}
+
+
+def slice12_scalars(name, final_state, mesh_v, host):
+    """small_scalars of slice12_arrays, each region's over its own
+    volumes (`mesh_v`: name -> cell volumes, or one array)."""
+    a = slice12_arrays(name, final_state, host)
+    if name not in CHT_APPS:
+        return small_scalars(a, mesh_v)
+    out = {}
+    for k, x in a.items():
+        out.update(small_scalars({k: x}, mesh_v[k[1:]]))
+    return out
+
+
+def body_force(case_dir):
+    """The last row of bluffBody's forces file: (time, pressure force,
+    viscous force)."""
+    path = os.path.join(case_dir, "postProcessing", "bodyForces",
+                        "forces.dat")
+    with open(path) as f:
+        rows = [r for r in f.read().splitlines()
+                if r.strip() and not r.startswith("#")]
+    nums = [float(x) for x in re.findall(
+        r"[-+]?(?:\d+\.?\d*|\.\d+)(?:[eE][-+]?\d+)?", rows[-1])]
+    return nums[0], nums[1:4], nums[4:7]
+
+
+# goldens from the JAX package (CPU, float32) and its spread under
+# round-off (the larger of |float32 - float64| and the change a 1e-7
+# perturbation of the start makes in float32): `python
+# tests/test_torch_snappy.py goldens [--perturb]`
+SLICE12_GOLDEN = {'bluffBody': {'Fx': 3.87879694,
+               'U_mag_max': 6.80385862993321,
+               'U_mag_mean': 5.2129801345394755,
+               'Ux_mean': 5.174845740508468,
+               'epsilon_max': 5.98886775970459,
+               'epsilon_mean': 0.5132512936076533,
+               'epsilon_min': 0.035694669932127,
+               'k_max': 1.0043952465057373,
+               'k_mean': 0.145714737010221,
+               'k_min': 0.03296602517366409,
+               'nut_max': 0.016878686845302582,
+               'nut_mean': 0.0044205712361026425,
+               'nut_min': 0.001298803836107254,
+               'p_max': 17.708229064941406,
+               'p_mean': -0.27624301422601527,
+               'p_min': -24.133712768554688},
+ 'chtMultiRegionFoam': {'Theater_max': 373.9373474121094,
+                        'Theater_mean': 351.81950855255127,
+                        'Theater_min': 349.99993896484375,
+                        'Tsink_max': 350.0,
+                        'Tsink_mean': 349.7543067932129,
+                        'Tsink_min': 346.1495056152344},
+ 'chtMultiRegionSimpleFoam': {'Theater_max': 399.7160949707031,
+                              'Theater_mean': 395.45630121231073,
+                              'Theater_min': 391.19500732421875,
+                              'Tsink_max': 388.0707702636719,
+                              'Tsink_mean': 345.45576000213623,
+                              'Tsink_min': 302.84100341796875},
+ 'openTerrain': {'Fx': 3.87879694,
+                 'U_mag_max': 6.80385862993321,
+                 'U_mag_mean': 5.2129801345394755,
+                 'Ux_mean': 5.174845740508468,
+                 'epsilon_max': 5.98886775970459,
+                 'epsilon_mean': 0.5132512936076533,
+                 'epsilon_min': 0.035694669932127,
+                 'k_max': 1.0043952465057373,
+                 'k_mean': 0.145714737010221,
+                 'k_min': 0.03296602517366409,
+                 'nut_max': 0.016878686845302582,
+                 'nut_mean': 0.0044205712361026425,
+                 'nut_min': 0.001298803836107254,
+                 'p_max': 17.708229064941406,
+                 'p_mean': -0.27624301422601527,
+                 'p_min': -24.133712768554688}}
+SLICE12_SPREAD = {'bluffBody': {'Fx': 2.4899999999661304e-06,
+               'U_mag_max': 7.1221947273159e-07,
+               'U_mag_mean': 2.4265233022902066e-07,
+               'Ux_mean': 2.0080295559665728e-07,
+               'epsilon_max': 0.0001010894775390625,
+               'epsilon_mean': 2.630473984188697e-07,
+               'epsilon_min': 1.9744038581848145e-07,
+               'k_max': 1.1759699049651573e-05,
+               'k_mean': 1.3025738732075354e-07,
+               'k_min': 5.706670570815309e-08,
+               'nut_max': 7.869630065313049e-08,
+               'nut_mean': 4.7399415269502865e-09,
+               'nut_min': 1.522284455955647e-08,
+               'p_max': 2.09808349609375e-05,
+               'p_mean': 1.4328710782662846e-05,
+               'p_min': 3.0517578125e-05},
+ 'chtMultiRegionFoam': {'Theater_max': 0.000152587890625,
+                        'Theater_mean': 2.384185791015625e-05,
+                        'Theater_min': 6.103515625e-05,
+                        'Tsink_max': 3.0517578125e-05,
+                        'Tsink_mean': 1.52587890625e-05,
+                        'Tsink_min': 0.0005774588548206339},
+ 'chtMultiRegionSimpleFoam': {'Theater_max': 0.00018589175272154534,
+                              'Theater_mean': 0.0017559222347358627,
+                              'Theater_min': 0.001825810763023128,
+                              'Tsink_max': 0.002588852399867392,
+                              'Tsink_mean': 0.0012149600670454674,
+                              'Tsink_min': 9.437010373858357e-05},
+ 'openTerrain': {'Fx': 2.4899999999661304e-06,
+                 'U_mag_max': 7.1221947273159e-07,
+                 'U_mag_mean': 2.4265233022902066e-07,
+                 'Ux_mean': 2.0080295559665728e-07,
+                 'epsilon_max': 0.0001010894775390625,
+                 'epsilon_mean': 2.630473984188697e-07,
+                 'epsilon_min': 1.9744038581848145e-07,
+                 'k_max': 1.1759699049651573e-05,
+                 'k_mean': 1.3025738732075354e-07,
+                 'k_min': 5.706670570815309e-08,
+                 'nut_max': 7.869630065313049e-08,
+                 'nut_mean': 4.7399415269502865e-09,
+                 'nut_min': 1.522284455955647e-08,
+                 'p_max': 2.09808349609375e-05,
+                 'p_mean': 1.4328710782662846e-05,
+                 'p_min': 3.0517578125e-05}}
+
+
+def sphere_tris(center, r, n_theta=12, n_phi=24):
+    """The UV sphere of tests/test_snappy.py::_sphere_tris."""
+    cx, cy, cz = center
+    th = np.linspace(0, np.pi, n_theta + 1)
+    ph = np.linspace(0, 2 * np.pi, n_phi + 1)
+    tris = []
+    for i in range(n_theta):
+        for j in range(n_phi):
+            p = []
+            for (a, b) in ((th[i], ph[j]), (th[i + 1], ph[j]),
+                           (th[i + 1], ph[j + 1]), (th[i], ph[j + 1])):
+                p.append([cx + r * np.sin(a) * np.cos(b),
+                          cy + r * np.sin(a) * np.sin(b),
+                          cz + r * np.cos(a)])
+            if i > 0:
+                tris.append([p[0], p[1], p[2]])
+            if i < n_theta - 1:
+                tris.append([p[0], p[2], p[3]])
+    return np.asarray(tris)
+
+
+SPHERE_BOX = """
+convertToMeters 1;
+vertices ( (0 0 0) (1 0 0) (1 1 0) (0 1 0)
+           (0 0 1) (1 0 1) (1 1 1) (0 1 1) );
+blocks ( hex (0 1 2 3 4 5 6 7) (8 8 8) simpleGrading (1 1 1) );
+boundary (
+  inlet  { type patch; faces ((0 4 7 3)); }
+  outlet { type patch; faces ((2 6 5 1)); }
+  walls  { type wall; faces ((1 5 4 0) (3 7 6 2) (0 3 2 1) (4 5 6 7)); }
+);
+"""
+
+
+def sphere_octree(snappy, blockmesh, parse_string):
+    """tests/test_snappy.py::test_octree_refine_and_snap_sphere's chain
+    through the given package: the 8^3 box refined to level 2 around a
+    sphere of radius 0.25, castellated and snapped. Returns (refined,
+    castellated, snapped, leaves)."""
+    pm = blockmesh.generate(parse_string(SPHERE_BOX))
+    tris = sphere_tris((0.5, 0.5, 0.5), 0.25)
+    bb_min, bb_max, base_n, side_patches, two_d = snappy._background_box(pm)
+    leaves = snappy.octree_refine(bb_min, bb_max, base_n, tris, 2)
+    ref = snappy.octree_mesh(bb_min, bb_max, base_n, leaves, side_patches)
+    out = snappy.castellate(ref, tris, (0.02, 0.02, 0.02))
+    snapped = snappy.snap(out, tris, "body", n_iter=6)
+    return ref, out, snapped, leaves
+
+
+def sphere_oracles(chain=None):
+    """The oracles of tests/test_snappy.py:208-274 on the port's host
+    copy (`chain`: its sphere_octree result, else made here): the refined
+    box keeps its volume, the snapped body points lie on the sphere (at
+    most one fine cell off, 0.006 on average), the carved volume is
+    within 2% of the exact one and snapping moved the staircase. Returns
+    (record, checks)."""
+    from foamtpu_torch.core.dictionary import parse_string
+    from foamtpu_torch.mesh import blockmesh, snappy
+
+    t0 = time.perf_counter()
+    ref, out, snapped, leaves = chain or sphere_octree(snappy, blockmesh,
+                                                       parse_string)
+    b = snapped.patch("body")
+    valid = (np.arange(snapped.face_pts.shape[1])[None, :]
+             < snapped.face_npts[b.slice][:, None]) \
+        & (snapped.face_pts[b.slice] >= 0)
+    pids = np.unique(snapped.face_pts[b.slice][valid])
+    r = np.linalg.norm(snapped.points[pids] - 0.5, axis=1)
+    vol_exact = 1.0 - 4.0 / 3.0 * np.pi * 0.25 ** 3
+    rec = {"seconds": time.perf_counter() - t0, "levels": sorted(
+        {int(c[0]) for c in leaves}), "refined_cells": ref.n_cells,
+        "snapped_cells": snapped.n_cells,
+        "refined_volume": float(ref.v.sum()),
+        "max_dist": float(np.abs(r - 0.25).max()),
+        "mean_dist": float(np.abs(r - 0.25).mean()),
+        "volume_rel_err": float(abs(snapped.v.sum() - vol_exact)
+                                / vol_exact),
+        "staircase_max_dist": float(np.abs(np.linalg.norm(
+            out.points[pids] - 0.5, axis=1) - 0.25).max())}
+    checks = {"levels 0-2": rec["levels"] == [0, 1, 2],
+              "refined volume 1": abs(rec["refined_volume"] - 1.0) < 1e-9,
+              "body on the sphere within 1/32": rec["max_dist"] < 1 / 32,
+              "mean distance < 0.006": rec["mean_dist"] < 0.006,
+              "carved volume within 2%": rec["volume_rel_err"] < 0.02,
+              "snap moved the staircase": rec["staircase_max_dist"] > 0.02}
+    return rec, checks
+
+
+def cht_oracle(case):
+    """chtMultiRegionSimpleFoam's heatedSlabs against the analytic linear
+    profiles through T_i = (400*10 + 300*1)/11 = 390.909 K, within 1 K, as
+    tests/test_chtmultiregion.py:206-210 holds them."""
+    regions = case.final_state
+    ti = (400.0 * 10 + 300.0 * 1) / 11.0
+    th = regions["heater"]["T"].data.double().cpu().numpy()
+    ts = regions["sink"]["T"].data.double().cpu().numpy()
+    xh = regions["heater"]["mesh"].c[:, 0].double().cpu().numpy()
+    xs = regions["sink"]["mesh"].c[:, 0].double().cpu().numpy()
+    rec = {"T_interface": ti,
+           "heater_max_err": float(np.abs(th - (400 + (ti - 400) * xh
+                                                / 0.5)).max()),
+           "sink_max_err": float(np.abs(ts - (ti + (300 - ti)
+                                              * (xs - 0.5) / 0.5)).max())}
+    checks = {"heater profile within 1 K": rec["heater_max_err"] < 1.0,
+              "sink profile within 1 K": rec["sink_max_err"] < 1.0}
+    return rec, checks
+
+
+def simple_log(case):
+    """A SolveLog of a simpleFoam case's solves, named from its start
+    fields (U, p and the kEpsilon fields), with the initial flux
+    projection's pcorr (piso.project_initial_flux, laplacian(1, pcorr))."""
+    from foamtpu_torch.core.dimensions import DimensionSet
+
+    log = SolveLog({"U": case.read_field("U"), "p": case.read_field("p"),
+                    "turb": {k: case.read_field(k)
+                             for k in ("k", "epsilon", "nut")}})
+    log.names[DimensionSet.of(0, 3, -2)] = "pcorr"
+    log.calls["pcorr"], log.seconds["pcorr"] = 0, 0.0
+    log.iterations["pcorr"] = []
+    return log
+
+
+def phase_snappy_cht(spmv, here, root, flush):
+    """bluffBody (simpleFoam) and openTerrain (windSimpleFoam) as their
+    Allruns make them (blockMesh, snappyHexMesh, then the solver through
+    run(case), SNAPPY_ITERS iterations) and heatedSlabs under
+    chtMultiRegionFoam (40 steps) and chtMultiRegionSimpleFoam (200
+    iterations), on the card in float32: each held to goldens from the
+    JAX package (SLICE12_GOLDEN at small_golden_errs) and finite; the
+    oracles: the steady slabs' analytic profile (cht_oracle), the
+    snapped sphere of tests/test_snappy.py on the port's host copy
+    (sphere_oracles) and a finite body force; the SpMV kernel held to its
+    plain version and timed at bluffBody's p (whole operator, remainder
+    included) and at the heater's T."""
+    from foamtpu_torch.apps.cli import main as cli
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.core.dimensions import DimensionSet
+
+    results, checks, logs = {}, {}, {}
+    launches_total = fb_total = 0
+    for name, (tut, steps) in SLICE12_RUNS.items():
+        t0 = time.perf_counter()
+        dst = slice12_case(here, os.path.join(root, "slice12", name), tut,
+                           cli)
+        mesh_s = time.perf_counter() - t0
+        case = Case(dst, device="cuda")
+        cht = name in CHT_APPS
+        with SolveLog({"T": types.SimpleNamespace(dims=DimensionSet.of(
+                0, 0, 0, 1))}) if cht else simple_log(case) as log:
+            run_s, text, launches, fb = app_run(spmv, case, steps)
+        logs[name] = (case, log)
+        launches_total += launches
+        fb_total += fb
+        fs = case.final_state
+        host = lambda t: t.double().cpu().numpy()  # noqa: E731
+        if cht:
+            v = {r: host(fs[r]["mesh"].v) for r in CHT_REGIONS}
+            n_cells = sum(fs[r]["mesh"].n_cells for r in CHT_REGIONS)
+        else:
+            v, n_cells = host(case.mesh.v), case.mesh.n_cells
+        a = slice12_arrays(name, fs, host)
+        finite = all(bool(np.isfinite(x).all()) for x in a.values())
+        got = slice12_scalars(name, fs, v, host) if finite else {}
+        rec = {"tutorial": "/".join(SLICE12_TUTORIALS[tut]),
+               "n_cells": n_cells, "steps": case.time.index,
+               "mesh_s": mesh_s, "run_s": run_s,
+               "sec_per_step": run_s / max(case.time.index, 1),
+               "scalars": got, "iterations_max": {
+                   k: max(x) for k, x in solve_iterations(text).items()},
+               "spmv_launches": launches, "spmv_fb_launches": fb}
+        ck = {"finite": finite, "spmv launched": launches > 0,
+              "steps": case.time.index == (steps or (40 if name ==
+                                                     "chtMultiRegionFoam"
+                                                     else 200))}
+        if not cht:
+            rec["st_deltas"] = list(case.mesh.st_deltas)
+            rec["coo_entries"] = int(case.mesh.fb_cells.shape[0])
+            t_f, fp, fv = body_force(dst)
+            rec["body_force"] = {"iteration": t_f, "pressure": fp,
+                                 "viscous": fv}
+            ck["body force finite"] = bool(np.isfinite(fp + fv).all())
+            ck["remainder launched"] = fb > 0
+            got["Fx"] = fp[0] + fv[0]
+        if finite:
+            errs = small_golden_errs(got, SLICE12_GOLDEN[name],
+                                     SLICE12_SPREAD[name], field_scales(a))
+            rec["golden_err_tol"] = errs
+            ck.update({f"golden {k}": e <= t for k, (e, t) in errs.items()})
+        if name == "chtMultiRegionSimpleFoam":
+            rec["oracle"], ok = cht_oracle(case)
+            ck.update(ok)
+        results[name] = rec
+        checks.update({f"{name} {k}": x for k, x in ck.items()})
+        progress("snappy_cht", f"{name}: mesh {mesh_s:.1f} s, run "
+                 f"{run_s:.1f} s, {launches} SpMV launches")
+    results["sphere"], ok = sphere_oracles()
+    checks.update({f"sphere {k}": x for k, x in ok.items()})
+
+    cases, max_err, timings = [], 0.0, []
+    for name, kind, prefix in (("bluffBody", "p", "bluffBody_p"),
+                               ("chtMultiRegionFoam", "T", "heatedSlabs_T")):
+        case, log = logs[name]
+        mesh = (case.final_state["heater"]["mesh"] if name in CHT_APPS
+                else case.mesh)
+        op = mat_operand(mesh, log.matrices[kind], prefix)
+        deltas = tuple(mesh.st_deltas)
+        for dtype in (torch.float32, torch.float64):
+            err = check_operands(spmv, [op], mesh, deltas, dtype,
+                                 np.random.default_rng(121), cases)
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+        _, soff, diag, sfb = op
+        timings += time_shape(spmv, prefix, diag.contiguous(),
+                              operand_x(diag, 122), soff.contiguous(),
+                              deltas, flush,
+                              fb=mesh_remainder(spmv, mesh, sfb, diag.dtype)
+                              if mesh.fb_cells.shape[0] else None)
+    checks["bluffBody p whole operator timed"] = any(
+        t["shape"] == "bluffBody_p_whole" for t in timings)
+    out = {"phase": "snappy_cht", "dtype": "torch.float32",
+           "runs": results, "kernel_cases": cases, "max_abs_err_f32": max_err,
+           "timings": timings, "spmv_launches_total": launches_total,
+           "spmv_fb_launches_total": fb_total, "checks": checks}
+    emit(out)
+    for name, ok in checks.items():
+        check(ok, f"snappy_cht check {name}: {out}")
+    return out, max_err, timings
+
+
+# The host meshing of the large phases (blockMesh of the headlines, the
+# duct's tets, the snapped bluffBody, the slabs: about 250 s of numpy)
+# runs in a process of its own (start_premesh) beside the earlier phases,
+# in the order the phases need it; each mesh is pickled as soon as it is
+# made, and the phase takes it (premeshed; memory_mesh finds a
+# blockMesh by its dictionary's text) or, where none was started or the
+# text differs, meshes it itself.
+
+def premesh_cases(here, src):
+    """The cases of the headlines meshed by memory_mesh, written under
+    `src` as their phases write theirs (without meshing): their
+    blockMeshDict paths, in the order the phases run."""
+    dsts = [
+        copy_case(here, BASIC_CASES["laplacianFoam"][0], src,
+                  f"heated{HEATED_N}", edits=heated_edits(), mesh=False),
+        copy_case(here, CHANNEL395_CASE, src, "channel_big",
+                  edits=les_head_edits(), mesh=False),
+        hotroom_case(here, os.path.join(src, "hotroom_big"),
+                     "buoyantBoussinesqSimpleFoam", None, blocks=BOUSS_HEAD),
+        box_big_case(here, os.path.join(src, "box_big")),
+        compressible_case(here, os.path.join(src, "duct_big"),
+                          "rhoPimpleFoam", None, scale=COMP_HEAD_SCALE,
+                          delta_t=COMP_HEAD_DT),
+        compressible_case(here, os.path.join(src, "step_big"),
+                          "rhoCentralFoam", None, scale=RC_HEAD_SCALE,
+                          delta_t=RC_HEAD_DT),
+        hartmann_big_case(here, os.path.join(src, "hartmann_big"))]
+    return [blockmesh_dict(d) for d in dsts]
+
+
+def blockmesh_dict(case_dir):
+    for rel in ("constant/polyMesh/blockMeshDict", "system/blockMeshDict"):
+        path = os.path.join(case_dir, rel)
+        if os.path.exists(path):
+            return path
+    check(False, f"{case_dir}: no blockMeshDict")
+
+
+def dict_key(path):
+    import hashlib
+
+    with open(path, "rb") as f:
+        return "blockMesh-" + hashlib.sha1(f.read()).hexdigest()
+
+
+def premesh_main(jobs_file, out_dir):
+    """Make the meshes of `jobs_file` ([key, kind, argument] in order: a
+    blockMeshDict path, the duct's cell counts, the snapped bluffBody's
+    background, the slabs' cells), each pickled to out_dir/<key>.pkl with
+    its seconds as soon as it is made."""
+    from foamtpu_torch.core.dictionary import parse_file, parse_string
+    from foamtpu_torch.mesh import blockmesh
+    from foamtpu_torch.mesh.tetmesh import tet_box
+
+    with open(jobs_file) as f:
+        jobs = json.load(f)
+    root = tempfile.mkdtemp(prefix="chip_smoke_premesh_")
+    try:
+        for key, kind, arg in jobs:
+            t0 = time.perf_counter()
+            if kind == "blockMesh":
+                res = (blockmesh.generate(parse_file(arg)), {})
+            elif kind == "tet":
+                res = (tet_box(*arg, size=(4.0, 1.0, 1.0)), {})
+            elif kind == "snappy":
+                res = snapped_bluff(here_of(jobs_file), root, tuple(arg))
+            else:
+                res = (cht_slabs(blockmesh, parse_string, tuple(arg)), {})
+            res[1]["mesh_s"] = time.perf_counter() - t0
+            out = os.path.join(out_dir, key + ".pkl")
+            with open(out + ".part", "wb") as f:
+                pickle.dump(res, f, protocol=pickle.HIGHEST_PROTOCOL)
+            os.replace(out + ".part", out)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def here_of(jobs_file):
+    with open(os.path.join(os.path.dirname(jobs_file), "here")) as f:
+        return f.read()
+
+
+PREMESH = {}
+
+
+def start_premesh(here, root):
+    """Write the premesh cases and job list under root/premesh and start
+    premesh_main in a process of its own, on the host's CPU only (no CUDA
+    device visible to it)."""
+    top = os.path.join(root, "premesh")
+    out_dir = os.path.join(top, "out")
+    os.makedirs(out_dir)
+    jobs = [["duct", "tet", list(DUCT)]]
+    jobs += [[dict_key(p), "blockMesh", p]
+             for p in premesh_cases(here, os.path.join(top, "src"))]
+    jobs += [["bluff", "snappy", list(SNAPPY_HEAD_BLOCKS)],
+             ["slabs", "slabs", list(CHT_HEAD_CELLS)]]
+    jobs_file = os.path.join(top, "jobs.json")
+    with open(jobs_file, "w") as f:
+        json.dump(jobs, f)
+    with open(os.path.join(top, "here"), "w") as f:
+        f.write(here)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    code = (f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+            f"chip_smoke.premesh_main({jobs_file!r}, {out_dir!r})")
+    # its output goes to stderr: stdout keeps one JSON line per phase
+    PREMESH.update(proc=subprocess.Popen([sys.executable, "-c", code],
+                                         cwd=here, env=env,
+                                         stdout=sys.stderr),
+                   keys={k for k, _, _ in jobs}, out_dir=out_dir,
+                   started=time.perf_counter(), waits={})
+
+
+def stop_premesh():
+    proc = PREMESH.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def premeshed(key):
+    """(mesh, seconds) of premesh job `key`, waiting for it, or None when
+    no premesh process was started or it has no such job. The seconds
+    are the job's own, with premesh_wait_s, the seconds the caller waited
+    for it."""
+    if key not in PREMESH.get("keys", ()):
+        return None
+    path = os.path.join(PREMESH["out_dir"], key + ".pkl")
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        rc = PREMESH["proc"].poll()
+        check(rc is None or os.path.exists(path),
+              f"the premesh process exited with {rc} before {key}")
+        time.sleep(0.05)
+    with open(path, "rb") as f:
+        mesh, secs = pickle.load(f)
+    os.remove(path)
+    wait = time.perf_counter() - t0
+    PREMESH["waits"][key] = wait
+    return mesh, dict(secs, premeshed_in_background=True,
+                      premesh_wait_s=wait)
+
+
+def snapped_bluff(here, root, blocks):
+    """bluffBody with its background at `blocks` meshed in memory by the
+    port's blockMesh and snappy (mesh/snappy.py::from_dict): (PolyMesh,
+    seconds)."""
+    from foamtpu_torch.core.dictionary import parse_file
+    from foamtpu_torch.mesh import blockmesh, snappy
+
+    t0 = time.perf_counter()
+    dst = slice12_case(here, os.path.join(root, "bluff_mesh"), "bluffBody",
+                       None, blocks=blocks)
+    pm0 = blockmesh.generate(parse_file(os.path.join(
+        dst, "constant", "polyMesh", "blockMeshDict")))
+    t1 = time.perf_counter()
+    pm = snappy.from_dict(dst, parse_file(os.path.join(
+        dst, "system", "snappyHexMeshDict")), pm0)
+    return pm, {"blockmesh_s": t1 - t0, "snappy_s": time.perf_counter() - t1}
+
+
+SNAPPY_HEAD_BLOCKS = (192, 48, 48)   # the background; 443,180 cells snapped
+SNAPPY_HEAD_CELLS = 443180
+SNAPPY_HEAD_WARMUP = 5
+SNAPPY_HEAD_TRIALS = 3
+SNAPPY_HEAD_CHUNK = 5
+SNAPPY_HEAD_PROFILE = 1
+
+
+def phase_snappy_headline(spmv, here, root, flush):
+    """bluffBody with its background at SNAPPY_HEAD_BLOCKS (443,180 cells
+    after castellating and snapping), meshed in memory by the port's
+    blockMesh and snappy (mesh/snappy.py::from_dict, host numpy), the
+    tutorial's SIMPLE controls (GAMG p, PBiCGStab U/k/epsilon, kEpsilon,
+    upwind): set-up split into blockMesh + snappy, to_device and the
+    config (GAMG hierarchy), SNAPPY_HEAD_WARMUP iterations, then
+    SNAPPY_HEAD_TRIALS timed chunks of SNAPPY_HEAD_CHUNK iterations with
+    every solve's iterations, the SpMV kernel held to its plain version
+    and timed at the snapped p (whole operator and slot part), and one
+    profiled chunk of SNAPPY_HEAD_PROFILE iterations last; held to
+    finiteness, the continuity error and a launch with the remainder."""
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.core.dictionary import dimensioned_scalar
+    from foamtpu_torch.solvers import apps, piso, simple
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dst = slice12_case(here, os.path.join(root, "bluff_big"), "bluffBody",
+                       None, blocks=SNAPPY_HEAD_BLOCKS)
+    pm, mesh_secs = premeshed("bluff") or snapped_bluff(
+        here, root, SNAPPY_HEAD_BLOCKS)
+    t2 = time.perf_counter()
+    case = Case(dst, device="cuda")
+    case._poly = pm
+    mesh = case.mesh
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    n = mesh.n_cells
+    check(n == SNAPPY_HEAD_CELLS, f"snapped cells {n}")
+    _, nu = dimensioned_scalar(case.transport_properties()["nu"])
+    model, tstate = apps._load_turbulence(case, nu)
+    cfg = apps._simple_config(case, nu, model)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    state = piso.initial_state(mesh, case.read_field("U"),
+                               case.read_field("p"), turb_state=tstate)
+    torch.cuda.synchronize()
+    setup = dict(mesh_secs, to_device_s=t3 - t2, config_gamg_s=t4 - t3,
+                 setup_s=time.perf_counter() - t0)
+    progress("snappy_headline", f"set-up {setup}, {n} cells")
+    spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
+    t0 = time.perf_counter()
+    state, diag = simple.make_chunk(mesh, cfg, SNAPPY_HEAD_WARMUP)(state)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    progress("snappy_headline", f"warm-up {warm_s:.1f} s")
+    chunk = simple.make_chunk(mesh, cfg, SNAPPY_HEAD_CHUNK)
+    secs = []
+    l0 = spmv.LAUNCHES
+    with SolveLog(state) as log:
+        for _ in range(SNAPPY_HEAD_TRIALS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, diag = chunk(state)
+            torch.cuda.synchronize()
+            secs.append((time.perf_counter() - t0) / SNAPPY_HEAD_CHUNK)
+    sec = statistics.median(secs)
+    timed = SNAPPY_HEAD_TRIALS * SNAPPY_HEAD_CHUNK
+    per_iter = (spmv.LAUNCHES - l0) / timed
+    its = {k: [int(i) for i in v] for k, v in log.iterations.items()}
+    progress("snappy_headline", f"chunks {secs}, iterations "
+             f"{ {k: v[-5:] for k, v in its.items()} }")
+    launches, fb_launches = spmv.LAUNCHES, spmv.FB_LAUNCHES
+    deltas = tuple(mesh.st_deltas)
+    op = mat_operand(mesh, log.matrices["p"], "snapped_p")
+    cases, max_err = [], 0.0
+    for dtype in (torch.float32, torch.float64):
+        err = check_operands(spmv, [op], mesh, deltas, dtype,
+                             np.random.default_rng(123), cases)
+        if dtype == torch.float32:
+            max_err = err
+    _, soff, dg, sfb = op
+    timings = time_shape(spmv, "snapped_p", dg.contiguous(),
+                         operand_x(dg, 124), soff.contiguous(), deltas,
+                         flush, fb=mesh_remainder(spmv, mesh, sfb, dg.dtype))
+    l1, f1 = spmv.LAUNCHES, spmv.FB_LAUNCHES
+    state, prof = profile_chunk(
+        spmv, "snappy_headline_profile", mesh,
+        simple.make_chunk(mesh, cfg, SNAPPY_HEAD_PROFILE), state,
+        SNAPPY_HEAD_PROFILE, sec)
+    launches += spmv.LAUNCHES - l1
+    fb_launches += spmv.FB_LAUNCHES - f1
+    u = state["U"].data
+    n_fb = int(mesh.fb_cells.shape[0])
+    nbrs = np.bincount(np.concatenate([
+        mesh.owner[:mesh.n_internal_faces].cpu().numpy(),
+        mesh.neighbour.cpu().numpy()]), minlength=n)
+    out = {"phase": "snappy_headline",
+           "case": "simpleFoam bluffBody, background ({} {} {}), the "
+                   "tutorial's snappyHexMeshDict, schemes, controls and "
+                   "kEpsilon".format(*SNAPPY_HEAD_BLOCKS),
+           "n_cells": n, "dtype": str(mesh.v.dtype),
+           "st_deltas": list(deltas), "coo_entries": n_fb,
+           "coo_fraction": n_fb / (2 * mesh.n_internal_faces),
+           "face_neighbour_histogram": np.bincount(nbrs).tolist(),
+           **setup, "warmup_s": warm_s, "sec_per_iter": sec,
+           "sec_per_iter_trials": secs, "m_cells_per_sec": n / sec / 1e6,
+           "iterations_per_solve": {k: statistics.mean(v)
+                                    for k, v in its.items() if v},
+           "iterations_max": {k: max(v) for k, v in its.items() if v},
+           "spmv_launches_per_iter": per_iter,
+           "continuity": float(diag["continuity"]),
+           "u_max": float(torch.linalg.norm(u, dim=1).max()),
+           "cuda_launch_kernel_per_iter": prof["cuda_launch_kernel_per_iter"],
+           "device_ms_per_iter": prof["device_ms_per_iter"],
+           "device_busy_share": prof["device_busy_share_unprofiled"],
+           "spmv_device_ms_per_iter": prof["spmv_device_ms_per_iter"],
+           "spmv_fb_launches_per_iter_profiled":
+               prof["spmv_fb_launches_per_iter"],
+           "top_kernels_ms_per_iter": prof["top_kernels_ms_per_iter"][:8],
+           "spmv_launches_total": launches,
+           "spmv_fb_launches_total": fb_launches,
+           "kernel_cases": cases, "max_abs_err_f32": max_err,
+           "timings": timings,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    checks = {"finite": bool(torch.isfinite(u).all()),
+              "continuity < 1": out["continuity"] < 1.0,
+              "spmv launched": launches > 0,
+              "the remainder launched": n_fb > 0 and fb_launches > 0,
+              "whole operator timed": any(
+                  t["shape"] == "snapped_p_whole" for t in timings)}
+    out["checks"] = checks
+    emit(out)
+    for name, ok in checks.items():
+        check(ok, f"snappy_headline check {name}: {out}")
+    return out, max_err, timings
+
+
+CHT_HEAD_CELLS = (1024, 384)     # per slab: 786,432 cells in the two
+CHT_HEAD_WARMUP = 1
+CHT_HEAD_TRIALS = 3
+CHT_HEAD_CHUNK = 3               # 1 + 3 x 3 = 10 transient steps
+CHT_HEAD_PROFILE = 1
+CHT_SLAB = """
+convertToMeters 1;
+vertices
+(
+    ({x0} 0 0) ({x1} 0 0) ({x1} 1 0) ({x0} 1 0)
+    ({x0} 0 0.1) ({x1} 0 0.1) ({x1} 1 0.1) ({x0} 1 0.1)
+);
+blocks ( hex (0 1 2 3 4 5 6 7) ({nx} {ny} 1) simpleGrading (1 1 1) );
+boundary
+(
+    {left}  {{ type wall; faces ((0 4 7 3)); }}
+    {right} {{ type wall; faces ((2 6 5 1)); }}
+    sides {{ type wall; faces ((1 5 4 0) (3 7 6 2)); }}
+    frontAndBack {{ type empty; faces ((0 3 2 1) (4 5 6 7)); }}
+);
+"""
+
+
+def cht_slabs(blockmesh, parse_string, cells):
+    """The two slabs of tests/test_chtmultiregion.py::
+    test_cht_app_two_regions (x in [0, 0.5] and [0.5, 1], y in [0, 1])
+    at `cells` = (nx, ny) each, as {region: PolyMesh}."""
+    nx, ny = cells
+    return {"heater": blockmesh.generate(parse_string(CHT_SLAB.format(
+        x0=0.0, x1=0.5, nx=nx, ny=ny, left="hot", right="heater_to_sink"))),
+        "sink": blockmesh.generate(parse_string(CHT_SLAB.format(
+            x0=0.5, x1=1.0, nx=nx, ny=ny, left="sink_to_heater",
+            right="cold")))}
+
+
+def phase_cht_headline(spmv, here, root, flush):
+    """chtMultiRegionFoam on heatedSlabs with each slab at CHT_HEAD_CELLS
+    (786,432 cells in the two regions), meshed in memory; the tutorial's
+    properties, fields and deltaT, and the reference's solid controls
+    (polynomial PCG, relTol 0.01: the driver reads no region fvSolution):
+    set-up (ChtRun, the interface matched on the host), one warm-up
+    step, CHT_HEAD_TRIALS timed chunks of CHT_HEAD_CHUNK steps with
+    every PCG count, the exchange alone fenced, the SpMV kernel held to
+    its plain version and timed at the heater's T, and one profiled
+    chunk of CHT_HEAD_PROFILE steps last; held to finiteness and to T
+    within the boundary temperatures."""
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.core.dictionary import parse_string
+    from foamtpu_torch.mesh import blockmesh
+    from foamtpu_torch.solvers import chtmultiregion as cht
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dst = slice12_case(here, os.path.join(root, "slabs_big"), "heatedSlabs",
+                       None)
+    pms, mesh_secs = premeshed("slabs") or (
+        cht_slabs(blockmesh, parse_string, CHT_HEAD_CELLS),
+        {"mesh_s": time.perf_counter() - t0})
+    case = Case(dst, device="cuda")
+    sim = cht.ChtRun(case, poly_meshes=pms)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    meshes = {r: sim.regions[r]["mesh"] for r in CHT_REGIONS}
+    n = sum(m.n_cells for m in meshes.values())
+    check(n == 2 * CHT_HEAD_CELLS[0] * CHT_HEAD_CELLS[1], n)
+    progress("cht_headline", f"set-up {setup_s:.1f} s, {n} cells")
+    dt = torch.tensor(case.time.delta_t, dtype=meshes["heater"].v.dtype,
+                      device=meshes["heater"].device)
+    cycle = CHT_REGIONS
+
+    def chunk_of(k):
+        def chunk(st):
+            for _ in range(k):
+                sim.step(dt)
+            return st, {}
+        return chunk
+
+    spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
+    t0 = time.perf_counter()
+    chunk_of(CHT_HEAD_WARMUP)(None)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    secs = []
+    l0 = spmv.LAUNCHES
+    with StepLog(cycle) as log:
+        for _ in range(CHT_HEAD_TRIALS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chunk_of(CHT_HEAD_CHUNK)(None)
+            torch.cuda.synchronize()
+            secs.append((time.perf_counter() - t0) / CHT_HEAD_CHUNK)
+    sec = statistics.median(secs)
+    steps = CHT_HEAD_WARMUP + CHT_HEAD_TRIALS * CHT_HEAD_CHUNK
+    per_step = (spmv.LAUNCHES - l0) / (CHT_HEAD_TRIALS * CHT_HEAD_CHUNK)
+    its = {k: [int(i) for i in v] for k, v in log.iterations.items()}
+    progress("cht_headline", f"chunks {secs}, PCG {its}")
+    # the exchange alone (idempotent: it recomputes the BCs from T)
+    ex = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.exchange()
+        torch.cuda.synchronize()
+        ex.append((time.perf_counter() - t0) * 1e3)
+    launches = spmv.LAUNCHES
+    mesh = meshes["heater"]
+    op = mat_operand(mesh, log.matrices["heater"], "slab_T")
+    deltas = tuple(mesh.st_deltas)
+    cases, max_err = [], 0.0
+    for dtype in (torch.float32, torch.float64):
+        err = check_operands(spmv, [op], mesh, deltas, dtype,
+                             np.random.default_rng(125), cases)
+        if dtype == torch.float32:
+            max_err = err
+    _, soff, dg, _ = op
+    timings = time_shape(spmv, "slab_T", dg.contiguous(), operand_x(dg, 126),
+                         soff.contiguous(), deltas, flush)
+    l1 = spmv.LAUNCHES
+    _, prof = profile_chunk(spmv, "cht_headline_profile", mesh,
+                            chunk_of(CHT_HEAD_PROFILE), None,
+                            CHT_HEAD_PROFILE, sec,
+                            log=StepLog(cycle, ranges=True))
+    launches += spmv.LAUNCHES - l1
+    steps += CHT_HEAD_PROFILE
+    T = {r: sim.get_T(r).data for r in CHT_REGIONS}
+    out = {"phase": "cht_headline",
+           "case": "chtMultiRegionFoam heatedSlabs, two slabs of ({} {} 1) "
+                   "cells, the tutorial's properties, fields and deltaT, "
+                   "the reference's solid controls".format(*CHT_HEAD_CELLS),
+           "n_cells": n, "dtype": str(mesh.v.dtype), "steps": steps,
+           "st_deltas": list(deltas), **mesh_secs, "setup_s": setup_s,
+           "warmup_s": warm_s, "sec_per_step": sec,
+           "sec_per_step_trials": secs, "m_cells_per_sec": n / sec / 1e6,
+           "pcg_iterations": its,
+           "pcg_iterations_mean": {k: statistics.mean(v)
+                                   for k, v in its.items() if v},
+           "exchange_host_ms": ex,
+           "exchange_host_ms_median": statistics.median(ex),
+           "interface_faces": int(sim.interfaces[0].a_to_b.shape[0]),
+           "spmv_launches_per_step": per_step,
+           "cuda_launch_kernel_per_step": prof["cuda_launch_kernel_per_iter"],
+           "device_ms_per_step": prof["device_ms_per_iter"],
+           "device_busy_share": prof["device_busy_share_unprofiled"],
+           "spmv_device_ms_per_step": prof["spmv_device_ms_per_iter"],
+           "top_kernels_ms_per_step": prof["top_kernels_ms_per_iter"][:8],
+           "T_range": {r: [float(t.min()), float(t.max())]
+                       for r, t in T.items()},
+           "spmv_launches_total": launches,
+           "spmv_fb_launches_total": spmv.FB_LAUNCHES,
+           "kernel_cases": cases, "max_abs_err_f32": max_err,
+           "timings": timings,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    checks = {"finite": all(bool(torch.isfinite(t).all())
+                            for t in T.values()),
+              "T within 300-400 K": all(
+                  299.999 <= lo and hi <= 400.001
+                  for lo, hi in out["T_range"].values()),
+              "one interface": len(sim.interfaces) == 1,
+              "spmv launched": launches > 0,
+              "no remainder on the slabs": mesh.fb_cells.shape[0] == 0}
+    out["checks"] = checks
+    emit(out)
+    for name, ok in checks.items():
+        check(ok, f"cht_headline check {name}: {out}")
+    return out, max_err, timings
+
+
 T_START = time.perf_counter()
 TIMELINE = {}
 
@@ -7564,6 +8488,9 @@ def main() -> int:
 
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
+        # the host meshing of snappy_headline and cht_headline (about 100 s
+        # of numpy) runs in a process of its own beside the earlier phases
+        start_premesh(here, root)
         mesh, cfg, state = pitz_setup(here, os.path.join(root, "ops"))
         ops = pitz_operands(mesh, cfg, state)
         max_err, timings = phase_kernel(spmv, mesh, ops,
@@ -7635,9 +8562,17 @@ def main() -> int:
         stamp("solvers_small")
         mhdh, err_mhd, t_mhd = phase_mhd_headline(spmv, here, root, flush)
         stamp("mhd_headline")
+        snc, err_snc, t_snc = phase_snappy_cht(spmv, here, root, flush)
+        stamp("snappy_cht")
+        snh, err_snh, t_snh = phase_snappy_headline(spmv, here, root, flush)
+        stamp("snappy_headline")
+        chth, err_chth, t_chth = phase_cht_headline(spmv, here, root, flush)
+        stamp("cht_headline")
     finally:
+        stop_premesh()
         shutil.rmtree(root, ignore_errors=True)
     emit({"phase": "timeline", "seconds": TIMELINE,
+          "premesh_wait_s": PREMESH.get("waits"),
           "total_s": time.perf_counter() - T_START,
           "incomplete_profiles": INCOMPLETE_PROFILES,
           "profiler_fallbacks": PROFILER_FALLBACKS})
@@ -7650,7 +8585,7 @@ def main() -> int:
     main_shape = next(t for t in t_duct if t["shape"] == "duct_p_whole")
     paths = (head, pitz, duct, ras, pras, phead, dam, basic, cross, heated,
              rot, mrf, turb, les, thermal, bouss, dym, dymh, surf, comp,
-             chead, rch, small, mhdh)
+             chead, rch, small, mhdh, snc, snh, chth)
     emit({"kernels": [{
         "name": "spmv_stencil", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
@@ -7658,7 +8593,8 @@ def main() -> int:
         "fb_launches": sum(p["spmv_fb_launches_total"] for p in paths),
         "max_abs_err": max(max_err, err_duct, err_dam, err_heat, err_mrf,
                            err_les, err_bh, err_dh, err_comp, err_ch,
-                           err_small, err_mhd),
+                           err_small, err_mhd, err_snc, err_snh,
+                           err_chth),
         "ms": main_shape["kernel_ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
@@ -7673,7 +8609,8 @@ def main() -> int:
             "plain_ms_l2_warm", "library_ms", "library_ms_l2_warm",
             "bound_ms", "bound_by", "bound_share")}
             for t in timings + t_duct + t_dam + t_heat + t_mrf + t_les
-            + t_bh + t_dh + t_comp + t_ch + t_small + t_mhd]}]})
+            + t_bh + t_dh + t_comp + t_ch + t_small + t_mhd + t_snc
+            + t_snh + t_chth]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """Command-line utilities (port of openfoam-2.2.x_tpu/apps/cli.py:
-`blockMesh`, `setFields`, `topoSet`, `createBaffles` and `boxTurb`).
+`blockMesh`, `snappyHexMesh`, `setFields`, `topoSet`, `createBaffles` and
+`boxTurb`).
 
     python -m foamtpu_torch.apps.cli blockMesh -case <dir>
+    python -m foamtpu_torch.apps.cli snappyHexMesh -case <dir>
     python -m foamtpu_torch.apps.cli setFields -case <dir> [-device cpu]
     python -m foamtpu_torch.apps.cli topoSet -case <dir>
     python -m foamtpu_torch.apps.cli createBaffles -case <dir>
@@ -188,7 +190,28 @@ def box_turb(argv) -> int:
     return 0
 
 
-COMMANDS = {"blockMesh": block_mesh, "setFields": set_fields,
+def snappy_hex_mesh(argv) -> int:
+    """snappyHexMesh (castellate + refine + snap + addLayers: see
+    mesh/snappy.py and mesh/layers.py): carve the existing
+    constant/polyMesh against the STL geometry in
+    system/snappyHexMeshDict and write the result over it."""
+    args = _case_arg(argv)
+    from ..core.dictionary import parse_file
+    from ..io import polymesh as mesh_io
+    from ..mesh import snappy
+
+    mdir = os.path.join(args.case, "constant", "polyMesh")
+    pm = mesh_io.read(mdir)
+    d = parse_file(os.path.join(args.case, "system", "snappyHexMeshDict"))
+    out = snappy.from_dict(args.case, d, pm)
+    mesh_io.write(out, mdir)
+    print(f"snappyHexMesh: {pm.n_cells} -> {out.n_cells} cells, patches "
+          f"{[pt.name for pt in out.patches]}")
+    return 0
+
+
+COMMANDS = {"blockMesh": block_mesh, "snappyHexMesh": snappy_hex_mesh,
+            "setFields": set_fields,
             "topoSet": topo_set_cmd, "createBaffles": create_baffles_cmd,
             "boxTurb": box_turb}
 

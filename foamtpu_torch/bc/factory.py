@@ -80,6 +80,9 @@ ALIASES = {"mutkWallFunction": "nutkWallFunction",
            "alphatWallFunction": "calculated",
            "tractionDisplacement": "fixedGradient",
            "waveSurfacePressure": "mixed",
+           # the conjugate-heat-transfer interface: its refValue, refGrad
+           # and valueFraction are set by chtmultiregion.update_coupled_bcs
+           "turbulentTemperatureCoupledBaffleMixed": "mixed",
            "cyclic": "cyclicAMI",
            "fixedJumpAMI": "fixedJump"}
 

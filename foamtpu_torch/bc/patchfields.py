@@ -361,6 +361,11 @@ def fixed_gradient(grad, **opts) -> PatchField:
                       opts=tuple(opts.items()))
 
 
+def mixed(ref_value, ref_grad, vfrac, **opts) -> PatchField:
+    return PatchField(ref_value=ref_value, ref_grad=ref_grad, vfrac=vfrac,
+                      kind="mixed", opts=tuple(opts.items()))
+
+
 def make(kind: str, **kw) -> PatchField:
     opts = {k: v for k, v in kw.items()
             if k not in ("ref_value", "ref_grad", "vfrac")}

@@ -1,13 +1,18 @@
 """Case: load an OpenFOAM case directory (port of
-openfoam-2.2.x_tpu/core/case.py: `Case` without `request_parallel` and
-multi-region cases; the application registry is `solvers.apps.run`).
-Cyclic pairs that carry a jump BC (fan, fixedJump) are kept as
-coincident cyclicAMI patches, as in the reference.
+openfoam-2.2.x_tpu/core/case.py: `Case` without `request_parallel`; the
+application registry is `solvers.apps.run`). Cyclic pairs that carry a
+jump BC (fan, fixedJump) are kept as coincident cyclicAMI patches, as in
+the reference.
 
 A Case owns system/ (controlDict with its Time, fvSchemes, fvSolution),
 constant/ (polyMesh, read once and moved to the case's device, and the
 *Properties dicts) and the time directories: fields are read at the
-start time and written at write times.
+start time and written at write times. A region of a multi-region case
+(chtMultiRegionFoam) is a Case of its own, `Case(dir, region=name)`: its
+dictionaries, mesh and fields live under system/<region>/,
+constant/<region>/ and <time>/<region>/, while controlDict stays at the
+top. The top-level Case of such a case has no constant/polyMesh; its mesh
+is read only when asked for.
 """
 
 from __future__ import annotations
@@ -25,9 +30,11 @@ from ..utils import logging as log
 
 
 class Case:
-    def __init__(self, case_dir: str, device=DEFAULT_DEVICE):
+    def __init__(self, case_dir: str, device=DEFAULT_DEVICE,
+                 region: str = ""):
         self.dir = os.path.abspath(case_dir)
         self.device = device
+        self.region = region
         self.control_dict = parse_file(
             os.path.join(self.dir, "system", "controlDict"))
         self.fv_schemes = parse_file(self.sys_path("fvSchemes"))
@@ -38,10 +45,10 @@ class Case:
         self._poly = None
 
     def sys_path(self, name: str) -> str:
-        return os.path.join(self.dir, "system", name)
+        return os.path.join(self.dir, "system", self.region, name)
 
     def const_path(self, name: str) -> str:
-        return os.path.join(self.dir, "constant", name)
+        return os.path.join(self.dir, "constant", self.region, name)
 
     @property
     def application(self) -> str:
@@ -129,10 +136,10 @@ class Case:
     # -- fields -------------------------------------------------------------------
     def read_field(self, name: str, time: Optional[str] = None):
         t = time or runtime.time_name(self.time.start_time)
-        path = os.path.join(self.dir, t, name)
+        path = os.path.join(self.dir, t, self.region, name)
         if (not os.path.exists(path) and not os.path.exists(path + ".gz")
                 and t == "0.0"):
-            path = os.path.join(self.dir, "0", name)
+            path = os.path.join(self.dir, "0", self.region, name)
         return field_io.read_field(path, self.mesh, name=name)
 
     def write_fields(self, fields, time_name: Optional[str] = None) -> None:
@@ -140,8 +147,9 @@ class Case:
         fmt = str(self.control_dict.get("writeFormat", "ascii"))
         compress = str(self.control_dict.get("writeCompression", "off")) in (
             "on", "yes", "true", "compressed")
+        tdir = os.path.join(t, self.region) if self.region else t
         for f in fields:
-            field_io.write_field(f, self.mesh, self.dir, t,
+            field_io.write_field(f, self.mesh, self.dir, tdir,
                                  fmt=fmt, compress=compress)
         self.time.register_write(t)
 

@@ -1976,6 +1976,12 @@ def dns_foam(case, max_steps: Optional[int] = None) -> None:
     case.final_state = state
 
 
+def _cht(case, max_steps: Optional[int] = None) -> None:
+    from .chtmultiregion import cht_multi_region_foam
+
+    cht_multi_region_foam(case, max_steps=max_steps)
+
+
 APPLICATIONS = {
     "icoFoam": icofoam,
     "nonNewtonianIcoFoam": non_newtonian_icofoam,
@@ -2036,6 +2042,13 @@ APPLICATIONS = {
     "potentialFreeSurfaceFoam": potential_free_surface_foam,
     "adjointShapeOptimizationFoam": adjoint_shape_optimization_foam,
     "dnsFoam": dns_foam,
+    # windSimpleFoam is simpleFoam, whose fvOptions carry the
+    # actuationDiskSource (openTerrain ships none), as the reference
+    # registers it
+    "windSimpleFoam": simplefoam,
+    # conjugate heat transfer over the regions of constant/regionProperties
+    "chtMultiRegionFoam": _cht,
+    "chtMultiRegionSimpleFoam": _cht,
 }
 
 

@@ -22,7 +22,7 @@ Then the application layer itself: `Time.loop` / `adjust_delta_t` /
 `write_time` / `register_write` (purgeWrite) against the reference's Time
 on the same controlDict, the log lines against the reference's
 formatters, and the cases that must raise: an unknown application,
-chtMultiRegionFoam and sonicDyMFoam (outside the compressible slice), a
+XiFoam and sonicDyMFoam (outside the ported slices), a
 codedSource snippet that uses a jnp name outside the port's subset
 (utils/tnp.py).
 """
@@ -349,9 +349,10 @@ def test_run_rejects_an_unknown_application(cavity):
     # surfaces and coded are ported since the moving-mesh slice
     # (tests/test_torch_surfaces.py, tests/test_torch_coded.py), and the
     # compressible buoyantSimpleFoam since the compressible slice
-    # (tests/test_torch_buoyantrho.py); chtMultiRegionFoam is not
-    (("system", "controlDict"), "\napplication chtMultiRegionFoam;\n",
-     "chtMultiRegionFoam"),
+    # (tests/test_torch_buoyantrho.py), chtMultiRegionFoam since the
+    # snappyHexMesh and conjugate-heat-transfer slice
+    # (tests/test_torch_cht.py); the combustion solver XiFoam is not
+    (("system", "controlDict"), "\napplication XiFoam;\n", "XiFoam"),
     # MRFZones and fvOptions are read since the rotating-frame slice
     # (tests/test_torch_mrf.py), and the compressible MRF family runs since
     # the compressible slice (tests/test_torch_rhopimple.py); sonicDyMFoam

@@ -149,7 +149,9 @@ def test_applications_are_registered():
     assert tapps.APPLICATIONS["magneticFoam"] is tapps.magnetic_foam
     assert tapps.APPLICATIONS["mhdFoam"] is tapps.mhd_foam
     assert tapps.APPLICATIONS["financialFoam"] is tapps.financial_foam
-    assert len(tapps.APPLICATIONS) == 46
+    # 46 after this slice; windSimpleFoam, chtMultiRegionFoam and
+    # chtMultiRegionSimpleFoam since the snappyHexMesh and cht slice
+    assert len(tapps.APPLICATIONS) == 49
 
 
 def test_magnets_are_selected_by_box(tmp_path):

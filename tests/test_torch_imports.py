@@ -62,7 +62,11 @@ def test_no_source_imports_jax_or_the_reference():
             "foamtpu_torch/models/randomprocesses.py",
             "foamtpu_torch/mesh/ami.py",
             "foamtpu_torch/apps/meshutils.py",
-            "foamtpu_torch/apps/meshutils3.py"} <= sources
+            "foamtpu_torch/apps/meshutils3.py",
+            "foamtpu_torch/mesh/snappy.py",
+            "foamtpu_torch/mesh/layers.py",
+            "foamtpu_torch/models/solidthermo.py",
+            "foamtpu_torch/solvers/chtmultiregion.py"} <= sources
     # the pattern does catch the imports it is there for
     assert IMPORT.search("import jax.numpy as jnp")
     assert IMPORT.search("    from foamtpu.ops import fvc")
@@ -75,8 +79,9 @@ import foamtpu_torch
 names = [m.name for m in pkgutil.walk_packages(foamtpu_torch.__path__,
                                                "foamtpu_torch.")]
 # the rotating-frame and porous slice's modules, the turbulence slice's,
-# the moving-mesh slice's, the compressible slice's and the
-# single-equation slice's are among them
+# the moving-mesh slice's, the compressible slice's, the single-equation
+# slice's and the snappyHexMesh and conjugate-heat-transfer slice's are
+# among them
 assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf",
         "foamtpu_torch.models.turbulence.les",
         "foamtpu_torch.models.turbulence.les2",
@@ -94,7 +99,9 @@ assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf",
         "foamtpu_torch.solvers.adjoint",
         "foamtpu_torch.models.randomprocesses", "foamtpu_torch.mesh.ami",
         "foamtpu_torch.apps.meshutils",
-        "foamtpu_torch.apps.meshutils3"} <= set(names), names
+        "foamtpu_torch.apps.meshutils3", "foamtpu_torch.mesh.snappy",
+        "foamtpu_torch.mesh.layers", "foamtpu_torch.models.solidthermo",
+        "foamtpu_torch.solvers.chtmultiregion"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -116,7 +123,10 @@ def test_entry_points_default_to_the_card():
     """Every function that builds port objects from outside data takes
     `device` defaulting to DEFAULT_DEVICE ("cuda"): convert.py's helpers
     (the JAX package's arrays), Case, to_device and make_cavity; boxTurb
-    and setFields take `-device`, defaulting to the same."""
+    and setFields take `-device`, defaulting to the same. A region of a
+    multi-region case is a Case on the device of the case it belongs to
+    (chtmultiregion.ChtRun), and the snappyHexMesh command meshes on the
+    host, with no device at all."""
     import inspect
 
     from foamtpu_torch import convert
@@ -136,3 +146,11 @@ def test_entry_points_default_to_the_card():
     for cmd in (cli.box_turb, cli.set_fields):
         src = inspect.getsource(cmd)
         assert "args.device or DEFAULT_DEVICE" in src, cmd.__name__
+    from foamtpu_torch.solvers import chtmultiregion
+
+    assert inspect.signature(Case.__init__).parameters["region"].default \
+        == ""
+    src = inspect.getsource(chtmultiregion.ChtRun.__init__)
+    assert "Case(case.dir, device=case.device, region=name)" in src
+    src = inspect.getsource(cli.snappy_hex_mesh)
+    assert "device" not in src and "mesh_io.write" in src

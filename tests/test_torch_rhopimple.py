@@ -278,7 +278,9 @@ def test_applications_are_registered_as_the_reference():
     assert reg["rhoPimplecFoam"] is tapps.rho_pimplecfoam
     assert reg["sonicFoam"] is tapps.sonicfoam
     # the single-equation slice's ten (tests/test_torch_electromagnetics.py)
-    assert len(reg) == 46
+    # and windSimpleFoam, chtMultiRegionFoam and chtMultiRegionSimpleFoam
+    # (tests/test_torch_snappy.py, tests/test_torch_cht.py)
+    assert len(reg) == 49
 
 
 # -- the goldens of chip_smoke.py's compressible phase -------------------------
