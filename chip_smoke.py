@@ -150,6 +150,29 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      a warm-up step (GAMG p and pB where the shipped PCG reaches
      its cap), three timed 5-step chunks, the SpMV held and timed at the
      p and B operands, one profiled step.
+ 30. snappy_cht: bluffBody and openTerrain through blockMesh,
+     snappyHexMesh and run(case), heatedSlabs under both cht
+     applications, to goldens and oracles; the SpMV at bluffBody's p and
+     the heater's T.
+ 31. snappy_headline: bluffBody's background at 192 x 48 x 48 (443,180
+     cells snapped in the background process), timed and profiled, the
+     SpMV at the snapped p.
+ 32. cht_headline: two slabs of 393,216 cells each under
+     chtMultiRegionFoam, timed and profiled, the SpMV at a slab's T.
+ 33. multiphase: the multiphase family's eleven tutorials and
+     MRFMultiphaseInterFoam (damBreak4phase with MRFInterFoam's rotor)
+     through blockMesh, setFields and run(case) at 20-50 steps
+     (SLICE13_RUNS), to goldens from the JAX package and the reference
+     tests' oracles (bounded fractions summing to 1, phase volumes, the
+     rising bubble band, depthCharge2D's pressure range, cavitatingBox's
+     vaporisation); the SpMV held and timed at mixingColumn's alpha
+     operator (non-symmetric) and cavitatingBox's p_rgh.
+ 34. multiphase_headline: twoPhaseEulerFoam on bubbleColumn refined 32x
+     (480 x 1600 = 768,000 cells, meshed in the background process): the
+     shipped PCG p for 2 steps (its iterations and continuity), then GAMG
+     p: timed 10-step chunks with the GAMG cycles and BiCGStab iterations
+     per solve, the SpMV held and timed at the two-fluid p and Ub, one
+     profiled step.
 Every timed SpMV shape (kernel, plain version, one CSR product from
 torch.sparse as the library yardstick) gets its device time per call
 from torch.profiler, back to back with the operands warm in L2 and
@@ -434,7 +457,8 @@ ROTATING_GOLDEN = {
 # float32 (0.2 s per iteration on the card, 3.4 s when it does). Chunks of
 # 3 iterations (the profiled one 2) keep the phase under 200 s
 MRF_HEAD_SCALE = 16
-MRF_HEAD_CHUNK = 3
+MRF_HEAD_CHUNK = 2   # the timed chunks end before the p solves that
+                     # reach their cap (at 3 they took 4.6-7 s an iteration)
 MRF_HEAD_PROFILE = 2
 
 SPMV_SHAPES = {"n1024": (1024, (1, -1, 16, -16)),
@@ -2006,6 +2030,16 @@ def dambreak_small(spmv, here, root):
             **gold, "invariants": inv, "written": written}, checks
 
 
+def dambreak_big_case(here, root, n):
+    """damBreak copied under root at n x n cells and DAMBREAK_BIG_DT (not
+    meshed)."""
+    return copy_case(here, DAMBREAK_CASE, root, f"damBreak{n}", edits=[
+        ("constant/polyMesh/blockMeshDict", f"({DAMBREAK_N} {DAMBREAK_N} 1)",
+         f"({n} {n} 1)"),
+        ("system/controlDict", "deltaT          0.001;",
+         f"deltaT          {DAMBREAK_BIG_DT};")], mesh=False)
+
+
 def dambreak_big(spmv, here, root, n=DAMBREAK_BIG_N, trials=3):
     """(b) the same case at n x n cells: set-up and two warm-up steps
     through the application, then its own step (the config and state the
@@ -2017,14 +2051,21 @@ def dambreak_big(spmv, here, root, n=DAMBREAK_BIG_N, trials=3):
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    dst = copy_case(here, DAMBREAK_CASE, root, f"damBreak{n}", edits=[
-        ("constant/polyMesh/blockMeshDict", f"({DAMBREAK_N} {DAMBREAK_N} 1)",
-         f"({n} {n} 1)"),
-        ("system/controlDict", "deltaT          0.001;",
-         f"deltaT          {DAMBREAK_BIG_DT};")])
-    with quiet():
-        check(cli(["setFields", "-case", dst]) == 0, "setFields failed")
-    case = Case(dst, device="cuda")
+    got = premeshed("dambreak") if n == DAMBREAK_BIG_N else None
+    if got:
+        # meshed and set up by the premesh process: its case directory
+        # and the mesh it read there
+        pm, premesh = got
+        dst = premesh["case_dir"]
+        case = Case(dst, device="cuda")
+        case._poly = pm
+    else:
+        premesh = {}
+        dst = dambreak_big_case(here, root, n)
+        with quiet():
+            check(cli(["blockMesh", "-case", dst]) == 0, "blockMesh failed")
+            check(cli(["setFields", "-case", dst]) == 0, "setFields failed")
+        case = Case(dst, device="cuda")
     mesh = case.mesh
     check(mesh.n_cells == n * n, mesh.n_cells)
     alpha0 = case.read_field("alpha1").data.clone()
@@ -2073,7 +2114,8 @@ def dambreak_big(spmv, here, root, n=DAMBREAK_BIG_N, trials=3):
     inv, checks = dambreak_invariants(mesh, alpha0, state)
     out = {"n_cells": mesh.n_cells, "dtype": str(mesh.v.dtype),
            "delta_t": dt, "st_deltas": list(mesh.st_deltas),
-           "setup_s": setup_s, "warmup_steps": DAMBREAK_BIG_WARMUP,
+           "setup_s": setup_s, "premesh": premesh,
+           "warmup_steps": DAMBREAK_BIG_WARMUP,
            "warmup_s": warm_s, "sec_per_step": sec,
            "trial_sec_per_step": times, "cells_per_sec": mesh.n_cells / sec,
            "steps": (DAMBREAK_BIG_WARMUP + DAMBREAK_BIG_CHUNK * trials + 1
@@ -2803,6 +2845,16 @@ def mrf_hooks_ms(mesh, cfg, state):
                 lambda: cfg.mrf.make_relative(mesh, phi))}
 
 
+def mixer_big_case(here, root):
+    """mixerVessel2D copied under root with every block at MRF_HEAD_SCALE
+    x per side (not meshed, see memory_mesh)."""
+    k = MRF_HEAD_SCALE
+    return copy_case(here, ROTATING_CASES["MRFSimpleFoam"][0], root,
+                     f"mixer{k}", edits=[
+                         ("constant/polyMesh/blockMeshDict", "(12 24 1)",
+                          f"({12 * k} {24 * k} 1)")], mesh=False)
+
+
 def phase_mrf_headline(spmv, here, root, flush, trials=3):
     """MRFSimpleFoam on mixerVessel2D with every block scaled
     MRF_HEAD_SCALE x per side (294,912 cells): set-up, one iteration with
@@ -2819,12 +2871,9 @@ def phase_mrf_headline(spmv, here, root, flush, trials=3):
     k = MRF_HEAD_SCALE
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    dst = copy_case(here, ROTATING_CASES["MRFSimpleFoam"][0], root,
-                    f"mixer{k}", edits=[
-                        ("constant/polyMesh/blockMeshDict", "(12 24 1)",
-                         f"({12 * k} {24 * k} 1)")])
+    dst = mixer_big_case(here, root)
+    case = memory_mesh(Case(dst, device="cuda"))
     blockmesh_s = time.perf_counter() - t0
-    case = Case(dst, device="cuda")
     mesh = case.mesh
     check(mesh.n_cells == 4 * 12 * 24 * k * k, mesh.n_cells)
     _, nu = dimensioned_scalar(case.transport_properties()["nu"])
@@ -3003,84 +3052,91 @@ functions
 
 # from tests/test_torch_channel.py::reference_goldens (the JAX package on the CPU
 # in float32, through its run_case, on the cases written above)
+# the card's p controls for the RAS channel (turbulence_models and its
+# goldens): GAMG to the same tolerance as the PCG p of the parity tests,
+# which takes 248-268 iterations per solve for 300 cells (40 s of host
+# time over the seven models on the card; GAMG's 113-117 cycles take 25 s
+# less)
+RAS_CHANNEL_CARD_P = ("solver GAMG; smoother GaussSeidel; tolerance 1e-07; "
+                      "relTol 0;")
 RAS_GOLDEN = {
     "RNGkEpsilon": {
-        "ke": 0.5117350220680237,
-        "ux_centre_out": 0.6911365985870361,
-        "ux_centre_row": 0.9999900460243225,
-        "ux_wall_row": 0.9979972243309021,
-        "k_max": 0.06511863321065903,
-        "k_mean": 0.013255960308015347,
-        "epsilon_max": 1.2905679941177368,
-        "epsilon_mean": 0.17046070098876953,
-        "nut_max": 0.0006952387630008161,
-        "nut_mean": 0.00014770434063393623,
+        "ke": 0.5117349624633789,
+        "ux_centre_out": 0.6911367177963257,
+        "ux_centre_row": 0.9999898076057434,
+        "ux_wall_row": 0.9979970455169678,
+        "k_max": 0.06511867791414261,
+        "k_mean": 0.013255964033305645,
+        "epsilon_max": 1.290569543838501,
+        "epsilon_mean": 0.17046071588993073,
+        "nut_max": 0.0006952379480935633,
+        "nut_mean": 0.00014770447160117328,
     },
     "realizableKE": {
-        "ke": 0.5120598077774048,
-        "ux_centre_out": 0.682236909866333,
-        "ux_centre_row": 0.9999908804893494,
-        "ux_wall_row": 0.9980452060699463,
-        "k_max": 0.06353656947612762,
+        "ke": 0.5120605826377869,
+        "ux_centre_out": 0.6822383403778076,
+        "ux_centre_row": 0.9999914169311523,
+        "ux_wall_row": 0.9980455636978149,
+        "k_max": 0.06353656202554703,
         "k_mean": 0.012216247618198395,
-        "epsilon_max": 1.3067806959152222,
-        "epsilon_mean": 0.17540444433689117,
-        "nut_max": 0.0016722457949072123,
-        "nut_mean": 0.0002180171140935272,
+        "epsilon_max": 1.3067792654037476,
+        "epsilon_mean": 0.17540423572063446,
+        "nut_max": 0.001672248705290258,
+        "nut_mean": 0.00021801720140501857,
     },
     "LaunderSharmaKE": {
-        "ke": 0.503154456615448,
-        "ux_centre_out": 0.8681455254554749,
-        "ux_centre_row": 0.9999850988388062,
-        "ux_wall_row": 0.9977337718009949,
-        "k_max": 1.5880711078643799,
-        "k_mean": 0.27780431509017944,
-        "epsilon_max": 31.05703353881836,
-        "epsilon_mean": 4.4745774269104,
-        "nut_max": 0.007225282955914736,
-        "nut_mean": 0.0015147414524108171,
+        "ke": 0.5031536817550659,
+        "ux_centre_out": 0.8681450486183167,
+        "ux_centre_row": 0.999984085559845,
+        "ux_wall_row": 0.9977340698242188,
+        "k_max": 1.5880703926086426,
+        "k_mean": 0.27780407667160034,
+        "epsilon_max": 31.056989669799805,
+        "epsilon_mean": 4.47457218170166,
+        "nut_max": 0.007225287612527609,
+        "nut_mean": 0.0015147405210882425,
     },
     "kOmega": {
-        "ke": 0.5152376890182495,
-        "ux_centre_out": 0.6366220116615295,
-        "ux_centre_row": 0.9999997615814209,
-        "ux_wall_row": 0.9977689385414124,
-        "k_max": 0.02053774520754814,
-        "k_mean": 0.005895450245589018,
-        "omega_max": 357.6550598144531,
-        "omega_mean": 97.27108764648438,
+        "ke": 0.5152373313903809,
+        "ux_centre_out": 0.6366223096847534,
+        "ux_centre_row": 0.9999997019767761,
+        "ux_wall_row": 0.9977685213088989,
+        "k_max": 0.0205377284437418,
+        "k_mean": 0.00589545164257288,
+        "omega_max": 357.65509033203125,
+        "omega_mean": 97.27107238769531,
         "nut_max": 0.00033390987664461136,
-        "nut_mean": 0.00014952782657928765,
+        "nut_mean": 0.00014952787023503333,
     },
     "SpalartAllmaras": {
-        "ke": 0.5178465247154236,
-        "ux_centre_out": 0.6032958030700684,
-        "ux_centre_row": 1.0000003576278687,
-        "ux_wall_row": 0.9977140426635742,
-        "nuTilda_max": 0.0008827498531900346,
-        "nuTilda_mean": 0.0002103252918459475,
-        "nut_max": 0.0005806380650028586,
-        "nut_mean": 1.5108946172404103e-05,
+        "ke": 0.5178470611572266,
+        "ux_centre_out": 0.603295624256134,
+        "ux_centre_row": 1.0000011920928955,
+        "ux_wall_row": 0.997714102268219,
+        "nuTilda_max": 0.000882750260643661,
+        "nuTilda_mean": 0.00021032535005360842,
+        "nut_max": 0.0005806386470794678,
+        "nut_mean": 1.5108962543308735e-05,
     },
     "SpalartAllmarasDES": {
-        "ke": 0.5167974233627319,
-        "ux_centre_out": 0.6144391894340515,
-        "ux_centre_row": 0.9999968409538269,
-        "ux_wall_row": 0.9978778958320618,
-        "nuTilda_max": 0.0002611973031889647,
-        "nuTilda_mean": 9.415398380951956e-05,
-        "nut_max": 1.2387902643240523e-05,
-        "nut_mean": 7.031505333543464e-07,
+        "ke": 0.516796350479126,
+        "ux_centre_out": 0.6144410371780396,
+        "ux_centre_row": 0.9999955296516418,
+        "ux_wall_row": 0.9978774189949036,
+        "nuTilda_max": 0.0002611975069157779,
+        "nuTilda_mean": 9.415410022484139e-05,
+        "nut_max": 1.238793720403919e-05,
+        "nut_mean": 7.031513860056293e-07,
     },
     "SpalartAllmarasDDES": {
-        "ke": 0.5178455114364624,
-        "ux_centre_out": 0.6032947897911072,
-        "ux_centre_row": 0.9999993443489075,
-        "ux_wall_row": 0.9977138638496399,
+        "ke": 0.5178471207618713,
+        "ux_centre_out": 0.6032971739768982,
+        "ux_centre_row": 1.0000011920928955,
+        "ux_wall_row": 0.9977139830589294,
         "nuTilda_max": 0.0008827500860206783,
-        "nuTilda_mean": 0.00021032516087871045,
+        "nuTilda_mean": 0.0002103253937093541,
         "nut_max": 0.000580638472456485,
-        "nut_mean": 1.5108938896446489e-05,
+        "nut_mean": 1.5108962543308735e-05,
     },
 }
 LES_GOLDEN = {
@@ -3223,7 +3279,7 @@ def ras_channel_scales():
 
 
 def ras_channel_case(dst, model, steps=RAS_CHANNEL_STEPS, seed=1,
-                     nx=30, ny=10):
+                     nx=30, ny=10, p_solver=None):
     """The 2D channel of tests/test_turbulence.py (2 x 0.1 m, nx x ny,
     walls top and bottom, U = 1 at the inlet) as pisoFoam case files for
     one RAS model: its fields under 0/ with the channel's BCs (the nut
@@ -3269,13 +3325,14 @@ snGradSchemes { default corrected; }
         "dictionary", "fvSolution") + """
 solvers
 {
-    p { solver PCG; preconditioner DIC; tolerance 1e-07; relTol 0; }
+    p { %s }
     U { solver PBiCGStab; preconditioner DILU; tolerance 1e-07; relTol 0; }
     "(k|epsilon|omega|nuTilda)"
     { solver PBiCGStab; preconditioner DILU; tolerance 1e-08; relTol 0.01; }
 }
 PISO { nCorrectors 2; nNonOrthogonalCorrectors 0; pRefCell 0; pRefValue 0; }
-""")
+""" % (p_solver or "solver PCG; preconditioner DIC; tolerance 1e-07; "
+          "relTol 0;"))
     _write_text(dst, "constant/transportProperties", _foam_header(
         "dictionary", "transportProperties")
         + f"nu nu [0 2 -1 0 0 0 0] {RAS_CHANNEL_NU!r};\n")
@@ -3504,7 +3561,8 @@ def phase_turbulence_models(spmv, here, root):
     from foamtpu_torch.core.dictionary import dimensioned_scalar
 
     for model in RAS_CHANNEL_MODELS:
-        dst = ras_channel_case(os.path.join(root, "ras", model), model)
+        dst = ras_channel_case(os.path.join(root, "ras", model), model,
+                               p_solver=RAS_CHANNEL_CARD_P)
         case, a, v, text, rec, ck = one("ras", dst, RAS_CHANNEL_STEPS)
         got = ras_channel_scalars(a, v)
         rel = golden_rel_err(got, RAS_GOLDEN[model], TURB_GOLDEN_FLOOR)
@@ -8003,6 +8061,7 @@ def premesh_cases(here, src):
     dsts = [
         copy_case(here, BASIC_CASES["laplacianFoam"][0], src,
                   f"heated{HEATED_N}", edits=heated_edits(), mesh=False),
+        mixer_big_case(here, src),
         copy_case(here, CHANNEL395_CASE, src, "channel_big",
                   edits=les_head_edits(), mesh=False),
         hotroom_case(here, os.path.join(src, "hotroom_big"),
@@ -8052,6 +8111,18 @@ def premesh_main(jobs_file, out_dir):
                 res = (blockmesh.generate(parse_file(arg)), {})
             elif kind == "tet":
                 res = (tet_box(*arg, size=(4.0, 1.0, 1.0)), {})
+            elif kind == "setFields":
+                # dambreak's case: blockMesh and setFields on its files, the
+                # mesh read back for the phase
+                from foamtpu_torch.apps.cli import main as cli
+                from foamtpu_torch.core.case import Case
+
+                with contextlib.redirect_stdout(sys.stderr):
+                    check(cli(["blockMesh", "-case", arg]) == 0,
+                          "blockMesh failed")
+                    check(cli(["setFields", "-case", arg, "-device", "cpu"])
+                          == 0, "setFields failed")
+                res = (Case(arg, device="cpu").poly_mesh, {"case_dir": arg})
             elif kind == "snappy":
                 res = snapped_bluff(here_of(jobs_file), root, tuple(arg))
             else:
@@ -8080,11 +8151,17 @@ def start_premesh(here, root):
     top = os.path.join(root, "premesh")
     out_dir = os.path.join(top, "out")
     os.makedirs(out_dir)
-    jobs = [["duct", "tet", list(DUCT)]]
+    jobs = [["duct", "tet", list(DUCT)],
+            ["dambreak", "setFields", dambreak_big_case(
+                here, os.path.join(top, "src"), DAMBREAK_BIG_N)]]
     jobs += [[dict_key(p), "blockMesh", p]
              for p in premesh_cases(here, os.path.join(top, "src"))]
     jobs += [["bluff", "snappy", list(SNAPPY_HEAD_BLOCKS)],
              ["slabs", "slabs", list(CHT_HEAD_CELLS)]]
+    # multiphase_headline's column, after the meshes of the earlier phases
+    bubble = blockmesh_dict(bubble_big_case(here, os.path.join(
+        top, "src", "bubble_big")))
+    jobs += [[dict_key(bubble), "blockMesh", bubble]]
     jobs_file = os.path.join(top, "jobs.json")
     with open(jobs_file, "w") as f:
         json.dump(jobs, f)
@@ -8453,6 +8530,1008 @@ def phase_cht_headline(spmv, here, root, flush):
     return out, max_err, timings
 
 
+# ---------------------------------------------------------------------------
+# the multiphase family
+# ---------------------------------------------------------------------------
+
+# application -> (tutorial path, its Allrun runs setFields)
+SLICE13_TUTORIALS = {
+    "twoLiquidMixingFoam": (("multiphase", "twoLiquidMixingFoam",
+                             "mixingColumn"), True),
+    "interMixingFoam": (("multiphase", "interMixingFoam", "damBreak3phase"),
+                        True),
+    "interPhaseChangeFoam": (("multiphase", "interPhaseChangeFoam",
+                              "cavitatingBox"), False),
+    "multiphaseInterFoam": (("multiphase", "multiphaseInterFoam",
+                             "damBreak4phase"), True),
+    # damBreak4phase under MRFMultiphaseInterFoam, with the MRFZones of
+    # MRFInterFoam's damBreak (the same tank): the tutorial has none
+    "MRFMultiphaseInterFoam": (("multiphase", "multiphaseInterFoam",
+                                "damBreak4phase"), True),
+    "compressibleInterFoam": (("multiphase", "compressibleInterFoam",
+                               "depthCharge2D"), True),
+    "settlingFoam": (("multiphase", "settlingFoam", "tank"), False),
+    "cavitatingFoam": (("multiphase", "cavitatingFoam", "throttle2D"), False),
+    "sonicLiquidFoam": (("compressible", "sonicLiquidFoam",
+                         "decompressionTank"), False),
+    "twoPhaseEulerFoam": (("multiphase", "twoPhaseEulerFoam",
+                           "bubbleColumn"), False),
+    "bubbleFoam": (("multiphase", "bubbleFoam", "bubbleColumn"), False),
+    "multiphaseEulerFoam": (("multiphase", "multiphaseEulerFoam",
+                             "threePhaseColumn"), True),
+}
+MRF_DAMBREAK_ZONES = os.path.join("tutorials", "multiphase", "MRFInterFoam",
+                                  "damBreak", "constant", "MRFZones")
+DAMBREAK4_PHASES = ("alphawater", "alphaoil", "alphaair")
+# the fourth phase of the N = 4 variant of damBreak4phase (the tutorial
+# here carries three): mercury, from the water column's left half
+MERCURY = "mercury { nu nu [0 2 -1 0 0 0 0] 1.125e-07; " \
+          "rho rho [1 -3 0 0 0 0 0] 13529; }"
+SLICE13_SEED = 13
+# per tutorial, the perturbations of a seeded start, from numpy's
+# generator: ("vec", field, s) adds s N(0, 1) to the x and y components;
+# ("frac", field, s) mixes a fraction with s of a uniform draw, (1 - s) a
+# + s u; ("fractions", fields, s) mixes the N fractions with s of a random
+# point of the simplex (their sum stays 1); ("split", a1, a2, s) sets
+# alpha2 to a share 0.5 +- s/2 of the liquid 1 - alpha1 (interMixingFoam:
+# the D23 exchange then acts, damBreak3phase ships alpha2 = 0);
+# ("around", field, c, s) sets c + s (u - 1/2) (cavitatingBox's p_rgh
+# about pSat: condensation and vaporisation both act); ("rel", field,
+# s) multiplies by 1 + s u. Uniform starts under the vanLeer weights
+# follow the sign of round-off, and a start at rest goes nowhere
+SLICE13_SEEDS = {
+    "twoLiquidMixingFoam": (("vec", "U", 0.01), ("frac", "alpha1", 0.1)),
+    "interMixingFoam": (("vec", "U", 0.01), ("frac", "alpha1", 0.1),
+                        ("split", "alpha1", "alpha2", 0.5)),
+    "interPhaseChangeFoam": (("vec", "U", 0.01), ("frac", "alpha1", 0.3),
+                             ("around", "p_rgh", 2300.0, 2000.0)),
+    "multiphaseInterFoam": (("vec", "U", 0.01),
+                            ("fractions", DAMBREAK4_PHASES, 0.1)),
+    "MRFMultiphaseInterFoam": (("vec", "U", 0.01),
+                               ("fractions", DAMBREAK4_PHASES, 0.1)),
+    "compressibleInterFoam": (("vec", "U", 0.01), ("frac", "alpha1", 0.1),
+                              ("rel", "T", 0.01)),
+    # the tank as shipped is at rest with a uniform alpha: its U is
+    # round-off (1e-10 m/s)
+    "settlingFoam": (("vec", "U", 0.001), ("frac", "alpha", 0.2)),
+}
+# converged p controls for the parity cases whose shipped solve stops at
+# relTol 0.01-0.05 where round-off of 1e-14 moves the fields by 1e-9 to
+# 1e-8 within three steps (cavitatingBox's p_rgh 1.7e-8, throttle2D's p
+# 2.2e-9, the tank's U 2.9e-10, measured in float64)
+SLICE13_TIGHT = {
+    "interPhaseChangeFoam": {"p_rgh": "solver PCG; preconditioner "
+                             "polynomial; tolerance 1e-12; relTol 0; "
+                             "maxIter 2000;"},
+    "settlingFoam": {"p_rgh": "solver PCG; preconditioner polynomial; "
+                     "tolerance 1e-12; relTol 0; maxIter 2000;"},
+    "cavitatingFoam": {"p": "solver PCG; preconditioner polynomial; "
+                       "tolerance 1e-12; relTol 0; maxIter 2000;"},
+}
+
+
+def _seed_slice13(dst, ops, seed):
+    from foamtpu_torch.core.case import Case
+
+    case = Case(dst, device="cpu")
+    n = case.mesh.n_cells
+    rng = np.random.default_rng(seed)
+
+    def get(f):
+        return case.read_field(f).data.double().numpy().copy()
+
+    for op in ops:
+        kind = op[0]
+        if kind == "vec":
+            a = get(op[1])
+            a[:, :2] += op[2] * rng.standard_normal((n, 2))
+            set_internal(dst, op[1], a)
+        elif kind == "frac":
+            set_internal(dst, op[1], (1.0 - op[2]) * get(op[1])
+                         + op[2] * rng.random(n))
+        elif kind == "fractions":
+            A = np.stack([get(f) for f in op[1]], axis=1)
+            R = rng.random(A.shape)
+            A = (1.0 - op[2]) * A + op[2] * R / R.sum(axis=1, keepdims=True)
+            for i, f in enumerate(op[1]):
+                set_internal(dst, f, A[:, i])
+        elif kind == "split":
+            liquid = np.clip(1.0 - get(op[1]), 0.0, 1.0)
+            share = 0.5 + op[3] * (rng.random(n) - 0.5)
+            set_internal(dst, op[2], liquid * share)
+        elif kind == "around":
+            set_internal(dst, op[1], op[2] + op[3] * (rng.random(n) - 0.5))
+        else:
+            set_internal(dst, op[1], get(op[1]) * (1.0 + op[2]
+                                                   * rng.random(n)))
+
+
+def _four_phases(dst):
+    """damBreak4phase with mercury as a fourth phase (before setFields):
+    its transportProperties entry, 0/alphamercury and the setFields
+    default."""
+    tp = os.path.join(dst, "constant", "transportProperties")
+    _edit(tp, r"phases\s*\(([^)]*)\);",
+          lambda m: f"phases ({m.group(1).strip()} mercury);\n\n{MERCURY}")
+    with open(os.path.join(dst, "0", "alphaoil")) as f:
+        text = f.read()
+    _write_text(dst, os.path.join("0", "alphamercury"),
+                text.replace("alphaoil", "alphamercury"))
+    _edit(os.path.join(dst, "system", "setFieldsDict"),
+          r"(volScalarFieldValue alphaair 1)",
+          lambda m: m.group(1) + "\n    volScalarFieldValue alphamercury 0")
+
+
+def _mercury_column(dst):
+    """After setFields: the left half of the water column is mercury."""
+    from foamtpu_torch.core.case import Case
+
+    case = Case(dst, device="cpu")
+    x = case.mesh.c[:, 0].double().numpy()
+    water = case.read_field("alphawater").data.double().numpy()
+    hg = np.where(x < 0.0731, water, 0.0)
+    set_internal(dst, "alphawater", water - hg)
+    set_internal(dst, "alphamercury", hg)
+
+
+def slice13_case(here, dst, name, cli, device=(), seed=None, model=None,
+                 four_phases=False, controls=None, write_precision=None,
+                 blocks=None):
+    """The tutorial of application `name` (SLICE13_TUTORIALS) copied to
+    dst, meshed by `cli`'s blockMesh and setFields where its Allrun runs
+    it (setFields gets `device`; cli None: not meshed). MRFMultiphaseInter
+    Foam gets MRF_DAMBREAK_ZONES as constant/MRFZones; `model` replaces
+    interPhaseChangeFoam's phaseChangeTwoPhaseMixture (Kunz, Merkle);
+    `four_phases` adds mercury (damBreak4phase, N = 4); `controls`
+    ({field: entry}) replaces fvSolution solver entries; `blocks` sets the
+    block's cell counts; `write_precision` the controlDict's; `seed`
+    perturbs the start (SLICE13_SEEDS, four phases with mercury). Returns
+    dst."""
+    rel, set_fields = SLICE13_TUTORIALS[name]
+    shutil.copytree(os.path.join(here, "tutorials", *rel), dst)
+    control = os.path.join(dst, "system", "controlDict")
+    if name == "MRFMultiphaseInterFoam":
+        _edit(control, r"application\s+\w+;",
+              "application MRFMultiphaseInterFoam;")
+        shutil.copy(os.path.join(here, MRF_DAMBREAK_ZONES),
+                    os.path.join(dst, "constant", "MRFZones"))
+    if write_precision is not None:
+        with open(control, "a") as f:
+            f.write(f"\nwritePrecision {write_precision};\n")
+    if model is not None:
+        _edit(os.path.join(dst, "constant", "transportProperties"),
+              r"phaseChangeTwoPhaseMixture\s+\w+;",
+              f"phaseChangeTwoPhaseMixture {model};")
+    if four_phases:
+        _four_phases(dst)
+    for field, entry in (controls or {}).items():
+        _edit(os.path.join(dst, "system", "fvSolution"),
+              rf"(\s){field}\s*\{{[^}}]*\}}",
+              lambda m: f"{m.group(1)}{field} {{ {entry} }}", count=1)
+    if blocks is not None:
+        _edit(blockmesh_dict(dst), r"(hex\s*\([^)]*\)\s*)\(([^)]*)\)",
+              lambda m: "{}({} {} 1)".format(m.group(1), *blocks))
+    if cli is None:
+        return dst
+    with quiet():
+        check(cli(["blockMesh", "-case", dst]) == 0, "blockMesh failed")
+        if set_fields:
+            check(cli(["setFields", "-case", dst, *device]) == 0,
+                  "setFields failed")
+    if four_phases:
+        _mercury_column(dst)
+    if seed is not None:
+        ops = SLICE13_SEEDS[name]
+        if four_phases:
+            ops = tuple(op if op[0] != "fractions" else
+                        ("fractions", op[1] + ("alphamercury",), op[2])
+                        for op in ops)
+        _seed_slice13(dst, ops, seed)
+    return dst
+
+
+# the cases of the slice's f64 parity tests (tests/test_torch_multiphase_
+# vof.py, _euler.py, test_torch_settling_cavitating.py): name ->
+# (application, slice13_case options). Seeded where a vanLeer limiter
+# meets a uniform start; the Euler-Euler, settling and barotropic steps
+# weigh U upwind and start as shipped
+SLICE13_CASES = {
+    "twoLiquidMixingFoam": ("twoLiquidMixingFoam", {"seed": SLICE13_SEED}),
+    "interMixingFoam": ("interMixingFoam", {"seed": SLICE13_SEED}),
+    "interPhaseChangeFoam": ("interPhaseChangeFoam", {
+        "seed": SLICE13_SEED, "controls": SLICE13_TIGHT[
+            "interPhaseChangeFoam"]}),
+    "interPhaseChangeFoam_Kunz": ("interPhaseChangeFoam", {
+        "seed": SLICE13_SEED, "model": "Kunz",
+        "controls": SLICE13_TIGHT["interPhaseChangeFoam"]}),
+    "interPhaseChangeFoam_Merkle": ("interPhaseChangeFoam", {
+        "seed": SLICE13_SEED, "model": "Merkle",
+        "controls": SLICE13_TIGHT["interPhaseChangeFoam"]}),
+    "multiphaseInterFoam": ("multiphaseInterFoam", {"seed": SLICE13_SEED}),
+    "multiphaseInterFoam_4": ("multiphaseInterFoam", {
+        "seed": SLICE13_SEED, "four_phases": True}),
+    "MRFMultiphaseInterFoam": ("MRFMultiphaseInterFoam",
+                               {"seed": SLICE13_SEED}),
+    "compressibleInterFoam": ("compressibleInterFoam",
+                              {"seed": SLICE13_SEED}),
+    "settlingFoam": ("settlingFoam",
+                     {"seed": SLICE13_SEED,
+                      "controls": SLICE13_TIGHT["settlingFoam"]}),
+    "cavitatingFoam": ("cavitatingFoam",
+                       {"controls": SLICE13_TIGHT["cavitatingFoam"]}),
+    "sonicLiquidFoam": ("sonicLiquidFoam", {}),
+    "twoPhaseEulerFoam": ("twoPhaseEulerFoam", {}),
+    "bubbleFoam": ("bubbleFoam", {}),
+    "multiphaseEulerFoam": ("multiphaseEulerFoam", {}),
+}
+
+
+def slice13_parity_case(here, dst, name, cli, device=()):
+    """The case `name` of SLICE13_CASES, fields written with 17 digits."""
+    app, opts = SLICE13_CASES[name]
+    return slice13_case(here, dst, app, cli, device=device,
+                        write_precision=17, **opts)
+
+
+# the `multiphase` phase's runs of the tutorials as shipped: name ->
+# (application, slice13_case options, steps): 20-50 of their 20-1000
+# steps (PERF.md §4)
+SLICE13_RUNS = {
+    "twoLiquidMixingFoam": ("twoLiquidMixingFoam", {}, 20),
+    "interMixingFoam": ("interMixingFoam", {}, 20),
+    "interPhaseChangeFoam": ("interPhaseChangeFoam", {}, 20),
+    "multiphaseInterFoam": ("multiphaseInterFoam", {}, 20),
+    "MRFMultiphaseInterFoam": ("MRFMultiphaseInterFoam", {}, 20),
+    "compressibleInterFoam": ("compressibleInterFoam", {}, 20),
+    "settlingFoam": ("settlingFoam", {}, 20),
+    "cavitatingFoam": ("cavitatingFoam", {}, 20),
+    "sonicLiquidFoam": ("sonicLiquidFoam", {}, 20),
+    # the rising band of tests/test_tutorial_cases.py needs its 50 steps
+    "twoPhaseEulerFoam": ("twoPhaseEulerFoam", {}, 50),
+    "bubbleFoam": ("bubbleFoam", {}, 20),
+    "multiphaseEulerFoam": ("multiphaseEulerFoam", {}, 20),
+}
+
+
+def slice13_arrays(name, final_state, host):
+    """The fields of a run's final state as float64 numpy, named without
+    underscores (small_golden_errs reads a golden key's field from its
+    first word): the N-phase fractions one array per phase (alpha0...),
+    multiphaseEulerFoam's velocities U0..."""
+    st = final_state.get("state", final_state)
+
+    def f(k):
+        return np.asarray(host(getattr(st[k], "data", st[k])),
+                          dtype=np.float64)
+
+    out = {}
+    for k, alias in (("U", "U"), ("p", "p"), ("p_rgh", "prgh"),
+                     ("alpha", "alpha"), ("alpha1", "alpha1"),
+                     ("alpha2", "alpha2"), ("T", "T"), ("p_abs", "pabs"),
+                     ("rho", "rho"), ("Ua", "Ua"), ("Ub", "Ub")):
+        if k in st and not (k == "rho" and "p" not in st):
+            out[alias] = f(k)
+    if "alphas" in st:
+        A = f("alphas")
+        out.update({f"alpha{i}": A[:, i] for i in range(A.shape[1])})
+    if "phis" in st:
+        out.update({f"U{i}": f(f"U{i}") for i in range(
+            np.asarray(host(st["phis"])).shape[1])})
+        out.pop("U", None)
+    return out
+
+
+def slice13_start_arrays(name, case):
+    """The fractions of a case's start time under the names of
+    slice13_arrays (the oracles' a0)."""
+    from foamtpu_torch.solvers import apps
+
+    def read(*names):
+        for n in names:
+            if os.path.exists(os.path.join(case.dir, "0", n)):
+                return case.read_field(n).data.double().cpu().numpy()
+        check(False, f"{case.dir}: none of {names} at the start time")
+
+    tp = case.transport_properties()
+    if name in ("multiphaseInterFoam", "MRFMultiphaseInterFoam",
+                "multiphaseEulerFoam"):
+        names = ([str(x) for x in tp.get("phases", [])]
+                 if name != "multiphaseEulerFoam"
+                 else apps.multiphase_euler_phases(tp)[0])
+        return {f"alpha{i}": read(f"alpha{n}") for i, n in enumerate(names)}
+    if name == "interMixingFoam":
+        return {"alpha1": read("alpha1"), "alpha2": read("alpha2")}
+    if name in ("cavitatingFoam", "sonicLiquidFoam"):
+        return {}
+    return {"alpha": read("alpha", "alpha1")}
+
+
+def slice13_oracles(name, a0, a, v, c):
+    """The reference tests' oracles on a run of `name` from the arrays of
+    its first (a0) and final state (a) (slice13_arrays), with the cell
+    volumes and centres: bounded fractions that sum to 1, each phase's
+    volume conserved where the tank is sealed or barely open (1e-2, as
+    tests/test_tutorial_cases.py holds damBreak), the rising bubble band
+    (tests/test_tutorial_cases.py:147-167), depthCharge2D's pressure range
+    (:128-145), cavitatingBox's liquid vaporising below pSat, the
+    settling tank's dispersed mass."""
+    checks = {"finite": all(bool(np.isfinite(x).all()) for x in a.values())}
+    if not checks["finite"]:
+        return checks
+
+    def vol(x):
+        return float((x * v).sum())
+
+    def conserved(key, tol=1e-2):
+        checks[f"{key} volume conserved to {tol:g}"] = (
+            abs(vol(a[key]) - vol(a0[key])) <= tol * max(vol(a0[key]), 1e-30))
+
+    def bounded(key, eps=1e-6):
+        checks[f"{key} in [0, 1]"] = bool(a[key].min() >= -eps
+                                          and a[key].max() <= 1.0 + eps)
+
+    fracs = sorted(k for k in a if re.fullmatch(r"alpha\d", k)
+                   and name != "interMixingFoam")
+    if fracs:
+        s = sum(a[k] for k in fracs)
+        checks["fractions sum to 1"] = float(np.abs(s - 1.0).max()) < 1e-5
+        for k in fracs:
+            bounded(k)
+            conserved(k)
+    if name == "twoLiquidMixingFoam":
+        bounded("alpha")
+        conserved("alpha")
+    elif name == "interMixingFoam":
+        bounded("alpha1")
+        bounded("alpha2")
+        checks["alpha3 = 1 - alpha1 - alpha2 >= 0"] = bool(
+            (1.0 - a["alpha1"] - a["alpha2"]).min() >= -1e-6)
+        conserved("alpha1")
+    elif name == "interPhaseChangeFoam":
+        bounded("alpha")
+        # p_rgh starts at 500 Pa, below pSat 2300: the liquid vaporises
+        checks["alpha falls below its start"] = vol(a["alpha"]) < vol(
+            a0["alpha"]) and a["alpha"].min() < a0["alpha"].min()
+        # and the box stays at rest (SLICE13_GOLDEN_FIELDS)
+        checks["at rest: |U| < 1e-5"] = float(
+            np.linalg.norm(a["U"], axis=1).max()) < 1e-5
+        checks["at rest: |p_rgh| < 1e-4 pSat"] = float(
+            np.abs(a["prgh"]).max()) < 0.23
+    elif name == "compressibleInterFoam":
+        bounded("alpha", 1e-4)
+        checks["p_abs max > 2e5 (the charge)"] = float(a["pabs"].max()) > 2e5
+        checks["p_abs min < 2e5 (the far field)"] = (
+            float(a["pabs"].min()) < 2e5)
+    elif name == "settlingFoam":
+        bounded("alpha")
+        rho = 1.0 / (a["alpha"] / 1042.0 + (1.0 - a["alpha"]) / 1000.0)
+        rho0 = 1.0 / (a0["alpha"] / 1042.0 + (1.0 - a0["alpha"]) / 1000.0)
+        checks["dispersed mass conserved to 1e-3"] = abs(
+            vol(rho * a["alpha"]) - vol(rho0 * a0["alpha"])) <= 1e-3 * vol(
+                rho0 * a0["alpha"])
+    elif name in ("twoPhaseEulerFoam", "bubbleFoam"):
+        bounded("alpha", 1e-5)
+        # the reference test's thresholds after its 50 steps; bubbleFoam's
+        # 20-step run: the air has entered (alpha 0.04 at the inlet rows)
+        lim = 0.05 if name == "twoPhaseEulerFoam" else 0.01
+        checks[f"air entered: max alpha > {lim}"] = float(
+            a["alpha"].max()) > lim
+        low = c[:, 1] < 0.2
+        checks[f"air low in the column > {lim}"] = float(
+            a["alpha"][low].max()) > lim
+        if name == "twoPhaseEulerFoam":
+            sel = a["alpha"] > 0.01
+            checks["the band rises: mean Ua_y > 0.01"] = bool(
+                sel.any() and float(a["Ua"][sel, 1].mean()) > 0.01)
+    elif name == "multiphaseEulerFoam":
+        # phases (air oil water): the air band rises
+        y0 = vol(a0["alpha0"] * c[:, 1]) / vol(a0["alpha0"])
+        y1 = vol(a["alpha0"] * c[:, 1]) / vol(a["alpha0"])
+        checks["the air band's centroid rises"] = y1 > y0
+    elif name in ("cavitatingFoam", "sonicLiquidFoam"):
+        checks["rho > 0"] = float(a["rho"].min()) > 0.0
+    return checks
+
+
+
+# goldens from the JAX package (CPU, float32) and its spread under
+# round-off (the larger of |float32 - float64| and the change a 1e-7
+# perturbation of the start makes in float32): `python
+# tests/test_torch_multiphase_vof.py goldens [--perturb]`; held at
+# small_golden_errs
+SLICE13_GOLDEN = {'twoLiquidMixingFoam': {'Ux_mean': -2.417502057323712e-05,
+                         'U_mag_mean': 0.0002965625253235643,
+                         'U_mag_max': 0.0020630310498871303,
+                         'prgh_mean': -3.741903741019115,
+                         'prgh_min': -26.361228942871094,
+                         'prgh_max': 3.738689422607422,
+                         'alpha_mean': 0.13043475356339515,
+                         'alpha_min': 0.0,
+                         'alpha_max': 1.0},
+ 'interMixingFoam': {'Ux_mean': -2.4215522713500482e-05,
+                     'U_mag_mean': 0.00029234849662299425,
+                     'U_mag_max': 0.0020566908012448547,
+                     'prgh_mean': -3.6982529376867284,
+                     'prgh_min': -25.088834762573242,
+                     'prgh_max': 3.884824275970459,
+                     'alpha1_mean': 0.13043478303087205,
+                     'alpha1_min': -3.2389958236605307e-25,
+                     'alpha1_max': 1.0,
+                     'alpha2_mean': 0.0,
+                     'alpha2_min': 0.0,
+                     'alpha2_max': 0.0},
+ 'interPhaseChangeFoam': {'Ux_mean': -2.0101563677488165e-11,
+                          'U_mag_mean': 2.1624834646898492e-09,
+                          'U_mag_max': 4.607637513934535e-09,
+                          'prgh_mean': -2.890363851282274e-06,
+                          'prgh_min': -6.0303209465928376e-05,
+                          'prgh_max': 4.909422204946168e-05,
+                          'alpha_mean': 0.9897187352180479,
+                          'alpha_min': 0.9897187352180481,
+                          'alpha_max': 0.9897187352180481},
+ 'multiphaseInterFoam': {'Ux_mean': 0.008407356458967837,
+                         'U_mag_mean': 0.08190947209541366,
+                         'U_mag_max': 1.2302079134275001,
+                         'prgh_mean': 204.62489650224734,
+                         'prgh_min': -20.862686157226562,
+                         'prgh_max': 2401.508056640625,
+                         'alpha0_mean': 0.0680346863585042,
+                         'alpha0_min': -7.872985516831809e-20,
+                         'alpha0_max': 1.0,
+                         'alpha1_mean': 0.06238060944012422,
+                         'alpha1_min': -6.443380767136805e-19,
+                         'alpha1_max': 1.0,
+                         'alpha2_mean': 0.8695847041747684,
+                         'alpha2_min': -6.307427533006697e-17,
+                         'alpha2_max': 1.0},
+ 'MRFMultiphaseInterFoam': {'Ux_mean': 0.008617802621754048,
+                            'U_mag_mean': 0.0825061842230732,
+                            'U_mag_max': 1.2302080539865496,
+                            'prgh_mean': 204.62461578093684,
+                            'prgh_min': -20.86286163330078,
+                            'prgh_max': 2401.50537109375,
+                            'alpha0_mean': 0.06803468402504231,
+                            'alpha0_min': 0.0,
+                            'alpha0_max': 1.0,
+                            'alpha1_mean': 0.06238061084171647,
+                            'alpha1_min': -1.0215912837345897e-16,
+                            'alpha1_max': 1.0,
+                            'alpha2_mean': 0.8695847052290278,
+                            'alpha2_min': -8.31648118426731e-14,
+                            'alpha2_max': 1.0},
+ 'compressibleInterFoam': {'Ux_mean': -3.783125430313009e-07,
+                           'U_mag_mean': 0.6367074638961742,
+                           'U_mag_max': 5.0639446825806615,
+                           'prgh_mean': 575673.8917529297,
+                           'prgh_min': 130776.953125,
+                           'prgh_max': 989933.5625,
+                           'alpha_mean': 0.04025102751418259,
+                           'alpha_min': 0.0,
+                           'alpha_max': 1.0,
+                           'T_mean': 296.72589264869686,
+                           'T_min': 95.31182098388672,
+                           'T_max': 300.26556396484375,
+                           'pabs_mean': 570961.3256396485,
+                           'pabs_min': 121139.765625,
+                           'pabs_max': 989481.8125},
+ 'settlingFoam': {'Ux_mean': -4.812853080848888e-08,
+                  'U_mag_mean': 1.267253883018881e-07,
+                  'U_mag_max': 2.512090359067079e-07,
+                  'prgh_mean': -0.15222898650801656,
+                  'prgh_min': -1.6090004444122314,
+                  'prgh_max': 3.7152050936128944e-05,
+                  'alpha_mean': 0.19999999895691878,
+                  'alpha_min': 0.1799684315919876,
+                  'alpha_max': 0.2188965231180191},
+ 'cavitatingFoam': {'Ux_mean': 9.995788439114888,
+                    'U_mag_mean': 9.995788680065779,
+                    'U_mag_max': 10.010177007071999,
+                    'p_mean': 101283.23757595487,
+                    'p_min': 100014.140625,
+                    'p_max': 103089.46875,
+                    'rho_mean': 830.0459828694662,
+                    'rho_min': 830.04541015625,
+                    'rho_max': 830.0468139648438},
+ 'sonicLiquidFoam': {'Ux_mean': 2.9998783732187886,
+                     'U_mag_mean': 2.999878414262274,
+                     'U_mag_max': 3.0102251776011526,
+                     'p_mean': 100069.60625590975,
+                     'p_min': 99997.4453125,
+                     'p_max': 125187.359375,
+                     'rho_mean': 1000.0000310852415,
+                     'rho_min': 1000.0,
+                     'rho_max': 1000.0114135742188},
+ 'twoPhaseEulerFoam': {'p_mean': 4946.640925811767,
+                       'p_min': 90.55675506591797,
+                       'p_max': 9841.53515625,
+                       'alpha_mean': 0.0025000000509215817,
+                       'alpha_min': 0.0,
+                       'alpha_max': 0.07537192851305008,
+                       'Uax_mean': -3.7850934401095766e-07,
+                       'Ua_mag_mean': 0.2982247809984562,
+                       'Ua_mag_max': 0.3358653784336193,
+                       'Ubx_mean': -2.0789087693910225e-09,
+                       'Ub_mag_mean': 0.010872646109555646,
+                       'Ub_mag_max': 0.09689070291440847},
+ 'bubbleFoam': {'p_mean': 4989.663258799235,
+                'p_min': 89.5479507446289,
+                'p_max': 9933.048828125,
+                'alpha_mean': 0.0010000000304918736,
+                'alpha_min': 0.0,
+                'alpha_max': 0.04032937437295914,
+                'Uax_mean': 1.4653881489525842e-06,
+                'Ua_mag_mean': 0.29742458940162936,
+                'Ua_mag_max': 0.32829862869441534,
+                'Ubx_mean': 2.983870917394605e-08,
+                'Ub_mag_mean': 0.005571309331409529,
+                'Ub_mag_max': 0.04963014647809068},
+ 'multiphaseEulerFoam': {'p_mean': -1418.5739433858294,
+                         'p_min': -2832.44921875,
+                         'p_max': 3.369572877883911,
+                         'alpha0_mean': 0.016713509447261198,
+                         'alpha0_min': 0.0,
+                         'alpha0_max': 0.10106303542852402,
+                         'alpha1_mean': 0.16666664165821435,
+                         'alpha1_min': -3.2212507211538147e-27,
+                         'alpha1_max': 1.0,
+                         'alpha2_mean': 0.8166198502744758,
+                         'alpha2_min': 6.821224764501019e-14,
+                         'alpha2_max': 1.0,
+                         'U0x_mean': -2.7581787912084443e-05,
+                         'U0_mag_mean': 0.19943498274067073,
+                         'U0_mag_max': 0.28135865935043547,
+                         'U1x_mean': -9.795174973703524e-07,
+                         'U1_mag_mean': 0.02984935935936038,
+                         'U1_mag_max': 0.0481509753713395,
+                         'U2x_mean': 1.149838686029556e-06,
+                         'U2_mag_mean': 0.013598047700981929,
+                         'U2_mag_max': 0.047986705142350206}}
+SLICE13_SPREAD = {'twoLiquidMixingFoam': {'Ux_mean': 4.5110916699914335e-10,
+                         'U_mag_mean': 5.650370530079114e-10,
+                         'U_mag_max': 4.4281955402861173e-10,
+                         'prgh_mean': 0.0004084460617517216,
+                         'prgh_min': 0.0003592842322142076,
+                         'prgh_max': 0.00039080872056818095,
+                         'alpha_mean': 2.8924940775887364e-08,
+                         'alpha_min': 0.0,
+                         'alpha_max': 0.0},
+ 'interMixingFoam': {'Ux_mean': 3.7507000960325344e-10,
+                     'U_mag_mean': 2.6992534417477274e-10,
+                     'U_mag_max': 4.078942357488291e-10,
+                     'prgh_mean': 0.000354162892248322,
+                     'prgh_min': 0.0003190166074737988,
+                     'prgh_max': 0.0002605515824161131,
+                     'alpha1_mean': 6.2824412616624414e-09,
+                     'alpha1_min': 1.7266635178935936e-20,
+                     'alpha1_max': 1.1920928955078125e-07,
+                     'alpha2_mean': 0.0,
+                     'alpha2_min': 0.0,
+                     'alpha2_max': 0.0},
+ 'interPhaseChangeFoam': {'Ux_mean': 5.737861639500108e-13,
+                          'U_mag_mean': 7.099183380645157e-12,
+                          'U_mag_max': 2.2975396350215307e-11,
+                          'prgh_mean': 1.719346646742866e-06,
+                          'prgh_min': 1.7707667845062494e-06,
+                          'prgh_max': 1.6943487537015374e-06,
+                          'alpha_mean': 4.947185550108202e-08,
+                          'alpha_min': 2.8254442896447074e-08,
+                          'alpha_max': 1.1920928955078125e-07},
+ 'multiphaseInterFoam': {'Ux_mean': 8.621336729200402e-06,
+                         'U_mag_mean': 5.5841973388814914e-05,
+                         'U_mag_max': 1.1723333299684668e-06,
+                         'prgh_mean': 0.014560805960911694,
+                         'prgh_min': 0.04910960658578034,
+                         'prgh_max': 0.01354053518116416,
+                         'alpha0_mean': 1.1857809179005585e-09,
+                         'alpha0_min': 7.872985516831809e-20,
+                         'alpha0_max': 0.0,
+                         'alpha1_mean': 4.978883505479814e-08,
+                         'alpha1_min': 6.443298757475406e-19,
+                         'alpha1_max': 0.0,
+                         'alpha2_mean': 4.862965730101365e-08,
+                         'alpha2_min': 6.307427533006697e-17,
+                         'alpha2_max': 0.0},
+ 'MRFMultiphaseInterFoam': {'Ux_mean': 8.563301591430275e-06,
+                            'U_mag_mean': 5.461883283509883e-05,
+                            'U_mag_max': 1.1050195123374351e-06,
+                            'prgh_mean': 0.014833896850717565,
+                            'prgh_min': 0.04920469282201978,
+                            'prgh_max': 0.01460408795173862,
+                            'alpha0_mean': 3.098450038208078e-09,
+                            'alpha0_min': 8.642319679349662e-29,
+                            'alpha0_max': 0.0,
+                            'alpha1_mean': 5.195817928682622e-08,
+                            'alpha1_min': 1.0215912837345897e-16,
+                            'alpha1_max': 0.0,
+                            'alpha2_mean': 4.876394266162265e-08,
+                            'alpha2_min': 8.31648118426731e-14,
+                            'alpha2_max': 0.0},
+ 'compressibleInterFoam': {'Ux_mean': 4.940066719477171e-07,
+                           'U_mag_mean': 1.296870026923358e-07,
+                           'U_mag_max': 3.506544769926734e-05,
+                           'prgh_mean': 0.04917138325981796,
+                           'prgh_min': 0.034180953836767,
+                           'prgh_max': 0.3125,
+                           'alpha_mean': 1.3130669676564288e-09,
+                           'alpha_min': 0.0,
+                           'alpha_max': 0.0,
+                           'T_mean': 0.00012627357625660807,
+                           'T_min': 0.002166748046875,
+                           'T_max': 0.00013990752893278113,
+                           'pabs_mean': 0.049627228756435215,
+                           'pabs_min': 0.030200622757547535,
+                           'pabs_max': 0.20160895853769034},
+ 'settlingFoam': {'Ux_mean': 2.3880445565450845e-10,
+                  'U_mag_mean': 2.2692886669219966e-08,
+                  'U_mag_max': 6.795292847423347e-08,
+                  'prgh_mean': 2.5658185222598995e-06,
+                  'prgh_min': 0.0001934777194652071,
+                  'prgh_max': 2.1609266696032137e-06,
+                  'alpha_mean': 9.68575467052979e-09,
+                  'alpha_min': 3.09688510946593e-09,
+                  'alpha_max': 1.4901161193847656e-08},
+ 'cavitatingFoam': {'Ux_mean': 0.00017411226249386402,
+                    'U_mag_mean': 0.00017411185712745691,
+                    'U_mag_max': 0.0001442906380226816,
+                    'p_mean': 6.332964409739361,
+                    'p_min': 0.900022570262081,
+                    'p_max': 90.22103149000031,
+                    'rho_mean': 3.475613198133942e-06,
+                    'rho_min': 4.145016532675072e-06,
+                    'rho_max': 2.9614317099913023e-05},
+ 'sonicLiquidFoam': {'Ux_mean': 1.184782081331548e-07,
+                     'U_mag_mean': 1.1761237272978065e-07,
+                     'U_mag_max': 0.00012441506094607035,
+                     'p_mean': 7.130130164849106,
+                     'p_min': 2.5546874957944965,
+                     'p_max': 37.46685665476252,
+                     'rho_mean': 2.721080363699002e-06,
+                     'rho_min': 0.0,
+                     'rho_max': 4.476984599932621e-06},
+ 'twoPhaseEulerFoam': {'p_mean': 0.35228512683534063,
+                       'p_min': 0.3111640144370966,
+                       'p_max': 0.6639272934698965,
+                       'alpha_mean': 5.0921581621482526e-11,
+                       'alpha_min': 9.757088195221898e-96,
+                       'alpha_max': 1.887852526596956e-06,
+                       'Uax_mean': 3.78509353929659e-07,
+                       'Ua_mag_mean': 0.0001385056477661295,
+                       'Ua_mag_max': 3.6664507842010252e-06,
+                       'Ubx_mean': 2.078914716690174e-09,
+                       'Ub_mag_mean': 1.0437597869478177e-06,
+                       'Ub_mag_max': 1.9588833080619317e-07},
+ 'bubbleFoam': {'p_mean': 0.6714673002634299,
+                'p_min': 0.11099346491657514,
+                'p_max': 1.141510808844032,
+                'alpha_mean': 3.04918735660048e-11,
+                'alpha_min': 0.0,
+                'alpha_max': 7.791935318773868e-07,
+                'Uax_mean': 1.4653881153097821e-06,
+                'Ua_mag_mean': 1.1709685759364596e-05,
+                'Ua_mag_max': 9.411336255316094e-06,
+                'Ubx_mean': 2.983870778542348e-08,
+                'Ub_mag_mean': 1.0762453438372885e-06,
+                'Ub_mag_max': 9.95693586886004e-08},
+ 'multiphaseEulerFoam': {'p_mean': 0.09508279896886052,
+                         'p_min': 0.11417691892665971,
+                         'p_max': 0.08387612568667935,
+                         'alpha0_mean': 2.138059521095137e-10,
+                         'alpha0_min': 0.0,
+                         'alpha0_max': 1.1072116987143055e-08,
+                         'alpha1_mean': 3.544461030235979e-09,
+                         'alpha1_min': 9.064351374522795e-13,
+                         'alpha1_max': 6.894484982922222e-14,
+                         'alpha2_mean': 2.3783155445045168e-09,
+                         'alpha2_min': 7.512724549691355e-16,
+                         'alpha2_max': 0.0,
+                         'U0x_mean': 7.211011457181493e-07,
+                         'U0_mag_mean': 2.9851137768877045e-06,
+                         'U0_mag_max': 2.0861928085036396e-07,
+                         'U1x_mean': 7.04920272751886e-08,
+                         'U1_mag_mean': 6.141793264247131e-08,
+                         'U1_mag_max': 9.685448135871022e-08,
+                         'U2x_mean': 7.1978081038636045e-09,
+                         'U2_mag_mean': 5.3416798222530315e-08,
+                         'U2_mag_max': 1.7292979259050933e-06}}
+# the fields whose goldens a run is held to, where not all: cavitatingBox
+# as shipped is a box at rest (U 0, p_rgh 500 Pa below pSat 2300) whose
+# liquid vaporises; its U and p_rgh stay round-off. With p_rgh converged,
+# float64 leaves |U| 5.6e-16 m/s and p_rgh 4e-11 Pa from its reference,
+# float32 |U| 2e-7 and p_rgh 0.017 Pa (round-off of the 2300 Pa terms of
+# the cavitation sink, the port's on the CPU), and the shipped relTol 0.05
+# stop adds its own 4.6e-9 m/s (float64, both packages): no golden holds
+# them (the port's float32 run on the CPU is 40x the JAX package's
+# float32 there); slice13_oracles holds them at rest instead
+SLICE13_GOLDEN_FIELDS = {"interPhaseChangeFoam": ("alpha",)}
+
+
+def slice13_golden_errs(name, got, a):
+    """small_golden_errs of run `name` on SLICE13_GOLDEN, over the fields
+    of SLICE13_GOLDEN_FIELDS where it names them."""
+    keep = SLICE13_GOLDEN_FIELDS.get(name)
+    gold = {k: g for k, g in SLICE13_GOLDEN[name].items()
+            if keep is None or k.split("_")[0] in keep}
+    return small_golden_errs(got, gold, SLICE13_SPREAD[name],
+                             field_scales(a))
+
+
+# each run's solves in the order of a step (StepLog), where the phase
+# holds the SpMV at an operand of it: mixingColumn's implicit alpha
+# (ddt + vanLeer div + laplacian(Dab): non-symmetric), U, three p_rgh;
+# cavitatingBox's U and two p_rgh with the cavitation sink on the diagonal
+SLICE13_CYCLES = {"twoLiquidMixingFoam": ("alpha", "U", "p", "p", "p"),
+                  "interPhaseChangeFoam": ("U", "p", "p")}
+
+
+def phase_multiphase(spmv, here, root, flush):
+    """The multiphase family's tutorials as shipped through run(case) on
+    the card (SLICE13_RUNS, float32; blockMesh and setFields where the
+    Allrun runs it), each held to goldens from the JAX package
+    (SLICE13_GOLDEN at small_golden_errs) and to the reference tests'
+    oracles (slice13_oracles: bounded fractions summing to 1, phase
+    volumes, the rising bubble band, depthCharge2D's pressure range,
+    cavitatingBox's vaporisation, the tank's dispersed mass); the SpMV
+    kernel held to its plain version, in float32 and float64, and timed at
+    mixingColumn's alpha operator (non-symmetric) and cavitatingBox's
+    p_rgh (the cavitation sink on its diagonal)."""
+    from foamtpu_torch.apps.cli import main as cli
+    from foamtpu_torch.core.case import Case
+
+    results, checks, logs = {}, {}, {}
+    launches_total = fb_total = 0
+    for name, (app, opts, steps) in SLICE13_RUNS.items():
+        dst = slice13_case(here, os.path.join(root, "multiphase", name), app,
+                           cli, device=("-device", "cuda"), **opts)
+        case = Case(dst, device="cuda")
+        a0 = slice13_start_arrays(name, case)
+        cycle = SLICE13_CYCLES.get(name)
+        with (StepLog(cycle) if cycle else contextlib.nullcontext()) as log:
+            run_s, text, launches, fb = app_run(spmv, case, steps)
+        logs[name] = (case, log)
+        launches_total += launches
+        fb_total += fb
+        a = slice13_arrays(name, case.final_state,
+                           lambda t: t.double().cpu().numpy())
+        v = case.mesh.v.double().cpu().numpy()
+        ck = slice13_oracles(name, a0, a, v,
+                             case.mesh.c.double().cpu().numpy())
+        got = small_scalars(a, v) if ck["finite"] else {}
+        rec = {"tutorial": "/".join(SLICE13_TUTORIALS[app][0]),
+               "n_cells": case.mesh.n_cells, "steps": case.time.index,
+               "run_s": run_s,
+               "sec_per_step": run_s / max(case.time.index, 1),
+               "scalars": got, "iterations_max": {
+                   k: max(x) for k, x in solve_iterations(text).items()},
+               "spmv_launches": launches, "spmv_fb_launches": fb}
+        ck.update({"steps": case.time.index == steps,
+                   "spmv launched": launches > 0})
+        if got:
+            errs = slice13_golden_errs(name, got, a)
+            rec["golden_err_tol"] = errs
+            ck.update({f"golden {k}": e <= t for k, (e, t) in errs.items()})
+        results[name] = rec
+        checks.update({f"{name} {k}": x for k, x in ck.items()})
+        progress("multiphase", f"{name}: {run_s:.1f} s, {launches} SpMV "
+                 "launches")
+
+    cases, max_err, timings = [], 0.0, []
+    for name, kind, prefix in (
+            ("twoLiquidMixingFoam", "alpha", "mixingColumn_alpha"),
+            ("interPhaseChangeFoam", "p", "cavitatingBox_p_rgh")):
+        case, log = logs[name]
+        mesh = case.mesh
+        mat = log.matrices[kind]
+        op = mat_operand(mesh, mat, prefix)
+        deltas = tuple(mesh.st_deltas)
+        for dtype in (torch.float32, torch.float64):
+            err = check_operands(spmv, [op], mesh, deltas, dtype,
+                                 np.random.default_rng(131), cases)
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+        _, soff, diag, sfb = op
+        timings += time_shape(spmv, prefix, diag.contiguous(),
+                              operand_x(diag, 132), soff.contiguous(),
+                              deltas, flush,
+                              fb=mesh_remainder(spmv, mesh, sfb, diag.dtype)
+                              if mesh.fb_cells.shape[0] else None)
+        checks[f"{prefix} operand is [n]"] = diag.ndim == 1
+        if kind == "alpha":
+            checks[f"{prefix} non-symmetric"] = not mat.symmetric
+    out = {"phase": "multiphase", "dtype": "torch.float32",
+           "runs": results, "kernel_cases": cases, "max_abs_err_f32": max_err,
+           "timings": timings, "spmv_launches_total": launches_total,
+           "spmv_fb_launches_total": fb_total, "checks": checks}
+    emit(out)
+    for name, ok in checks.items():
+        check(ok, f"multiphase check {name}: {out}")
+    return out, max_err, timings
+
+
+MP_HEAD_BLOCKS = (480, 1600)   # bubbleColumn's 15 x 50 refined 32x: 768,000
+MP_HEAD_WARMUP = 2
+MP_HEAD_TRIALS = 3
+MP_HEAD_CHUNK = 10
+MP_HEAD_PCG_STEPS = 2
+MP_HEAD_PROFILE = 1
+# the shipped p controls (PCG, polynomial, relTol 0.01, maxIter 1000)
+# reach their cap at 240 x 800 (192,000 cells) on the CPU in the JAX
+# package, with continuity 0.14-0.56; GAMG held 3.5e-3 to 5.0e-3 in 17-27
+# cycles there: the headline takes GAMG for p, its smoother GaussSeidel
+# mapped to Jacobi 4+4 as Case.solver_controls maps it, the shipped
+# tolerance and relTol
+MP_HEAD_GAMG = {"solver": "GAMG", "smoother": "GaussSeidel",
+                "tolerance": 1e-8, "relTol": 0.01, "maxIter": 1000}
+
+
+def bubble_big_case(here, dst):
+    """bubbleColumn copied to dst with its block at MP_HEAD_BLOCKS (not
+    meshed, see memory_mesh)."""
+    return slice13_case(here, dst, "twoPhaseEulerFoam", None,
+                        blocks=MP_HEAD_BLOCKS)
+
+
+def phase_multiphase_headline(spmv, here, root, flush):
+    """twoPhaseEulerFoam on bubbleColumn at MP_HEAD_BLOCKS (768,000 cells),
+    meshed in the background process, the tutorial's deltaT, BCs, schemes
+    and properties: set-up split into blockMesh, to_device and the GAMG
+    hierarchy; MP_HEAD_PCG_STEPS steps with the shipped PCG p from the
+    first state (its iterations and continuity); then from the first state
+    again with GAMG p (MP_HEAD_GAMG) MP_HEAD_WARMUP steps, MP_HEAD_TRIALS
+    timed chunks of MP_HEAD_CHUNK steps with every solve's iterations, the
+    SpMV kernel held to its plain version and timed at the two-fluid p and
+    the Ub operator, and one profiled step last; held to finiteness,
+    bounded alpha, the continuity error and a Courant number below 1."""
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.solvers import apps, twophaseeuler
+    from foamtpu_torch.solvers.linear.gamg import GAMG
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dst = bubble_big_case(here, os.path.join(root, "bubble_big"))
+    case = Case(dst, device="cuda")
+    got = premeshed(dict_key(blockmesh_dict(dst)))
+    if got:
+        case._poly, mesh_secs = got
+    else:
+        memory_mesh(case)
+        mesh_secs = {}
+    t2 = time.perf_counter()
+    mesh = case.mesh
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    n = MP_HEAD_BLOCKS[0] * MP_HEAD_BLOCKS[1]
+    check(mesh.n_cells == n, mesh.n_cells)
+    cfg_pcg = apps.two_phase_euler_config(case)
+    gamg = dict(MP_HEAD_GAMG, _gamg=GAMG(mesh, smoother="Jacobi", n_pre=4,
+                                         n_post=4))
+    cfg = cfg_pcg._replace(p_controls=gamg)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+
+    def first_state():
+        return twophaseeuler.initial_state(
+            mesh, case.read_field("Ua"), case.read_field("Ub"),
+            case.read_field("p"), case.read_field("alpha"))
+
+    dt = torch.tensor(case.time.delta_t, dtype=mesh.v.dtype,
+                      device=mesh.device)
+    state = first_state()
+    torch.cuda.synchronize()
+    setup = dict(mesh_secs, to_device_s=t3 - t2, gamg_hierarchy_s=t4 - t3,
+                 setup_s=time.perf_counter() - t0)
+    progress("multiphase_headline", f"set-up {setup}, {n} cells")
+    cycle = ("Ua", "Ub", "p")
+
+    def chunk_of(cfg, k):
+        step = twophaseeuler.make_step(mesh, cfg)
+
+        def chunk(st):
+            diag = None
+            for _ in range(k):
+                st, diag = step(st, dt)
+            return st, diag
+        return chunk
+
+    spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with StepLog(cycle) as plog:
+        pst, pdiag = chunk_of(cfg_pcg, MP_HEAD_PCG_STEPS)(state)
+    torch.cuda.synchronize()
+    pcg = {"steps": MP_HEAD_PCG_STEPS, "seconds": time.perf_counter() - t0,
+           "p_iterations": [int(i) for i in plog.iterations["p"]],
+           "cap": int(cfg_pcg.p_controls.get("maxIter", 1000)),
+           "continuity": float(pdiag["continuity"]),
+           "continuity_of_a_step": float(pdiag["continuity"])
+           * case.time.delta_t}
+    del pst, pdiag
+    progress("multiphase_headline", f"shipped PCG p: {pcg}")
+    t0 = time.perf_counter()
+    state, diag = chunk_of(cfg, MP_HEAD_WARMUP)(first_state())
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    secs, courant = [], []
+    l_timed = spmv.LAUNCHES
+    with StepLog(cycle) as log:
+        for _ in range(MP_HEAD_TRIALS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, diag = chunk_of(cfg, MP_HEAD_CHUNK)(state)
+            torch.cuda.synchronize()
+            secs.append((time.perf_counter() - t0) / MP_HEAD_CHUNK)
+            courant.append(float(diag["courant_max"]))
+            progress("multiphase_headline", f"chunk {secs[-1]:.3f} s/step, "
+                     f"Courant {courant[-1]:.3g}, iterations "
+                     f"{ {k: v[-3:] for k, v in log.iterations.items()} }")
+    sec = statistics.median(secs)
+    timed_steps = MP_HEAD_TRIALS * MP_HEAD_CHUNK
+    per_step = (spmv.LAUNCHES - l_timed) / timed_steps
+    cont = float(diag["continuity"])
+    cases, max_err, timings = [], 0.0, []
+    deltas = tuple(mesh.st_deltas)
+    for kind, prefix in (("p", "bubbleColumn_p"), ("Ub", "bubbleColumn_Ub")):
+        op = mat_operand(mesh, log.matrices[kind], prefix)
+        for dtype in (torch.float32, torch.float64):
+            err = check_operands(spmv, [op], mesh, deltas, dtype,
+                                 np.random.default_rng(133), cases)
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+        _, soff, dg, sfb = op
+        timings += time_shape(spmv, prefix, dg.contiguous(),
+                              operand_x(dg, 134), soff.contiguous(), deltas,
+                              flush)
+    l1 = spmv.LAUNCHES
+    state, prof = profile_chunk(spmv, "multiphase_headline_profile", mesh,
+                                chunk_of(cfg, MP_HEAD_PROFILE), state,
+                                MP_HEAD_PROFILE, sec,
+                                log=StepLog(cycle, ranges=True))
+    launches = spmv.LAUNCHES
+    a = state["alpha"].data
+    its = {k: [int(i) for i in v] for k, v in log.iterations.items()}
+    out = {"phase": "multiphase_headline",
+           "case": "twoPhaseEulerFoam bubbleColumn, block ({} {} 1), deltaT "
+                   "{}: the tutorial's BCs, schemes, properties and U "
+                   "controls, p by GAMG".format(*MP_HEAD_BLOCKS,
+                                                case.time.delta_t),
+           "n_cells": n, "dtype": str(mesh.v.dtype), **setup,
+           "shipped_pcg": pcg, "p_controls": {
+               k: v for k, v in MP_HEAD_GAMG.items()},
+           "warmup_s": warm_s, "sec_per_step": sec,
+           "sec_per_step_trials": secs, "m_cells_per_sec": n / sec / 1e6,
+           "courant_max_per_chunk": courant,
+           "iterations_per_solve": {k: statistics.mean(v)
+                                    for k, v in its.items() if v},
+           "iterations_max": {k: max(v) for k, v in its.items() if v},
+           "spmv_launches_per_step": per_step,
+           "continuity": cont, "continuity_of_a_step":
+               cont * case.time.delta_t,
+           "alpha_min": float(a.min()), "alpha_max": float(a.max()),
+           "cuda_launch_kernel_per_step": prof["cuda_launch_kernel_per_iter"],
+           "device_ms_per_step": prof["device_ms_per_iter"],
+           "device_busy_share": prof["device_busy_share_unprofiled"],
+           "spmv_device_ms_per_step": prof["spmv_device_ms_per_iter"],
+           "spmv_launches_per_step_profiled": prof["spmv_launches_per_iter"],
+           "top_kernels_ms_per_step": prof["top_kernels_ms_per_iter"][:8],
+           "spmv_launches_total": launches,
+           "spmv_fb_launches_total": spmv.FB_LAUNCHES,
+           "kernel_cases": cases, "max_abs_err_f32": max_err,
+           "timings": timings,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    checks = {"finite": bool(torch.isfinite(a).all())
+              and bool(torch.isfinite(state["Ua"].data).all()),
+              "alpha in [0, 1]": out["alpha_min"] > -1e-5
+              and out["alpha_max"] < 1.0 + 1e-5,
+              "spmv launched": launches > 0,
+              "continuity of a step < 1e-3":
+                  out["continuity_of_a_step"] < 1e-3,
+              "Courant < 1": max(courant) < 1.0,
+              "GAMG p below its cap": max(its["p"]) < MP_HEAD_GAMG["maxIter"]}
+    out["checks"] = checks
+    emit(out)
+    for name, ok in checks.items():
+        check(ok, f"multiphase_headline check {name}: {out}")
+    return out, max_err, timings
+
+
 T_START = time.perf_counter()
 TIMELINE = {}
 
@@ -8568,6 +9647,11 @@ def main() -> int:
         stamp("snappy_headline")
         chth, err_chth, t_chth = phase_cht_headline(spmv, here, root, flush)
         stamp("cht_headline")
+        mph, err_mph, t_mph = phase_multiphase(spmv, here, root, flush)
+        stamp("multiphase")
+        mphh, err_mphh, t_mphh = phase_multiphase_headline(spmv, here, root,
+                                                           flush)
+        stamp("multiphase_headline")
     finally:
         stop_premesh()
         shutil.rmtree(root, ignore_errors=True)
@@ -8585,7 +9669,7 @@ def main() -> int:
     main_shape = next(t for t in t_duct if t["shape"] == "duct_p_whole")
     paths = (head, pitz, duct, ras, pras, phead, dam, basic, cross, heated,
              rot, mrf, turb, les, thermal, bouss, dym, dymh, surf, comp,
-             chead, rch, small, mhdh, snc, snh, chth)
+             chead, rch, small, mhdh, snc, snh, chth, mph, mphh)
     emit({"kernels": [{
         "name": "spmv_stencil", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
@@ -8594,7 +9678,7 @@ def main() -> int:
         "max_abs_err": max(max_err, err_duct, err_dam, err_heat, err_mrf,
                            err_les, err_bh, err_dh, err_comp, err_ch,
                            err_small, err_mhd, err_snc, err_snh,
-                           err_chth),
+                           err_chth, err_mph, err_mphh),
         "ms": main_shape["kernel_ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
@@ -8610,7 +9694,7 @@ def main() -> int:
             "bound_ms", "bound_by", "bound_share")}
             for t in timings + t_duct + t_dam + t_heat + t_mrf + t_les
             + t_bh + t_dh + t_comp + t_ch + t_small + t_mhd + t_snc
-            + t_snh + t_chth]}]})
+            + t_snh + t_chth + t_mph + t_mphh]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

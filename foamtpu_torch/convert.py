@@ -10,6 +10,7 @@ on `device`, so both packages start from identical inputs.
 from __future__ import annotations
 
 import dataclasses
+import re
 from collections.abc import Mapping
 from typing import Any, Dict, List
 
@@ -134,11 +135,20 @@ def matrix_from_numpy(mat, device=DEFAULT_DEVICE) -> FvMatrix:
                     symmetric=bool(mat.symmetric))
 
 
-_STATE_FIELDS = ("U", "p", "p_rgh", "alpha")
+_STATE_FIELDS = ("U", "p", "p_rgh", "alpha",
+                 # the multiphase family: twoPhaseEulerFoam's phases, the
+                 # N-phase fractions, interMixingFoam's two fractions,
+                 # compressibleInterFoam's T
+                 "Ua", "Ub", "alphas", "alpha1", "alpha2", "T")
 # the fields of the ported turbulence models (RAS: k, epsilon, omega,
 # nuTilda, nut; LES: nut and the subgrid k)
 _TURB_FIELDS = ("k", "epsilon", "omega", "nuTilda", "nut")
-_STATE_ARRAYS = ("phi", "U0", "U00", "rdt0", "ddt0_U", "rho", "lts_rdt")
+_STATE_ARRAYS = ("phi", "U0", "U00", "rdt0", "ddt0_U", "rho", "lts_rdt",
+                 "phia", "phib", "Ua0", "Ub0", "alpha0", "T0", "p_abs",
+                 "dgdt", "phis")
+# multiphaseEulerFoam's per-phase velocities U{i} and their old values
+_PHASE_FIELD = re.compile(r"U\d+")
+_PHASE_ARRAY = re.compile(r"U0_\d+")
 
 
 def state_from_numpy(state, device=DEFAULT_DEVICE) -> Dict[str, Any]:
@@ -147,13 +157,24 @@ def state_from_numpy(state, device=DEFAULT_DEVICE) -> Dict[str, Any]:
     (U00, rdt0, ddt0_U), plus the turbulence fields (k, epsilon, omega,
     nuTilda, nut, with their wall BCs) under 'turb' when present; any
     other turbulence field raises. interFoam: U, p_rgh,
-    alpha, phi, rho, U0 and, under local time stepping, lts_rdt."""
+    alpha, phi, rho, U0 and, under local time stepping, lts_rdt. The
+    multiphase family: Ua, Ub, phia, phib, Ua0, Ub0 (twoPhaseEulerFoam),
+    alphas, alpha1, alpha2, alpha0, T, T0, p_abs, dgdt, and
+    multiphaseEulerFoam's U{i}, U0_{i} and phis. Any other entry
+    raises."""
     out: Dict[str, Any] = {}
     for name in _STATE_FIELDS:
         if name in state:
             out[name] = field_from_numpy(state[name], device)
     for name in _STATE_ARRAYS:
-        if name in state:
+        if name in state and not hasattr(state[name], "bcs"):
+            out[name] = tensor(state[name], device)
+    for name in state:
+        # (multiphaseEulerFoam's first phase velocity U0 is a field, the
+        # other states' U0 an array of old values)
+        if _PHASE_FIELD.fullmatch(name) and hasattr(state[name], "bcs"):
+            out[name] = field_from_numpy(state[name], device)
+        elif _PHASE_ARRAY.fullmatch(name):
             out[name] = tensor(state[name], device)
     if "phi_slot" in state:
         out["phi_slot"] = tuple(tensor(a, device) for a in state["phi_slot"])
@@ -175,12 +196,18 @@ def state_from_numpy(state, device=DEFAULT_DEVICE) -> Dict[str, Any]:
 
 def config_from_reference(cls, cfg, **overrides):
     """A port config NamedTuple (PisoConfig, PimpleConfig, SimpleConfig,
-    InterConfig) from the reference's NamedTuple of the same fields.
-    Entries that hold reference objects (GAMG controls, a turbulence
-    model) are passed in `overrides` as their port twins; the control
-    dicts are copied."""
+    InterConfig, and the multiphase family's nine configs) from the
+    reference's NamedTuple of the same fields. Entries that hold reference
+    objects (GAMG controls, a turbulence model) are passed in `overrides`
+    as their port twins; the control dicts are copied. A nested config
+    (InterMixingConfig's and PhaseChangeConfig's `flow`, an InterConfig)
+    is converted too."""
     kw = {}
     for name in cls._fields:
         v = overrides[name] if name in overrides else getattr(cfg, name)
+        if name == "flow" and name not in overrides:
+            from .solvers.interfoam import InterConfig
+
+            v = config_from_reference(InterConfig, v)
         kw[name] = dict(v) if isinstance(v, dict) else v
     return cls(**kw)

@@ -20,8 +20,12 @@ rhoCentralDyMFoam, buoyantSimpleFoam and buoyantPimpleFoam, and the
 single-equation applications: electrostaticFoam, magneticFoam, mhdFoam,
 financialFoam, shallowWaterFoam, solidDisplacementFoam,
 solidEquilibriumDisplacementFoam, potentialFreeSurfaceFoam,
-adjointShapeOptimizationFoam and dnsFoam; `run(case)` picks among them
-by controlDict's `application`. The turbulence model
+adjointShapeOptimizationFoam and dnsFoam, and the multiphase family:
+twoLiquidMixingFoam, interMixingFoam, interPhaseChangeFoam,
+multiphaseInterFoam and MRFMultiphaseInterFoam, compressibleInterFoam,
+settlingFoam, cavitatingFoam and sonicLiquidFoam, twoPhaseEulerFoam and
+bubbleFoam, multiphaseEulerFoam; `run(case)` picks among them by
+controlDict's `application`. The turbulence model
 comes from constant/RASProperties or constant/LESProperties (the
 compressible applications take the models of compressible.py where the
 case ships 0/mut).
@@ -44,6 +48,7 @@ reference's function for them, before the first step.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict, Optional
 
@@ -504,6 +509,25 @@ def simplefoam(case, max_steps: Optional[int] = None) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _phases(tp, *names):
+    """(nu, rho) of each named phase subdict of transportProperties."""
+    out = []
+    for name in names:
+        ph = tp.get(name, tp)
+        _, nu_v = dimensioned_scalar(ph["nu"])
+        _, rho_v = dimensioned_scalar(ph["rho"])
+        out.append((nu_v, rho_v))
+    return out
+
+
+def _read_alpha1(case):
+    """The VOF fraction of the start time, under its 2.2 names."""
+    for nm in ("alpha1", "alpha.water", "alpha"):
+        if os.path.exists(os.path.join(case.dir, "0", nm)):
+            return case.read_field(nm)
+    return None
+
+
 def _inter_config(case, lts: bool = False):
     """The InterConfig of an interFoam case: the two phases (2.2 layout:
     phase1 { nu; rho; } phase2 { ... } sigma), constant/g, the PIMPLE
@@ -514,22 +538,9 @@ def _inter_config(case, lts: bool = False):
     from . import interfoam as inter_mod
 
     tp = case.transport_properties()
-
-    def phase(name):
-        ph = tp.get(name, tp)
-        _, nu_v = dimensioned_scalar(ph["nu"])
-        _, rho_v = dimensioned_scalar(ph["rho"])
-        return nu_v, rho_v
-
-    nu1, rho1 = phase("phase1")
-    nu2, rho2 = phase("phase2")
+    (nu1, rho1), (nu2, rho2) = _phases(tp, "phase1", "phase2")
     _, sigma = dimensioned_scalar(tp.get("sigma", 0.0))
-    g_vec = (0.0, -9.81, 0.0)
-    g_path = case.const_path("g")
-    if os.path.exists(g_path):
-        val = parse_file(g_path).get("value")
-        if val is not None:
-            g_vec = tuple(float(x) for x in np.asarray(val).reshape(3))
+    g_vec = _read_gravity(case)
     pdict = case.pimple_controls("PIMPLE")
     return inter_mod.InterConfig(
         lts=lts,
@@ -565,11 +576,7 @@ def interfoam_app(case, max_steps: Optional[int] = None,
     mesh = case.mesh
     cfg = _inter_config(case, lts=lts)
     U = case.read_field("U")
-    alpha = None
-    for nm in ("alpha1", "alpha.water", "alpha"):
-        if os.path.exists(os.path.join(case.dir, "0", nm)):
-            alpha = case.read_field(nm)
-            break
+    alpha = _read_alpha1(case)
     p_rgh = case.read_field("p_rgh")
     if dym:
         # interDyMFoam: solid-body mesh motion, relative fluxes
@@ -713,11 +720,13 @@ def pimple_dym_foam(case, max_steps: Optional[int] = None) -> None:
 
 
 def _read_gravity(case):
-    """constant/g (uniformDimensionedVectorField g)."""
+    """constant/g (uniformDimensionedVectorField g); (0, -9.81, 0) when
+    the case has none, as in the reference."""
     path = case.const_path("g")
     if os.path.exists(path):
         v = np.asarray(parse_file(path).get("value")).reshape(-1)
         return (float(v[0]), float(v[1]), float(v[2]))
+    return (0.0, -9.81, 0.0)
     return (0.0, -9.81, 0.0)
 
 
@@ -1976,6 +1985,582 @@ def dns_foam(case, max_steps: Optional[int] = None) -> None:
     case.final_state = state
 
 
+# ---------------------------------------------------------------------------
+# the multiphase family: cavitatingFoam / sonicLiquidFoam, settlingFoam,
+# interMixingFoam, interPhaseChangeFoam, (MRF)multiphaseInterFoam,
+# twoLiquidMixingFoam, twoPhaseEulerFoam / bubbleFoam,
+# multiphaseEulerFoam, compressibleInterFoam
+# ---------------------------------------------------------------------------
+
+
+def _dt(mesh, value):
+    """deltaT as a 0-d tensor of the mesh's dtype, on its device."""
+    return torch.tensor(value, dtype=mesh.v.dtype, device=mesh.device)
+
+
+def _fixed_loop(case, step, state, max_steps, write, log_fn=None):
+    """The fixed-deltaT loop of the multiphase drivers: endTime/deltaT
+    steps capped by max_steps, `log_fn(t, diag)` before the step's
+    standard log lines, `write(state)` at write times and at the end."""
+    mesh = case.mesh
+    cumulative = 0.0
+    t = case.time
+    max_iter = _fixed_steps(case, max_steps)
+    dt = _dt(mesh, t.delta_t)
+    while (t.index < max_iter and not t.stop_now
+           and t.value < t.end_time - 1e-12):
+        state, diag = step(state, dt)
+        t.index += 1
+        t.value = t.start_time + t.index * t.delta_t
+        t.current_dt = float(dt)
+        if log_fn is not None:
+            log_fn(t, diag, state)
+        cumulative = _log_step(case, t, diag, cumulative)
+        if t.write_time():
+            write(state)
+    write(state)
+    log.info("End\n")
+    case.final_state = state
+
+
+def cavitating_foam(case, max_steps: Optional[int] = None,
+                    sonic_liquid: bool = False) -> None:
+    """cavitatingFoam (multiphase/cavitatingFoam): barotropic
+    homogeneous-equilibrium cavitation, solvers/cavitating.py.
+    constant/thermodynamicProperties: psil/psiv/rhol0/pSat;
+    constant/transportProperties: nul (phase viscosities optional).
+
+    sonic_liquid: sonicLiquidFoam (compressible/sonicLiquidFoam), the
+    single-phase limit rho = rho0 + psi (p - p0): rhol0 := rho0 - psi p0
+    with the saturation pressure pushed to -1e8 so no vapour ever forms,
+    as the reference registers it."""
+    from . import cavitating as cav_mod
+
+    mesh = case.mesh
+    th = case.properties("thermodynamicProperties")
+    tp = case.transport_properties()
+    cdict = case.pimple_controls("PIMPLE")
+    if sonic_liquid:
+        rho0_l = _dim_scalar_of(th, "rho0", 1000.0)
+        p0_l = _dim_scalar_of(th, "p0", 1e5)
+        psi_l = _dim_scalar_of(th, "psi", 4.54e-7)
+        mu_l = _dim_scalar_of(tp, "mu", 1e-3)
+        nu_l = _dim_scalar_of(tp, "nu", mu_l / max(rho0_l, 1e-12))
+        cfg = cav_mod.CavitatingConfig(
+            rhol0=rho0_l - psi_l * p0_l,
+            psil=psi_l, psiv=psi_l,
+            p_sat=-1e8,            # never cavitates
+            rho_min=1e-3,
+            nul=nu_l, nuv=nu_l,
+            n_outer=int(cdict.get("nOuterCorrectors", 1)),
+            n_correctors=int(cdict.get("nCorrectors", 2)),
+            n_non_orth=int(cdict.get("nNonOrthogonalCorrectors", 0)),
+            corrected=case.laplacian_corrected(),
+            p_controls=case.solver_controls("p"),
+            u_controls=case.solver_controls("U"))
+    else:
+        cfg = cav_mod.CavitatingConfig(
+            rhol0=_dim_scalar_of(th, "rhol0", 1000.0),
+            psil=_dim_scalar_of(th, "psil", 4.54e-7),
+            psiv=_dim_scalar_of(th, "psiv", 2.5e-6),
+            p_sat=_dim_scalar_of(th, "pSat", 2300.0),
+            rho_min=_dim_scalar_of(th, "rhoMin", 0.001),
+            nul=_dim_scalar_of(tp, "nul", _dim_scalar_of(tp, "nu", 1e-6)),
+            nuv=_dim_scalar_of(tp, "nuv", 4.273e-7),
+            n_outer=int(cdict.get("nOuterCorrectors", 2)),
+            n_correctors=int(cdict.get("nCorrectors", 2)),
+            n_non_orth=int(cdict.get("nNonOrthogonalCorrectors", 0)),
+            corrected=case.laplacian_corrected(),
+            p_controls=case.solver_controls("p"),
+            u_controls=case.solver_controls("U"))
+    state = cav_mod.initial_state(mesh, case.read_field("U"),
+                                  case.read_field("p"), cfg)
+    step = cav_mod.make_step(mesh, cfg)
+    log.info(f"Starting loop: cavitatingFoam, {mesh.n_cells} cells\n")
+
+    def log_gamma(t, diag, state):
+        log.info(f"Time = {t.name}\n")
+        log.info(f"max(gamma) = {float(diag['gamma_max']):.6g}\n")
+
+    _fixed_loop(case, step, state, max_steps,
+                lambda st: case.write_fields([st["U"], st["p"]]), log_gamma)
+
+
+def _looped(case, step, state, max_steps, write, log_fn):
+    """The case.time.loop() drivers (settlingFoam, interMixingFoam,
+    interPhaseChangeFoam): one log line per step, no solver lines, and
+    {"state", "diag"} left in case.final_state, as in the reference."""
+    mesh = case.mesh
+    diag = None
+    for t in case.time.loop():
+        state, diag = step(state, _dt(mesh, t.current_dt))
+        log_fn(t, diag, state)
+        if t.write_time():
+            write(state)
+        if max_steps is not None and t.index >= max_steps:
+            break
+    write(state)
+    case.final_state = {"state": state, "diag": diag}
+    log.info("End\n")
+
+
+def settling_foam(case, max_steps: Optional[int] = None) -> None:
+    """settlingFoam (multiphase/settlingFoam): drift-flux mixture with
+    hindered settling, solvers/settling.py, from
+    constant/transportProperties (rhoc/rhod/muc, V0/a/a1/alphaMin,
+    plasticViscosityCoeff/Exponent)."""
+    from . import settling as set_mod
+
+    mesh = case.mesh
+    tp = case.transport_properties()
+    V0v = tp.get("V0", [0.0, -0.002, 0.0])
+    if isinstance(V0v, list) and V0v and isinstance(V0v[-1],
+                                                    (list, tuple)):
+        V0v = V0v[-1]
+    pdict = case.pimple_controls("PIMPLE")
+    plast = tp.get("plastic", tp.get("plasticCoeffs", tp))
+    cfg = set_mod.SettlingConfig(
+        rhoc=_dim_scalar_of(tp, "rhoc", 1000.0),
+        rhod=_dim_scalar_of(tp, "rhod", 1042.0),
+        muc=_dim_scalar_of(tp, "muc", 1e-3),
+        plastic_coeff=_dim_scalar_of(plast, "plasticViscosityCoeff",
+                                     0.0),
+        plastic_exp=_dim_scalar_of(plast, "plasticViscosityExponent",
+                                   0.0),
+        vdj_model=str(tp.get("VdjModel", "simple")),
+        V0=tuple(float(x) for x in np.asarray(V0v,
+                                              float).reshape(-1)[-3:]),
+        a=_dim_scalar_of(tp, "a", 8.84),
+        a1=_dim_scalar_of(tp, "a1", 0.0),
+        alpha_min=_dim_scalar_of(tp, "alphaMin", 0.0),
+        g=_read_gravity(case),
+        n_correctors=int(pdict.get("nCorrectors", 2)),
+        n_non_orth=int(pdict.get("nNonOrthogonalCorrectors", 0)),
+        p_controls=case.solver_controls("p_rgh"))
+    state = set_mod.initial_state(mesh, case.read_field("U"),
+                                  case.read_field("p_rgh"),
+                                  case.read_field("alpha"), cfg)
+    step = set_mod.make_step(mesh, cfg)
+    log.info("Starting loop: settlingFoam\n")
+
+    def log_fn(t, diag, state):
+        log.info(f"Time = {t.name}\nDispersed phase fraction = "
+                 f"{float(torch.mean(state['alpha'].data)):.6g}\n")
+
+    _looped(case, step, state, max_steps,
+            lambda st: case.write_fields([st["U"], st["p_rgh"],
+                                          st["alpha"]]), log_fn)
+
+
+def inter_mixing_foam(case, max_steps: Optional[int] = None) -> None:
+    """interMixingFoam (multiphase/interMixingFoam): three phases from
+    transportProperties (phase1 = air immiscible, phase2/phase3 miscible
+    liquids with diffusivity D23), solvers/intermixing.py."""
+    from . import interfoam as inter_mod
+    from . import intermixing as imx_mod
+
+    mesh = case.mesh
+    tp = case.transport_properties()
+    (nu1, rho1), (nu2, rho2), (nu3, rho3) = _phases(
+        tp, "phase1", "phase2", "phase3")
+    _, sigma = dimensioned_scalar(tp.get("sigma", 0.0))
+    pdict = case.pimple_controls("PIMPLE")
+    flow = inter_mod.InterConfig(
+        rho1=rho1, rho2=rho2, nu1=nu1, nu2=nu2, sigma=sigma,
+        g=_read_gravity(case),
+        c_alpha=float(pdict.get("cAlpha", 1.0)),
+        n_correctors=int(pdict.get("nCorrectors", 3)),
+        n_non_orth=int(pdict.get("nNonOrthogonalCorrectors", 0)),
+        p_controls=case.solver_controls("p_rgh"))
+    cfg = imx_mod.InterMixingConfig(
+        flow=flow, rho3=rho3, nu3=nu3,
+        D23=_dim_scalar_of(tp, "D23", 3e-9))
+    state = imx_mod.initial_state(
+        mesh, case.read_field("U"), case.read_field("p_rgh"),
+        case.read_field("alpha1"), case.read_field("alpha2"), cfg)
+    step = imx_mod.make_step(mesh, cfg)
+    log.info("Starting loop: interMixingFoam\n")
+
+    def log_fn(t, diag, state):
+        log.info(f"Time = {t.name}\nAir phase volume fraction = "
+                 f"{float(torch.mean(state['alpha1'].data)):.6g}  "
+                 f"Liquid A = "
+                 f"{float(torch.mean(state['alpha2'].data)):.6g}\n")
+
+    _looped(case, step, state, max_steps,
+            lambda st: case.write_fields([st["U"], st["p_rgh"],
+                                          st["alpha1"], st["alpha2"]]),
+            log_fn)
+
+
+def inter_phase_change_foam(case, max_steps: Optional[int] = None
+                            ) -> None:
+    """interPhaseChangeFoam (multiphase/interPhaseChangeFoam): VOF with
+    cavitation mass transfer, solvers/interphasechange.py.
+    transportProperties carries phase1/phase2, sigma and
+    phaseChangeTwoPhaseMixture (SchnerrSauer/Kunz/Merkle) with its coeffs
+    dict; pSat from the top level or the coeffs."""
+    from . import interfoam as inter_mod
+    from . import interphasechange as ipc_mod
+
+    mesh = case.mesh
+    tp = case.transport_properties()
+    (nu1, rho1), (nu2, rho2) = _phases(tp, "phase1", "phase2")
+    _, sigma = dimensioned_scalar(tp.get("sigma", 0.0))
+    model = str(tp.get("phaseChangeTwoPhaseMixture", "SchnerrSauer"))
+    coeffs = tp.get(model + "Coeffs", FoamDict())
+    p_sat = _dim_scalar_of(tp, "pSat", _dim_scalar_of(coeffs, "pSat",
+                                                      2300.0))
+    pdict = case.pimple_controls("PIMPLE")
+    flow = inter_mod.InterConfig(
+        rho1=rho1, rho2=rho2, nu1=nu1, nu2=nu2, sigma=sigma,
+        g=_read_gravity(case),
+        c_alpha=float(pdict.get("cAlpha", 1.0)),
+        n_alpha_subcycles=int(pdict.get("nAlphaSubCycles", 1)),
+        n_correctors=int(pdict.get("nCorrectors", 3)),
+        n_non_orth=int(pdict.get("nNonOrthogonalCorrectors", 0)),
+        p_controls=case.solver_controls("p_rgh"))
+    cfg = ipc_mod.PhaseChangeConfig(
+        flow=flow, model=model, p_sat=p_sat,
+        n_bubbles=_dim_scalar_of(coeffs, "n", 1.6e13),
+        d_nuc=_dim_scalar_of(coeffs, "dNuc", 2.0e-6),
+        Cc=_dim_scalar_of(coeffs, "Cc", 1.0),
+        Cv=_dim_scalar_of(coeffs, "Cv", 1.0),
+        U_inf=_dim_scalar_of(coeffs, "UInf", 20.0),
+        t_inf=_dim_scalar_of(coeffs, "tInf", 0.005))
+    state = ipc_mod.initial_state(mesh, case.read_field("U"),
+                                  case.read_field("p_rgh"),
+                                  _read_alpha1(case), cfg)
+    step = ipc_mod.make_step(mesh, cfg)
+    log.info(f"Starting loop: interPhaseChangeFoam ({model})\n")
+
+    def log_fn(t, diag, state):
+        log.info(f"Time = {t.name}\n")
+        log.info(f"Liquid phase volume fraction = "
+                 f"{float(torch.mean(state['alpha'].data)):.6g}  "
+                 f"Min(alpha1) = {float(diag['alpha_min']):.4g}  "
+                 f"Max(alpha1) = {float(diag['alpha_max']):.4g}\n")
+
+    _looped(case, step, state, max_steps,
+            lambda st: case.write_fields([st["U"], st["p_rgh"],
+                                          st["alpha"]]), log_fn)
+
+
+def _p_rgh_controls(case):
+    return (case.solver_controls("p_rgh") if _has_solver(case, "p_rgh")
+            else case.solver_controls("p"))
+
+
+def phase_fractions(case, names):
+    """The [nC, nP] fraction field of the N-phase solvers: 0/alpha<name>
+    per phase, stacked, carrying the first phase's scalar BCs (each
+    column is evaluated as a scalar field), as the reference builds it;
+    with the per-phase fields for writing."""
+    from ..core.fields import VolField
+
+    flds = [case.read_field(f"alpha{n}") for n in names]
+    A = torch.stack([f.data for f in flds], dim=1)
+    return VolField(data=A, bcs=flds[0].bcs, name="alphas"), flds
+
+
+def _alpha_columns(flds, names, A):
+    return [dataclasses.replace(flds[i], data=A[:, i], name=f"alpha{n}")
+            for i, n in enumerate(names)]
+
+
+def multiphase_inter_foam(case, max_steps: Optional[int] = None) -> None:
+    """multiphaseInterFoam (multiphase/multiphaseInterFoam): N immiscible
+    phases with pairwise MULES compression, solvers/multiphaseinter.py.
+    Phases from constant/transportProperties `phases (name1 name2 ...)`
+    with per-phase subdicts {rho, nu} and `sigmas ((a b s) ...)`;
+    fractions from 0/alpha<name>. constant/MRFZones, where the case has
+    one, adds the rotating zones (MRFMultiphaseInterFoam)."""
+    from . import multiphaseinter as mpi_mod
+
+    mesh = case.mesh
+    tp = case.transport_properties()
+    names = [str(x) for x in tp.get("phases", [])]
+    if not names:
+        raise ValueError("multiphaseInterFoam needs transportProperties"
+                         " `phases (...)`")
+    rhos, nus = [], []
+    for n in names:
+        ph = tp.get(n, FoamDict())
+        rhos.append(_dim_scalar_of(ph, "rho", 1000.0))
+        nus.append(_dim_scalar_of(ph, "nu", 1e-6))
+    sigmas = {}
+    for row in tp.get("sigmas", []) or []:
+        try:
+            arr = np.asarray(row, dtype=float).ravel()
+            if arr.size == 3:
+                sigmas[(int(arr[0]), int(arr[1]))] = float(arr[2])
+        except (TypeError, ValueError):
+            continue
+    alphas, flds = phase_fractions(case, names)
+    cdict = case.pimple_controls("PIMPLE")
+    cfg = mpi_mod.MultiphaseConfig(
+        rhos=tuple(rhos), nus=tuple(nus), sigmas=sigmas,
+        g=_read_gravity(case),
+        c_alpha=float(cdict.get("cAlpha", 1.0)),
+        n_correctors=int(cdict.get("nCorrectors", 3)),
+        n_non_orth=int(cdict.get("nNonOrthogonalCorrectors", 0)),
+        corrected=case.laplacian_corrected(),
+        p_controls=_p_rgh_controls(case),
+        u_controls=case.solver_controls("U"),
+        mrf=_load_mrf(case))
+    state = mpi_mod.initial_state(mesh, case.read_field("U"),
+                                  case.read_field("p_rgh"), alphas, cfg)
+    step = mpi_mod.make_step(mesh, cfg)
+    log.info(f"Starting loop: multiphaseInterFoam, {mesh.n_cells} "
+             f"cells, phases {names}\n")
+
+    def write(state):
+        case.write_fields([state["U"], state["p_rgh"]] + _alpha_columns(
+            flds, names, state["alphas"].data))
+
+    _fixed_loop(case, step, state, max_steps, write)
+
+
+def two_liquid_mixing_foam(case, max_steps: Optional[int] = None) -> None:
+    """twoLiquidMixingFoam (multiphase/twoLiquidMixingFoam): two miscible
+    incompressible liquids, solvers/twoliquidmixing.py. Phase properties
+    from constant/transportProperties phase1/phase2 (rho, nu) and Dab.
+    The alpha solve takes the controls fvSolution gives "alpha" (none in
+    mixingColumn, whose key is "(U|alpha1)": the step's default)."""
+    from . import twoliquidmixing as tlm_mod
+
+    mesh = case.mesh
+    tp = case.transport_properties()
+    ph1 = tp.get("phase1", FoamDict())
+    ph2 = tp.get("phase2", FoamDict())
+    cdict = case.pimple_controls("PIMPLE")
+    cfg = tlm_mod.TwoLiquidConfig(
+        rho1=_dim_scalar_of(ph1, "rho", 1010.0),
+        rho2=_dim_scalar_of(ph2, "rho", 1000.0),
+        nu1=_dim_scalar_of(ph1, "nu", 1e-6),
+        nu2=_dim_scalar_of(ph2, "nu", 1e-6),
+        Dab=_dim_scalar_of(tp, "Dab", 1e-6),
+        g=_read_gravity(case),
+        n_correctors=int(cdict.get("nCorrectors", 3)),
+        n_non_orth=int(cdict.get("nNonOrthogonalCorrectors", 0)),
+        corrected=case.laplacian_corrected(),
+        p_controls=_p_rgh_controls(case),
+        u_controls=case.solver_controls("U"),
+        a_controls=case.solver_controls("alpha")
+        if _has_solver(case, "alpha") else None,
+    )
+    try:
+        alpha = case.read_field("alpha")
+    except Exception:
+        alpha = case.read_field("alpha1")
+    state = tlm_mod.initial_state(mesh, case.read_field("U"),
+                                  case.read_field("p_rgh"), alpha, cfg)
+    step = tlm_mod.make_step(mesh, cfg)
+    log.info(f"Starting loop: twoLiquidMixingFoam, "
+             f"{mesh.n_cells} cells\n")
+    _fixed_loop(case, step, state, max_steps,
+                lambda st: case.write_fields([st["U"], st["p_rgh"],
+                                              st["alpha"]]))
+
+
+def two_phase_euler_foam(case, max_steps: Optional[int] = None) -> None:
+    """twoPhaseEulerFoam and bubbleFoam (multiphase/twoPhaseEulerFoam):
+    Euler-Euler two-phase flow with Schiller-Naumann drag,
+    solvers/twophaseeuler.py. Phase properties from
+    constant/transportProperties `phasea`/`phaseb` (rho, nu, d);
+    constant/interfacialProperties is accepted, and only SchillerNaumann
+    is implemented, as in the reference."""
+    from . import twophaseeuler as tpe_mod
+
+    mesh = case.mesh
+    cfg = two_phase_euler_config(case)
+    state = tpe_mod.initial_state(mesh, case.read_field("Ua"),
+                                  case.read_field("Ub"),
+                                  case.read_field("p"),
+                                  case.read_field("alpha"))
+    step = tpe_mod.make_step(mesh, cfg)
+    log.info(f"Starting loop: twoPhaseEulerFoam, {mesh.n_cells} cells\n")
+
+    def log_fn(t, diag, state):
+        log.info(f"Time = {t.name}\n")
+        log.info(
+            f"Min(alpha) = {float(diag['alpha_min']):.6g}  "
+            f"Max(alpha) = {float(diag['alpha_max']):.6g}\n")
+
+    _fixed_loop(case, step, state, max_steps,
+                lambda st: case.write_fields([st["Ua"], st["Ub"], st["p"],
+                                              st["alpha"]]), log_fn)
+
+
+def two_phase_euler_config(case):
+    """twoPhaseEulerFoam's TwoPhaseConfig from the case: phasea / phaseb
+    of transportProperties, g, the PIMPLE dict and the p and U (or Ua)
+    controls."""
+    from . import twophaseeuler as tpe_mod
+
+    tp = case.transport_properties()
+    pa = tp.get("phasea", tp.get("phase1", FoamDict()))
+    pb = tp.get("phaseb", tp.get("phase2", FoamDict()))
+    cdict = case.pimple_controls("PIMPLE")
+    return tpe_mod.TwoPhaseConfig(
+        rhoa=_dim_scalar_of(pa, "rho", 1.2),
+        rhob=_dim_scalar_of(pb, "rho", 1000.0),
+        nua=_dim_scalar_of(pa, "nu", 1.5e-5),
+        nub=_dim_scalar_of(pb, "nu", 1e-6),
+        d_a=_dim_scalar_of(pa, "d", 3e-3),
+        g=_read_gravity(case),
+        n_correctors=int(cdict.get("nCorrectors", 2)),
+        n_non_orth=int(cdict.get("nNonOrthogonalCorrectors", 0)),
+        corrected=case.laplacian_corrected(),
+        p_ref_cell=int(cdict.get("pRefCell", 0)),
+        p_ref_value=float(cdict.get("pRefValue", 0.0)),
+        p_controls=case.solver_controls("p"),
+        u_controls=case.solver_controls("U")
+        if _has_solver(case, "U") else case.solver_controls("Ua"),
+    )
+
+
+def multiphase_euler_phases(tp):
+    """(names, rhos, nus, ds) of multiphaseEulerFoam's phases, in either
+    layout: inline subdicts inside the `phases` list, or a bare name list
+    with top-level per-phase subdicts."""
+    raw = tp.get("phases", [])
+    names, rhos, nus, ds = [], [], [], []
+    idx = 0
+    while idx < len(raw):
+        n = str(raw[idx])
+        if idx + 1 < len(raw) and isinstance(raw[idx + 1],
+                                             (dict, FoamDict)):
+            ph = raw[idx + 1]
+            idx += 2
+        else:
+            ph = tp.get(n, FoamDict())
+            idx += 1
+        names.append(n)
+        rhos.append(_dim_scalar_of(ph, "rho", 1000.0))
+        nus.append(_dim_scalar_of(ph, "nu", 1e-6))
+        d_val = ph.get("d", None)
+        if d_val is None:
+            cc = ph.get("constantCoeffs", FoamDict())
+            d_val = cc.get("d", 1e-3)
+        _, d_num = dimensioned_scalar(d_val)
+        ds.append(d_num)
+    return names, rhos, nus, ds
+
+
+def multiphase_euler_foam(case, max_steps: Optional[int] = None) -> None:
+    """multiphaseEulerFoam (multiphase/multiphaseEulerFoam): N
+    interpenetrating phases, each with its own velocity, pairwise blended
+    drag and a shared pressure, solvers/multiphaseeuler.py. Phases from
+    constant/transportProperties (multiphase_euler_phases); fractions from
+    0/alpha<name>, velocities from 0/U<name> (else a shared 0/U)."""
+    from . import multiphaseeuler as mpe_mod
+
+    mesh = case.mesh
+    tp = case.transport_properties()
+    names, rhos, nus, ds = multiphase_euler_phases(tp)
+    if not names:
+        raise ValueError("multiphaseEulerFoam needs transportProperties"
+                         " `phases (...)`")
+    alphas, flds = phase_fractions(case, names)
+    Us = []
+    for n in names:
+        try:
+            Us.append(case.read_field(f"U{n}"))
+        except Exception:
+            Us.append(case.read_field("U"))
+    p = case.read_field("p")
+    cdict = case.pimple_controls("PIMPLE")
+    cfg = mpe_mod.MultiphaseEulerConfig(
+        rhos=tuple(rhos), nus=tuple(nus), ds=tuple(ds),
+        g=_read_gravity(case),
+        n_correctors=int(cdict.get("nCorrectors", 2)),
+        n_non_orth=int(cdict.get("nNonOrthogonalCorrectors", 0)),
+        corrected=case.laplacian_corrected(),
+        p_ref_cell=int(cdict.get("pRefCell", 0)),
+        p_ref_value=float(cdict.get("pRefValue", 0.0)),
+        p_controls=case.solver_controls("p"),
+        u_controls=case.solver_controls("U")
+        if _has_solver(case, "U") else None)
+    state = mpe_mod.initial_state(mesh, Us, p, alphas)
+    step = mpe_mod.make_step(mesh, cfg)
+    log.info(f"Starting loop: multiphaseEulerFoam, {mesh.n_cells} "
+             f"cells, phases {names}\n")
+
+    def write(state):
+        fields = [state["p"]]
+        for i, (a, n) in enumerate(zip(_alpha_columns(
+                flds, names, state["alphas"].data), names)):
+            fields.append(a)
+            fields.append(dataclasses.replace(state[f"U{i}"],
+                                              name=f"U{n}"))
+        case.write_fields(fields)
+
+    _fixed_loop(case, step, state, max_steps, write)
+
+
+def compressible_inter_foam(case, max_steps: Optional[int] = None) -> None:
+    """compressibleInterFoam (multiphase/compressibleInterFoam): two
+    compressible phases and a MULES VOF interface,
+    solvers/compressibleinter.py. Phase EOS from
+    constant/thermophysicalProperties `phase1` (perfectGas: R, Cv, nu) /
+    `phase2` (perfectFluid: R, rho0, Cv, nu); sigma and g from
+    constant/{transportProperties,g}."""
+    from . import compressibleinter as ci_mod
+
+    mesh = case.mesh
+    th = case.properties("thermophysicalProperties")
+    ph1 = th.get("phase1", FoamDict())
+    ph2 = th.get("phase2", FoamDict())
+    tp = case.transport_properties()
+    _, sigma = dimensioned_scalar(tp.get("sigma", 0.07))
+    cdict = case.pimple_controls("PIMPLE")
+    p_min = th.get("pMin", 1000.0)
+    cfg = ci_mod.CompIntConfig(
+        R1=_dim_scalar_of(ph1, "R", 287.0),
+        R2=_dim_scalar_of(ph2, "R", 3000.0),
+        rho0_2=_dim_scalar_of(ph2, "rho0", 1000.0),
+        nu1=_dim_scalar_of(ph1, "nu", 1.5e-5),
+        nu2=_dim_scalar_of(ph2, "nu", 1e-6),
+        Cv1=_dim_scalar_of(ph1, "Cv", 718.0),
+        Cv2=_dim_scalar_of(ph2, "Cv", 4186.0),
+        sigma=sigma, g=_read_gravity(case),
+        c_alpha=float(cdict.get("cAlpha", 1.0)),
+        n_alpha_subcycles=int(cdict.get("nAlphaSubCycles", 1)),
+        n_correctors=int(cdict.get("nCorrectors", 3)),
+        n_non_orth=int(cdict.get("nNonOrthogonalCorrectors", 0)),
+        corrected=case.laplacian_corrected(),
+        p_min=float(p_min[-1] if isinstance(p_min, (list, tuple))
+                    else p_min),
+        p_controls=_p_rgh_controls(case),
+        u_controls=case.solver_controls("U"),
+        t_controls=case.solver_controls("T") if _has_solver(case, "T")
+        else None,
+    )
+    try:
+        alpha = case.read_field("alpha1")
+    except Exception:
+        alpha = case.read_field("alpha")
+    state = ci_mod.initial_state(mesh, case.read_field("U"),
+                                 case.read_field("p_rgh"),
+                                 case.read_field("T"), alpha, cfg)
+    step = ci_mod.make_step(mesh, cfg)
+    log.info(f"Starting loop: compressibleInterFoam, "
+             f"{mesh.n_cells} cells\n")
+
+    def log_fn(t, diag, state):
+        log.info(f"Time = {t.name}\n")
+        log.info(
+            "Phase-1 volume fraction = "
+            f"{float(torch.mean(state['alpha'].data)):.6g}  "
+            f"Min(alpha1) = {float(diag['alpha_min']):.6g}  "
+            f"Max(alpha1) = {float(diag['alpha_max']):.6g}\n")
+
+    _fixed_loop(case, step, state, max_steps,
+                lambda st: case.write_fields([st["U"], st["p_rgh"], st["T"],
+                                              st["alpha"]]), log_fn)
+
+
 def _cht(case, max_steps: Optional[int] = None) -> None:
     from .chtmultiregion import cht_multi_region_foam
 
@@ -2049,6 +2634,22 @@ APPLICATIONS = {
     # conjugate heat transfer over the regions of constant/regionProperties
     "chtMultiRegionFoam": _cht,
     "chtMultiRegionSimpleFoam": _cht,
+    # the multiphase family; bubbleFoam is twoPhaseEulerFoam, and
+    # MRFMultiphaseInterFoam is multiphaseInterFoam, which reads
+    # constant/MRFZones, as the reference registers them
+    "cavitatingFoam": cavitating_foam,
+    "sonicLiquidFoam": lambda case, max_steps=None: cavitating_foam(
+        case, max_steps, sonic_liquid=True),
+    "compressibleInterFoam": compressible_inter_foam,
+    "twoPhaseEulerFoam": two_phase_euler_foam,
+    "bubbleFoam": two_phase_euler_foam,
+    "multiphaseEulerFoam": multiphase_euler_foam,
+    "twoLiquidMixingFoam": two_liquid_mixing_foam,
+    "MRFMultiphaseInterFoam": multiphase_inter_foam,
+    "multiphaseInterFoam": multiphase_inter_foam,
+    "interPhaseChangeFoam": inter_phase_change_foam,
+    "interMixingFoam": inter_mixing_foam,
+    "settlingFoam": settling_foam,
 }
 
 

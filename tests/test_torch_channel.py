@@ -161,7 +161,8 @@ def reference_goldens(root, ras=tuple(chip_smoke.RAS_CHANNEL_MODELS),
         for name in names:
             d = os.path.join(str(root), kind, name)
             if kind == "ras":
-                chip_smoke.ras_channel_case(d, name)
+                chip_smoke.ras_channel_case(
+                    d, name, p_solver=chip_smoke.RAS_CHANNEL_CARD_P)
                 steps = chip_smoke.RAS_CHANNEL_STEPS
             else:
                 chip_smoke.les_channel_case(REPO, d, name,

@@ -150,8 +150,9 @@ def test_applications_are_registered():
     assert tapps.APPLICATIONS["mhdFoam"] is tapps.mhd_foam
     assert tapps.APPLICATIONS["financialFoam"] is tapps.financial_foam
     # 46 after this slice; windSimpleFoam, chtMultiRegionFoam and
-    # chtMultiRegionSimpleFoam since the snappyHexMesh and cht slice
-    assert len(tapps.APPLICATIONS) == 49
+    # chtMultiRegionSimpleFoam since the snappyHexMesh and cht slice, the
+    # twelve of the multiphase family since the multiphase slice
+    assert len(tapps.APPLICATIONS) == 61
 
 
 def test_magnets_are_selected_by_box(tmp_path):

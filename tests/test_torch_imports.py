@@ -27,6 +27,18 @@ def _sources():
     yield os.path.join(REPO, "chip_smoke.py")
 
 
+# the multiphase slice's step modules and applications
+MULTIPHASE = ("twoliquidmixing", "intermixing", "interphasechange",
+              "multiphaseinter", "compressibleinter", "settling",
+              "cavitating", "twophaseeuler", "multiphaseeuler")
+MULTIPHASE_APPS = ("cavitatingFoam", "sonicLiquidFoam",
+                   "compressibleInterFoam", "twoPhaseEulerFoam",
+                   "bubbleFoam", "multiphaseEulerFoam",
+                   "twoLiquidMixingFoam", "MRFMultiphaseInterFoam",
+                   "multiphaseInterFoam", "interPhaseChangeFoam",
+                   "interMixingFoam", "settlingFoam")
+
+
 def test_no_source_imports_jax_or_the_reference():
     bad = []
     n = 0
@@ -66,7 +78,8 @@ def test_no_source_imports_jax_or_the_reference():
             "foamtpu_torch/mesh/snappy.py",
             "foamtpu_torch/mesh/layers.py",
             "foamtpu_torch/models/solidthermo.py",
-            "foamtpu_torch/solvers/chtmultiregion.py"} <= sources
+            "foamtpu_torch/solvers/chtmultiregion.py"} | {
+                f"foamtpu_torch/solvers/{m}.py" for m in MULTIPHASE} <= sources
     # the pattern does catch the imports it is there for
     assert IMPORT.search("import jax.numpy as jnp")
     assert IMPORT.search("    from foamtpu.ops import fvc")
@@ -80,8 +93,9 @@ names = [m.name for m in pkgutil.walk_packages(foamtpu_torch.__path__,
                                                "foamtpu_torch.")]
 # the rotating-frame and porous slice's modules, the turbulence slice's,
 # the moving-mesh slice's, the compressible slice's, the single-equation
-# slice's and the snappyHexMesh and conjugate-heat-transfer slice's are
-# among them
+# slice's, the snappyHexMesh and conjugate-heat-transfer slice's and the
+# multiphase slice's are among them
+MULTIPHASE = {MULTIPHASE!r}
 assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf",
         "foamtpu_torch.models.turbulence.les",
         "foamtpu_torch.models.turbulence.les2",
@@ -101,7 +115,9 @@ assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf",
         "foamtpu_torch.apps.meshutils",
         "foamtpu_torch.apps.meshutils3", "foamtpu_torch.mesh.snappy",
         "foamtpu_torch.mesh.layers", "foamtpu_torch.models.solidthermo",
-        "foamtpu_torch.solvers.chtmultiregion"} <= set(names), names
+        "foamtpu_torch.solvers.chtmultiregion"} | {
+            f"foamtpu_torch.solvers.{m}" for m in MULTIPHASE} <= set(names), \
+    names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -114,7 +130,8 @@ sys.exit(1 if bad or len(names) < 50 else 0)
 def test_every_port_module_imports_without_jax():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
-    r = subprocess.run([sys.executable, "-c", BODY], cwd=REPO, env=env,
+    body = BODY.replace("{MULTIPHASE!r}", repr(MULTIPHASE))
+    r = subprocess.run([sys.executable, "-c", body], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr[-2000:]
 
@@ -154,3 +171,21 @@ def test_entry_points_default_to_the_card():
     assert "Case(case.dir, device=case.device, region=name)" in src
     src = inspect.getsource(cli.snappy_hex_mesh)
     assert "device" not in src and "mesh_io.write" in src
+    # the multiphase family: every step builds its tensors on the mesh's
+    # device and every driver on its Case's; none names the host
+    import importlib
+
+    from foamtpu_torch.solvers import apps
+
+    for m in MULTIPHASE:
+        mod = importlib.import_module(f"foamtpu_torch.solvers.{m}")
+        src = inspect.getsource(mod)
+        assert '"cpu"' not in src and "device=mesh.device" in src, m
+        step = inspect.signature(mod.make_step)
+        assert list(step.parameters)[0] == "mesh" and "device" not in \
+            step.parameters, m
+    for name in MULTIPHASE_APPS:
+        fn = apps.APPLICATIONS[name]
+        assert list(inspect.signature(fn).parameters)[0] == "case", name
+        src = inspect.getsource(fn)
+        assert '"cpu"' not in src, name

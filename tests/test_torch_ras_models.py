@@ -122,6 +122,13 @@ def make(tag, name, cli):
         return cs.slice11_parity_case(
             os.getcwd(), dst, name, cli,
             device=("-device", "cpu") if cli is tcli else ())
+    elif kind == "slice13":
+        # the multiphase family (chip_smoke.SLICE13_CASES: seeded where a
+        # vanLeer limiter meets a uniform start, converged p controls
+        # where a relTol stop amplifies round-off)
+        return cs.slice13_parity_case(
+            os.getcwd(), dst, name, cli,
+            device=("-device", "cpu") if cli is tcli else ())
     elif kind == "slice10":
         # the compressible family's tutorials and LTSInterFoam
         # (chip_smoke.SLICE10_CASES: seeded, coarsened where named)
@@ -154,6 +161,12 @@ def arrays(state, host):
     if kind == "slice11":
         out.update({n: host(getattr(state[n], "data", state[n]))
                     for n in SLICE11_FIELDS if n in state})
+    if kind == "slice13":
+        # every field and array of the multiphase states (Ua, Ub, alphas,
+        # alpha1, alpha2, p_abs, dgdt, phia, phib, phis, U{i}, ...)
+        for n, v in state.items():
+            if n not in out:
+                out[n] = host(getattr(v, "data", v))
     if "rhoE" in state:
         # rhoCentralFoam's conservative state (its p is a plain array)
         out.update(rho=host(state["rho"].data), rhoU=host(state["rhoU"]),

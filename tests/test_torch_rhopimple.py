@@ -277,10 +277,11 @@ def test_applications_are_registered_as_the_reference():
     assert reg["rhoSimplecFoam"] is tapps.rho_simplecfoam
     assert reg["rhoPimplecFoam"] is tapps.rho_pimplecfoam
     assert reg["sonicFoam"] is tapps.sonicfoam
-    # the single-equation slice's ten (tests/test_torch_electromagnetics.py)
-    # and windSimpleFoam, chtMultiRegionFoam and chtMultiRegionSimpleFoam
-    # (tests/test_torch_snappy.py, tests/test_torch_cht.py)
-    assert len(reg) == 49
+    # the single-equation slice's ten (tests/test_torch_electromagnetics.py),
+    # windSimpleFoam, chtMultiRegionFoam and chtMultiRegionSimpleFoam
+    # (tests/test_torch_snappy.py, tests/test_torch_cht.py) and the
+    # multiphase slice's twelve (tests/test_torch_settling_cavitating.py)
+    assert len(reg) == 61
 
 
 # -- the goldens of chip_smoke.py's compressible phase -------------------------

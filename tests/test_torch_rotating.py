@@ -113,8 +113,10 @@ def test_rotating_applications_are_registered():
     # (tests/test_torch_rhopimple.py), dnsFoam since the single-equation
     # slice (tests/test_torch_dns.py), windSimpleFoam (simpleFoam, as the
     # reference registers it) since the snappyHexMesh slice
-    # (tests/test_torch_snappy.py); still outside the port:
-    # twoPhaseEulerFoam, sonicDyMFoam
+    # (tests/test_torch_snappy.py), the multiphase family since the
+    # multiphase slice (tests/test_torch_multiphase_vof.py,
+    # test_torch_multiphase_euler.py, test_torch_settling_cavitating.py);
+    # still outside the port: XiFoam, sonicDyMFoam
     assert tapps.APPLICATIONS["channelFoam"] is tapps.pimplefoam
     assert tapps.APPLICATIONS["dnsFoam"] is tapps.dns_foam
     assert tapps.APPLICATIONS["rhoPorousSimpleFoam"] is tapps.rho_simplefoam
@@ -123,5 +125,11 @@ def test_rotating_applications_are_registered():
     assert tapps.APPLICATIONS["rhoPorousMRFPimpleFoam"] is \
         tapps.rho_pimplefoam
     assert tapps.APPLICATIONS["windSimpleFoam"] is tapps.simplefoam
-    for app in ("twoPhaseEulerFoam", "sonicDyMFoam"):
+    for app in ("cavitatingFoam", "sonicLiquidFoam", "compressibleInterFoam",
+                "twoPhaseEulerFoam", "bubbleFoam", "multiphaseEulerFoam",
+                "twoLiquidMixingFoam", "MRFMultiphaseInterFoam",
+                "multiphaseInterFoam", "interPhaseChangeFoam",
+                "interMixingFoam", "settlingFoam"):
+        assert app in tapps.APPLICATIONS
+    for app in ("XiFoam", "sonicDyMFoam"):
         assert app not in tapps.APPLICATIONS
