@@ -140,9 +140,12 @@ _STATE_FIELDS = ("U", "p", "p_rgh", "alpha",
                  # N-phase fractions, interMixingFoam's two fractions,
                  # compressibleInterFoam's T
                  "Ua", "Ub", "alphas", "alpha1", "alpha2", "T")
-# the fields of the ported turbulence models (RAS: k, epsilon, omega,
-# nuTilda, nut; LES: nut and the subgrid k)
-_TURB_FIELDS = ("k", "epsilon", "omega", "nuTilda", "nut")
+# the fields of the turbulence models: RAS k, epsilon, omega, nuTilda,
+# nut, the Reynolds stress R, v2f's v2 and f, kkLOmega's kt and kl; LES
+# nut, the subgrid k and stress B, dynLagrangian's flm and fmm; the
+# compressible models' mut and alphat
+_TURB_FIELDS = ("k", "epsilon", "omega", "nuTilda", "nut", "R", "B", "v2",
+                "f", "kt", "kl", "flm", "fmm", "mut", "alphat")
 _STATE_ARRAYS = ("phi", "U0", "U00", "rdt0", "ddt0_U", "rho", "lts_rdt",
                  "phia", "phib", "Ua0", "Ub0", "alpha0", "T0", "p_abs",
                  "dgdt", "phis")

@@ -176,9 +176,22 @@ def _host(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float64)
 
 
+# a field's value type by its width, and its field class
+_KIND = {1: "scalar", 3: "vector", 6: "symmTensor", 9: "tensor"}
+_CLASS = {"scalar": "volScalarField", "vector": "volVectorField",
+          "symmTensor": "volSymmTensorField", "tensor": "volTensorField"}
+
+
+def _kind(arr: np.ndarray) -> str:
+    return _KIND[1 if arr.ndim == 1 else arr.shape[1]]
+
+
 def _list_parts(arr: np.ndarray, binary: bool):
-    """`List<kind> N (payload)` as a list of str/bytes parts."""
-    kind = "scalar" if arr.ndim == 1 else "vector"
+    """`List<kind> N (payload)` as a list of str/bytes parts. A symmetric
+    tensor's six components are written as such (the reference's writer
+    labels every non-scalar a vector and formats three columns, so it
+    cannot write an R or B field of more than 20,000 cells)."""
+    kind = _kind(arr)
     n = arr.shape[0]
     if binary:
         raw = np.ascontiguousarray(arr, dtype="<f8").tobytes()
@@ -192,7 +205,8 @@ def _list_parts(arr: np.ndarray, binary: bool):
             np.savetxt(buf, arr, fmt="%.17g")
             body = buf.getvalue()
         else:
-            np.savetxt(buf, arr, fmt="(%.17g %.17g %.17g)")
+            np.savetxt(buf, arr,
+                       fmt="(" + " ".join(["%.17g"] * arr.shape[1]) + ")")
             body = buf.getvalue()
         return [f"List<{kind}>\n{n}\n(\n{body})"]
     if arr.ndim == 1:
@@ -234,7 +248,7 @@ def write_field(field: VolField, mesh, case_dir: str, time_name: str,
     by the reference package's reader and by reference tooling."""
     data = _host(field.data)
     binary = fmt == "binary"
-    cls = "volScalarField" if data.ndim == 1 else "volVectorField"
+    cls = _CLASS[_kind(data)]
     out_dir = os.path.join(case_dir, time_name)
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, field.name)
@@ -265,9 +279,8 @@ def write_field(field: VolField, mesh, case_dir: str, time_name: str,
             parts.extend(_fmt_bvalue(vals, binary))
             parts.append(";\n")
         elif kind == "inletOutlet":
-            iv = np.broadcast_to(
-                _host(bc.ref_value),
-                (p.size,) if data.ndim == 1 else (p.size, 3))
+            iv = np.broadcast_to(_host(bc.ref_value),
+                                 (p.size,) + data.shape[1:])
             parts.append("        inletValue      ")
             parts.extend(_fmt_bvalue(iv, binary))
             parts.append(";\n")

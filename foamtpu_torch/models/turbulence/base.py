@@ -4,12 +4,13 @@ openfoam-2.2.x_tpu/models/turbulence/base.py: `TurbulenceModel`,
 
 A model is a static config object whose methods are plain functions of
 (mesh, tstate, U, phi); its fields (k, epsilon, nut, ...) live in the
-solver state under 'turb'. `select` builds the ported models only: the
-nine incompressible RAS models of ras.py, the six LES models of les.py
-and les2.py (with LESProperties' `delta cubeRootVol`, the one filter
-width they compute) and the five compressible models of compressible.py;
-any other model, a compressible model of the reference's compressible2.py,
-or another LES delta raises NotImplementedError naming it.
+solver state under 'turb'. `select` builds every model the reference
+registers: the RAS models of ras.py to ras5.py, the LES models of les.py
+to les4.py and the compressible models of compressible.py and
+compressible2.py. A name neither registers raises ValueError listing the
+models, as in the reference; an LESProperties `delta` other than
+cubeRootVol raises NotImplementedError (the reference reads none and
+always takes cubeRootVol).
 """
 
 from __future__ import annotations
@@ -135,16 +136,15 @@ def register(name: str, cls) -> None:
 def select(props: FoamDict, nu: float, kind: str = "RAS",
            compressible: bool = False) -> TurbulenceModel:
     """turbulenceModel::New: dispatch on the RASModel/LESModel keyword
-    of RASProperties/LESProperties. The incompressible laminar, RAS
-    (ras.py) and LES (les.py, les2.py) models and the compressible models
-    of compressible.py are ported; anything else raises.
+    of RASProperties/LESProperties.
 
     compressible=True (`nu` is then the dynamic viscosity mu) takes
     `compressible::<name>` where that is registered, else the
     incompressible model, as the reference does (its namespace comes
-    from the library the solver links, not from the dictionary). The
-    reference's compressible2.py models (COMPRESSIBLE2) raise."""
-    from . import compressible as _comp, les, les2, ras  # noqa: F401
+    from the library the solver links, not from the dictionary)."""
+    from . import (compressible as _comp,  # noqa: F401
+                   compressible2 as _comp2, les, les2, les3,
+                   les4, ras, ras2, ras3, ras4, ras5)
 
     if str(props.get("simulationType", kind)) == "laminar":
         return TurbulenceModel(nu)
@@ -152,18 +152,11 @@ def select(props: FoamDict, nu: float, kind: str = "RAS",
     if name == "laminar" or str(props.get("turbulence", "on")) in ("off",
                                                                    "no"):
         return TurbulenceModel(nu)
-    if compressible and name in COMPRESSIBLE2:
-        raise NotImplementedError(
-            f"turbulence model compressible::{name} (the reference's "
-            "models/turbulence/compressible2.py) is not ported to "
-            "foamtpu_torch yet (ported compressible models: "
-            f"{sorted(n for n in _REGISTRY if '::' in n)})")
     if compressible and f"compressible::{name}" in _REGISTRY:
         name = f"compressible::{name}"
     if name not in _REGISTRY:
-        raise NotImplementedError(
-            f"turbulence model {name!r} is not ported to foamtpu_torch "
-            f"yet (ported: {sorted(_REGISTRY)})")
+        raise ValueError(f"unknown turbulence model {name!r}; "
+                         f"available: {sorted(_REGISTRY)}")
     if kind == "LES":
         # the reference reads no delta and always takes cubeRootVol
         delta = str(props.get("delta", "cubeRootVol"))
@@ -173,11 +166,3 @@ def select(props: FoamDict, nu: float, kind: str = "RAS",
                 "(ported: cubeRootVol)")
     coeffs = props.get(name.split("::")[-1] + "Coeffs", FoamDict())
     return _REGISTRY[name](nu, coeffs)
-
-
-# the compressible models of the reference's compressible2.py, which
-# `select(..., compressible=True)` refuses (the reference would take them
-# in place of the incompressible twin)
-COMPRESSIBLE2 = ("RNGkEpsilon", "realizableKE", "SpalartAllmaras", "LRR",
-                 "LaunderGibsonRSTM", "v2f", "dynOneEqEddy",
-                 "lowReOneEqEddy", "DeardorffDiffStress")

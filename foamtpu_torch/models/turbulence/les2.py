@@ -12,9 +12,8 @@ order is not fixed between runs (the reference's `.at[].add`). The
 homogeneous (volume-averaged) Germano coefficients are one global
 reduction each.
 
-`symm_to_full`, `full_to_symm` and `_div_symm_tensor` are copied from
-the reference's models/turbulence/ras2.py, whose models are outside the
-ported slice.
+`symm_to_full`, `full_to_symm` and `_div_symm_tensor` come from ras2.py,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -29,41 +28,9 @@ from ...ops import fvc, fvm
 from ...ops import slot as slot_mod
 from .base import TurbulenceModel, register
 from .les import OneEqEddy, Smagorinsky
+from .ras2 import _div_symm_tensor, full_to_symm
 
 K_MIN = 1e-10
-
-
-def symm_to_full(R6: Any) -> Any:
-    """[nC,6] (xx,xy,xz,yy,yz,zz) -> [nC,3,3]."""
-    xx, xy, xz, yy, yz, zz = (R6[:, i] for i in range(6))
-    row0 = torch.stack([xx, xy, xz], dim=1)
-    row1 = torch.stack([xy, yy, yz], dim=1)
-    row2 = torch.stack([xz, yz, zz], dim=1)
-    return torch.stack([row0, row1, row2], dim=1)
-
-
-def full_to_symm(T: Any) -> Any:
-    """[nC,3,3] (taken as symmetric) -> [nC,6]."""
-    return torch.stack([T[:, 0, 0], T[:, 0, 1], T[:, 0, 2],
-                        T[:, 1, 1], T[:, 1, 2], T[:, 2, 2]], dim=1)
-
-
-def _div_symm_tensor(mesh, R6: Any) -> Any:
-    """(1/V) sum_f Sf . R_f for a cell symmTensor field -> [nC,3]
-    (zero-gradient extrapolation on boundaries, as fvc::div(R) with the
-    calculated patch evaluation), assembled in slot form."""
-    T = symm_to_full(R6)                             # [nC,3,3]
-    tf = slot_mod.interpolate(mesh, T.reshape(-1, 9))
-    sv = tf.sv.reshape(tf.sv.shape[:2] + (3, 3))
-    flux_sv = torch.einsum("cmi,cmij->cmj", mesh.st_sf, sv)
-    div_t = torch.sum(flux_sv * mesh.st_valid[:, :, None], dim=1)
-    if mesh.fb_cells.shape[0]:
-        fbt = tf.fb.reshape(-1, 3, 3)
-        flux_fb = torch.einsum("fi,fij->fj", mesh.fb_sf, fbt)
-        div_t = div_t.index_add(0, mesh.fb_cells, flux_fb)
-    flux_b = torch.einsum("fi,fij->fj", mesh.ab_sf, T[mesh.ab_owner])
-    div_t = div_t.index_add(0, mesh.ab_owner, flux_b)
-    return div_t / mesh.v[:, None]
 
 
 def simple_filter(mesh, data: Any) -> Any:

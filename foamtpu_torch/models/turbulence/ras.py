@@ -117,6 +117,11 @@ def _wall_face_nut(mesh, nut_field: VolField):
     return acc / mesh.wall_cnt
 
 
+def _div_weights(mesh, phi, field, scheme="upwind"):
+    """The convection scheme's face weights of `field` on the flat flux."""
+    return schemes.weights(mesh, phi, scheme, field)
+
+
 def _phi_slotform(mesh, phi, phi_slot):
     """Slot-form flux: reuse the solver's, else derive it."""
     if phi_slot is not None:
@@ -180,9 +185,15 @@ class KEpsilon(TurbulenceModel):
         return self.Cmu * k * k / torch.clamp(eps, min=EPS_MIN)
 
     def correct(self, mesh, tstate, U, phi, dt, steady=False, relax=1.0,
-                controls=None, c1_field=None, phi_slot=None):
+                controls=None, c1_field=None, phi_slot=None,
+                c2_field=None, fmu_field=None, extra_eps_src=None,
+                G_extra=None):
         """c1_field: a per-cell C1 in place of the constant (RNG's
-        strain-dependent C1eff), passed in rather than set on the model."""
+        strain-dependent C1eff), passed in rather than set on the model.
+        c2_field / fmu_field: per-cell C2 and nut damping factor (the
+        low-Re variants). extra_eps_src: an explicit epsilon source [nC].
+        G_extra: production added before the limiter (the nonlinear-stress
+        models' -(nonlinearStress && grad U))."""
         k_f: VolField = tstate["k"]
         eps_f: VolField = tstate["epsilon"]
         nut_f: VolField = tstate["nut"]
@@ -192,6 +203,8 @@ class KEpsilon(TurbulenceModel):
         phi_sl = _phi_slotform(mesh, phi, phi_slot)
 
         G, _ = production(mesh, nut, U)
+        if G_extra is not None:
+            G = G + G_extra
         # production limiter (the reference's documented deviation from
         # plain kEpsilon): bounds the spike at singular corners and
         # stagnation points, inactive where G ~= eps
@@ -218,11 +231,14 @@ class KEpsilon(TurbulenceModel):
             + _transport_ops(mesh, phi, phi_sl, eps_f, self.div_scheme,
                              eps_flat, eps_slot, self.corrected,
                              self.corr_limit)
-            + fvm.Sp(mesh, self.C2 * eps / torch.clamp(k, min=K_MIN), eps_f)
+            + fvm.Sp(mesh, (self.C2 if c2_field is None else c2_field)
+                     * eps / torch.clamp(k, min=K_MIN), eps_f)
         )
         c1 = self.C1 if c1_field is None else c1_field
         eps_eqn = eps_eqn.add_source(
             c1 * G * eps / torch.clamp(k, min=K_MIN), mesh)
+        if extra_eps_src is not None:
+            eps_eqn = eps_eqn.add_source(extra_eps_src, mesh)
         if steady and relax < 1.0:
             eps_eqn = eps_eqn.relax(mesh, relax, eps)
         if wall_fn:
@@ -249,6 +265,8 @@ class KEpsilon(TurbulenceModel):
         diag["k"] = perf_k
 
         nut_new = self._nut_from(k_new, eps_new)
+        if fmu_field is not None:
+            nut_new = fmu_field * nut_new
         new_nut_f = nut_f.with_data(nut_new).correct_boundary_conditions(
             mesh, k=k_new, nu=self.nu, U=U.data)
         new = dict(tstate)
@@ -442,7 +460,9 @@ class KOmegaSST(TurbulenceModel):
         return F1, F2, cd
 
     def correct(self, mesh, tstate, U, phi, dt, steady=False, relax=1.0,
-                controls=None, phi_slot=None):
+                controls=None, phi_slot=None, extra_omega_src=None):
+        """extra_omega_src: an explicit omega source [nC] (SST-SAS's
+        QSAS)."""
         if self.y_wall is None:
             raise ValueError("KOmegaSST needs init_wall_distance before "
                              "correct")
@@ -490,7 +510,10 @@ class KOmegaSST(TurbulenceModel):
                              w_flat, w_slot, False, self.corr_limit)
             + fvm.Sp(mesh, beta * omega, w_f)
         )
-        w_eqn = w_eqn.add_source(gamma * S2 + (1.0 - F1) * cd, mesh)
+        src_w = gamma * S2 + (1.0 - F1) * cd
+        if extra_omega_src is not None:
+            src_w = src_w + extra_omega_src
+        w_eqn = w_eqn.add_source(src_w, mesh)
         if steady and relax < 1.0:
             w_eqn = w_eqn.relax(mesh, relax, omega)
         if wall_fn:

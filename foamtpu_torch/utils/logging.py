@@ -1,6 +1,10 @@
 """Solver logging in the reference's grep-able stdout format (a copy of
 openfoam-2.2.x_tpu/utils/logging.py, host code): the line shapes that
-foamLog-style tooling parses, and the DebugSwitches gate."""
+foamLog-style tooling parses, and the DebugSwitches gate.
+
+`solver_line` names a symmetric tensor's six components (Rxx ... Rzz) as
+OpenFOAM does; the reference's copy knows the three of a vector only and
+raises IndexError at the first line of an R or B solve."""
 
 from __future__ import annotations
 
@@ -22,12 +26,16 @@ def info(*args) -> None:
     sys.stdout.flush()
 
 
+# the component names of a vector's and of a symmetric tensor's solve
+_COMPONENTS = {3: ("x", "y", "z"), 6: ("xx", "xy", "xz", "yy", "yz", "zz")}
+
+
 def solver_line(field: str, perf) -> str:
     r0 = np.atleast_1d(_host(perf.initial_residual))
     rf = np.atleast_1d(_host(perf.final_residual))
     it = int(np.max(_host(perf.n_iterations)))
     lines = []
-    comps = ["x", "y", "z"]
+    comps = _COMPONENTS.get(r0.shape[0])
     if r0.shape[0] > 1:
         for c in range(r0.shape[0]):
             lines.append(

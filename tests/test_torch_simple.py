@@ -364,11 +364,15 @@ def test_simple_rejects_features_outside_slice(pitz):
         factory.from_dict(parse_string("type waveTransmissive; gamma 1.4;"),
                           tm.patches[0], 0, torch.float32)
     # the RAS models of ras.py are ported since the turbulence slice
-    # (tests/test_torch_ras_models.py); those of ras2.py are not
+    # (tests/test_torch_ras_models.py), those of ras2.py since the slice
+    # of the rest of turbulence (tests/test_torch_turbulence2.py); a name
+    # no package registers raises ValueError, as the JAX package's select
     assert tbase.select(parse_string("RASModel RNGkEpsilon;"),
                         1e-5).name == "RNGkEpsilon"
-    with pytest.raises(NotImplementedError, match="LamBremhorstKE"):
-        tbase.select(parse_string("RASModel LamBremhorstKE;"), 1e-5)
+    assert tbase.select(parse_string("RASModel LamBremhorstKE;"),
+                        1e-5).name == "LamBremhorstKE"
+    with pytest.raises(ValueError, match="noSuchModel"):
+        tbase.select(parse_string("RASModel noSuchModel;"), 1e-5)
     with pytest.raises(NotImplementedError, match="QUICKV2"):
         schemes.weights_slot(tm, slot.from_flat(tm, _t(pitz["phi"])),
                              "QUICKV2", pitz["tf"]["k"])

@@ -15,10 +15,11 @@ limitedLinear weights are ratios of round-off.
 
 Then `select` and `_load_turbulence` in this process: compressible=True
 takes `compressible::<name>` where that is registered and the
-incompressible model otherwise; the models of the reference's
-compressible2.py are refused, naming the module; a case that ships no
-0/mut takes the incompressible twin (the reference's fallback), one that
-ships mut and alphat the compressible model with alphat read.
+incompressible model otherwise, as the reference does (the models of its
+compressible2.py among them since the slice of the rest of turbulence);
+a case that ships no 0/mut takes the incompressible twin (the
+reference's fallback), one that ships mut and alphat the compressible
+model with alphat read.
 """
 
 import contextlib
@@ -238,18 +239,22 @@ def test_select_falls_back_and_refuses_as_the_reference():
         r = jbase.select(jparse(f"RASModel {name};"), 1e-5,
                          compressible=True)
         assert m.name == r.name == name
-    # the reference's compressible2.py models: refused, named
-    for name in tbase.COMPRESSIBLE2:
-        with pytest.raises(NotImplementedError,
-                           match=f"compressible::{name}.*compressible2.py"):
-            tbase.select(_props(name), 1e-5, compressible=True)
-        r = jbase.select(jparse(f"RASModel {name};"), 1e-5,
+    # the reference's compressible2.py models: the compressible model,
+    # in both packages
+    for name, kind in chip_smoke.COMP2_MODELS.items():
+        m = tbase.select(_props(name, kind), 1e-5, kind=kind,
                          compressible=True)
-        assert r.name == f"compressible::{name}"
+        r = jbase.select(jparse(f"{kind}Model {name};"), 1e-5, kind=kind,
+                         compressible=True)
+        assert m.name == r.name == f"compressible::{name}"
+        assert m.compressible_form and "mut" in m.field_names
     assert tbase.select(_props("laminar"), 1e-5,
                         compressible=True).name == "laminar"
-    with pytest.raises(NotImplementedError, match="LamBremhorstKE"):
-        tbase.select(_props("LamBremhorstKE"), 1e-5, compressible=True)
+    # a name neither package registers: ValueError, as the reference
+    for sel, props in ((tbase.select, _props("noSuchModel")),
+                       (jbase.select, jparse("RASModel noSuchModel;"))):
+        with pytest.raises(ValueError, match="noSuchModel"):
+            sel(props, 1e-5, compressible=True)
 
 
 def test_load_turbulence_picks_the_model_the_reference_picks(tmp_path):
