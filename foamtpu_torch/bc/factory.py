@@ -7,8 +7,10 @@ empty, inletOutlet, totalPressure, pressureInletOutletVelocity,
 nutkWallFunction, nutUWallFunction, nutUSpaldingWallFunction,
 nutLowReWallFunction (fixed value 0, as the reference sets it),
 kqRWallFunction, epsilonWallFunction, omegaWallFunction, slip,
-symmetryPlane, symmetry and wedge (one value rule), and on a retained
-cyclic pair cyclicAMI, fixedJump and fan. Any other `type` raises
+symmetryPlane, symmetry and wedge (one value rule), flowRateInletVelocity
+(its `value` fixed, `massFlowRate` read nowhere, as the reference maps
+it), and on a retained cyclic pair cyclicAMI, fixedJump and fan. Any
+other `type` raises
 NotImplementedError naming it
 (the reference degrades unknown types to calculated/zeroGradient; the
 port refuses instead).
@@ -44,7 +46,8 @@ KINDS = ("fixedValue", "zeroGradient", "calculated", "empty", "inletOutlet",
          "nutUWallFunction", "nutUSpaldingWallFunction",
          "nutLowReWallFunction", "kqRWallFunction", "epsilonWallFunction",
          "omegaWallFunction", "slip", "symmetryPlane", "symmetry", "wedge",
-         "fixedGradient", "mixed", "cyclicAMI", "fixedJump", "fan")
+         "fixedGradient", "mixed", "cyclicAMI", "fixedJump", "fan",
+         "flowRateInletVelocity")
 
 
 def parse_value(entry: Any, size: int, rank: int, dtype, device="cpu"):
@@ -109,7 +112,8 @@ def from_dict(spec: FoamDict, patch, rank: int, dtype, device="cpu",
     kw = {}
     if kind in ("fixedValue", "calculated", "nutkWallFunction",
                 "nutUWallFunction", "nutUSpaldingWallFunction",
-                "epsilonWallFunction", "omegaWallFunction"):
+                "epsilonWallFunction", "omegaWallFunction",
+                "flowRateInletVelocity"):
         kw["ref_value"] = val if val is not None else 0.0
         kw["vfrac"] = 1.0
     elif kind == "inletOutlet":

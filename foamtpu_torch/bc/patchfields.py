@@ -7,8 +7,8 @@ reference module. The ported slice covers the kinds of the icoFoam
 cavity, the simpleFoam pitzDaily case, the kOmegaSST tet duct and the
 interFoam damBreak case: fixedValue, zeroGradient, fixedGradient, empty,
 calculated, mixed, inletOutlet, totalPressure (incompressible form),
-pressureInletOutletVelocity, the nutk/nutU/nutUSpalding/kqR/epsilon/omega
-wall functions,
+pressureInletOutletVelocity, flowRateInletVelocity (a fixed value), the
+nutk/nutU/nutUSpalding/kqR/epsilon/omega wall functions,
 and slip with the kinds that share its value coefficients
 (symmetryPlane, symmetry, wedge); and the coupled kinds of a cyclicAMI
 pair: cyclicAMI, with the jumpCyclic family fixedJump and fan on a pair
@@ -165,6 +165,8 @@ _VALUE_COEFFS: Dict[str, Callable] = {
     "inletOutlet": _vc_mixed,
     "totalPressure": _vc_mixed,
     "pressureInletOutletVelocity": _vc_mixed,
+    # its `value` as a fixed value; the reference reads no massFlowRate
+    "flowRateInletVelocity": _vc_fixed_value,
     "symmetryPlane": _vc_symmetry,
     "symmetry": _vc_symmetry,
     "slip": _vc_symmetry,

@@ -139,7 +139,10 @@ _STATE_FIELDS = ("U", "p", "p_rgh", "alpha",
                  # the multiphase family: twoPhaseEulerFoam's phases, the
                  # N-phase fractions, interMixingFoam's two fractions,
                  # compressibleInterFoam's T
-                 "Ua", "Ub", "alphas", "alpha1", "alpha2", "T")
+                 "Ua", "Ub", "alphas", "alpha1", "alpha2", "T",
+                 # radiation's G, the [n, nS] mass fractions of the
+                 # combustion family, XiFoam's regress variable
+                 "G", "Y", "b")
 # the fields of the turbulence models: RAS k, epsilon, omega, nuTilda,
 # nut, the Reynolds stress R, v2f's v2 and f, kkLOmega's kt and kl; LES
 # nut, the subgrid k and stress B, dynLagrangian's flm and fmm; the
@@ -148,7 +151,14 @@ _TURB_FIELDS = ("k", "epsilon", "omega", "nuTilda", "nut", "R", "B", "v2",
                 "f", "kt", "kl", "flm", "fmm", "mut", "alphat")
 _STATE_ARRAYS = ("phi", "U0", "U00", "rdt0", "ddt0_U", "rho", "lts_rdt",
                  "phia", "phib", "Ua0", "Ub0", "alpha0", "T0", "p_abs",
-                 "dgdt", "phis")
+                 "dgdt", "phis",
+                 # the compressible old-time levels, the combustion family's
+                 # Y0, b0, Xi, rho_prev, mixture R and Cp, the pyrolysis
+                 # fuel release
+                 "p0", "rho0", "p_rgh0", "Y0", "b0", "Xi", "rho_prev",
+                 "R_mix", "cp_mix", "pyro_m_gas")
+# fireFoam's region states: {name: array} dicts
+_REGION_STATES = ("pyro", "film")
 # multiphaseEulerFoam's per-phase velocities U{i} and their old values
 _PHASE_FIELD = re.compile(r"U\d+")
 _PHASE_ARRAY = re.compile(r"U0_\d+")
@@ -163,8 +173,10 @@ def state_from_numpy(state, device=DEFAULT_DEVICE) -> Dict[str, Any]:
     alpha, phi, rho, U0 and, under local time stepping, lts_rdt. The
     multiphase family: Ua, Ub, phia, phib, Ua0, Ub0 (twoPhaseEulerFoam),
     alphas, alpha1, alpha2, alpha0, T, T0, p_abs, dgdt, and
-    multiphaseEulerFoam's U{i}, U0_{i} and phis. Any other entry
-    raises."""
+    multiphaseEulerFoam's U{i}, U0_{i} and phis. Radiation and the
+    combustion family: G, Y [n, nS], b, p0, rho0, p_rgh0, Y0, b0, Xi,
+    rho_prev, R_mix, cp_mix, pyro_m_gas and the region states pyro
+    {Ts, rho_s} and film {delta, Uf, Tf}. Any other entry raises."""
     out: Dict[str, Any] = {}
     for name in _STATE_FIELDS:
         if name in state:
@@ -181,6 +193,9 @@ def state_from_numpy(state, device=DEFAULT_DEVICE) -> Dict[str, Any]:
             out[name] = tensor(state[name], device)
     if "phi_slot" in state:
         out["phi_slot"] = tuple(tensor(a, device) for a in state["phi_slot"])
+    for name in _REGION_STATES:
+        if name in state:
+            out[name] = {k: tensor(a, device) for k, a in state[name].items()}
     if state.get("turb") is not None:
         extra = set(state["turb"]) - set(_TURB_FIELDS)
         if extra:

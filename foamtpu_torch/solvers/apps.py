@@ -24,7 +24,11 @@ adjointShapeOptimizationFoam and dnsFoam, and the multiphase family:
 twoLiquidMixingFoam, interMixingFoam, interPhaseChangeFoam,
 multiphaseInterFoam and MRFMultiphaseInterFoam, compressibleInterFoam,
 settlingFoam, cavitatingFoam and sonicLiquidFoam, twoPhaseEulerFoam and
-bubbleFoam, multiphaseEulerFoam; `run(case)` picks among them by
+bubbleFoam, multiphaseEulerFoam, and the combustion family: chemFoam,
+reactingFoam and rhoReactingFoam, XiFoam and PDRFoam, fireFoam (with
+P1/fvDOM radiation and the pyrolysis and film regions; buoyantSimpleFoam
+and buoyantPimpleFoam take constant/radiationProperties too); `run(case)`
+picks among them by
 controlDict's `application`. The turbulence model
 comes from constant/RASProperties or constant/LESProperties (the
 compressible applications take the models of compressible.py where the
@@ -869,13 +873,14 @@ def _thermo(case):
 
 
 def _rho_loop(case, step, state, steady, name, max_steps, res_ctl, fol,
-              fields):
+              fields, log_field="T", start=None):
     """The loop of the pressure-based compressible applications: one
-    iteration or step at a time with its log lines (T's solve too), the
-    function objects, the fields `fields(state)` written at write times
-    and at the end, SIMPLE stopped by residualControl."""
+    iteration or step at a time with its log lines (`log_field`'s solve
+    too: T, or XiFoam's b), the function objects, the fields
+    `fields(state)` written at write times and at the end, SIMPLE
+    stopped by residualControl. `start` replaces the loop's first line."""
     mesh = case.mesh
-    log.info(f"Starting loop: {name}, {mesh.n_cells} cells\n")
+    log.info(start or f"Starting loop: {name}, {mesh.n_cells} cells\n")
     cumulative = 0.0
     t = case.time
     max_iter = max(int(round((t.end_time - t.start_time) / t.delta_t)), 1)
@@ -897,7 +902,7 @@ def _rho_loop(case, step, state, steady, name, max_steps, res_ctl, fol,
         t.value = t.start_time + t.index * t.delta_t
         t.current_dt = float(dt)
         cumulative = _log_step(case, t, diag, cumulative)
-        log.info(log.solver_line("T", diag["T"]))
+        log.info(log.solver_line(log_field, diag[log_field]))
         fol.execute(t.name, state)
         if t.write_time():
             write(state)
@@ -907,6 +912,36 @@ def _rho_loop(case, step, state, steady, name, max_steps, res_ctl, fol,
     write(state)
     log.info("End\n")
     case.final_state = state
+
+
+def _flow_fields(case, pname: str, steady: bool = False, model=None
+                 ) -> dict:
+    """The fields every compressible flow config reads alike: the SIMPLE
+    or PIMPLE dict's correctors and pRefValue, the laplacian, div and
+    grad(`pname`) schemes, the `pname`/`pname`Final/U/T controls, the
+    turbulence model and its relaxation factor."""
+    cdict = case.pimple_controls("SIMPLE" if steady else "PIMPLE")
+    try:
+        pf_ctl = case.solver_controls(pname + "Final")
+    except KeyError:
+        pf_ctl = None
+    return dict(
+        n_outer=int(cdict.get("nOuterCorrectors", 1)),
+        n_correctors=int(cdict.get("nCorrectors", 2)),
+        n_non_orth=int(cdict.get("nNonOrthogonalCorrectors", 0)),
+        corrected=case.laplacian_corrected(),
+        div_scheme=case.div_scheme("div(phi,U)"),
+        div_scheme_e=case.div_scheme("div(phi,e)"),
+        grad_scheme=case.grad_scheme(f"grad({pname})"),
+        p_ref_value=float(cdict.get("pRefValue", 1e5)),
+        p_controls=case.solver_controls(pname),
+        p_controls_final=pf_ctl,
+        u_controls=case.solver_controls("U"),
+        e_controls=(case.solver_controls("T") if _has_solver(case, "T")
+                    else None),
+        turb=model,
+        turb_relax=_relaxation(case).get("k", 0.7),
+    )
 
 
 def _rho_pimple_config(case, th, steady: bool, transonic: bool,
@@ -919,37 +954,19 @@ def _rho_pimple_config(case, th, steady: bool, transonic: bool,
 
     relax = _relaxation(case)
     cdict = case.pimple_controls("SIMPLE" if steady else "PIMPLE")
-    try:
-        pf_ctl = case.solver_controls("pFinal")
-    except KeyError:
-        pf_ctl = None
     return rp_mod.RhoPimpleConfig(
         thermo=th,
         steady=steady,
         consistent=consistent,
         transonic=transonic or str(cdict.get("transonic", "no")) in _TRUE,
-        n_outer=int(cdict.get("nOuterCorrectors", 1)),
-        n_correctors=int(cdict.get("nCorrectors", 2)),
-        n_non_orth=int(cdict.get("nNonOrthogonalCorrectors", 0)),
-        corrected=case.laplacian_corrected(),
-        div_scheme=case.div_scheme("div(phi,U)"),
-        div_scheme_e=case.div_scheme("div(phi,e)"),
         ddt_scheme=case.ddt_scheme(),
-        grad_scheme=case.grad_scheme("grad(p)"),
         alpha_u=relax.get("U", 0.7 if steady else 1.0),
         alpha_p=relax.get("p", 0.3 if steady else 1.0),
         alpha_e=relax.get("e", relax.get("h", 0.7 if steady else 1.0)),
         p_ref_cell=int(cdict.get("pRefCell", 0)),
-        p_ref_value=float(cdict.get("pRefValue", 1e5)),
-        p_controls=case.solver_controls("p"),
-        p_controls_final=pf_ctl,
-        u_controls=case.solver_controls("U"),
-        e_controls=(case.solver_controls("T") if _has_solver(case, "T")
-                    else None),
-        turb=model,
-        turb_relax=relax.get("k", 0.7),
         fv_options=_load_fvoptions(case, th.mu),
         mrf=_load_mrf(case),
+        **_flow_fields(case, "p", steady, model),
     )
 
 
@@ -1125,10 +1142,12 @@ def rhocentral_dym_foam(case, max_steps: Optional[int] = None) -> None:
 
 
 def _load_radiation(case):
-    """constant/radiationProperties: None when the case has none or
-    switches radiation off (or names no P1/fvDOM model); P1 and fvDOM
-    raise NotImplementedError, since models/radiation.py is not ported
-    (the reference returns its P1Config / FvDOMConfig)."""
+    """constant/radiationProperties -> models/radiation's P1Config or
+    FvDOMConfig (constantAbsorptionEmissionCoeffs: absorptivity,
+    emissivity, scatter; fvDOMCoeffs: nTheta, nPhi), or None when the
+    case has none, switches radiation off or names another model
+    (radiationModel::New, as the reference reads it: the wall emissivity
+    is 1 and no G controls are set)."""
     rad_path = case.const_path("radiationProperties")
     if not os.path.exists(rad_path):
         return None
@@ -1136,9 +1155,20 @@ def _load_radiation(case):
     if str(rd.get("radiation", "on")) not in ("on", "yes", "true"):
         return None
     model = str(rd.get("radiationModel", "none"))
-    if model in ("P1", "fvDOM"):
-        _not_ported(f"radiation model {model!r} (the reference's "
-                    "models/radiation.py)")
+    from ..models import radiation as rad_mod
+
+    cc = rd.get("constantAbsorptionEmissionCoeffs", FoamDict())
+    a = _dim_scalar_of(cc, "absorptivity", 0.5)
+    e = _dim_scalar_of(cc, "emissivity", 0.5)
+    s = _dim_scalar_of(cc, "scatter", 0.0)
+    if model == "P1":
+        return rad_mod.P1Config(a=a, e=e, s=s, emissivity=1.0)
+    if model == "fvDOM":
+        fc = rd.get("fvDOMCoeffs", FoamDict())
+        return rad_mod.FvDOMConfig(
+            a=a, e=e, s=s, emissivity=1.0,
+            n_theta=int(fc.get("nTheta", 2)),
+            n_phi=int(fc.get("nPhi", 2)))
     return None
 
 
@@ -1151,33 +1181,15 @@ def _buoyant_rho_config(case, th, steady: bool, model=None):
 
     relax = _relaxation(case)
     cdict = case.pimple_controls("SIMPLE" if steady else "PIMPLE")
-    try:
-        pf_ctl = case.solver_controls("p_rghFinal")
-    except KeyError:
-        pf_ctl = None
     return br_mod.BuoyantRhoConfig(
         thermo=th,
         g=_read_gravity(case),
         steady=steady,
-        n_outer=int(cdict.get("nOuterCorrectors", 1)),
-        n_correctors=int(cdict.get("nCorrectors", 2)),
-        n_non_orth=int(cdict.get("nNonOrthogonalCorrectors", 0)),
-        corrected=case.laplacian_corrected(),
-        div_scheme=case.div_scheme("div(phi,U)"),
-        div_scheme_e=case.div_scheme("div(phi,e)"),
-        grad_scheme=case.grad_scheme("grad(p_rgh)"),
         alpha_u=relax.get("U", 0.3 if steady else 1.0),
         alpha_p=relax.get("p_rgh", 0.7 if steady else 1.0),
         alpha_e=relax.get("h", relax.get("e", 0.3 if steady else 1.0)),
         p_ref_cell=int(cdict.get("pRefCell", 0)),
-        p_ref_value=float(cdict.get("pRefValue", 1e5)),
-        p_controls=case.solver_controls("p_rgh"),
-        p_controls_final=pf_ctl,
-        u_controls=case.solver_controls("U"),
-        e_controls=(case.solver_controls("T") if _has_solver(case, "T")
-                    else None),
-        turb=model,
-        turb_relax=relax.get("k", 0.7),
+        **_flow_fields(case, "p_rgh", steady, model),
     )
 
 
@@ -1196,10 +1208,14 @@ def _buoyant_rho_run(case, steady: bool, max_steps: Optional[int]) -> None:
     cfg = _buoyant_rho_config(case, th, steady, model)
     if rad is not None:
         cfg = cfg._replace(radiation=rad)
+    T = case.read_field("T")
     state = br_mod.initial_state(mesh, case.read_field("U"),
-                                 case.read_field("p_rgh"),
-                                 case.read_field("T"), th, g=cfg.g,
+                                 case.read_field("p_rgh"), T, th, g=cfg.g,
                                  turb_state=tstate, steady=steady)
+    if rad is not None:
+        from ..models import radiation as rad_mod
+
+        state["G"] = rad_mod.make_G(mesh, rad, T.bcs)
     name = "buoyantSimpleFoam" if steady else "buoyantPimpleFoam"
     _rho_loop(case, br_mod.make_step(mesh, cfg), state, steady, name,
               max_steps, _residual_control(
@@ -2561,6 +2577,407 @@ def compressible_inter_foam(case, max_steps: Optional[int] = None) -> None:
                                               st["alpha"]]), log_fn)
 
 
+# ---------------------------------------------------------------------------
+# the combustion family
+# ---------------------------------------------------------------------------
+
+
+def _mechanism(case):
+    """(ChemistryModel, W, reactions dict, species thermo dict or None)
+    from constant/reactions and constant/thermo.compressibleGas."""
+    from ..models import chemistry as chem_mod
+
+    rx = case.properties("reactions")
+    thd = (case.properties("thermo.compressibleGas")
+           if os.path.exists(case.const_path("thermo.compressibleGas"))
+           else None)
+    chem, W = chem_mod.from_foam_files(rx, thd, device=case.device)
+    return chem, W, rx, thd
+
+
+def species_field(case, species):
+    """The [nC, nS] mass-fraction field: 0/<species> per species (0/Ydefault
+    where a species has none), stacked, with one PatchField per patch whose
+    ref values are [size, nS] columns; the kind is the species' common
+    kind ("mixed" where they differ) with the first species' valueFraction,
+    as the reference builds it. With the per-species fields for writing."""
+    from ..bc import patchfields as pfm
+    from ..core.fields import VolField
+
+    mesh = case.mesh
+    flds = []
+    for s in species:
+        try:
+            flds.append(case.read_field(s))
+        except FileNotFoundError:
+            flds.append(case.read_field("Ydefault"))
+    Ydata = torch.stack([f.data for f in flds], dim=1)
+    dt, dev = mesh.v.dtype, mesh.device
+    bcs = []
+    for ip, p in enumerate(mesh.patches):
+        pbcs = [f.bcs[ip] for f in flds]
+        kinds = [b.kind for b in pbcs]
+        if kinds[0] == "empty":
+            bcs.append(pfm.PatchField(kind="empty", vfrac=0.0))
+            continue
+        kind = kinds[0] if len(set(kinds)) == 1 else "mixed"
+
+        def col(vals):
+            return torch.stack(
+                [torch.broadcast_to(torch.as_tensor(v, dtype=dt, device=dev),
+                                    (p.size,)) for v in vals], dim=1)
+
+        bcs.append(pfm.PatchField(
+            kind=kind,
+            ref_value=col([b.ref_value for b in pbcs]),
+            ref_grad=col([b.ref_grad for b in pbcs]),
+            vfrac=torch.broadcast_to(torch.as_tensor(
+                pbcs[0].vfrac, dtype=dt, device=dev), (p.size,)),
+            opts=pbcs[0].opts))
+    return VolField(data=Ydata, bcs=tuple(bcs), name="Y"), flds
+
+
+def _species_columns(flds, species, Y):
+    return [dataclasses.replace(flds[i], data=Y.data[:, i], name=s)
+            for i, s in enumerate(species)]
+
+
+def chem_foam(case, max_steps: Optional[int] = None) -> None:
+    """chemFoam (combustion/chemFoam): a single-cell (0-D) reactor at
+    constant volume. The mechanism from constant/reactions (+
+    thermo.compressibleGas), the start from constant/initialConditions
+    {p; T; fractions {..};}; the stiff system integrates with the batched
+    Rosenbrock solver and T is logged each step. Cv is the janaf mixture's
+    at T0 (air-like 718 without the tables). The reactor's state is in the
+    precision's dtype (the reference fixes float32, so its run fails under
+    float64: ROADMAP Queue 3)."""
+    from ..core.precision import scalar_dtype
+    from ..models.thermo import _janaf_from_mixture
+
+    chem, W, _, thd = _mechanism(case)
+    species = list(chem.species)
+    ic = case.properties("initialConditions")
+    p0 = _dim_scalar_of(ic, "p", 1e5)
+    T0 = _dim_scalar_of(ic, "T", 1000.0)
+    fr = ic.get("fractions", FoamDict())
+    Y = np.zeros(len(species))
+    for i, s in enumerate(species):
+        Y[i] = float(fr.get(s, 0.0))
+    Y = Y / max(Y.sum(), 1e-300)
+    Wmix = 1.0 / float((Y / W).sum())
+    R = 8314.47 / Wmix
+    rho = p0 / (R * T0)
+    dt_, dev = scalar_dtype(), case.device
+    # mean Cv from janaf at T0 when available, else air-like
+    cv = 718.0
+    if thd is not None:
+        try:
+            cps = []
+            for i, s in enumerate(species):
+                if s in thd and Y[i] > 0:
+                    g = _janaf_from_mixture(thd[s])
+                    cps.append(float(Y[i]) * float(g.Cp_of(
+                        torch.tensor(float(T0), dtype=dt_))))
+            if cps:
+                cp = sum(cps) / Y[Y > 0].sum()
+                cv = cp - R
+        except (KeyError, TypeError, ValueError):
+            pass
+
+    c0 = rho * Y / np.asarray(W)        # kmol/m^3
+    c = torch.tensor(c0[None, :], dtype=dt_, device=dev)
+    T = torch.tensor([T0], dtype=dt_, device=dev)
+
+    def step(c, T, dt):
+        c_new = chem.solve(c, T, dt, rtol=1e-5)
+        q = -(c_new - c) @ chem.hf          # J/m^3 released
+        return c_new, T + q / (rho * cv)
+
+    t = case.time
+    max_iter = max(int(round((t.end_time - t.start_time) / t.delta_t)), 1)
+    if max_steps is not None:
+        max_iter = min(max_iter, max_steps)
+    dt = torch.tensor(t.delta_t, dtype=dt_, device=dev)
+    log.info(f"Starting loop: chemFoam, {len(species)} species, "
+             f"{chem.A.shape[0]} reaction(s)\n")
+    while t.index < max_iter and not t.stop_now:
+        c, T = step(c, T, dt)
+        t.index += 1
+        t.value = t.start_time + t.index * t.delta_t
+        log.info(f"Time = {t.name}  T = {float(T[0]):.2f}\n")
+    Yf = c[0].cpu().numpy() * np.asarray(W) / rho
+    case.final_state = {"T": float(T[0]), "Y": Yf, "species": species,
+                        "p": float(rho * R * float(T[0]))}
+    log.info("End\n")
+
+
+def _combustion_model(case, chem, default=None):
+    from ..models import combustion as comb_mod
+
+    if not os.path.exists(case.const_path("combustionProperties")):
+        return default
+    return comb_mod.from_dict(case.properties("combustionProperties"), chem)
+
+
+def _janaf_tables(thd, species):
+    """Per-species janaf tables (cp_lo, cp_hi, t_common) of the
+    reactingMixture, or Nones when a species lacks its low coefficients."""
+    if thd is None:
+        return None, None, None
+    lo_rows, hi_rows, tc_rows = [], [], []
+    for sname in species:
+        ent = thd.get(sname)
+        if ent is None:
+            return None, None, None
+        tdct = ent.get("thermodynamics", FoamDict())
+        lo = [float(x) for x in tdct.get("lowCpCoeffs", [])]
+        hi = [float(x) for x in tdct.get("highCpCoeffs", lo)]
+        if len(lo) < 7:
+            return None, None, None
+        lo_rows.append(lo[:7])
+        hi_rows.append(hi[:7])
+        tc_rows.append(float(tdct.get("Tcommon", 1000.0)))
+    return np.asarray(lo_rows), np.asarray(hi_rows), np.asarray(tc_rows)
+
+
+def reacting_foam(case, max_steps: Optional[int] = None) -> None:
+    """reactingFoam and rhoReactingFoam (combustion/reactingFoam):
+    compressible reacting flow, solvers/reacting.py. The mechanism from
+    constant/reactions + thermo.compressibleGas, the species from 0/
+    (Ydefault where one has no file), the closure from
+    constant/combustionProperties (laminar integration without one). With
+    every species' janaf table the step runs the reactingMixture EOS;
+    transport is the dominant species' Sutherland law, with the mixture R
+    of the mean composition."""
+    from ..models import thermo as thermo_mod
+    from . import reacting as reacting_mod
+    from . import rhopimple as rp_mod
+
+    fol = _function_objects(case)
+    mesh = case.mesh
+    chem, W, _, thd = _mechanism(case)
+    species = list(chem.species)
+    Y, flds = species_field(case, species)
+    ymean = torch.mean(Y.data, dim=0).cpu().numpy()
+    dom = int(np.argmax(ymean))
+    if thd is not None and species[dom] in thd:
+        th = thermo_mod._janaf_from_mixture(thd[species[dom]])
+        wsum = float(np.sum(ymean / np.maximum(W, 1e-3)))
+        th = dataclasses.replace(th, R=8314.47 * wsum)
+    else:
+        th = _thermo(case)
+    model, tstate = _load_turbulence(case, max(th.mu, 1e-12))
+    # (as the reference: no relaxation factors, the default ddt scheme)
+    flow = rp_mod.RhoPimpleConfig(thermo=th,
+                                  **_flow_fields(case, "p", model=model))
+    y_ctl = case.solver_controls("Yi") if _has_solver(case, "Yi") else None
+    comb = _combustion_model(case, chem)
+    cp_lo, cp_hi, t_common = _janaf_tables(thd, species)
+    cfg = reacting_mod.ReactingConfig(flow=flow, chem=chem, W=W,
+                                      y_controls=y_ctl, combustion=comb,
+                                      cp_lo=cp_lo, cp_hi=cp_hi,
+                                      t_common=t_common)
+    state = reacting_mod.initial_state(mesh, case.read_field("U"),
+                                       case.read_field("p"),
+                                       case.read_field("T"), Y, th)
+    state = reacting_mod.seed_mixture_state(state, cfg)
+    _rho_loop(case, reacting_mod.make_step(mesh, cfg), state, False,
+              "reactingFoam", max_steps, {}, fol,
+              lambda st: [st["U"], st["p"], st["T"]]
+              + _species_columns(flds, species, st["Y"]),
+              start=f"Starting loop: reactingFoam, {mesh.n_cells} cells, "
+                    f"{len(species)} species\n")
+
+
+def xi_foam(case, max_steps: Optional[int] = None) -> None:
+    """XiFoam and PDRFoam (combustion/XiFoam, PDRFoam): premixed
+    combustion with the b-Xi model on the compressible PIMPLE step,
+    solvers/xifoam.py. b from 0/b (ignition by an initial burnt kernel:
+    setFields), Su and the Xi coefficients from
+    constant/combustionProperties (laminarFlameSpeedCorrelation selects a
+    models/flamespeed.py correlation). PDRFoam runs the same function, as the
+    reference registers it: its obstacle drag is a porosity of
+    system/fvOptions (the reference omits the Ep/Xp flame-area fields)."""
+    from ..models.flamespeed import make_flame_speed
+    from . import rhopimple as rp_mod
+    from . import xifoam as xi_mod
+
+    fol = _function_objects(case)
+    mesh = case.mesh
+    th = _thermo(case)
+    model, tstate = _load_turbulence(case, max(th.mu, 1e-12))
+    # (as the reference: no relaxation factors, the default ddt scheme)
+    flow = rp_mod.RhoPimpleConfig(
+        thermo=th, fv_options=_load_fvoptions(case, th.mu / 1.2),
+        **_flow_fields(case, "p", model=model))
+    comb = case.properties("combustionProperties")
+    su_e = comb.get("Su", 0.4)
+    su = float(su_e[-1] if isinstance(su_e, (list, tuple)) else su_e)
+    su_fn = make_flame_speed(comb, su_default=su)
+    T = case.read_field("T")
+    cfg = xi_mod.XiFoamConfig(
+        flow=flow, Su0=su, su_fn=su_fn,
+        SuMin=float(comb.get("SuMin", 0.01)),
+        XiEqCoef=float(comb.get("XiEqCoef", comb.get("XiCoef", 0.62))),
+        XiShapeCoef=float(comb.get("XiShapeCoef", 1.0)),
+        q_comb=float(comb.get("qComb", 2.0e6)),
+        Tu=float(comb.get("Tu", float(torch.min(T.data)))),
+        b_controls=(case.solver_controls("b") if _has_solver(case, "b")
+                    else None))
+    state = xi_mod.initial_state(mesh, case.read_field("U"),
+                                 case.read_field("p"), T,
+                                 case.read_field("b"), th,
+                                 turb_state=tstate)
+    _rho_loop(case, xi_mod.make_step(mesh, cfg), state, False, "XiFoam",
+              max_steps, {}, fol,
+              lambda st: [st["U"], st["p"], st["T"], st["b"],
+                          st["b"].replace(data=st["Xi"], name="Xi")],
+              log_field="b",
+              start=f"Starting loop: XiFoam, {mesh.n_cells} cells, "
+                    f"Su={su} m/s\n")
+
+
+def _fire_regions(case):
+    """fireFoam's optional regions: (pyro_mesh, pyro_cfg, film_mesh,
+    film_cfg, h_conv, T_ref_wall) from constant/pyrolysisProperties
+    (reactingOneDimCoeffs) and constant/surfaceFilmProperties
+    (thermoSingleLayerCoeffs), each naming its coupled patches."""
+    from ..regionmodels import FilmConfig, PyrolysisConfig, build_film_mesh
+
+    mesh = case.mesh
+    pyro_mesh = pyro_cfg = film_mesh = film_cfg = None
+    h_conv, T_ref_wall = 20.0, 300.0
+
+    def film_mesh_of(patches):
+        return build_film_mesh(case.poly_mesh, patches, device=mesh.device,
+                               dtype=mesh.v.dtype)
+
+    ppath = case.const_path("pyrolysisProperties")
+    if os.path.exists(ppath):
+        pd = parse_file(ppath)
+        patches = [str(s) for s in pd.get("patches", [])]
+        if patches:
+            pyro_mesh = film_mesh_of(patches)
+            cc = pd.get("reactingOneDimCoeffs", FoamDict())
+            h_conv = float(cc.get("h", h_conv))
+            T_ref_wall = float(cc.get("T0", T_ref_wall))
+            pyro_cfg = PyrolysisConfig(
+                n_layers=int(cc.get("nLayers", 8)),
+                thickness=float(cc.get("thickness", 0.01)),
+                k_s=float(cc.get("k", 0.2)),
+                rho_s0=float(cc.get("rho", 700.0)),
+                rho_char=float(cc.get("rhoChar", 100.0)),
+                cp_s=float(cc.get("Cp", 1500.0)),
+                A=float(cc.get("A", 1e8)),
+                Ta=float(cc.get("Ta", 15000.0)))
+    fpath = case.const_path("surfaceFilmProperties")
+    if os.path.exists(fpath):
+        fd = parse_file(fpath)
+        patches = [str(s) for s in fd.get("patches", [])]
+        if patches:
+            film_mesh = film_mesh_of(patches)
+            cc = fd.get("thermoSingleLayerCoeffs", FoamDict())
+            film_cfg = FilmConfig(
+                thermo=True, g=_read_gravity(case),
+                nu=float(cc.get("nu", 1e-6)),
+                rho=float(cc.get("rho", 1000.0)),
+                T_sat=float(cc.get("Tsat", 373.15)),
+                evap_coeff=float(cc.get("evapCoeff", 1e-3)))
+    return pyro_mesh, pyro_cfg, film_mesh, film_cfg, h_conv, T_ref_wall
+
+
+def fire_config(case):
+    """fireFoam's FireConfig, its Y field with the per-species fields,
+    and its turbulence state."""
+    from ..models import combustion as comb_mod
+    from . import buoyantrho as br_mod
+    from . import firefoam as ff_mod
+
+    chem, W, rx, _ = _mechanism(case)
+    species = list(chem.species)
+    Y, flds = species_field(case, species)
+    th = _thermo(case)
+    model, tstate = _load_turbulence(case, max(th.mu, 1e-12))
+    # (as the reference: no relaxation factors)
+    flow = br_mod.BuoyantRhoConfig(
+        thermo=th, g=_read_gravity(case),
+        **_flow_fields(case, "p_rgh", model=model))
+    rad = _load_radiation(case)
+    if rad is not None:
+        flow = flow._replace(radiation=rad)
+    comb = _combustion_model(case, chem, comb_mod.Combustion(
+        chem=chem, model="infinitelyFastChemistry"))
+    (pyro_mesh, pyro_cfg, film_mesh, film_cfg, h_conv,
+     T_ref_wall) = _fire_regions(case)
+    fuel = str(rx.get("fuel", species[0]))
+    cfg = ff_mod.FireConfig(
+        flow=flow, chem=chem, W=W, combustion=comb,
+        y_controls=(case.solver_controls("Yi") if _has_solver(case, "Yi")
+                    else None),
+        fuel_index=species.index(fuel) if fuel in species else 0,
+        pyro_mesh=pyro_mesh, pyro_cfg=pyro_cfg,
+        film_mesh=film_mesh, film_cfg=film_cfg,
+        h_conv=h_conv, T_ref_wall=T_ref_wall)
+    return cfg, Y, flds, tstate
+
+
+def fire_state(case, cfg, Y, tstate):
+    """fireFoam's first state (G seeded when the config has radiation)."""
+    from . import firefoam as ff_mod
+
+    mesh = case.mesh
+    T = case.read_field("T")
+    state = ff_mod.initial_state(mesh, case.read_field("U"),
+                                 case.read_field("p_rgh"), T, Y,
+                                 cfg.flow.thermo, g=cfg.flow.g,
+                                 turb_state=tstate, cfg=cfg)
+    if cfg.flow.radiation is not None:
+        from ..models import radiation as rad_mod
+
+        state["G"] = rad_mod.make_G(mesh, cfg.flow.radiation, T.bcs)
+    return state
+
+
+def fire_foam(case, max_steps: Optional[int] = None) -> None:
+    """fireFoam (combustion/fireFoam): a buoyant diffusion flame,
+    solvers/firefoam.py, with infinitelyFastChemistry by default, the
+    P1/fvDOM radiation of constant/radiationProperties, and the pyrolysis
+    and film regions of constant/pyrolysisProperties and
+    constant/surfaceFilmProperties. The time step adapts to maxCo."""
+    from . import firefoam as ff_mod
+
+    fol = _function_objects(case)
+    mesh = case.mesh
+    cfg, Y, flds, tstate = fire_config(case)
+    species = list(cfg.chem.species)
+    state = fire_state(case, cfg, Y, tstate)
+    step = ff_mod.make_step(mesh, cfg)
+    log.info(f"Starting loop: fireFoam, {mesh.n_cells} cells, "
+             f"{len(species)} species\n")
+    cumulative = 0.0
+
+    def write(state):
+        fields = ([state["U"], state["p_rgh"], state["T"]]
+                  + _species_columns(flds, species, state["Y"]))
+        if "turb" in state and state["turb"]:
+            fields += list(state["turb"].values())
+        case.write_fields(fields)
+
+    for t in case.time.loop():
+        state, diag = step(state, _dt(mesh, t.current_dt))
+        cumulative = _log_step(case, t, diag, cumulative)
+        log.info(log.solver_line("T", diag["T"]))
+        fol.execute(t.name, state)
+        t.adjust_delta_t(float(diag["courant_max"]))
+        if t.write_time():
+            write(state)
+        if max_steps is not None and t.index >= max_steps:
+            break
+    write(state)
+    log.info("End\n")
+    case.final_state = state
+
+
 def _cht(case, max_steps: Optional[int] = None) -> None:
     from .chtmultiregion import cht_multi_region_foam
 
@@ -2650,6 +3067,14 @@ APPLICATIONS = {
     "interPhaseChangeFoam": inter_phase_change_foam,
     "interMixingFoam": inter_mixing_foam,
     "settlingFoam": settling_foam,
+    # the combustion family; rhoReactingFoam is reactingFoam and PDRFoam
+    # XiFoam, as the reference registers them
+    "chemFoam": chem_foam,
+    "reactingFoam": reacting_foam,
+    "rhoReactingFoam": reacting_foam,
+    "XiFoam": xi_foam,
+    "PDRFoam": xi_foam,
+    "fireFoam": fire_foam,
 }
 
 

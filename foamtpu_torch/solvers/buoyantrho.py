@@ -18,9 +18,11 @@ applications/solvers/heatTransfer/{buoyantSimpleFoam,buoyantPimpleFoam}/
 
 p_rgh is solved shifted by the operating pressure (pRefValue, 1e5 Pa by
 default), as rhopimple.py solves p: in float32 the absolute level would
-drown the per-face differences. phi is the MASS flux. The P1/fvDOM
-radiation source waits for models/radiation.py: a config with
-`radiation` set raises NotImplementedError.
+drown the per-face differences. phi is the MASS flux. With a
+`radiation` config (models/radiation.py: P1 or fvDOM) and a "G" in the
+state, each outer iteration solves G at the current T and adds Sh/Cp to
+the T equation (EEqn.H's `+ radiation->Sh(thermo)`, reference
+buoyantrho.py:224-236).
 """
 
 from __future__ import annotations
@@ -80,10 +82,6 @@ def _gh(mesh, g):
 
 def buoyantrho_step(mesh, state: Dict, dt: Any, cfg: BuoyantRhoConfig
                     ) -> Tuple[Dict, Dict]:
-    if cfg.radiation is not None:
-        raise NotImplementedError(
-            "radiation (the reference's models/radiation.py) is not "
-            "ported to foamtpu_torch yet")
     th = cfg.thermo
     p_ctrl = cfg.p_controls or {"solver": "PCG",
                                 "preconditioner": "polynomial",
@@ -219,6 +217,18 @@ def buoyantrho_step(mesh, state: Dict, dt: Any, cfg: BuoyantRhoConfig
                                     phi_slot.bv * Kb)) / mesh.v
         dpdt = torch.zeros_like(K) if cfg.steady else (p_full - p0) * rdt
         TEqn = TEqn.add_source((dpdt - dKdt - div_phiK) / th.Cp, mesh)
+        if cfg.radiation is not None and "G" in state:
+            # incident radiation at the current T, its source Sh/Cp into
+            # the rho-weighted T rows
+            from ..models import radiation as rad_mod
+
+            Gf, gperf = rad_mod.solve_G(mesh, state["G"], T.data,
+                                        cfg.radiation, T_bcs=T.bcs)
+            state = dict(state)
+            state["G"] = Gf
+            diag["G"] = gperf
+            TEqn = TEqn.add_source(
+                rad_mod.Sh(mesh, Gf, T.data, cfg.radiation) / th.Cp, mesh)
         if relax_now and cfg.alpha_e < 1.0:
             TEqn = TEqn.relax(mesh, cfg.alpha_e, T.data)
         Tdata, tperf = linear.solve(mesh, TEqn, T.data, e_ctrl)

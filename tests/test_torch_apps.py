@@ -336,14 +336,15 @@ def _append(path, text):
 
 
 def test_run_rejects_an_unknown_application(cavity):
-    # (sonicLiquidFoam is ported since the multiphase slice; reactingFoam,
-    # which the reference registers, is still outside the port)
+    # (sonicLiquidFoam is ported since the multiphase slice, reactingFoam
+    # since the combustion slice: dieselFoam, which neither package
+    # registers, is refused)
     path = os.path.join(cavity, "system", "controlDict")
     with open(path) as f:
         text = f.read()
     with open(path, "w") as f:
-        f.write(text.replace("icoFoam", "reactingFoam"))
-    with pytest.raises(NotImplementedError, match="reactingFoam"):
+        f.write(text.replace("icoFoam", "dieselFoam"))
+    with pytest.raises(NotImplementedError, match="dieselFoam"):
         tapps.run(TCase(cavity, device="cpu"), max_steps=1)
 
 
@@ -353,8 +354,11 @@ def test_run_rejects_an_unknown_application(cavity):
     # compressible buoyantSimpleFoam since the compressible slice
     # (tests/test_torch_buoyantrho.py), chtMultiRegionFoam since the
     # snappyHexMesh and conjugate-heat-transfer slice
-    # (tests/test_torch_cht.py); the combustion solver XiFoam is not
-    (("system", "controlDict"), "\napplication XiFoam;\n", "XiFoam"),
+    # (tests/test_torch_cht.py), the combustion solver XiFoam since the
+    # combustion slice (tests/test_torch_reacting.py); dieselEngineFoam,
+    # which neither package registers, is not
+    (("system", "controlDict"), "\napplication dieselEngineFoam;\n",
+     "dieselEngineFoam"),
     # MRFZones and fvOptions are read since the rotating-frame slice
     # (tests/test_torch_mrf.py), and the compressible MRF family runs since
     # the compressible slice (tests/test_torch_rhopimple.py); sonicDyMFoam

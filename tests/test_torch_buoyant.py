@@ -118,9 +118,13 @@ def test_boussinesq_applications_are_registered():
 
 def test_compressible_buoyant_solvers_are_refused(tmp_path):
     """buoyantSimpleFoam (compressible, models/thermo.py) is ported since
-    the compressible slice (tests/test_torch_buoyantrho.py); with a P1
-    radiation model (models/radiation.py, not ported) run raises naming
-    the module before the first iteration."""
+    the compressible slice (tests/test_torch_buoyantrho.py), and its P1
+    radiation (models/radiation.py) since the combustion slice
+    (tests/test_torch_radiation.py): the case's radiationProperties reads
+    as the reference reads it, a P1Config at constantAbsorptionEmission's
+    defaults with wall emissivity 1, and nothing is refused any more."""
+    from foamtpu_torch.models import radiation
+
     d = _hotroom(tmp_path)
     path = os.path.join(d, "system", "controlDict")
     text = open(path).read()
@@ -131,9 +135,8 @@ def test_compressible_buoyant_solvers_are_refused(tmp_path):
     assert tapps.APPLICATIONS["buoyantSimpleFoam"] is \
         tapps.buoyant_simplefoam
     case = TCase(d, device="cpu")
-    with pytest.raises(NotImplementedError, match="models/radiation.py"):
-        tapps.run(case, max_steps=1)
-    assert not hasattr(case, "final_state")
+    assert tapps._load_radiation(case) == radiation.P1Config(
+        a=0.5, s=0.0, e=0.5, emissivity=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -11,10 +11,11 @@ T, phi, k, epsilon, mut and alphat at rtol 1e-9, every solve's iteration
 count equal, the log lines and the written fields
 (tests/test_torch_ras_models.py's PARITY_BODY).
 
-Then the radiation refusal: a case whose constant/radiationProperties
-switches P1 or fvDOM on raises NotImplementedError naming
-models/radiation.py before the first iteration (the reference runs it);
-one with radiation off, or no model, runs.
+Then radiation, ported since the combustion slice
+(tests/test_torch_radiation.py holds it to the reference): a case whose
+constant/radiationProperties switches P1 or fvDOM on runs with G in its
+state, and a step whose state has no G runs without radiation, as the
+reference's; one with radiation off, or no model, runs.
 """
 
 import contextlib
@@ -22,6 +23,7 @@ import io
 import os
 
 import pytest
+import torch
 
 from foamtpu_torch.core.case import Case as TCase
 from foamtpu_torch.solvers import apps as tapps
@@ -76,13 +78,23 @@ def _cavity(tmp_path, on, model):
 
 @pytest.mark.parametrize("model", ["P1", "fvDOM"])
 def test_radiation_is_refused(tmp_path, model):
+    """No longer refused: the case runs with its radiation model."""
     case = TCase(_cavity(tmp_path, "on", model), device="cpu")
-    with pytest.raises(NotImplementedError, match="models/radiation.py"):
+    with contextlib.redirect_stdout(io.StringIO()):
         tapps.run(case, max_steps=1)
-    assert not hasattr(case, "final_state")
-    cfg = buoyantrho.BuoyantRhoConfig(thermo=None, radiation=object())
-    with pytest.raises(NotImplementedError, match="models/radiation.py"):
-        buoyantrho.buoyantrho_step(case.mesh, {}, 1.0, cfg)
+    assert case.time.index == 1
+    G = case.final_state["G"].data
+    assert bool(torch.isfinite(G).all()) and float(G.max()) > 0.0
+    # a radiation config without a G in the state solves no G
+    cfg = buoyantrho.BuoyantRhoConfig(
+        thermo=tapps._thermo(case), steady=True,
+        radiation=tapps._load_radiation(case))
+    st = buoyantrho.initial_state(case.mesh, case.read_field("U"),
+                                  case.read_field("p_rgh"),
+                                  case.read_field("T"), cfg.thermo,
+                                  steady=True)
+    _, diag = buoyantrho.buoyantrho_step(case.mesh, st, 1.0, cfg)
+    assert "G" not in diag
 
 
 @pytest.mark.parametrize("on,model", [("off", "P1"), ("on", "none")])

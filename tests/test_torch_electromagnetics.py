@@ -151,8 +151,9 @@ def test_applications_are_registered():
     assert tapps.APPLICATIONS["financialFoam"] is tapps.financial_foam
     # 46 after this slice; windSimpleFoam, chtMultiRegionFoam and
     # chtMultiRegionSimpleFoam since the snappyHexMesh and cht slice, the
-    # twelve of the multiphase family since the multiphase slice
-    assert len(tapps.APPLICATIONS) == 61
+    # twelve of the multiphase family since the multiphase slice, the six
+    # of the combustion family since the combustion slice
+    assert len(tapps.APPLICATIONS) == 67
 
 
 def test_magnets_are_selected_by_box(tmp_path):

@@ -37,6 +37,16 @@ MULTIPHASE_APPS = ("cavitatingFoam", "sonicLiquidFoam",
                    "twoLiquidMixingFoam", "MRFMultiphaseInterFoam",
                    "multiphaseInterFoam", "interPhaseChangeFoam",
                    "interMixingFoam", "settlingFoam")
+# the combustion slice's modules (radiation, the ODE, chemistry and its
+# closures, the region models), step modules and applications
+COMBUSTION = ("models.radiation", "models.chemistry", "models.combustion",
+              "models.flamespeed", "ode", "regionmodels",
+              "regionmodels.filmmesh", "regionmodels.film",
+              "regionmodels.pyrolysis", "solvers.reacting",
+              "solvers.xifoam", "solvers.firefoam")
+COMBUSTION_STEPS = ("reacting", "xifoam", "firefoam")
+COMBUSTION_APPS = ("chemFoam", "reactingFoam", "rhoReactingFoam", "XiFoam",
+                   "PDRFoam", "fireFoam")
 
 
 def test_no_source_imports_jax_or_the_reference():
@@ -79,7 +89,12 @@ def test_no_source_imports_jax_or_the_reference():
             "foamtpu_torch/mesh/layers.py",
             "foamtpu_torch/models/solidthermo.py",
             "foamtpu_torch/solvers/chtmultiregion.py"} | {
-                f"foamtpu_torch/solvers/{m}.py" for m in MULTIPHASE} <= sources
+                f"foamtpu_torch/solvers/{m}.py" for m in MULTIPHASE} | {
+                "foamtpu_torch/" + ("ode/__init__" if m == "ode" else
+                                    "regionmodels/__init__"
+                                    if m == "regionmodels" else
+                                    m.replace(".", "/")) + ".py"
+                for m in COMBUSTION} <= sources
     # the pattern does catch the imports it is there for
     assert IMPORT.search("import jax.numpy as jnp")
     assert IMPORT.search("    from foamtpu.ops import fvc")
@@ -96,6 +111,7 @@ names = [m.name for m in pkgutil.walk_packages(foamtpu_torch.__path__,
 # slice's, the snappyHexMesh and conjugate-heat-transfer slice's and the
 # multiphase slice's are among them
 MULTIPHASE = {MULTIPHASE!r}
+COMBUSTION = {COMBUSTION!r}
 assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf",
         "foamtpu_torch.models.turbulence.les",
         "foamtpu_torch.models.turbulence.les2",
@@ -116,7 +132,8 @@ assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf",
         "foamtpu_torch.apps.meshutils3", "foamtpu_torch.mesh.snappy",
         "foamtpu_torch.mesh.layers", "foamtpu_torch.models.solidthermo",
         "foamtpu_torch.solvers.chtmultiregion"} | {
-            f"foamtpu_torch.solvers.{m}" for m in MULTIPHASE} <= set(names), \
+            f"foamtpu_torch.solvers.{m}" for m in MULTIPHASE} | {
+            f"foamtpu_torch.{m}" for m in COMBUSTION} <= set(names), \
     names
 for name in names:
     importlib.import_module(name)
@@ -130,7 +147,8 @@ sys.exit(1 if bad or len(names) < 50 else 0)
 def test_every_port_module_imports_without_jax():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
-    body = BODY.replace("{MULTIPHASE!r}", repr(MULTIPHASE))
+    body = BODY.replace("{MULTIPHASE!r}", repr(MULTIPHASE)).replace(
+        "{COMBUSTION!r}", repr(COMBUSTION))
     r = subprocess.run([sys.executable, "-c", body], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr[-2000:]
@@ -143,7 +161,10 @@ def test_entry_points_default_to_the_card():
     and setFields take `-device`, defaulting to the same. A region of a
     multi-region case is a Case on the device of the case it belongs to
     (chtmultiregion.ChtRun), and the snappyHexMesh command meshes on the
-    host, with no device at all."""
+    host, with no device at all. The combustion slice's constructors
+    (the mechanism, the film mesh, the pyrolysis columns) default to the
+    card, and its steps and applications name no host device; the port
+    registers 67 applications."""
     import inspect
 
     from foamtpu_torch import convert
@@ -184,8 +205,21 @@ def test_entry_points_default_to_the_card():
         step = inspect.signature(mod.make_step)
         assert list(step.parameters)[0] == "mesh" and "device" not in \
             step.parameters, m
-    for name in MULTIPHASE_APPS:
+    for name in MULTIPHASE_APPS + COMBUSTION_APPS:
         fn = apps.APPLICATIONS[name]
         assert list(inspect.signature(fn).parameters)[0] == "case", name
         src = inspect.getsource(fn)
         assert '"cpu"' not in src, name
+    from foamtpu_torch.models import chemistry
+    from foamtpu_torch.regionmodels import build_film_mesh, pyro_init
+
+    for fn in (chemistry.ChemistryModel.build, chemistry.from_foam_files,
+               build_film_mesh, pyro_init):
+        dev = inspect.signature(fn).parameters["device"].default
+        assert dev == DEFAULT_DEVICE, fn.__qualname__
+    for m in COMBUSTION_STEPS:
+        mod = importlib.import_module(f"foamtpu_torch.solvers.{m}")
+        assert '"cpu"' not in inspect.getsource(mod), m
+        step = inspect.signature(mod.make_step)
+        assert list(step.parameters)[0] == "mesh", m
+    assert len(apps.APPLICATIONS) == 67

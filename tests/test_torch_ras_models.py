@@ -135,6 +135,12 @@ def make(tag, name, cli):
         return cs.slice13_parity_case(
             os.getcwd(), dst, name, cli,
             device=("-device", "cpu") if cli is tcli else ())
+    elif kind == "slice15":
+        # radiation and the combustion family (chip_smoke.SLICE15_CASES:
+        # seeded where a limiter meets a uniform start)
+        return cs.slice15_parity_case(
+            os.getcwd(), dst, name, cli,
+            device=("-device", "cpu") if cli is tcli else ())
     elif kind == "slice10":
         # the compressible family's tutorials and LTSInterFoam
         # (chip_smoke.SLICE10_CASES: seeded, coarsened where named)
@@ -173,6 +179,8 @@ def arrays(state, host):
         for n, v in state.items():
             if n not in out:
                 out[n] = host(getattr(v, "data", v))
+    if kind == "slice15":
+        out.update(cs.slice15_arrays(state, host))
     if "rhoE" in state:
         # rhoCentralFoam's conservative state (its p is a plain array)
         out.update(rho=host(state["rho"].data), rhoU=host(state["rhoU"]),

@@ -280,8 +280,9 @@ def test_applications_are_registered_as_the_reference():
     # the single-equation slice's ten (tests/test_torch_electromagnetics.py),
     # windSimpleFoam, chtMultiRegionFoam and chtMultiRegionSimpleFoam
     # (tests/test_torch_snappy.py, tests/test_torch_cht.py) and the
-    # multiphase slice's twelve (tests/test_torch_settling_cavitating.py)
-    assert len(reg) == 61
+    # multiphase slice's twelve (tests/test_torch_settling_cavitating.py) and
+    # the combustion slice's six (tests/test_torch_reacting.py)
+    assert len(reg) == 67
 
 
 # -- the goldens of chip_smoke.py's compressible phase -------------------------

@@ -115,8 +115,10 @@ def test_rotating_applications_are_registered():
     # reference registers it) since the snappyHexMesh slice
     # (tests/test_torch_snappy.py), the multiphase family since the
     # multiphase slice (tests/test_torch_multiphase_vof.py,
-    # test_torch_multiphase_euler.py, test_torch_settling_cavitating.py);
-    # still outside the port: XiFoam, sonicDyMFoam
+    # test_torch_multiphase_euler.py, test_torch_settling_cavitating.py),
+    # XiFoam since the combustion slice (tests/test_torch_reacting.py);
+    # still outside the port: sonicDyMFoam, and dieselEngineFoam, which
+    # neither package registers
     assert tapps.APPLICATIONS["channelFoam"] is tapps.pimplefoam
     assert tapps.APPLICATIONS["dnsFoam"] is tapps.dns_foam
     assert tapps.APPLICATIONS["rhoPorousSimpleFoam"] is tapps.rho_simplefoam
@@ -131,5 +133,6 @@ def test_rotating_applications_are_registered():
                 "multiphaseInterFoam", "interPhaseChangeFoam",
                 "interMixingFoam", "settlingFoam"):
         assert app in tapps.APPLICATIONS
-    for app in ("XiFoam", "sonicDyMFoam"):
+    assert tapps.APPLICATIONS["XiFoam"] is tapps.xi_foam
+    for app in ("dieselEngineFoam", "sonicDyMFoam"):
         assert app not in tapps.APPLICATIONS

@@ -152,14 +152,15 @@ REGISTERED = {
 def test_applications_are_registered_as_the_reference():
     """The twelve names of the slice, mapped as
     openfoam-2.2.x_tpu/solvers/apps.py registers them (sonicLiquidFoam:
-    cavitating_foam with sonic_liquid=True); 61 names in all."""
+    cavitating_foam with sonic_liquid=True); 67 names in all since the
+    combustion slice's six."""
     import inspect
 
     for name, fn in REGISTERED.items():
         assert tapps.APPLICATIONS[name] is getattr(tapps, fn), name
     sonic = tapps.APPLICATIONS["sonicLiquidFoam"]
     assert "sonic_liquid=True" in inspect.getsource(sonic)
-    assert len(tapps.APPLICATIONS) == 61
+    assert len(tapps.APPLICATIONS) == 67
 
 
 def _ref_field(data, kind="zeroGradient"):
