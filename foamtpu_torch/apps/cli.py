@@ -1,7 +1,8 @@
-"""Command-line utilities (port of openfoam-2.2.x_tpu/apps/cli.py:
+"""Command-line utilities (port of openfoam-2.2.x_tpu/apps/cli.py: `run`,
 `blockMesh`, `snappyHexMesh`, `setFields`, `topoSet`, `createBaffles` and
 `boxTurb`).
 
+    python -m foamtpu_torch run -case <dir> [-steps N] [-device cpu]
     python -m foamtpu_torch.apps.cli blockMesh -case <dir>
     python -m foamtpu_torch.apps.cli snappyHexMesh -case <dir>
     python -m foamtpu_torch.apps.cli setFields -case <dir> [-device cpu]
@@ -24,7 +25,22 @@ def _case_arg(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("-case", default=".")
     ap.add_argument("-device", default=None)
+    ap.add_argument("-steps", type=int, default=None)
+    ap.add_argument("-parallel", action="store_true")
     return ap.parse_args(argv)
+
+
+def run(argv) -> int:
+    """Run the case's controlDict application (the reference's `run`):
+    on the card unless `-device cpu`, `-steps N` stopping after N
+    steps."""
+    args = _case_arg(argv)
+    from ..core.case import run_case
+    from ..core.precision import DEFAULT_DEVICE
+
+    run_case(args.case, max_steps=args.steps,
+             device=args.device or DEFAULT_DEVICE, parallel=args.parallel)
+    return 0
 
 
 def block_mesh(argv) -> int:
@@ -210,7 +226,7 @@ def snappy_hex_mesh(argv) -> int:
     return 0
 
 
-COMMANDS = {"blockMesh": block_mesh, "snappyHexMesh": snappy_hex_mesh,
+COMMANDS = {"run": run, "blockMesh": block_mesh, "snappyHexMesh": snappy_hex_mesh,
             "setFields": set_fields,
             "topoSet": topo_set_cmd, "createBaffles": create_baffles_cmd,
             "boxTurb": box_turb}

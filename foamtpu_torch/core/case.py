@@ -1,8 +1,8 @@
 """Case: load an OpenFOAM case directory (port of
-openfoam-2.2.x_tpu/core/case.py: `Case` without `request_parallel`; the
-application registry is `solvers.apps.run`). Cyclic pairs that carry a
-jump BC (fan, fixedJump) are kept as coincident cyclicAMI patches, as in
-the reference.
+openfoam-2.2.x_tpu/core/case.py: `Case` without `request_parallel`, and
+`run_case`; the application registry is `solvers.apps.APPLICATIONS`).
+Cyclic pairs that carry a jump BC (fan, fixedJump) are kept as coincident
+cyclicAMI patches, as in the reference.
 
 A Case owns system/ (controlDict with its Time, fvSchemes, fvSolution),
 constant/ (polyMesh, read once and moved to the case's device, and the
@@ -244,3 +244,27 @@ class Case:
                     except ValueError:
                         continue
         return 1.0
+
+
+def run_case(case_dir: str, max_steps: Optional[int] = None,
+             device=DEFAULT_DEVICE, parallel: bool = False) -> Case:
+    """Run the application that the case's controlDict names (the twin of
+    the reference's run_case): an application that neither package
+    registers raises the reference's ValueError, one the reference
+    registers but the port has not ported its NotImplementedError (see
+    solvers.apps.run). `parallel` (decomposePar / GSPMD in the reference)
+    raises NotImplementedError: the parallel layer is not ported."""
+    from ..solvers import apps
+
+    if parallel:
+        raise NotImplementedError(
+            "-parallel (the reference's GSPMD sharding, parallel/) is not "
+            "ported to foamtpu_torch yet: Queue 1 item 8, the parallel "
+            "layer")
+    case = Case(case_dir, device=device)
+    app = case.application
+    if app not in apps.APPLICATIONS and app not in apps.REFERENCE_ONLY:
+        raise ValueError(
+            f"unknown application {app!r}; available: "
+            f"{sorted(apps.APPLICATIONS)}")
+    return apps.run(case, max_steps=max_steps)

@@ -99,9 +99,7 @@ def _limiter_fn(scheme: str):
         return limited_linear(k), None
     if name in _LIMITERS:
         return _LIMITERS[name], None
-    raise NotImplementedError(
-        f"interpolation scheme {scheme!r} is not ported to foamtpu_torch "
-        "yet")
+    raise ValueError(f"unknown interpolation scheme {scheme!r}")
 
 
 def weights(mesh, phi: Any, scheme: str,

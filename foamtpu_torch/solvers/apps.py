@@ -566,19 +566,19 @@ def _inter_config(case, lts: bool = False):
 def interfoam_app(case, max_steps: Optional[int] = None,
                   lts: bool = False, dym: bool = False) -> None:
     """interFoam from case files (multiphase/interFoam); lts=True is
-    LTSInterFoam, dym=True interDyMFoam on a solidBodyMotionFvMesh
-    (constant/dynamicMeshDict; dynamicRefineFvMesh is not ported)."""
+    LTSInterFoam, dym=True interDyMFoam on a solidBodyMotionFvMesh or a
+    dynamicRefineFvMesh (constant/dynamicMeshDict; _inter_amr_run)."""
     from . import interfoam as inter_mod
 
+    cfg = _inter_config(case, lts=lts)
     if dym:
         dmd = case.properties("dynamicMeshDict")
         if str(dmd.get("dynamicFvMesh", "")) == "dynamicRefineFvMesh":
-            _not_ported("interDyMFoam with dynamicRefineFvMesh (the "
-                        "reference's _inter_amr_run: mesh/topo.py, "
-                        "mesh/refine.py)")
+            # adaptive refinement around the interface (the reference's
+            # damBreakWithObstacle): no function objects, as the reference
+            return _inter_amr_run(case, cfg, dmd, max_steps)
     fol = _function_objects(case)
     mesh = case.mesh
-    cfg = _inter_config(case, lts=lts)
     U = case.read_field("U")
     alpha = _read_alpha1(case)
     p_rgh = case.read_field("p_rgh")
@@ -612,6 +612,202 @@ def interfoam_app(case, max_steps: Optional[int] = None,
             break
     case.write_fields(fields(state))
     case.final_state = state
+    log.info("End\n")
+
+
+def _field_on_mesh(case, name: str, mesh2, data):
+    """A 0/ field's BCs rebuilt on a new mesh around the given cell data
+    (the reference's: the patch face counts change at every adaptation,
+    so the boundaryField entries are instantiated anew on the new
+    patches; per-face nonuniform BC values are not remapped, uniform and
+    keyword BCs, the damBreak pattern, are exact)."""
+    from ..bc import factory as bc_factory
+    from ..bc.patchfields import normalize_bcs
+    from ..core.dimensions import DimensionSet
+    from ..core.fields import VolField
+    from ..io.fields import load_field_dict
+
+    d = load_field_dict(os.path.join(case.dir, "0", name))
+    dims = d.get("dimensions", DimensionSet.of())
+    if not isinstance(dims, DimensionSet):
+        dims = DimensionSet.of()
+    rank = 1 if data.ndim == 2 else 0
+    dtype, dev = mesh2.v.dtype, mesh2.device
+    bf = d["boundaryField"]
+    bcs = [bc_factory.from_dict(bf.match(p.name), p, rank, dtype, dev,
+                                mesh=mesh2)
+           for p in mesh2.patches]
+    return VolField(data=torch.as_tensor(data, dtype=dtype, device=dev),
+                    bcs=normalize_bcs(mesh2, tuple(bcs), rank),
+                    name=name, dims=dims)
+
+
+def _correct_phi(mesh, phi, p_like):
+    """The projection of a remapped flux to div-free (correctPhi.H):
+    laplacian(pcorr) == div(phi); phi -= flux(pcorr)."""
+    from ..core.dimensions import dimTime
+    from ..ops import fvm, surface
+    from . import linear
+    from .piso import needs_reference
+
+    pcorr = p_like.with_data(torch.zeros_like(p_like.data))
+    pEqn = fvm.laplacian(mesh, torch.tensor(1.0, dtype=mesh.v.dtype,
+                                            device=mesh.device),
+                         pcorr, gamma_dims=dimTime)
+    pEqn = pEqn.replace_fields(
+        source=pEqn.source + surface.surface_sum(mesh, phi))
+    pEqn, ctl = linear.prep_pressure(
+        pEqn, needs_reference(pcorr, mesh),
+        {"solver": "PCG", "preconditioner": "polynomial",
+         "tolerance": 1e-8, "relTol": 0.0, "maxIter": 1000}, 0, 0.0)
+    data, _ = linear.solve(mesh, pEqn, pcorr.data, ctl)
+    return phi - pEqn.flux(mesh, data)
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def amr_start(case, cfg, dmd, init=None) -> Dict:
+    """The start of an interDyMFoam run on a dynamicRefineFvMesh: the
+    octree of the case's box mesh (`init`: the (amr, pm) of
+    refine.amr_init when the caller made it), its device mesh, the fields
+    read on the blockMesh order and put in the octree's, the state and
+    the step. Returns the run's record, which amr_adapt advances."""
+    from ..mesh import refine, to_device
+    from . import interfoam as inter_mod
+
+    coeffs = dmd.get("dynamicRefineFvMeshCoeffs", FoamDict())
+    amr, pm = init if init is not None else refine.amr_init(case.poly_mesh)
+    # the permutation from the blockMesh order to the octree's
+    pm0 = case.poly_mesh
+    nx, ny, nz = amr.base_n
+    ext = amr.bb_max - amr.bb_min
+    ijk = np.clip(np.floor((pm0.c - amr.bb_min) / ext
+                           * np.array([nx, ny, nz])).astype(int),
+                  0, np.array([nx, ny, nz]) - 1)
+    canon_idx = {c: i for i, c in enumerate(amr.cells)}
+    perm = np.array([canon_idx[(0, int(i), int(j), int(k))]
+                     for i, j, k in ijk])
+    mesh = to_device(pm, case.device)
+    case._poly, case._mesh = pm, mesh
+
+    def reorder(f):
+        data = _host(f.data)
+        out = np.empty_like(data)
+        out[perm] = data
+        return out
+
+    alpha_name = next(nm for nm in ("alpha1", "alpha.water", "alpha")
+                      if os.path.exists(os.path.join(case.dir, "0", nm)))
+    U = _field_on_mesh(case, "U", mesh, reorder(case.read_field("U")))
+    p_rgh = _field_on_mesh(case, "p_rgh", mesh,
+                           reorder(case.read_field("p_rgh")))
+    alpha = _field_on_mesh(case, alpha_name, mesh,
+                           reorder(case.read_field(alpha_name)))
+    return {"amr": amr, "pm": pm, "mesh": mesh, "cfg": cfg,
+            "alpha_name": alpha_name,
+            "interval": int(_dim_scalar_of(coeffs, "refineInterval", 1)),
+            "adapt": (_dim_scalar_of(coeffs, "lowerRefineLevel", 0.001),
+                      _dim_scalar_of(coeffs, "upperRefineLevel", 0.999),
+                      int(_dim_scalar_of(coeffs, "maxRefinement", 1)),
+                      int(_dim_scalar_of(coeffs, "nBufferLayers", 1)),
+                      int(_dim_scalar_of(coeffs, "maxCells", 500000))),
+            "state": inter_mod.initial_state(mesh, U, p_rgh, alpha, cfg),
+            "step": inter_mod.make_step(mesh, cfg)}
+
+
+def amr_adapt(case, run: Dict, clock=None) -> Dict:
+    """One adaptation event (dynamicRefineFvMesh::update): the octree
+    adapts to the alpha band on the host, the fields remap
+    volume-conservatively, the device mesh is rebuilt (to_device), the p_rgh
+    controls anew on it (a GAMG hierarchy when the case asks for GAMG),
+    the state rebuilt with its flux projected div-free (correctPhi), the
+    wall distance of any model that carries one refreshed, and the step
+    remade. Returns the event's record: whether the mesh changed, its
+    cell count, and with `clock` (a function returning seconds, which may
+    synchronise the device) the seconds of each part. The port is eager:
+    nothing is recompiled."""
+    from ..mesh import refine, to_device
+    from ..mesh.walldist import refresh_wall_distance
+    from . import interfoam as inter_mod
+
+    tick = clock or (lambda: 0.0)
+    state, cfg = run["state"], run["cfg"]
+    t0 = tick()
+    out = refine.adapt(run["amr"], run["pm"], _host(state["alpha"].data),
+                       *run["adapt"])
+    t1 = tick()
+    if out is None:
+        rec = {"changed": False, "n_cells": run["mesh"].n_cells}
+        if clock is not None:
+            rec["adapt_s"] = t1 - t0
+        return rec
+    amr2, pm2 = out
+    vo, vn = refine.build_maps(run["amr"], amr2)
+    n2 = pm2.n_cells
+    remapped = {k: refine.remap_field(_host(state[k].data), vo, vn, n2)
+                for k in ("U", "p_rgh", "alpha")}
+    t2 = tick()
+    mesh2 = to_device(pm2, case.device)
+    case._poly, case._mesh = pm2, mesh2
+    t3 = tick()
+    # the p_rgh controls on the new mesh (a GAMG hierarchy is built for
+    # one mesh)
+    cfg = cfg._replace(p_controls=case.solver_controls("p_rgh"))
+    t4 = tick()
+    U = _field_on_mesh(case, "U", mesh2, remapped["U"])
+    p_rgh = _field_on_mesh(case, "p_rgh", mesh2, remapped["p_rgh"])
+    alpha = _field_on_mesh(case, run["alpha_name"], mesh2,
+                           remapped["alpha"])
+    state = inter_mod.initial_state(mesh2, U, p_rgh, alpha, cfg)
+    # correctPhi: project the rebuilt flux to div-free, so that the next
+    # MULES step stays bounded
+    state["phi"] = _correct_phi(mesh2, state["phi"], p_rgh)
+    t5 = tick()
+    refresh_wall_distance(getattr(cfg, "turb", None), pm2, mesh2.v.dtype,
+                          device=mesh2.device)
+    run.update(amr=amr2, pm=pm2, mesh=mesh2, cfg=cfg, state=state,
+               step=inter_mod.make_step(mesh2, cfg))
+    rec = {"changed": True, "n_cells": n2}
+    if clock is not None:
+        rec.update(adapt_s=t1 - t0, maps_remap_s=t2 - t1,
+                   to_device_s=t3 - t2, gamg_rebuild_s=t4 - t3,
+                   correct_phi_s=t5 - t4)
+    return rec
+
+
+def _inter_amr_run(case, cfg, dmd, max_steps: Optional[int]) -> None:
+    """interFoam on a dynamicRefineFvMesh (src/dynamicFvMesh/
+    dynamicRefineFvMesh, the damBreakWithObstacle tutorial): every
+    refineInterval steps the octree adapts to the alpha band (amr_adapt),
+    the fields remap volume-conservatively and the device mesh is
+    rebuilt. The flux is rebuilt from the remapped velocity and
+    projected (correctPhi)."""
+    run = amr_start(case, cfg, dmd)
+    log.info(f"Starting time loop: interDyMFoam/dynamicRefineFvMesh, "
+             f"{run['mesh'].n_cells} cells\n")
+    for t in case.time.loop():
+        mesh = run["mesh"]
+        run["state"], diag = run["step"](run["state"],
+                                         _dt(mesh, t.current_dt))
+        log.info(f"Time = {t.name}\nPhase-1 volume fraction: min = "
+                 f"{float(diag['alpha_min']):.6g} max = "
+                 f"{float(diag['alpha_max']):.6g}  cells = "
+                 f"{mesh.n_cells}\n")
+        t.adjust_delta_t(float(diag["courant_max"]))
+        if t.index % run["interval"] == 0:
+            if amr_adapt(case, run)["changed"]:
+                log.info(f"Refined mesh: {run['mesh'].n_cells} cells\n")
+        state = run["state"]
+        if t.write_time():
+            case.write_fields([state["U"], state["p_rgh"], state["alpha"]])
+        if max_steps is not None and t.index >= max_steps:
+            break
+    state = run["state"]
+    case.write_fields([state["U"], state["p_rgh"], state["alpha"]])
+    case.final_state = state
+    case.final_state["n_cells"] = run["mesh"].n_cells
     log.info("End\n")
 
 
@@ -656,8 +852,9 @@ def pimple_dym_foam(case, max_steps: Optional[int] = None) -> None:
     solidBodyMotionFvMesh: linear, oscillatingLinear or rotating motion
     from constant/dynamicMeshDict. Laminar, as the reference (no
     turbulence on the moving-mesh path), and with no function objects,
-    as the reference's. The sixDoFRigidBodyMotion solver and the
-    attachDetach topology changer are not ported."""
+    as the reference's. The sixDoFRigidBodyMotion motion solver runs
+    _pimple_dym_sixdof, the attachDetach topology changer
+    _pimple_attach_detach."""
     from . import pimpledym as dym_mod
 
     mesh = case.mesh
@@ -666,12 +863,10 @@ def pimple_dym_foam(case, max_steps: Optional[int] = None) -> None:
     msd = dmd.get("motionSolver", dmd.get("solver", ""))
     if (str(msd) == "sixDoFRigidBodyMotion"
             or "sixDoFRigidBodyMotion" in solver_nm):
-        _not_ported("pimpleDyMFoam with sixDoFRigidBodyMotion (the "
-                    "reference's _pimple_dym_sixdof, models/sixdof.py)")
+        return _pimple_dym_sixdof(case, dmd, max_steps)
     if (str(dmd.get("topoChanger", "")) == "attachDetach"
             or "attachDetachCoeffs" in dmd):
-        _not_ported("pimpleDyMFoam with attachDetach (the reference's "
-                    "_pimple_attach_detach, mesh/topo.py)")
+        return _pimple_attach_detach(case, dmd, max_steps)
     coeffs = dmd.get("solidBodyMotionFvMeshCoeffs", dmd)
     fn = str(coeffs.get("solidBodyMotionFunction", "linearMotion"))
     pts_fn, umesh_fn = _dym_motion(case)
@@ -706,6 +901,166 @@ def pimple_dym_foam(case, max_steps: Optional[int] = None) -> None:
 
     while (t.index < max_iter and not t.stop_now
            and t.value < t.end_time - 1e-12):
+        state, diag = step(state, dt)
+        t.index += 1
+        t.value = t.start_time + t.index * t.delta_t
+        t.current_dt = float(dt)
+        cumulative = _log_step(case, t, diag, cumulative)
+        if t.write_time():
+            write(state)
+    write(state)
+    log.info("End\n")
+    case.final_state = state
+
+
+def _vec3(v, default) -> tuple:
+    return tuple(float(x) for x in np.asarray(
+        v if v is not None else default, float).reshape(-1)[-3:])
+
+
+def _pimple_dym_sixdof(case, dmd, max_steps: Optional[int]) -> None:
+    """pimpleDyMFoam with the sixDoFRigidBodyMotion motion solver
+    (src/sixDoFRigidBodyMotion, the floatingObject pattern): the flow's
+    forces on the body patch drive the rigid body, the mesh blends with
+    its motion (solvers/floating.py). dynamicMeshDict keys:
+    sixDoFRigidBodyMotionCoeffs { patch; mass; momentOfInertia;
+    centreOfMass; innerDistance; outerDistance; rhoInf; restraints {
+    ... linearSpring ... } }."""
+    from ..models import sixdof
+    from . import floating as fl_mod
+
+    mesh = case.mesh
+    _, nu = dimensioned_scalar(case.transport_properties()["nu"])
+    co = dmd.get("sixDoFRigidBodyMotionCoeffs", dmd)
+    patch_name = str(co.get("patch", co.get("patches", "body")))
+    body_idx = [i for i, p in enumerate(mesh.patches)
+                if p.name == patch_name][0]
+    com = _vec3(co.get("centreOfMass"), [0, 0, 0])
+    moi = _vec3(co.get("momentOfInertia"), [1, 1, 1])
+    springs = []
+    restr = co.get("restraints", FoamDict())
+    for _, rd in (restr.items() if hasattr(restr, "items") else []):
+        if not hasattr(rd, "get"):
+            continue
+        if str(rd.get("sixDoFRigidBodyMotionRestraint",
+                      rd.get("type", ""))) == "linearSpring":
+            springs.append((_vec3(rd.get("anchor"), com),
+                            _vec3(rd.get("refAttachmentPt"), [0, 0, 0]),
+                            _dim_scalar_of(rd, "stiffness", 0.0),
+                            _dim_scalar_of(rd, "damping", 0.0),
+                            _dim_scalar_of(rd, "restLength", 0.0)))
+    bcfg = sixdof.RigidBodyConfig(mass=_dim_scalar_of(co, "mass", 1.0),
+                                  I_body=moi, g=_read_gravity(case),
+                                  springs=tuple(springs))
+    cfg = fl_mod.FloatingConfig(
+        nu=nu, body=bcfg, body_patch=body_idx, x0=com,
+        r_inner=_dim_scalar_of(co, "innerDistance", 0.1),
+        r_outer=_dim_scalar_of(co, "outerDistance", 0.3),
+        rho_ref=_dim_scalar_of(co, "rhoInf", 1000.0),
+        p_controls=case.solver_controls("p"))
+    U = case.read_field("U")
+    p = case.read_field("p")
+    state = fl_mod.initial_state(case.poly_mesh, mesh, U, p, cfg)
+    step = fl_mod.make_step(mesh, cfg)
+    log.info(f"Starting loop: pimpleDyMFoam + sixDoFRigidBodyMotion "
+             f"(patch {patch_name})\n")
+    diag = None
+    for t in case.time.loop():
+        state, diag = step(state, _dt(mesh, t.current_dt))
+        bx = _host(diag["body_x"])
+        log.info(f"Time = {t.name}\nCentre of mass: ({bx[0]:.6g} "
+                 f"{bx[1]:.6g} {bx[2]:.6g})\n")
+        if t.write_time():
+            case.write_fields([state["U"], state["p"]])
+        if max_steps is not None and t.index >= max_steps:
+            break
+    case.write_fields([state["U"], state["p"]])
+    case.final_state = {"state": state, "diag": diag}
+    log.info("End\n")
+
+
+def _pimple_attach_detach(case, dmd, max_steps: Optional[int]) -> None:
+    """pimpleDyMFoam with an attachDetach topology modifier
+    (src/dynamicMesh/attachDetach/ under topoChangerFvMesh, the valve or
+    gate pattern): the internal faces of one plane of a layered mesh
+    detach into a wall pair at detachTime and attach again at
+    attachTime (mesh/topo.py). The two topologies share the same cells,
+    only the face list differs, so the fields carry over by identity,
+    exactly conservative; the flux is made anew from U on the new faces
+    (zero through the detached pair) and the device mesh is rebuilt."""
+    from ..mesh import to_device
+    from ..mesh import topo as topo_mod
+
+    coeffs = dmd.get("attachDetachCoeffs", FoamDict())
+    axis = {"x": 0, "y": 1, "z": 2}[str(coeffs.get("axis", "x"))]
+    plane_pos = float(coeffs.get("position", 0.5))
+    detach_t = float(coeffs.get("detachTime", 0.0))
+    attach_t = float(coeffs.get("attachTime", 1e30))
+
+    topo = topo_mod.analyze(case.poly_mesh, axis)
+    planes = topo.planes
+    s = int(np.argmin(np.abs(planes[1:-1] - plane_pos))) + 1
+    log.info(f"attachDetach: plane {s} at {planes[s]:.6g} along "
+             f"{'xyz'[axis]}, detach at t={detach_t:.6g}, "
+             f"attach at t={attach_t:.6g}\n")
+
+    _, nu = dimensioned_scalar(case.transport_properties()["nu"])
+    cdict = case.pimple_controls("PIMPLE")
+
+    def build(detached):
+        pm = topo_mod.build(topo, planes,
+                            detach_planes=(s,) if detached else ())
+        mesh = to_device(pm, case.device)
+        case._poly, case._mesh = pm, mesh
+        cfg = piso_mod.PisoConfig(
+            nu=nu, n_correctors=int(cdict.get("nCorrectors", 2)),
+            n_non_orth=int(cdict.get("nNonOrthogonalCorrectors", 0)),
+            corrected=case.laplacian_corrected(),
+            div_scheme=case.div_scheme("div(phi,U)"),
+            p_ref_cell=int(cdict.get("pRefCell", 0)),
+            p_ref_value=float(cdict.get("pRefValue", 0.0)),
+            p_controls=case.solver_controls("p"),
+            u_controls=case.solver_controls("U"))
+        return pm, mesh, cfg
+
+    # the initial fields in slab-major layered order (the cell ids are
+    # then the same across attach and detach events)
+    U0 = topo_mod.reorder_to_layers(topo, _host(case.read_field("U").data))
+    p0 = topo_mod.reorder_to_layers(topo, _host(case.read_field("p").data))
+
+    t = case.time
+    detached = detach_t <= t.start_time < attach_t
+    pm, mesh, cfg = build(detached)
+    state = piso_mod.initial_state(mesh, _field_on_mesh(case, "U", mesh, U0),
+                                   _field_on_mesh(case, "p", mesh, p0))
+    step = piso_mod.make_step(mesh, cfg)
+    log.info(f"Starting loop: pimpleDyMFoam (attachDetach), "
+             f"{mesh.n_cells} cells, "
+             f"{'DETACHED' if detached else 'attached'}\n")
+    cumulative = 0.0
+    max_iter = max(int(round((t.end_time - t.start_time) / t.delta_t)), 1)
+    if max_steps is not None:
+        max_iter = min(max_iter, max_steps)
+
+    def write(state):
+        case.write_fields([state["U"], state["p"]])
+
+    while (t.index < max_iter and not t.stop_now
+           and t.value < t.end_time - 1e-12):
+        t_next = t.start_time + (t.index + 1) * t.delta_t
+        want_detached = detach_t <= t_next < attach_t
+        if want_detached != detached:
+            # the topology event: the same cells, the identity remap
+            log.info(f"attachDetach event at t={t_next:.6g}: "
+                     f"{'DETACH' if want_detached else 'ATTACH'}\n")
+            detached = want_detached
+            Ud, pd = state["U"].data, state["p"].data
+            pm, mesh, cfg = build(detached)
+            state = piso_mod.initial_state(
+                mesh, _field_on_mesh(case, "U", mesh, Ud),
+                _field_on_mesh(case, "p", mesh, pd))
+            step = piso_mod.make_step(mesh, cfg)
+        dt = _dt(mesh, t.delta_t)
         state, diag = step(state, dt)
         t.index += 1
         t.value = t.start_time + t.index * t.delta_t
@@ -2978,6 +3333,351 @@ def fire_foam(case, max_steps: Optional[int] = None) -> None:
     case.final_state = state
 
 
+# ---------------------------------------------------------------------------
+# the engine family and sonicDyMFoam (solvers/engine.py)
+# ---------------------------------------------------------------------------
+
+
+def _engine_foam(case, max_steps: Optional[int] = None,
+                 combustion: bool = False) -> None:
+    """engineFoam / coldEngineFoam (applications/solvers/combustion/
+    {engineFoam,coldEngineFoam}/ with src/engine/): in-cylinder
+    compressible flow under the slider-crank piston motion of
+    constant/engineGeometry. The controlDict times are crank-angle
+    degrees (engineTime's user time). The patch named `piston` is the
+    moving crown, the other end of the cylinder axis the head.
+    engineFoam adds the b-Xi heat release, ignited as
+    constant/combustionProperties' `ignition` says (start CAD, location,
+    diameter). A non-zero engineGeometry `pistonLayers` selects the
+    layerAdditionRemoval motion (_engine_foam_layered)."""
+    from ..core.fields import vol_scalar
+    from ..mesh import engine as eng_mod
+    from ..models import thermo as thermo_mod
+    from . import engine as engine_solver
+
+    geom_d = case.properties("engineGeometry")
+    geom = eng_mod.from_dict(geom_d)
+    if _dim_scalar_of(geom_d, "pistonLayers", 0.0) > 0.0:
+        _engine_foam_layered(case, max_steps, combustion, geom, geom_d)
+        return
+    mesh = case.mesh
+    th = thermo_mod.from_dict(case.properties("thermophysicalProperties"))
+    U = case.read_field("U")
+    p = case.read_field("p")
+    T = case.read_field("T")
+
+    # the piston crown and the head along the engine axis
+    cf = _host(mesh.cf)
+    z_piston0 = float(cf[mesh.patch("piston").slice, geom.axis].mean())
+    ax_all = cf[:, geom.axis]
+    z_head = float(ax_all.max() if z_piston0 < ax_all.mean()
+                   else ax_all.min())
+    pts_fn, umesh_fn = eng_mod.piston_motion(geom, z_head=z_head,
+                                             z_piston0=z_piston0)
+    comb = (case.properties("combustionProperties")
+            if combustion else FoamDict())
+    cfg = engine_solver.EngineConfig(
+        thermo=th, pts_fn=pts_fn, umesh_fn=umesh_fn,
+        s_per_cad=1.0 / eng_mod.deg_per_sec(geom),
+        n_correctors=int(case.pimple_controls("PIMPLE").get(
+            "nCorrectors", 2)),
+        p_ref_value=float(_host(p.data).mean()),
+        Su0=_dim_scalar_of(comb, "Su", 0.0) if combustion else 0.0,
+        Xi=_dim_scalar_of(comb, "Xi", 2.0),
+        q_comb=_dim_scalar_of(comb, "qComb", 2.0e6),
+        Tu=_dim_scalar_of(comb, "Tu", 300.0),
+        p_controls=case.solver_controls("p"),
+        u_controls=case.solver_controls("U"))
+    b = None
+    if combustion:
+        try:
+            b = case.read_field("b")
+        except Exception:
+            b = vol_scalar(mesh, 1.0, name="b")
+    state = engine_solver.initial_state(case.poly_mesh, mesh, U, p, T, th,
+                                        cfg, b=b)
+    step = engine_solver.make_step(mesh, cfg)
+
+    # the spark (ignitionSite: a one-shot burnt kernel set on the host).
+    # Only an `ignition { start ...; }` entry schedules it, as in the
+    # reference; without one the charge counts as ignited from the start
+    ign = comb.get("ignition", FoamDict()) if combustion else FoamDict()
+    ign_start = _dim_scalar_of(ign, "start", 0.0)       # CAD
+    ign_d = _dim_scalar_of(ign, "diameter", 0.02)
+    loc = ign.get("location", None)
+    ignited = (not combustion or not isinstance(ign, FoamDict)
+               or "start" not in ign)
+
+    def fields(state):
+        return ([state["U"], state["p"], state["T"]]
+                + ([state["b"]] if combustion else []))
+
+    log.info(f"Starting loop: "
+             f"{'engineFoam' if combustion else 'coldEngineFoam'}, "
+             f"rpm {geom.rpm}, theta0 {geom.theta0} CAD\n")
+    diag = None
+    for t in case.time.loop():
+        theta = geom.theta0 + t.value     # the controlDict time is CAD
+        if combustion and not ignited and theta >= ign_start:
+            c = _host(mesh.c)
+            lc = (np.asarray([float(x) for x in loc])
+                  if loc is not None else c.mean(axis=0))
+            r = np.linalg.norm(c - lc[None, :], axis=1)
+            bb = _host(state["b"].data).copy()
+            bb[r < 0.5 * ign_d] = 0.0
+            state["b"] = state["b"].with_data(torch.tensor(
+                bb, dtype=mesh.v.dtype, device=mesh.device))
+            state["b0"] = state["b"].data
+            ignited = True
+            log.info(f"Ignition at theta = {theta:.2f} CAD\n")
+        state, diag = step(state, _dt(mesh, t.current_dt))
+        log.info(f"Crank angle = {theta + t.current_dt:.6g} CAD\n"
+                 f"p_mean = {float(diag['p_mean']):.6g}  "
+                 f"T_mean = {float(diag['T_mean']):.6g}  "
+                 f"V = {float(diag['V_total']):.6g}\n")
+        if t.write_time():
+            case.write_fields(fields(state))
+        if max_steps is not None and t.index >= max_steps:
+            break
+    case.write_fields(fields(state))
+    case.final_state = {"state": state, "diag": diag}
+    log.info("End\n")
+
+
+def _engine_foam_layered(case, max_steps: Optional[int],
+                         combustion: bool, geom, geom_d) -> None:
+    """engineFoam / coldEngineFoam with layer addition and removal: the
+    cell count changes during the run (src/dynamicMesh/polyTopoChange/
+    polyTopoChanger/layerAdditionRemoval driven by src/engine/engineMesh,
+    selected by engineGeometry's `pistonLayers`). Between events only the
+    piston plane moves (mesh/engine.py::piston_layer_motion); when the
+    piston layer passes 0.5 or 1.5 pistonLayers the host re-extrudes the
+    mesh (mesh/topo.py), rho, momentum and energy remap through the
+    exact conservative slab overlap, and the device mesh and the step
+    are made anew: the mass is conserved exactly across an event."""
+    from ..bc import factory as bc_factory
+    from ..bc.patchfields import normalize_bcs
+    from ..core.fields import VolField, vol_scalar
+    from ..io import fields as field_io
+    from ..io import polymesh as pmesh_io
+    from ..mesh import engine as eng_mod
+    from ..mesh import topo as topo_mod
+    from ..models import thermo as thermo_mod
+    from . import engine as engine_solver
+
+    th = thermo_mod.from_dict(case.properties("thermophysicalProperties"))
+    h0 = _dim_scalar_of(geom_d, "pistonLayers", 0.0)
+    pm0 = case.poly_mesh
+    topo = topo_mod.analyze(pm0, geom.axis)
+    z_p = float(np.asarray(pm0.cf)[pm0.patch("piston").slice,
+                                   geom.axis].mean())
+    side = (0 if abs(z_p - topo.planes[0]) <= abs(z_p - topo.planes[-1])
+            else -1)
+
+    # the initial fields on the original cell order, with their boundary
+    # entries
+    names = ["U", "p", "T"] + (["b"] if combustion else [])
+    t0 = case.latest_time_name()
+    raw, specs, meta = {}, {}, {}
+    for nm in names:
+        path = os.path.join(case.dir, t0, nm)
+        if not os.path.exists(path) and not os.path.exists(path + ".gz"):
+            path = os.path.join(case.dir, "0", nm)
+        try:
+            d = field_io.load_field_dict(path)
+        except Exception:
+            if nm != "b":
+                raise
+            d = None
+        if d is None:
+            raw[nm] = np.ones(pm0.n_cells)
+            specs[nm] = None
+            meta[nm] = (0, None)
+            continue
+        f = field_io.read_field(path, case.mesh, name=nm)
+        raw[nm] = _host(f.data)
+        specs[nm] = d["boundaryField"]
+        meta[nm] = (f.rank, f.dims)
+
+    # the slab-major layered order, once: the layout build() makes
+    for nm in names:
+        raw[nm] = topo_mod.reorder_to_layers(topo, raw[nm])
+    planes = topo.planes.copy()
+    nB = topo.n_base
+
+    def rebuild_mesh(new_planes):
+        # a model that carries a wall distance would call
+        # mesh.walldist.refresh_wall_distance here; the wall adjacency
+        # (mesh.wall_mask, wall_y) is rebuilt with the device mesh
+        pm = topo_mod.build(topo, new_planes)
+        case._poly = pm
+        case._mesh = None
+        return pm, case.mesh
+
+    def mk_field(nm, mesh, data):
+        rank, dims = meta[nm]
+        if specs[nm] is None:
+            return vol_scalar(mesh, 1.0, name=nm)
+        dtype, dev = mesh.v.dtype, mesh.device
+        bcs = tuple(bc_factory.from_dict(specs[nm].match(p.name), p, rank,
+                                         dtype, dev, mesh=mesh)
+                    for p in mesh.patches)
+        data = torch.as_tensor(data, dtype=dtype, device=dev)
+        if rank == 1 and data.ndim == 1:
+            data = data[None, :].expand(mesh.n_cells, 3).clone()
+        return VolField(data=data, bcs=normalize_bcs(mesh, bcs, rank),
+                        name=nm, dims=dims)
+
+    def mk_chunk(theta_abs, data):
+        """The mesh, state and step for the current planes at the
+        absolute crank angle theta_abs, from the slab-major cell data."""
+        pm, mesh = rebuild_mesh(planes)
+        pts_fn, umesh_fn = eng_mod.piston_layer_motion(
+            geom, planes, side, theta_abs)
+        cfg = engine_solver.EngineConfig(
+            thermo=th, pts_fn=pts_fn, umesh_fn=umesh_fn,
+            s_per_cad=1.0 / eng_mod.deg_per_sec(geom),
+            n_correctors=int(case.pimple_controls("PIMPLE").get(
+                "nCorrectors", 2)),
+            p_ref_value=float(np.asarray(data["p"]).mean()),
+            Su0=_dim_scalar_of(case.properties("combustionProperties"),
+                               "Su", 0.0) if combustion else 0.0,
+            p_controls=case.solver_controls("p"),
+            u_controls=case.solver_controls("U"))
+        U = mk_field("U", mesh, data["U"])
+        p = mk_field("p", mesh, data["p"])
+        T = mk_field("T", mesh, data["T"])
+        b = mk_field("b", mesh, data["b"]) if combustion else None
+        state = engine_solver.initial_state(pm, mesh, U, p, T, th, cfg,
+                                            b=b)
+        return pm, mesh, state, engine_solver.make_step(mesh, cfg)
+
+    def fields(state):
+        return ([state["U"], state["p"], state["T"]]
+                + ([state["b"]] if combustion else []))
+
+    theta = geom.theta0 + case.time.start_time
+    data = {nm: raw[nm] for nm in names}
+    pm, mesh, state, step = mk_chunk(theta, data)
+    n_events = 0
+    mesh_written_since_event = True
+    log.info(f"Starting loop: "
+             f"{'engineFoam' if combustion else 'coldEngineFoam'} "
+             f"(layerAR), rpm {geom.rpm}, pistonLayers {h0}, "
+             f"nCells {pm.n_cells}\n")
+    diag = None
+    for t in case.time.loop():
+        state, diag = step(state, _dt(mesh, t.current_dt))
+        theta = geom.theta0 + t.value + t.current_dt
+        log.info(f"Crank angle = {theta:.6g} CAD\n"
+                 f"p_mean = {float(diag['p_mean']):.6g}  "
+                 f"T_mean = {float(diag['T_mean']):.6g}  "
+                 f"V = {float(diag['V_total']):.6g}  "
+                 f"mass = {float(diag['mass']):.8g}  "
+                 f"nCells = {pm.n_cells}\n")
+
+        # layerAdditionRemoval at the step's end: the piston plane from
+        # the slider-crank increment since the last step
+        ds = (float(eng_mod.piston_displacement(geom, theta))
+              - float(eng_mod.piston_displacement(
+                  geom, theta - t.current_dt)))
+        zp = planes[0] - ds if side == 0 else planes[-1] + ds
+        new_planes, changed = topo_mod.layer_ar(planes, zp, h0, side=side)
+        if changed:
+            # the conservative rho, momentum and energy remap between the
+            # step's moved planes and the re-layered ones
+            WT = topo_mod.slab_overlap_matrix(_moved(planes, zp, side),
+                                              new_planes)
+            rho = _host(th.rho(state["p"].data, state["T"].data))
+            Ud = _host(state["U"].data)
+            Td = _host(state["T"].data)
+            rho_h = topo_mod.remap_cells(WT, nB, rho)
+            rhoU = topo_mod.remap_cells(WT, nB, rho[:, None] * Ud)
+            rhoT = topo_mod.remap_cells(WT, nB, rho * Td)
+            data = {"U": rhoU / rho_h[:, None], "T": rhoT / rho_h,
+                    "p": rho_h * getattr(th, "R", 287.0) * (rhoT / rho_h)}
+            if combustion:
+                rhob = topo_mod.remap_cells(WT, nB,
+                                            rho * _host(state["b"].data))
+                data["b"] = rhob / rho_h
+            planes = new_planes
+            pm, mesh, state, step = mk_chunk(theta, data)
+            n_events += 1
+            mesh_written_since_event = False
+            log.info(f"layerAR event: nCells -> {pm.n_cells} "
+                     f"(layers {planes.shape[0] - 1})\n")
+        else:
+            planes = _moved(planes, zp, side)
+
+        if t.write_time():
+            case.write_fields(fields(state))
+            if not mesh_written_since_event:
+                pmesh_io.write(pm, os.path.join(case.dir, t.name,
+                                                "polyMesh"))
+                mesh_written_since_event = True
+        if max_steps is not None and t.index >= max_steps:
+            break
+    case.write_fields(fields(state))
+    case.final_state = {"state": state, "diag": diag,
+                        "n_cells": pm.n_cells, "n_events": n_events}
+    log.info("End\n")
+
+
+def _moved(planes, zp, side):
+    p = np.asarray(planes, dtype=np.float64).copy()
+    p[0 if side == 0 else -1] = zp
+    return p
+
+
+def cold_engine_foam(case, max_steps: Optional[int] = None) -> None:
+    _engine_foam(case, max_steps, combustion=False)
+
+
+def engine_foam(case, max_steps: Optional[int] = None) -> None:
+    _engine_foam(case, max_steps, combustion=True)
+
+
+def sonic_dym_foam(case, max_steps: Optional[int] = None) -> None:
+    """sonicDyMFoam (applications/solvers/compressible/sonicFoam/
+    sonicDyMFoam/): transonic pressure-based compressible flow on a
+    solid-body moving mesh: the ALE engine step (solvers/engine.py) with
+    the transonic div(phid, p) pressure equation, the motion from
+    constant/dynamicMeshDict."""
+    from ..models import thermo as thermo_mod
+    from . import engine as engine_solver
+
+    mesh = case.mesh
+    th = thermo_mod.from_dict(case.properties("thermophysicalProperties"))
+    pts_fn, umesh_fn = _dym_motion(case)
+    cdict = case.pimple_controls("PIMPLE")
+    U = case.read_field("U")
+    p = case.read_field("p")
+    T = case.read_field("T")
+    cfg = engine_solver.EngineConfig(
+        thermo=th, pts_fn=pts_fn, umesh_fn=umesh_fn, s_per_cad=1.0,
+        n_correctors=int(cdict.get("nCorrectors", 2)),
+        p_ref_value=float(_host(p.data).mean()), transonic=True,
+        p_controls=case.solver_controls("p"),
+        u_controls=case.solver_controls("U"))
+    state = engine_solver.initial_state(case.poly_mesh, mesh, U, p, T, th,
+                                        cfg)
+    step = engine_solver.make_step(mesh, cfg)
+    log.info("Starting loop: sonicDyMFoam\n")
+    diag = None
+    for t in case.time.loop():
+        state, diag = step(state, _dt(mesh, t.current_dt))
+        log.info(f"Time = {t.name}\np_mean = "
+                 f"{float(diag['p_mean']):.6g}  T_mean = "
+                 f"{float(diag['T_mean']):.6g}\n")
+        if t.write_time():
+            case.write_fields([state["U"], state["p"], state["T"]])
+        if max_steps is not None and t.index >= max_steps:
+            break
+    case.write_fields([state["U"], state["p"], state["T"]])
+    case.final_state = {"state": state, "diag": diag}
+    log.info("End\n")
+
+
 def _cht(case, max_steps: Optional[int] = None) -> None:
     from .chtmultiregion import cht_multi_region_foam
 
@@ -3075,7 +3775,21 @@ APPLICATIONS = {
     "XiFoam": xi_foam,
     "PDRFoam": xi_foam,
     "fireFoam": fire_foam,
+    # the moving-mesh compressible solvers on solvers/engine.py
+    "sonicDyMFoam": sonic_dym_foam,
+    "coldEngineFoam": cold_engine_foam,
+    "engineFoam": engine_foam,
 }
+
+# the applications the reference registers that the port has not ported
+# yet: the parcel solvers (Queue 1 item 4; sprayEngineFoam rides the
+# engine mesh with them) and the discrete methods (item 5)
+REFERENCE_ONLY = (
+    "icoUncoupledKinematicParcelFoam", "uncoupledKinematicParcelFoam",
+    "reactingParcelFoam", "LTSReactingParcelFoam",
+    "porousExplicitSourceReactingParcelFoam", "coalChemistryFoam",
+    "sprayFoam", "reactingParcelFilmFoam", "sprayEngineFoam",
+    "dsmcFoam", "mdFoam", "mdEquilibrationFoam")
 
 
 def run(case, max_steps: Optional[int] = None):

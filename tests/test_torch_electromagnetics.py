@@ -152,8 +152,10 @@ def test_applications_are_registered():
     # 46 after this slice; windSimpleFoam, chtMultiRegionFoam and
     # chtMultiRegionSimpleFoam since the snappyHexMesh and cht slice, the
     # twelve of the multiphase family since the multiphase slice, the six
-    # of the combustion family since the combustion slice
-    assert len(tapps.APPLICATIONS) == 67
+    # of the combustion family since the combustion slice, sonicDyMFoam,
+    # coldEngineFoam and engineFoam since the topology-change slice
+    # (tests/test_torch_engine.py)
+    assert len(tapps.APPLICATIONS) == 70
 
 
 def test_magnets_are_selected_by_box(tmp_path):

@@ -431,5 +431,7 @@ def test_commands_are_registered():
     # snappyHexMesh is ported since the snappyHexMesh and cht slice
     # (tests/test_torch_snappy.py); checkMesh is not
     assert "snappyHexMesh" in cli.COMMANDS
+    # and run since the topology-change slice (tests/test_torch_case_run.py)
+    assert cli.COMMANDS["run"] is cli.run
     with pytest.raises(NotImplementedError, match="checkMesh"):
         cli.main(["checkMesh", "-case", "."])

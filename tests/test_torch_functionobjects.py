@@ -327,21 +327,16 @@ def meshed_cavity(tmp_path_factory):
 
 
 # a case the cavity can be turned into that the port refuses before its
-# first step: (application, constant/<file>, its text, the word raised)
+# first step: (application, constant/<file>, its text, the word raised).
+# sixDoFRigidBodyMotion, attachDetach and dynamicRefineFvMesh are ported
+# since the topology-change slice (tests/test_torch_sixdof.py,
+# tests/test_torch_topo.py, tests/test_torch_amr.py); sprayEngineFoam, the
+# parcels on its engine mesh, is not
 REFUSED = {
-    "sixDoFRigidBodyMotion": (
-        "pimpleDyMFoam", "dynamicMeshDict",
-        "dynamicFvMesh dynamicMotionSolverFvMesh;\n"
-        "motionSolverLibs ( \"libsixDoFRigidBodyMotion.so\" );\n"
-        "solver sixDoFRigidBodyMotion;\n", "sixDoFRigidBodyMotion"),
-    "attachDetach": (
-        "pimpleDyMFoam", "dynamicMeshDict",
-        "dynamicFvMesh dynamicMotionSolverFvMesh;\n"
-        "topoChanger attachDetach;\n",
-        "attachDetach"),
-    "dynamicRefineFvMesh": (
-        "interDyMFoam", "dynamicMeshDict",
-        "dynamicFvMesh dynamicRefineFvMesh;\n", "_inter_amr_run"),
+    "sprayEngineFoam": (
+        "sprayEngineFoam", "engineGeometry",
+        "rpm rpm [0 0 -1 0 0 0 0] 60;\ntheta0 -180;\naxis 1;\n",
+        "sprayEngineFoam"),
     "vanDriest": (
         "pisoFoam", "LESProperties",
         "LESModel Smagorinsky;\ndelta vanDriest;\n", "vanDriest"),

@@ -47,6 +47,12 @@ COMBUSTION = ("models.radiation", "models.chemistry", "models.combustion",
 COMBUSTION_STEPS = ("reacting", "xifoam", "firefoam")
 COMBUSTION_APPS = ("chemFoam", "reactingFoam", "rhoReactingFoam", "XiFoam",
                    "PDRFoam", "fireFoam")
+# the topology-change slice's modules, the case-directory entry and its
+# applications
+TOPOCHANGE = ("mesh.topo", "mesh.refine", "mesh.motionsolver",
+              "mesh.engine", "models.sixdof", "solvers.floating",
+              "solvers.engine", "__main__")
+TOPOCHANGE_APPS = ("sonicDyMFoam", "coldEngineFoam", "engineFoam")
 
 
 def test_no_source_imports_jax_or_the_reference():
@@ -94,7 +100,9 @@ def test_no_source_imports_jax_or_the_reference():
                                     "regionmodels/__init__"
                                     if m == "regionmodels" else
                                     m.replace(".", "/")) + ".py"
-                for m in COMBUSTION} <= sources
+                for m in COMBUSTION} | {
+                "foamtpu_torch/" + m.replace(".", "/") + ".py"
+                for m in TOPOCHANGE} <= sources
     # the pattern does catch the imports it is there for
     assert IMPORT.search("import jax.numpy as jnp")
     assert IMPORT.search("    from foamtpu.ops import fvc")
@@ -112,6 +120,7 @@ names = [m.name for m in pkgutil.walk_packages(foamtpu_torch.__path__,
 # multiphase slice's are among them
 MULTIPHASE = {MULTIPHASE!r}
 COMBUSTION = {COMBUSTION!r}
+TOPOCHANGE = {TOPOCHANGE!r}
 assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf",
         "foamtpu_torch.models.turbulence.les",
         "foamtpu_torch.models.turbulence.les2",
@@ -133,7 +142,8 @@ assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf",
         "foamtpu_torch.mesh.layers", "foamtpu_torch.models.solidthermo",
         "foamtpu_torch.solvers.chtmultiregion"} | {
             f"foamtpu_torch.solvers.{m}" for m in MULTIPHASE} | {
-            f"foamtpu_torch.{m}" for m in COMBUSTION} <= set(names), \
+            f"foamtpu_torch.{m}" for m in COMBUSTION} | {
+            f"foamtpu_torch.{m}" for m in TOPOCHANGE} <= set(names), \
     names
 for name in names:
     importlib.import_module(name)
@@ -148,7 +158,8 @@ def test_every_port_module_imports_without_jax():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     body = BODY.replace("{MULTIPHASE!r}", repr(MULTIPHASE)).replace(
-        "{COMBUSTION!r}", repr(COMBUSTION))
+        "{COMBUSTION!r}", repr(COMBUSTION)).replace(
+        "{TOPOCHANGE!r}", repr(TOPOCHANGE))
     r = subprocess.run([sys.executable, "-c", body], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr[-2000:]
@@ -164,7 +175,7 @@ def test_entry_points_default_to_the_card():
     host, with no device at all. The combustion slice's constructors
     (the mechanism, the film mesh, the pyrolysis columns) default to the
     card, and its steps and applications name no host device; the port
-    registers 67 applications."""
+    registers 70 applications."""
     import inspect
 
     from foamtpu_torch import convert
@@ -205,7 +216,7 @@ def test_entry_points_default_to_the_card():
         step = inspect.signature(mod.make_step)
         assert list(step.parameters)[0] == "mesh" and "device" not in \
             step.parameters, m
-    for name in MULTIPHASE_APPS + COMBUSTION_APPS:
+    for name in MULTIPHASE_APPS + COMBUSTION_APPS + TOPOCHANGE_APPS:
         fn = apps.APPLICATIONS[name]
         assert list(inspect.signature(fn).parameters)[0] == "case", name
         src = inspect.getsource(fn)
@@ -222,4 +233,16 @@ def test_entry_points_default_to_the_card():
         assert '"cpu"' not in inspect.getsource(mod), m
         step = inspect.signature(mod.make_step)
         assert list(step.parameters)[0] == "mesh", m
-    assert len(apps.APPLICATIONS) == 67
+    # the case-directory entry: run_case and the run command take the
+    # card unless asked for the CPU, as the topology-change slice's
+    # moving-mesh modules do
+    from foamtpu_torch.core.case import run_case
+
+    assert inspect.signature(run_case).parameters["device"].default \
+        == DEFAULT_DEVICE
+    assert "args.device or DEFAULT_DEVICE" in inspect.getsource(cli.run)
+    for m in ("solvers.floating", "solvers.engine", "mesh.motionsolver",
+              "mesh.engine"):
+        mod = importlib.import_module(f"foamtpu_torch.{m}")
+        assert '"cpu"' not in inspect.getsource(mod), m
+    assert len(apps.APPLICATIONS) == 70

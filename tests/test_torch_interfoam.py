@@ -208,14 +208,16 @@ def test_written_fields_are_read_back_by_both_packages(tmp_path, fmt):
 def test_interfoam_rejects_features_outside_slice(tmp_path):
     dst = dam_case(tmp_path)
     # interDyMFoam runs on a solidBodyMotionFvMesh since the moving-mesh slice
-    # (tests/test_torch_movingmesh.py); adaptive refinement is refused by
-    # the name of the reference's function, before the first step
+    # (tests/test_torch_movingmesh.py), and on a dynamicRefineFvMesh since
+    # the topology-change slice (tests/test_torch_amr.py): the refusal is
+    # lifted, and damBreak's 46 x 46 box takes a step on its octree
     with open(os.path.join(dst, "constant", "dynamicMeshDict"), "w") as f:
         f.write("dynamicFvMesh dynamicRefineFvMesh;\n")
     case = TCase(dst, device="cpu")
-    with pytest.raises(NotImplementedError, match="_inter_amr_run"):
+    with contextlib.redirect_stdout(io.StringIO()):
         interfoam_app(case, max_steps=1, dym=True)
-    assert case.time.index == 0
+    assert case.time.index == 1 and case.final_state["n_cells"] >= 46 * 46
+    case = TCase(dst, device="cpu")
     mesh = case.mesh
     cfg = tinter.InterConfig(rho1=1000.0, rho2=1.0, nu1=1e-6, nu2=1e-5,
                              sigma=0.07)

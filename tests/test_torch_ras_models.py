@@ -141,6 +141,10 @@ def make(tag, name, cli):
         return cs.slice15_parity_case(
             os.getcwd(), dst, name, cli,
             device=("-device", "cpu") if cli is tcli else ())
+    elif kind == "slice16":
+        # the topology-changing meshes and the engine family
+        # (chip_smoke.slice16_case: its well-posed parity variants)
+        return cs.slice16_case(os.getcwd(), dst, name, cli, parity=True)
     elif kind == "slice10":
         # the compressible family's tutorials and LTSInterFoam
         # (chip_smoke.SLICE10_CASES: seeded, coarsened where named)
@@ -181,6 +185,8 @@ def arrays(state, host):
                 out[n] = host(getattr(v, "data", v))
     if kind == "slice15":
         out.update(cs.slice15_arrays(state, host))
+    if kind == "slice16":
+        out.update(cs.slice16_arrays(state, host))
     if "rhoE" in state:
         # rhoCentralFoam's conservative state (its p is a plain array)
         out.update(rho=host(state["rho"].data), rhoU=host(state["rhoU"]),

@@ -135,7 +135,9 @@ def test_combustion_applications_are_registered():
     assert tapps.APPLICATIONS["rhoReactingFoam"] is tapps.reacting_foam
     assert tapps.APPLICATIONS["XiFoam"] is tapps.xi_foam
     assert tapps.APPLICATIONS["PDRFoam"] is tapps.xi_foam
-    assert len(tapps.APPLICATIONS) == 67
+    # (and sonicDyMFoam, coldEngineFoam, engineFoam since the
+    # topology-change slice, tests/test_torch_engine.py)
+    assert len(tapps.APPLICATIONS) == 70
 
 
 def reference_goldens15(root, names=None, perturb=0.0, port=False):
@@ -192,7 +194,7 @@ def reference_goldens15(root, names=None, perturb=0.0, port=False):
                         if isinstance(t, torch.Tensor) else t)
             elif tut == "chemFoam" and x64:
                 case = JCase(d)
-                case.final_state = _chem_reactor_f64(d)
+                case.final_state = _chem_reactor_f64(d, steps or 100)
                 host = np.asarray
             else:
                 case = jrun(d, max_steps=steps)

@@ -116,9 +116,10 @@ def test_rotating_applications_are_registered():
     # (tests/test_torch_snappy.py), the multiphase family since the
     # multiphase slice (tests/test_torch_multiphase_vof.py,
     # test_torch_multiphase_euler.py, test_torch_settling_cavitating.py),
-    # XiFoam since the combustion slice (tests/test_torch_reacting.py);
-    # still outside the port: sonicDyMFoam, and dieselEngineFoam, which
-    # neither package registers
+    # XiFoam since the combustion slice (tests/test_torch_reacting.py),
+    # sonicDyMFoam since the topology-change slice
+    # (tests/test_torch_engine.py); still outside the port:
+    # dieselEngineFoam, which neither package registers
     assert tapps.APPLICATIONS["channelFoam"] is tapps.pimplefoam
     assert tapps.APPLICATIONS["dnsFoam"] is tapps.dns_foam
     assert tapps.APPLICATIONS["rhoPorousSimpleFoam"] is tapps.rho_simplefoam
@@ -134,5 +135,5 @@ def test_rotating_applications_are_registered():
                 "interMixingFoam", "settlingFoam"):
         assert app in tapps.APPLICATIONS
     assert tapps.APPLICATIONS["XiFoam"] is tapps.xi_foam
-    for app in ("dieselEngineFoam", "sonicDyMFoam"):
-        assert app not in tapps.APPLICATIONS
+    assert tapps.APPLICATIONS["sonicDyMFoam"] is tapps.sonic_dym_foam
+    assert "dieselEngineFoam" not in tapps.APPLICATIONS

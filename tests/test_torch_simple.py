@@ -373,7 +373,10 @@ def test_simple_rejects_features_outside_slice(pitz):
                         1e-5).name == "LamBremhorstKE"
     with pytest.raises(ValueError, match="noSuchModel"):
         tbase.select(parse_string("RASModel noSuchModel;"), 1e-5)
-    with pytest.raises(NotImplementedError, match="QUICKV2"):
+    # an unknown interpolation scheme raises the reference's ValueError
+    # since the topology-change slice (tests/test_torch_case_run.py)
+    with pytest.raises(ValueError,
+                       match="unknown interpolation scheme 'QUICKV2'"):
         schemes.weights_slot(tm, slot.from_flat(tm, _t(pitz["phi"])),
                              "QUICKV2", pitz["tf"]["k"])
 
