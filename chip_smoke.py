@@ -968,19 +968,17 @@ def device_ms(fn, flush=None, reps=30, trials=2, attempts=3) -> float:
                         flush.fill_(1)
                     fn()
                 torch.cuda.synchronize()
-            work = [e for e in prof.key_averages()
-                    if getattr(e, "device_type", None)
-                    == torch.autograd.DeviceType.CUDA
-                    and "unsigned char" not in e.key]
-            events = sum(e.count for e in work)
+            raw = RawProfile(prof)
+            events = sum(k for name, (_, k) in raw.by_name.items()
+                         if "unsigned char" not in name)
             if events:
                 break
             INCOMPLETE_PROFILES += 1
         if not events:
             PROFILER_FALLBACKS += 1
             return events_ms(fn, flush, reps)
-        taken.append((events, sum(_dev_time(e, "self_device_time_total")
-                                  for e in work) / 1e3))
+        taken.append((events, raw.device_ms(
+            lambda name: "unsigned char" not in name)))
     per_call = max(1, round(max(n for n, _ in taken) / reps))
     INCOMPLETE_PROFILES += sum(n < per_call * reps for n, _ in taken)
     return statistics.median(ms * per_call / n for n, ms in taken)
@@ -1076,6 +1074,11 @@ THREE_RUN_SHAPES = frozenset((
     "hotCavity_fvDOM_ray", "smallPoolFire2D_Y5", "counterFlowFlame2D_p",
     "moriyoshiHomogeneous_b", "fire_p_rgh", "fire_G", "fire_Y5",
     "amr_p_rgh"))
+# the operands timed flushed only but with their CSR product (kernel,
+# plain and cuSPARSE, no warm or graph timings): the duct's p, which the
+# kernels line reads, since the Lagrangian slice, and that slice's two
+# new operands (reactingParcelFoam's p and Yvapour at 512 x 512)
+CSR_FLUSHED_SHAPES = frozenset(("duct_p", "rpf_p", "rpf_Yv"))
 
 
 def time_shape(spmv, name, diag, x, soff, deltas, flush, fb=None):
@@ -1086,11 +1089,13 @@ def time_shape(spmv, name, diag, x, soff, deltas, flush, fb=None):
     `<name>_whole`) against its plain version (roll chain + index_add)
     and the CSR product of the whole operator. A shape of
     THREE_RUN_SHAPES is timed flushed only, kernel and plain (its warm,
-    graph and CSR entries None). Returns the entries."""
+    graph and CSR entries None); one of CSR_FLUSHED_SHAPES flushed only
+    with its CSR product. Returns the entries."""
     n = x.shape[0]
     ncols = 1 if x.ndim == 1 else x.shape[1]
     xs = x.reshape(-1)
     brief = name in THREE_RUN_SHAPES
+    flushed = brief or name in CSR_FLUSHED_SHAPES
     out = []
     for part in ((None,) if fb is None else (None, fb)):
         def kern():
@@ -1099,13 +1104,14 @@ def time_shape(spmv, name, diag, x, soff, deltas, flush, fb=None):
         def plain():
             return spmv.plain(diag, x, soff, deltas, part)
 
-        if brief:
+        if flushed:
             def timing(f):
                 return {"ms": device_ms(f, flush), "ms_l2_warm": None}
-            a = lb = None
         else:
             def timing(f):
                 return timed(f, flush)
+        a = lb = None
+        if not brief:
             a = csr_operator(diag, soff, deltas, None if part is None else
                              (part.cells, part.nbrs, part.coeffs))
 
@@ -1121,13 +1127,13 @@ def time_shape(spmv, name, diag, x, soff, deltas, flush, fb=None):
         k = min((k1, k2), key=lambda t: t["ms"])
         p = min((p1, p2), key=lambda t: t["ms"])
         if not brief:
-            lb = timed(lib, flush)
+            lb = timing(lib)
         n_fb = 0 if part is None else int(part.cells.shape[0])
         t = {"shape": name if part is None else f"{name}_whole", "n": n,
              "ncols": ncols, "offsets": len(deltas), "coo_entries": n_fb,
              "diag": diag is not None, "dtype": str(x.dtype),
              "kernel_ms": k["ms"], "kernel_ms_l2_warm": k["ms_l2_warm"],
-             "kernel_graph_ms": None if brief else graph_ms(kern, flush),
+             "kernel_graph_ms": None if flushed else graph_ms(kern, flush),
              # CUDA events around the wrapper, calls back to back: the
              # host launch path when it is the slower side
              "kernel_wrapper_ms": time_ms(kern),
@@ -1424,9 +1430,71 @@ def phase_pitz(spmv, here, root, trials=3):
     return out, (mesh, cfg, state)
 
 
-def _dev_time(e, attr):
-    return float(getattr(e, attr, getattr(e, attr.replace("device", "cuda"),
-                                          0.0)))
+class RawProfile:
+    """A finished torch.profiler profile read from its kineto events, in
+    place of `key_averages`, whose Python parse of the events took ~0.4 ms
+    a kernel launch (15-40 s on a step of 10^5 launches; ~140 s over the
+    script's profiles before the Lagrangian slice). `device`: the device
+    events (kernels, copies, memsets) but the GPU copies of record_function
+    ranges; `self_ms(name)` and `count(name)` per event name; `launches`:
+    the cudaLaunchKernel calls; `inclusive_ms(prefix)`: per CPU op or range
+    whose name starts with `prefix`, its calls, CPU ms and the device ms
+    of the kernels launched inside it (a kernel counts toward every op or
+    range whose interval on its thread holds the start of the CPU event
+    it is linked to), as key_averages' device_time_total."""
+
+    def __init__(self, prof, skip=("solve_",)):
+        cuda = torch.autograd.DeviceType.CUDA
+        events = prof.profiler.kineto_results.events()
+        self.device = [e for e in events if e.device_type() == cuda
+                       and not e.name().startswith(skip)]
+        self.cpu = [e for e in events if e.device_type() != cuda]
+        self.launches = sum(e.name() == "cudaLaunchKernel" for e in self.cpu)
+        self.by_name = {}
+        for e in self.device:
+            ns, k = self.by_name.get(e.name(), (0, 0))
+            self.by_name[e.name()] = (ns + e.duration_ns(), k + 1)
+
+    def device_ms(self, keep=lambda name: True):
+        return sum(ns for name, (ns, _) in self.by_name.items()
+                   if keep(name)) / 1e6
+
+    def top(self, n, per=1.0):
+        """The n largest device events by name: (ms, calls, name), each
+        divided by `per`."""
+        return sorted(((ns / 1e6 / per, k / per, name[:70])
+                       for name, (ns, k) in self.by_name.items()),
+                      reverse=True)[:n]
+
+    def inclusive_ms(self, prefix):
+        start = {e.correlation_id(): (e.start_thread_id(), e.start_ns())
+                 for e in self.cpu}
+        per_thread = {}
+        for e in self.device:
+            key = start.get(e.linked_correlation_id())
+            if key is not None:
+                per_thread.setdefault(key[0], []).append(
+                    (key[1], e.duration_ns()))
+        tables = {}
+        for tid, pairs in per_thread.items():
+            pairs.sort()
+            t = np.array([a for a, _ in pairs], dtype=np.int64)
+            c = np.concatenate([[0], np.cumsum([b for _, b in pairs])])
+            tables[tid] = (t, c)
+        out = {}
+        for e in self.cpu:
+            if not e.name().startswith(prefix):
+                continue
+            calls, cpu_ns, dev_ns = out.get(e.name(), (0, 0, 0))
+            t, c = tables.get(e.start_thread_id(), (None, None))
+            if t is not None:
+                lo = np.searchsorted(t, e.start_ns(), side="left")
+                hi = np.searchsorted(t, e.start_ns() + e.duration_ns(),
+                                     side="right")
+                dev_ns += int(c[hi] - c[lo])
+            out[e.name()] = (calls + 1, cpu_ns + e.duration_ns(), dev_ns)
+        return {k: (n, cpu / 1e6, dev / 1e6) for k, (n, cpu, dev)
+                in out.items()}
 
 
 def solver_iterations(diag):
@@ -1473,33 +1541,29 @@ def profile_chunk(spmv, phase, mesh, chunk, state, n, sec_per_iter, top=12,
         wall = time.perf_counter() - t0
     spmv_launches = spmv.LAUNCHES - launches0
     fb_launches = spmv.FB_LAUNCHES - fb0
-    ka = prof.key_averages()
+    raw = RawProfile(prof)
     # device-side events (kernels, copies, memsets); the CPU ops carry
     # the same time again as their children's
-    work = [e for e in ka
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith("solve_")]
-    device_ms = sum(_dev_time(e, "self_device_time_total") for e in work) / 1e3
-    solve_ms = {e.key[len("solve_"):]: {
-        "cpu_ms_per_call": e.cpu_time_total / 1e3 / e.count,
-        "device_ms_per_call": _dev_time(e, "device_time_total") / 1e3 / e.count}
-        for e in ka if e.key.startswith("solve_") and e.cpu_time_total > 0}
-    spmv_events = [e for e in work
-                   if e.key.startswith("void spmv_stencil_kernel")]
-    spmv_device_ms = sum(_dev_time(e, "self_device_time_total")
-                         for e in spmv_events)
-    index_add_ms = sum(_dev_time(e, "self_device_time_total") for e in work
-                       if "indexFunc" in e.key or "index_add" in e.key)
-    kernels = sorted(((_dev_time(e, "self_device_time_total") / 1e3 / n,
-                       e.count / n, e.key[:70]) for e in work),
-                     reverse=True)[:top]
-    launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
+    device_ms = raw.device_ms()
+    solve_ms = {name[len("solve_"):]: {
+        "cpu_ms_per_call": cpu / calls, "device_ms_per_call": dev / calls}
+        for name, (calls, cpu, dev) in raw.inclusive_ms("solve_").items()
+        if cpu > 0}
+
+    def is_spmv(name):
+        return name.startswith("void spmv_stencil_kernel")
+
+    spmv_device_ms = raw.device_ms(is_spmv)
+    spmv_events = sum(k for name, (_, k) in raw.by_name.items()
+                      if is_spmv(name))
+    index_add_ms = raw.device_ms(
+        lambda name: "indexFunc" in name or "index_add" in name)
+    kernels = raw.top(top, per=n)
+    launches = raw.launches
     # host-side aten ops by the device time of the kernels they launch
     # (inclusive: an op's children count again under their own names)
-    ops = sorted(((_dev_time(e, "device_time_total") / 1e3 / n, e.count / n,
-                   e.key) for e in ka
-                  if e.key.startswith("aten::") and getattr(
-                      e, "device_type", None) != torch.autograd.DeviceType.CUDA),
+    ops = sorted(((dev / n, calls / n, name) for name, (calls, _, dev)
+                  in raw.inclusive_ms("aten::").items()),
                  reverse=True)[:top]
     out = {"phase": phase, "iterations": n, "profiled_wall_s": wall,
            "device_ms_per_iter": device_ms / n,
@@ -1507,10 +1571,9 @@ def profile_chunk(spmv, phase, mesh, chunk, state, n, sec_per_iter, top=12,
            "cuda_launch_kernel_per_iter": launches / n,
            "spmv_launches_per_iter": spmv_launches / n,
            "spmv_fb_launches_per_iter": fb_launches / n,
-           "spmv_kernel_events_per_iter": sum(e.count for e in spmv_events)
-           / n,
-           "spmv_device_ms_per_iter": spmv_device_ms / 1e3 / n,
-           "index_add_device_ms_per_iter": index_add_ms / 1e3 / n,
+           "spmv_kernel_events_per_iter": spmv_events / n,
+           "spmv_device_ms_per_iter": spmv_device_ms / n,
+           "index_add_device_ms_per_iter": index_add_ms / n,
            "solver_iterations": solver_iterations(diag),
            "solve_calls": log.calls if solves else {},
            "solves": solve_ms,
@@ -1954,7 +2017,7 @@ def phase_pimple_ras(spmv, here, root):
     return out
 
 
-def phase_pimple_headline(spmv, n=400, nsteps=10, trials=3, n_profile=5):
+def phase_pimple_headline(spmv, n=400, nsteps=10, trials=2, n_profile=5):
     """The 400^2 cavity of phase_headline, same GAMG p-controls, as a
     PIMPLE step with two outer and two inner correctors, U and p relaxed
     (0.7, 0.3) on the first outer iteration."""
@@ -2131,7 +2194,7 @@ def dambreak_big_case(here, root, n):
          f"deltaT          {DAMBREAK_BIG_DT};")], mesh=False)
 
 
-def dambreak_big(spmv, here, root, n=DAMBREAK_BIG_N, trials=3):
+def dambreak_big(spmv, here, root, n=DAMBREAK_BIG_N, trials=2):
     """(b) the same case at n x n cells: set-up and two warm-up steps
     through the application, then its own step (the config and state the
     application built) in three timed chunks and one profiled chunk."""
@@ -2486,7 +2549,7 @@ def cross_case(here, root):
     return dst
 
 
-def phase_cross_headline(spmv, here, root, trials=3, n_profile=5):
+def phase_cross_headline(spmv, here, root, trials=2, n_profile=5):
     """crossCavity at CROSS_N^2 with CROSS_FUNCS through the
     application's loop: chunks with the function objects and without
     them, taken in turns, and one profiled chunk."""
@@ -2955,7 +3018,7 @@ def mixer_big_case(here, root):
                           f"({12 * k} {24 * k} 1)")], mesh=False)
 
 
-def phase_mrf_headline(spmv, here, root, flush, trials=3):
+def phase_mrf_headline(spmv, here, root, flush, trials=2):
     """MRFSimpleFoam on mixerVessel2D with every block scaled
     MRF_HEAD_SCALE x per side (294,912 cells): set-up, one iteration with
     the tutorial's controls (which decides the p controls), a warm-up
@@ -3870,7 +3933,7 @@ def les_head_edits():
              "({} {} {})".format(*LES_HEAD_BLOCKS))]
 
 
-def phase_les_headline(spmv, here, root, flush, trials=3):
+def phase_les_headline(spmv, here, root, flush, trials=2):
     """channel395 with its block refined to LES_HEAD_BLOCKS (786,432
     cells; geometry, cyclic pairs, schemes and deltaT as shipped),
     Smagorinsky, U = Ubar plus a 10% perturbation drawn on the card with
@@ -4656,7 +4719,7 @@ TURB2_SPREAD = {'ras': {'LamBremhorstKE': {'ke': 7.12e-07,
                                   'B_xy_abs_mean': 0.175}}}
 DIFF_HEAD_K0 = 1.8e-5         # m^2/s^2, 1e-3 |Ubar|^2
 DIFF_HEAD_WARMUP = 2
-DIFF_HEAD_TRIALS = 3
+DIFF_HEAD_TRIALS = 2
 DIFF_HEAD_CHUNK = 3
 DIFF_HEAD_PROFILE = 1
 HEAD_POLY = {}                # les_headline's host mesh, for diffstress
@@ -6010,7 +6073,7 @@ def phase_thermal(spmv, here, root):
     return out
 
 
-def phase_boussinesq_headline(spmv, here, root, flush, trials=3):
+def phase_boussinesq_headline(spmv, here, root, flush, trials=2):
     """hotRoom's SIMPLE case refined to BOUSS_HEAD (786,432 cells;
     geometry, BCs, schemes, relaxation, kEpsilon and the GAMG p_rgh
     controls as shipped), meshed in memory: buoyantBoussinesqSimpleFoam's
@@ -6851,8 +6914,8 @@ boundary
 COMP_HEAD_SCALE = 32          # heatedDuct 1536 x 512 = 786,432 cells
 COMP_HEAD_DT = 0.002 / 32     # the shipped Courant number
 COMP_HEAD_WARMUP = 1
-COMP_HEAD_TRIALS = 4
-COMP_HEAD_CHUNK = 5           # 4 x 5 = 20 timed steps
+COMP_HEAD_TRIALS = 3
+COMP_HEAD_CHUNK = 5           # 3 x 5 = 15 timed steps
 # bench.py's GAMG p, where the shipped PCG's final solve sits at its cap:
 # one warm-up and two timed steps (it diverges, in the JAX package too:
 # continuity 0.42, 86, 2,740 over three steps of heatedDuct at 96 x 32)
@@ -6861,7 +6924,7 @@ COMP_HEAD_GAMG_CHUNK = 1
 RC_HEAD_SCALE = 8             # forwardStep: 1,032,192 cells
 RC_HEAD_DT = 1.25e-4
 RC_HEAD_CHUNK = 10
-RC_HEAD_TRIALS = 3            # + a warm-up chunk and a profiled one: 50
+RC_HEAD_TRIALS = 2            # + a warm-up chunk and a profiled one: 40
 
 
 def comp_arrays(state, host):
@@ -8487,6 +8550,9 @@ SLICE11_ORACLES = {
     "dnsFoam": oracle_dns,
     "fanDuct": oracle_fanduct,
 }
+# held on the CPU only (tests/test_torch_freesurface.py), since the
+# Lagrangian slice: 5.6 s and 5.3 s of the card's script
+CPU_ONLY_ORACLES = ("shallowWaterFoam", "potentialFreeSurfaceFoam")
 
 
 # The runs of the solvers_small phase: name -> (tutorial, slice11_case
@@ -8500,19 +8566,20 @@ SLICE11_ORACLES = {
 # -> 30, plateTension 100 -> 20 iterations (in float32 the D residual
 # stays above its 1e-6 tolerance in both packages, so it would run all
 # 100, 32 s on the card; in float64 it stops after 2) and, for that room,
-# -> 10.
+# -> 10. For the Lagrangian slice's room: hartmann 10 steps, fanDuct 15,
+# plateTension 5 (goldens regenerated at those depths).
 SMALL_RUNS = {
     "electrostaticFoam": ("electrostaticFoam", {}, None),
     "magneticFoam": ("magneticFoam", {}, None),
-    "mhdFoam": ("mhdFoam", {}, 20),
+    "mhdFoam": ("mhdFoam", {}, 10),
     "financialFoam": ("financialFoam", {}, None),
     "shallowWaterFoam": ("shallowWaterFoam", {}, 50),
     "solidEquilibriumDisplacementFoam": ("solidEquilibriumDisplacementFoam",
-                                         {}, 10),
+                                         {}, 5),
     "potentialFreeSurfaceFoam": ("potentialFreeSurfaceFoam", {}, 20),
     "adjointShapeOptimizationFoam": ("adjointShapeOptimizationFoam", {}, 5),
     "dnsFoam": ("dnsFoam", {}, None),
-    "fanDuct": ("fanDuct", {}, FANDUCT_STEPS // 2),
+    "fanDuct": ("fanDuct", {}, FANDUCT_STEPS // 4),
 }
 # the fields each run's scalars read from its final state
 SMALL_FIELDS = {
@@ -8574,18 +8641,18 @@ SMALL_GOLDEN = {
         'B_mag_max': 9.75567840490065,
     },
     'mhdFoam': {
-        'Ux_mean': 1.0021675823541591,
-        'U_mag_mean': 1.2958639090095527,
-        'U_mag_max': 8.75234926270192,
-        'p_mean': 446.116308235824,
-        'p_min': -564.2538452148438,
-        'p_max': 1117.93505859375,
-        'Bx_mean': -3.764382564316361e-07,
-        'B_mag_mean': 20.768937672615095,
-        'B_mag_max': 44.80885575257322,
-        'pB_mean': 0.845020953132771,
-        'pB_min': -0.17843596637248993,
-        'pB_max': 2.2134110927581787,
+        'Ux_mean': 1.003910579327494,
+        'U_mag_mean': 1.032593617516307,
+        'U_mag_max': 2.694297736907777,
+        'p_mean': 122.80906175374986,
+        'p_min': -189.6042938232422,
+        'p_max': 438.309814453125,
+        'Bx_mean': -6.165355443954468e-08,
+        'B_mag_mean': 20.136872868984966,
+        'B_mag_max': 23.353456435728383,
+        'pB_mean': 0.6590078040867229,
+        'pB_min': -0.0006286835996434093,
+        'pB_max': 1.3796888589859009,
     },
     'financialFoam': {
         'V_mean': 34.5950642263326,
@@ -8601,9 +8668,9 @@ SMALL_GOLDEN = {
         'hU_mag_max': 0.9948621392250149,
     },
     'solidEquilibriumDisplacementFoam': {
-        'Dx_mean': 5.000017253173894e-06,
-        'D_mag_mean': 5.128159214037311e-06,
-        'D_mag_max': 9.98276552187223e-06,
+        'Dx_mean': 5.000088052895535e-06,
+        'D_mag_mean': 5.128229674130983e-06,
+        'D_mag_max': 9.982882280291286e-06,
     },
     'potentialFreeSurfaceFoam': {
         'Ux_mean': 0.0,
@@ -8636,12 +8703,12 @@ SMALL_GOLDEN = {
         'p_max': 1.445785403251648,
     },
     'fanDuct': {
-        'Ux_mean': 0.0037320301824365736,
-        'U_mag_mean': 0.0037320301852188024,
-        'U_mag_max': 0.004208660245618015,
-        'p_mean': 3.880282077770553e-05,
-        'p_min': -0.024360105395317078,
-        'p_max': 0.024410545825958252,
+        'Ux_mean': 0.0018694896381930446,
+        'U_mag_mean': 0.0018694896387665906,
+        'U_mag_max': 0.002138913150438451,
+        'p_mean': 5.28496373750191e-05,
+        'p_min': -0.024396954104304314,
+        'p_max': 0.02448314055800438,
     },
 }
 SMALL_SPREAD = {
@@ -8662,18 +8729,18 @@ SMALL_SPREAD = {
         'B_mag_max': 1.8848828329254275e-06,
     },
     'mhdFoam': {
-        'Ux_mean': 6.64655788584767e-06,
-        'U_mag_mean': 3.5719681727997e-05,
-        'U_mag_max': 0.000470642760761919,
-        'p_mean': 1.2699364166675764,
-        'p_min': 0.209228515625,
-        'p_max': 1.9486070456266589,
-        'Bx_mean': 1.3099052022201572e-07,
-        'B_mag_mean': 3.184208483375528e-05,
-        'B_mag_max': 0.0010452717156255176,
-        'pB_mean': 0.00013620538398484427,
-        'pB_min': 0.00014182257906436568,
-        'pB_max': 6.718966731744658e-05,
+        'Ux_mean': 6.14013522848289e-06,
+        'U_mag_mean': 5.707912485108935e-06,
+        'U_mag_max': 0.00013475053993428077,
+        'p_mean': 0.04489642083646572,
+        'p_min': 0.1021881103515625,
+        'p_max': 0.04779052734375,
+        'Bx_mean': 3.7699937820434574e-08,
+        'B_mag_mean': 7.4337149982284245e-06,
+        'B_mag_max': 8.843777330014291e-05,
+        'pB_mean': 8.697611439856257e-05,
+        'pB_min': 4.981353413313627e-06,
+        'pB_max': 3.819886995803934e-05,
     },
     'financialFoam': {
         'V_mean': 0.0003212748666783227,
@@ -8689,9 +8756,9 @@ SMALL_SPREAD = {
         'hU_mag_max': 1.6512602296625545e-06,
     },
     'solidEquilibriumDisplacementFoam': {
-        'Dx_mean': 1.941536226732763e-11,
-        'D_mag_mean': 2.1394663511715615e-11,
-        'D_mag_max': 1.0344299150945085e-10,
+        'Dx_mean': 9.021508390791278e-11,
+        'D_mag_mean': 9.185475718360796e-11,
+        'D_mag_max': 2.2020141056568318e-10,
     },
     'potentialFreeSurfaceFoam': {
         'Ux_mean': 0.0,
@@ -8724,12 +8791,12 @@ SMALL_SPREAD = {
         'p_max': 0.00015781691545235788,
     },
     'fanDuct': {
-        'Ux_mean': 1.318219655828401e-09,
-        'U_mag_mean': 1.318207668889182e-09,
-        'U_mag_max': 2.094969782486314e-07,
-        'p_mean': 1.995385267876328e-07,
-        'p_min': 8.172053325011808e-08,
-        'p_max': 1.9909240746990298e-07,
+        'Ux_mean': 4.830876486599384e-10,
+        'U_mag_mean': 4.830818186880165e-10,
+        'U_mag_max': 2.5432446192161923e-07,
+        'p_mean': 3.788582132888618e-09,
+        'p_min': 2.494601646536865e-07,
+        'p_max': 1.3483842517536537e-07,
     },
 }
 SMALL_TOL_SPREAD = 10.0       # the golden tolerance: 10x the spread,
@@ -8786,8 +8853,8 @@ def phase_solvers_small(spmv, here, root, flush):
     through run(case) on the card (SMALL_RUNS, float32; blockMesh and the
     Allrun's other commands first), each held to goldens from the JAX
     package (SMALL_GOLDEN, at small_golden_errs) and finite; the reference
-    tests' oracles on their own setups (SLICE11_ORACLES; fanDuct's on its
-    run here); and the SpMV kernel held to its plain version at
+    tests' oracles on their own setups (SLICE11_ORACLES but
+    CPU_ONLY_ORACLES; fanDuct's on its run here); and the SpMV kernel held to its plain version at
     plateTension's D and fanDuct's p (whose AMI term is plain torch
     beside it), timed there."""
     from foamtpu_torch.apps.cli import main as cli
@@ -8835,6 +8902,8 @@ def phase_solvers_small(spmv, here, root, flush):
     t0 = time.perf_counter()
     oracles = {}
     for name, fn in SLICE11_ORACLES.items():
+        if name in CPU_ONLY_ORACLES:
+            continue
         l0, f0 = spmv.LAUNCHES, spmv.FB_LAUNCHES
         t1 = time.perf_counter()
         if name == "fanDuct":
@@ -8907,7 +8976,7 @@ MHD_HEAD_BLOCKS = (1536, 512)     # 786,432 cells on hartmann's 20 x 2
 MHD_HEAD_DT = 0.005 * 20 / MHD_HEAD_BLOCKS[1] / 2
 MHD_HEAD_SIGMA = 1.0
 MHD_HEAD_WARMUP = 1
-MHD_HEAD_TRIALS = 3
+MHD_HEAD_TRIALS = 2
 MHD_HEAD_CHUNK = 2
 MHD_HEAD_PROFILE = 1
 # bench.py's tight GAMG controls (its bench_tight row), for p where the
@@ -9660,6 +9729,11 @@ def start_premesh(here, root):
     # amr_headline's box and its octree, after the pool
     jobs += [["amr", "amr", blockmesh_dict(amr_big_case(
         here, os.path.join(top, "src", "amr_big")))]]
+    # lagrangian_headline's boxes, last
+    for name, fn in (("rpf_big", rpf_mesh_case), ("fall_big", fall_mesh_case),
+                     ("dsmc_big", dsmc_big_case)):
+        path = blockmesh_dict(fn(here, os.path.join(top, "src", name)))
+        jobs += [[dict_key(path), "blockMesh", path]]
     jobs_file = os.path.join(top, "jobs.json")
     with open(jobs_file, "w") as f:
         json.dump(jobs, f)
@@ -9727,7 +9801,7 @@ def snapped_bluff(here, root, blocks):
 SNAPPY_HEAD_BLOCKS = (192, 48, 48)   # the background; 443,180 cells snapped
 SNAPPY_HEAD_CELLS = 443180
 SNAPPY_HEAD_WARMUP = 5
-SNAPPY_HEAD_TRIALS = 3
+SNAPPY_HEAD_TRIALS = 2
 SNAPPY_HEAD_CHUNK = 5
 SNAPPY_HEAD_PROFILE = 1
 
@@ -9863,8 +9937,8 @@ def phase_snappy_headline(spmv, here, root, flush):
 
 CHT_HEAD_CELLS = (1024, 384)     # per slab: 786,432 cells in the two
 CHT_HEAD_WARMUP = 1
-CHT_HEAD_TRIALS = 3
-CHT_HEAD_CHUNK = 3               # 1 + 3 x 3 = 10 transient steps
+CHT_HEAD_TRIALS = 2
+CHT_HEAD_CHUNK = 3               # 1 + 2 x 3 = 7 transient steps
 CHT_HEAD_PROFILE = 1
 CHT_SLAB = """
 convertToMeters 1;
@@ -10847,7 +10921,7 @@ def phase_multiphase(spmv, here, root, flush):
 
 MP_HEAD_BLOCKS = (480, 1600)   # bubbleColumn's 15 x 50 refined 32x: 768,000
 MP_HEAD_WARMUP = 2
-MP_HEAD_TRIALS = 3
+MP_HEAD_TRIALS = 2
 MP_HEAD_CHUNK = 10
 MP_HEAD_PCG_STEPS = 2
 MP_HEAD_PROFILE = 1
@@ -11231,7 +11305,7 @@ FIRE_HEAD_BLOCKS = (600, 1000)
 FIRE_HEAD_SCALE = 20.0           # convertToMeters: 0.6 m x 1 m -> 12 x 20
 FIRE_HEAD_DT = 1e-3              # the tutorial's deltaT, fixed
 FIRE_HEAD_WARMUP = 2
-FIRE_HEAD_TRIALS = 3
+FIRE_HEAD_TRIALS = 2
 FIRE_HEAD_CHUNK = 3
 FIRE_HEAD_PROFILE = 1
 # fire_step's solves in the order of a step (one outer corrector, two
@@ -12487,9 +12561,10 @@ TOPO_RUNS = {
 }
 # the command in a process of its own, as `python -m foamtpu_torch run
 # -case <dir> -steps <n>` runs it (runpy, as -m does), its run_case
-# watched for the final case's summary, its SpMV launches written at exit
+# watched for the final case's summary (topo_summary, or the function
+# CHIP_SMOKE_SUMMARY names), its SpMV launches written at exit
 TOPO_RUNNER = r"""
-import atexit, json, runpy, sys
+import atexit, json, os, runpy, sys
 here, case_dir, steps, out = sys.argv[1:5]
 sys.path.insert(0, here)
 import chip_smoke
@@ -12501,7 +12576,8 @@ run_case = case_mod.run_case
 
 def watched(*args, **kw):
     case = run_case(*args, **kw)
-    rec["summary"] = chip_smoke.topo_summary(case)
+    summary = os.environ.get("CHIP_SMOKE_SUMMARY", "topo_summary")
+    rec["summary"] = getattr(chip_smoke, summary)(case)
     return case
 
 
@@ -13093,6 +13169,1845 @@ def phase_amr_headline(spmv, here, root, flush):
     return out, max_err, timings
 
 
+# ---------------------------------------------------------------------------
+# slice 17: the Lagrangian family and the discrete methods
+# ---------------------------------------------------------------------------
+
+SLICE17_TUTORIALS = {
+    "icoUncoupledKinematicParcelFoam": (
+        "lagrangian", "icoUncoupledKinematicParcelFoam", "fallingCloud"),
+    "uncoupledKinematicParcelFoam": (
+        "lagrangian", "uncoupledKinematicParcelFoam", "fallingCloud"),
+    "reactingParcelFoam": ("lagrangian", "reactingParcelFoam",
+                           "evaporationBox"),
+    "LTSReactingParcelFoam": ("lagrangian", "LTSReactingParcelFoam",
+                              "parcelBox"),
+    "porousExplicitSourceReactingParcelFoam": (
+        "lagrangian", "porousExplicitSourceReactingParcelFoam", "parcelBox"),
+    "coalChemistryFoam": ("lagrangian", "coalChemistryFoam", "parcelBox"),
+    "sprayFoam": ("lagrangian", "sprayFoam", "aachenBomb"),
+    "reactingParcelFilmFoam": ("lagrangian", "reactingParcelFilmFoam",
+                               "parcelBox"),
+    "sprayEngineFoam": ("lagrangian", "sprayEngineFoam", "sprayChamber"),
+    "dsmcFoam": ("discreteMethods", "dsmcFoam", "dsmcBox"),
+    "mdFoam": ("discreteMethods", "mdFoam", "nveBox"),
+    "mdEquilibrationFoam": ("discreteMethods", "mdEquilibrationFoam",
+                            "periodicBox"),
+}
+SLICE17_SEED = 17
+# the carrier-coupled parcel applications (their starts are uniform, U = 0:
+# the first steps' U is the round-off of the pressure solve, so the f64
+# parity starts are seeded)
+PARCEL_APPS = ("reactingParcelFoam", "LTSReactingParcelFoam",
+               "porousExplicitSourceReactingParcelFoam", "coalChemistryFoam",
+               "sprayFoam", "reactingParcelFilmFoam", "sprayEngineFoam")
+
+
+# aachenBomb as shipped steps 1 s and returns NaN in both packages (its
+# parcels cross the 0.1 m box in a step and strand outside it): the
+# lagrangian phase's run steps 1e-4 s, as its parity variant does
+# LTSReactingParcelFoam's parcelBox sets no maxDeltaT, so its local steps
+# reach the default 1 s, 1000 global steps, where the closed box's pressure
+# level rests on psi V/dt alone: float32 round-off sets it (the JAX
+# package's U reaches 1e-3 m/s in 5 steps, 5e-8 in float64; the port's
+# float32 run diverges by step 5): both runs cap it at 0.01 s
+LAG_EDITS = {"sprayFoam": (("system/controlDict", r"deltaT\s+1;",
+                            "deltaT 1e-4;"),),
+             "LTSReactingParcelFoam": (
+                 ("system/controlDict", r"writeFormat\s+ascii;",
+                  "writeFormat ascii;\nmaxDeltaT 0.01;"),)}
+
+# the parity variants' edits. LTSReactingParcelFoam's local steps at 1 s
+# carry p's round-off (1e-12 of p after one step in float64) into U at
+# 2e-9 through U = HbyA - rAU grad(p); at 0.01 s (LAG_EDITS) they stay 10
+# global steps. sprayFoam's
+# aachenBomb steps 1 s: its parcels leave the 0.1 m box at 50 m/s and the
+# walk's last free advance strands them, so the variant steps 1e-4 s. The
+# coal case names no coalCloud1Properties and so burns nothing in 3 steps
+# at 300 K (its Yvapour stays at 1e-15, round-off): the variant is
+# tests/test_reactingcloud.py's hot coal (1200 K parcels and gas)
+SLICE17_TIGHT = {
+    "LTSReactingParcelFoam": LAG_EDITS["LTSReactingParcelFoam"],
+    "sprayFoam": LAG_EDITS["sprayFoam"],
+    "coalChemistryFoam": (
+        ("0/T", r"internalField\s+uniform\s+[^;]+;",
+         "internalField uniform 1200;"),
+        ("constant/coalCloud1Properties", None,
+         "FoamFile { version 2.0; format ascii; class dictionary; "
+         "object coalCloud1Properties; }\nconstantProperties { rho0 1400; "
+         "d0 1e-4; T0 1200; Cp0 1500; Yvolatile 0.4; }\n"),),
+}
+
+
+def slice17_case(here, dst, name, cli, seed=None, write_precision=None,
+                 blocks=None, edits=()):
+    """The tutorial of `name` (SLICE17_TUTORIALS) copied to dst, `blocks`
+    replacing its block's cell counts, `edits` ((file, pattern,
+    replacement), ...) applied (a pattern None writes the file), meshed by `cli`'s blockMesh; `seed` seeds
+    U and T (`_seed_u_t`), `write_precision` edits the controlDict.
+    Returns dst."""
+    shutil.copytree(os.path.join(here, "tutorials",
+                                 *SLICE17_TUTORIALS[name]), dst)
+    if blocks is not None:
+        path = blockmesh_dict(dst)
+        text = open(path).read()
+        pat = r"(hex\s*\([^)]*\)\s*)\((\d+)\s+(\d+)\s+(\d+)\)"
+        check(re.search(pat, text) is not None, f"{path}: no block")
+        with open(path, "w") as f:
+            f.write(re.sub(pat, lambda m: f"{m.group(1)}({blocks[0]} "
+                           f"{blocks[1]} {blocks[2]})", text, count=1))
+    for rel, pat, new in edits:
+        if pat is None:
+            with open(os.path.join(dst, rel), "w") as f:
+                f.write(new)
+        else:
+            _edit(os.path.join(dst, rel), pat, new, count=1)
+    if write_precision is not None:
+        with open(os.path.join(dst, "system", "controlDict"), "a") as f:
+            f.write(f"\nwritePrecision {write_precision!r};\n")
+    if cli is not None:
+        with quiet():
+            check(cli(["blockMesh", "-case", dst]) == 0, "blockMesh failed")
+    if seed is not None:
+        _seed_u_t(dst, seed)
+    return dst
+
+
+# the lagrangian phase's runs: each tutorial as shipped through `python -m
+# foamtpu_torch run -steps N` (TOPO_RUNNER with lagrangian_case_summary):
+# name -> steps. The tutorials' own endTimes but the reacting family's
+# (50 steps of 1 ms each; 25 here) and dsmcBox's 50 us (25 steps)
+LAG_RUNS = {
+    "icoUncoupledKinematicParcelFoam": 100,
+    "uncoupledKinematicParcelFoam": 100,
+    "reactingParcelFoam": 25,
+    "LTSReactingParcelFoam": 25,
+    "porousExplicitSourceReactingParcelFoam": 25,
+    "coalChemistryFoam": 25,
+    "sprayFoam": 30,
+    "reactingParcelFilmFoam": 25,
+    "sprayEngineFoam": 30,
+    "dsmcFoam": 25,
+    "mdFoam": 300,
+    "mdEquilibrationFoam": 300,
+}
+# its random stream differs from the reference's: held to oracles only
+LAG_RANDOM = ("dsmcFoam",)
+
+
+def lagrangian_summary(st, v, host):
+    """Host float64 scalars of a slice-17 application's final state, in
+    either package (`host` makes numpy of an array): volume means and
+    extremes of p and T, U's means and largest magnitude, Yvapour's mean
+    and largest value, the cloud's active count and the means of its
+    active parcels' x, u, d and T, the coal's volatile fraction, the
+    film's volume, DSMC's sampled T and number density (over occupied
+    cells) and kinetic sum, MD's T and E; whether every array is
+    finite."""
+    out, finite = {}, True
+    v = np.asarray(v, dtype=np.float64)
+    V = float(v.sum())
+
+    def arr(x):
+        nonlocal finite
+        a = np.asarray(host(x.data if hasattr(x, "bcs") else x),
+                       dtype=np.float64)
+        finite &= bool(np.isfinite(a).all())
+        return a
+
+    fields = st["state"] if isinstance(st.get("state"), dict) else {}
+    for name in ("p", "T"):
+        if name in fields:
+            a = arr(fields[name])
+            out.update({f"{name}_mean": float((a * v).sum()) / V,
+                        f"{name}_min": float(a.min()),
+                        f"{name}_max": float(a.max())})
+    if "U" in fields:
+        U = arr(fields["U"])
+        out.update({"Ux_mean": float((U[:, 0] * v).sum()) / V,
+                    "Uy_mean": float((U[:, 1] * v).sum()) / V,
+                    "U_max": float(np.linalg.norm(U, axis=1).max())})
+    yv = st.get("Yv", fields.get("Yv"))
+    if yv is not None:
+        a = arr(yv)
+        out.update({"Yv_mean": float((a * v).sum()) / V,
+                    "Yv_max": float(a.max())})
+    cloud = st.get("cloud", fields.get("cloud"))
+    if cloud is not None:
+        act = np.asarray(host(cloud.active)).astype(bool)
+        out["n_active"] = int(act.sum())
+        if act.any():
+            x, u = arr(cloud.x)[act], arr(cloud.u)[act]
+            for i, c in enumerate("xyz"):
+                out[f"x{c}_mean"] = float(x[:, i].mean())
+                out[f"u{c}_mean"] = float(u[:, i].mean())
+            if hasattr(cloud, "d"):
+                out["d_mean"] = float(arr(cloud.d)[act].mean())
+            if getattr(cloud, "T", None) is not None:
+                out["Tp_mean"] = float(arr(cloud.T)[act].mean())
+            if hasattr(cloud, "sigma_cr_max"):
+                out["ke_sum"] = float((u * u).sum())
+                if st.get("species") is not None:
+                    # the gas temperature from every particle's peculiar
+                    # velocity (the cells' sampled T is biased by (N-1)/N)
+                    m = arr(st["species"].mass)[
+                        np.asarray(host(cloud.typ)).astype(np.int64)[act]]
+                    c = u - u.mean(axis=0)
+                    out["dsmc_T_gas"] = float(
+                        (m * (c * c).sum(axis=1)).sum()
+                        / (3.0 * 1.380649e-23 * act.sum()))
+    if st.get("coal") is not None:
+        act = np.asarray(host(st["coal"].base.active)).astype(bool)
+        if act.any():
+            out["yvol_mean"] = float(arr(st["coal"].yvol)[act].mean())
+    if st.get("film") is not None:
+        out["film_delta_sum"] = float(arr(st["film"]["delta"]).sum())
+    if "fields" in st:
+        n = arr(st["fields"]["N"])
+        occ = n > 0
+        T = np.asarray(host(st["fields"]["T"]), dtype=np.float64)[occ]
+        finite &= bool(np.isfinite(T).all())
+        out.update({"dsmc_T_mean": float(T.mean()),
+                    "rhoN_mean": float(arr(st["fields"]["rhoN"]).mean()),
+                    "occupied_share": float(occ.mean())})
+    for k in ("T", "E"):
+        if isinstance(st.get(k), float):
+            out[f"md_{k}"] = st[k]
+            finite &= bool(np.isfinite(st[k]))
+    out["finite"] = finite
+    return out
+
+
+def lagrangian_case_summary(case):
+    """lagrangian_summary of a port run's final case, with its step
+    count (TOPO_RUNNER's summary for the lagrangian phase)."""
+    out = lagrangian_summary(case.final_state, case.mesh.v.double().cpu(),
+                             lambda t: t.detach().double().cpu().numpy()
+                             if isinstance(t, torch.Tensor) else t)
+    out["steps"] = case.time.index
+    return out
+
+
+LAG_TOL_SPREAD = 10.0
+LAG_TOL_FLOOR = 1e-4          # of the golden, or of its field's size
+LAG_EXACT = ("steps", "finite")
+# goldens from the JAX package on the CPU (float32) of LAG_RUNS but
+# LAG_RANDOM, and their spread under round-off (the larger of |float32 -
+# float64| and |float32 from a start perturbed by 1e-7 - float32|): `python
+# tests/test_torch_lagrangian.py goldens [--perturb]` (FOAMTPU_X64=1
+# JAX_ENABLE_X64=1 for float64), then `... spread f32.json f64.json
+# perturbed.json`
+LAG_GOLDEN = {    'icoUncoupledKinematicParcelFoam': {
+        'n_active': 16,
+        'xx_mean': 0.25000000558793545,
+        'ux_mean': 0.0,
+        'xy_mean': 0.3596118092536926,
+        'uy_mean': -1.4023489952087402,
+        'xz_mean': 0.25000000558793545,
+        'uz_mean': 0.0,
+        'd_mean': 0.00019999999494757503,
+        'Tp_mean': 300.0,
+        'finite': True,
+        'steps': 100,
+    },    'uncoupledKinematicParcelFoam': {
+        'n_active': 16,
+        'xx_mean': 0.25000000558793545,
+        'ux_mean': 0.0,
+        'xy_mean': 0.3596118092536926,
+        'uy_mean': -1.4023489952087402,
+        'xz_mean': 0.25000000558793545,
+        'uz_mean': 0.0,
+        'd_mean': 0.00019999999494757503,
+        'Tp_mean': 300.0,
+        'finite': True,
+        'steps': 100,
+    },    'reactingParcelFoam': {
+        'p_mean': 99999.4140625,
+        'p_min': 99999.4140625,
+        'p_max': 99999.4140625,
+        'T_mean': 399.99764823913574,
+        'T_min': 399.9964294433594,
+        'T_max': 399.9991149902344,
+        'Ux_mean': 1.916784553301909e-07,
+        'Uy_mean': -5.599939280238885e-07,
+        'U_max': 1.1989420974928484e-05,
+        'Yv_mean': 4.779021356859852e-07,
+        'Yv_max': 9.5580446668464e-07,
+        'n_active': 32,
+        'xx_mean': 0.09999999942374416,
+        'ux_mean': 2.450693267763704e-08,
+        'xy_mean': 0.08623952785274014,
+        'uy_mean': -0.06465121847577393,
+        'xz_mean': 0.009999999776482582,
+        'uz_mean': 0.0,
+        'd_mean': 4.7196479954436654e-05,
+        'Tp_mean': 356.8490800857544,
+        'finite': True,
+        'steps': 25,
+    },    'LTSReactingParcelFoam': {
+        'p_mean': 100000.0,
+        'p_min': 100000.0,
+        'p_max': 100000.0,
+        'T_mean': 400.0567517280579,
+        'T_min': 392.8041687011719,
+        'T_max': 415.487548828125,
+        'Ux_mean': 1.908166115072155e-05,
+        'Uy_mean': 1.9059832766288343e-05,
+        'U_max': 0.0223132225367539,
+        'Yv_mean': 4.778855968063816e-07,
+        'Yv_max': 9.675190995039884e-07,
+        'n_active': 32,
+        'xx_mean': 0.09999983894522302,
+        'ux_mean': -0.00012899272519462102,
+        'xy_mean': 0.08623762923525646,
+        'uy_mean': -0.06496047379914671,
+        'xz_mean': 0.009999999776482582,
+        'uz_mean': 0.0,
+        'd_mean': 4.719663195373869e-05,
+        'Tp_mean': 356.86915493011475,
+        'finite': True,
+        'steps': 25,
+    },    'porousExplicitSourceReactingParcelFoam': {
+        'p_mean': 99999.4140625,
+        'p_min': 99999.4140625,
+        'p_max': 99999.4140625,
+        'T_mean': 399.99764823913574,
+        'T_min': 399.9964294433594,
+        'T_max': 399.9991149902344,
+        'Ux_mean': 1.916784553301909e-07,
+        'Uy_mean': -5.599939280238885e-07,
+        'U_max': 1.1989420974928484e-05,
+        'Yv_mean': 4.779021356859852e-07,
+        'Yv_max': 9.5580446668464e-07,
+        'n_active': 32,
+        'xx_mean': 0.09999999942374416,
+        'ux_mean': 2.450693267763704e-08,
+        'xy_mean': 0.08623952785274014,
+        'uy_mean': -0.06465121847577393,
+        'xz_mean': 0.009999999776482582,
+        'uz_mean': 0.0,
+        'd_mean': 4.7196479954436654e-05,
+        'Tp_mean': 356.8490800857544,
+        'finite': True,
+        'steps': 25,
+    },    'coalChemistryFoam': {
+        'p_mean': 99999.96875,
+        'p_min': 99999.96875,
+        'p_max': 99999.96875,
+        'T_mean': 399.99975776672363,
+        'T_min': 399.9996643066406,
+        'T_max': 399.99993896484375,
+        'Ux_mean': -5.293221416734797e-11,
+        'Uy_mean': -1.5847583545447458e-07,
+        'U_max': 5.213847386132772e-06,
+        'Yv_mean': 0.0,
+        'Yv_max': 0.0,
+        'n_active': 32,
+        'xx_mean': 0.099999999278225,
+        'ux_mean': -4.8256478674124637e-11,
+        'xy_mean': 0.08492464519804344,
+        'uy_mean': -0.17938644997775555,
+        'xz_mean': 0.009999999776482582,
+        'uz_mean': 0.0,
+        'd_mean': 9.999999747378752e-05,
+        'Tp_mean': 314.38084411621094,
+        'yvol_mean': 0.4000000059604645,
+        'finite': True,
+        'steps': 25,
+    },    'sprayFoam': {
+        'p_mean': 99995.6102701823,
+        'p_min': 99995.5859375,
+        'p_max': 99995.6484375,
+        'T_mean': 299.98656272888184,
+        'T_min': 299.9493408203125,
+        'T_max': 299.9937744140625,
+        'Ux_mean': -2.139299581142377e-05,
+        'Uy_mean': -0.00045734521087574076,
+        'U_max': 0.07401999080405323,
+        'Yv_mean': 3.0131859428952866e-06,
+        'Yv_max': 2.1166140868444927e-05,
+        'n_active': 35,
+        'xx_mean': 0.023028586422359304,
+        'ux_mean': -0.22664158426751974,
+        'xy_mean': 0.03913042905873486,
+        'uy_mean': 2.7352443808955806,
+        'xz_mean': 0.002508166152983904,
+        'uz_mean': 0.13394761766706195,
+        'd_mean': 9.642680670367554e-05,
+        'Tp_mean': 299.99940011160714,
+        'finite': True,
+        'steps': 30,
+    },    'reactingParcelFilmFoam': {
+        'p_mean': 99999.4140625,
+        'p_min': 99999.4140625,
+        'p_max': 99999.4140625,
+        'T_mean': 399.99764823913574,
+        'T_min': 399.9964294433594,
+        'T_max': 399.9991149902344,
+        'Ux_mean': 1.916784553301909e-07,
+        'Uy_mean': -5.599939280238885e-07,
+        'U_max': 1.1989420974928484e-05,
+        'Yv_mean': 4.779021356859852e-07,
+        'Yv_max': 9.5580446668464e-07,
+        'n_active': 32,
+        'xx_mean': 0.09999999942374416,
+        'ux_mean': 2.450693267763704e-08,
+        'xy_mean': 0.08623952785274014,
+        'uy_mean': -0.06465121847577393,
+        'xz_mean': 0.009999999776482582,
+        'uz_mean': 0.0,
+        'd_mean': 4.7196479954436654e-05,
+        'Tp_mean': 356.8490800857544,
+        'film_delta_sum': 0.0,
+        'finite': True,
+        'steps': 25,
+    },    'sprayEngineFoam': {
+        'p_mean': 105875.91682942708,
+        'p_min': 105859.7265625,
+        'p_max': 105877.6640625,
+        'T_mean': 304.8218542734782,
+        'T_min': 304.2165832519531,
+        'T_max': 304.83062744140625,
+        'Ux_mean': -8.351345186774495e-05,
+        'Uy_mean': 0.04785264167488398,
+        'U_max': 0.10355260033758111,
+        'Yv_mean': 2.656182809203473e-05,
+        'Yv_max': 0.0023043868131935596,
+        'n_active': 3,
+        'xx_mean': 0.0345742783198754,
+        'ux_mean': 0.1880247164517641,
+        'xy_mean': 0.03757340461015701,
+        'uy_mean': -1.6322033057610195,
+        'xz_mean': 3.915854419271151e-05,
+        'uz_mean': -0.33188377879559994,
+        'd_mean': 2.2145587839380216e-05,
+        'Tp_mean': 303.86036173502606,
+        'finite': True,
+        'steps': 30,
+    },    'mdFoam': {
+        'md_T': 77.4251937866211,
+        'md_E': -3.7265925114297915e-19,
+        'finite': True,
+        'steps': 300,
+    },    'mdEquilibrationFoam': {
+        'md_T': 119.23794555664062,
+        'finite': True,
+        'steps': 300,
+    },    'icoUncoupledKinematicParcelFoam': {
+        'n_active': 16,
+        'xx_mean': 0.25000000558793545,
+        'ux_mean': 0.0,
+        'xy_mean': 0.3596118092536926,
+        'uy_mean': -1.4023489952087402,
+        'xz_mean': 0.25000000558793545,
+        'uz_mean': 0.0,
+        'd_mean': 0.00019999999494757503,
+        'Tp_mean': 300.0,
+        'finite': True,
+        'steps': 100,
+    },    'uncoupledKinematicParcelFoam': {
+        'n_active': 16,
+        'xx_mean': 0.25000000558793545,
+        'ux_mean': 0.0,
+        'xy_mean': 0.3596118092536926,
+        'uy_mean': -1.4023489952087402,
+        'xz_mean': 0.25000000558793545,
+        'uz_mean': 0.0,
+        'd_mean': 0.00019999999494757503,
+        'Tp_mean': 300.0,
+        'finite': True,
+        'steps': 100,
+    },    'reactingParcelFoam': {
+        'p_mean': 99999.4140625,
+        'p_min': 99999.4140625,
+        'p_max': 99999.4140625,
+        'T_mean': 399.99764823913574,
+        'T_min': 399.9964294433594,
+        'T_max': 399.9991149902344,
+        'Ux_mean': 1.916784553301909e-07,
+        'Uy_mean': -5.599939280238885e-07,
+        'U_max': 1.1989420974928484e-05,
+        'Yv_mean': 4.779021356859852e-07,
+        'Yv_max': 9.5580446668464e-07,
+        'n_active': 32,
+        'xx_mean': 0.09999999942374416,
+        'ux_mean': 2.450693267763704e-08,
+        'xy_mean': 0.08623952785274014,
+        'uy_mean': -0.06465121847577393,
+        'xz_mean': 0.009999999776482582,
+        'uz_mean': 0.0,
+        'd_mean': 4.7196479954436654e-05,
+        'Tp_mean': 356.8490800857544,
+        'finite': True,
+        'steps': 25,
+    },    'LTSReactingParcelFoam': {
+        'p_mean': 99999.4296875,
+        'p_min': 99999.4296875,
+        'p_max': 99999.4296875,
+        'T_mean': 399.9975857734681,
+        'T_min': 399.9961853027344,
+        'T_max': 399.9990234375,
+        'Ux_mean': 9.523761019375986e-08,
+        'Uy_mean': -1.3683053219637475e-07,
+        'U_max': 1.4749846068071615e-06,
+        'Yv_mean': 4.779024733620932e-07,
+        'Yv_max': 9.558054898661794e-07,
+        'n_active': 32,
+        'xx_mean': 0.099999999278225,
+        'ux_mean': 1.9519031113635066e-08,
+        'xy_mean': 0.08623956245719455,
+        'uy_mean': -0.0646494161337614,
+        'xz_mean': 0.009999999776482582,
+        'uz_mean': 0.0,
+        'd_mean': 4.71964776806999e-05,
+        'Tp_mean': 356.84876918792725,
+        'finite': True,
+        'steps': 25,
+    },    'porousExplicitSourceReactingParcelFoam': {
+        'p_mean': 99999.4140625,
+        'p_min': 99999.4140625,
+        'p_max': 99999.4140625,
+        'T_mean': 399.99764823913574,
+        'T_min': 399.9964294433594,
+        'T_max': 399.9991149902344,
+        'Ux_mean': 1.916784553301909e-07,
+        'Uy_mean': -5.599939280238885e-07,
+        'U_max': 1.1989420974928484e-05,
+        'Yv_mean': 4.779021356859852e-07,
+        'Yv_max': 9.5580446668464e-07,
+        'n_active': 32,
+        'xx_mean': 0.09999999942374416,
+        'ux_mean': 2.450693267763704e-08,
+        'xy_mean': 0.08623952785274014,
+        'uy_mean': -0.06465121847577393,
+        'xz_mean': 0.009999999776482582,
+        'uz_mean': 0.0,
+        'd_mean': 4.7196479954436654e-05,
+        'Tp_mean': 356.8490800857544,
+        'finite': True,
+        'steps': 25,
+    },    'coalChemistryFoam': {
+        'p_mean': 99999.96875,
+        'p_min': 99999.96875,
+        'p_max': 99999.96875,
+        'T_mean': 399.99975776672363,
+        'T_min': 399.9996643066406,
+        'T_max': 399.99993896484375,
+        'Ux_mean': -5.293221416734797e-11,
+        'Uy_mean': -1.5847583545447458e-07,
+        'U_max': 5.213847386132772e-06,
+        'Yv_mean': 0.0,
+        'Yv_max': 0.0,
+        'n_active': 32,
+        'xx_mean': 0.099999999278225,
+        'ux_mean': -4.8256478674124637e-11,
+        'xy_mean': 0.08492464519804344,
+        'uy_mean': -0.17938644997775555,
+        'xz_mean': 0.009999999776482582,
+        'uz_mean': 0.0,
+        'd_mean': 9.999999747378752e-05,
+        'Tp_mean': 314.38084411621094,
+        'yvol_mean': 0.4000000059604645,
+        'finite': True,
+        'steps': 25,
+    },    'sprayFoam': {
+        'p_mean': 99995.6102701823,
+        'p_min': 99995.5859375,
+        'p_max': 99995.6484375,
+        'T_mean': 299.98656272888184,
+        'T_min': 299.9493408203125,
+        'T_max': 299.9937744140625,
+        'Ux_mean': -2.139299581142377e-05,
+        'Uy_mean': -0.00045734521087574076,
+        'U_max': 0.07401999080405323,
+        'Yv_mean': 3.0131859428952866e-06,
+        'Yv_max': 2.1166140868444927e-05,
+        'n_active': 35,
+        'xx_mean': 0.023028586422359304,
+        'ux_mean': -0.22664158426751974,
+        'xy_mean': 0.03913042905873486,
+        'uy_mean': 2.7352443808955806,
+        'xz_mean': 0.002508166152983904,
+        'uz_mean': 0.13394761766706195,
+        'd_mean': 9.642680670367554e-05,
+        'Tp_mean': 299.99940011160714,
+        'finite': True,
+        'steps': 30,
+    },    'reactingParcelFilmFoam': {
+        'p_mean': 99999.4140625,
+        'p_min': 99999.4140625,
+        'p_max': 99999.4140625,
+        'T_mean': 399.99764823913574,
+        'T_min': 399.9964294433594,
+        'T_max': 399.9991149902344,
+        'Ux_mean': 1.916784553301909e-07,
+        'Uy_mean': -5.599939280238885e-07,
+        'U_max': 1.1989420974928484e-05,
+        'Yv_mean': 4.779021356859852e-07,
+        'Yv_max': 9.5580446668464e-07,
+        'n_active': 32,
+        'xx_mean': 0.09999999942374416,
+        'ux_mean': 2.450693267763704e-08,
+        'xy_mean': 0.08623952785274014,
+        'uy_mean': -0.06465121847577393,
+        'xz_mean': 0.009999999776482582,
+        'uz_mean': 0.0,
+        'd_mean': 4.7196479954436654e-05,
+        'Tp_mean': 356.8490800857544,
+        'film_delta_sum': 0.0,
+        'finite': True,
+        'steps': 25,
+    },    'sprayEngineFoam': {
+        'p_mean': 105875.91682942708,
+        'p_min': 105859.7265625,
+        'p_max': 105877.6640625,
+        'T_mean': 304.8218542734782,
+        'T_min': 304.2165832519531,
+        'T_max': 304.83062744140625,
+        'Ux_mean': -8.351345186774495e-05,
+        'Uy_mean': 0.04785264167488398,
+        'U_max': 0.10355260033758111,
+        'Yv_mean': 2.656182809203473e-05,
+        'Yv_max': 0.0023043868131935596,
+        'n_active': 3,
+        'xx_mean': 0.0345742783198754,
+        'ux_mean': 0.1880247164517641,
+        'xy_mean': 0.03757340461015701,
+        'uy_mean': -1.6322033057610195,
+        'xz_mean': 3.915854419271151e-05,
+        'uz_mean': -0.33188377879559994,
+        'd_mean': 2.2145587839380216e-05,
+        'Tp_mean': 303.86036173502606,
+        'finite': True,
+        'steps': 30,
+    },    'mdFoam': {
+        'md_T': 77.4251937866211,
+        'md_E': -3.7265925114297915e-19,
+        'finite': True,
+        'steps': 300,
+    },    'mdEquilibrationFoam': {
+        'md_T': 119.23794555664062,
+        'finite': True,
+        'steps': 300,
+    },
+}
+LAG_SPREAD = {    'icoUncoupledKinematicParcelFoam': {
+        'xx_mean': 5.587935447692871e-09,
+        'ux_mean': 1.0730708856210303e-10,
+        'xy_mean': 9.653815008503486e-08,
+        'uy_mean': 4.5534389347956505e-07,
+        'xz_mean': 5.587935447692871e-09,
+        'uz_mean': 4.4517161007853745e-11,
+        'd_mean': 5.052424976873318e-12,
+        'Tp_mean': 0.0,
+    },    'uncoupledKinematicParcelFoam': {
+        'xx_mean': 5.587935447692871e-09,
+        'ux_mean': 1.0730708856210303e-10,
+        'xy_mean': 9.653815008503486e-08,
+        'uy_mean': 4.5534389347956505e-07,
+        'xz_mean': 5.587935447692871e-09,
+        'uz_mean': 4.4517161007853745e-11,
+        'd_mean': 5.052424976873318e-12,
+        'Tp_mean': 0.0,
+    },    'reactingParcelFoam': {
+        'p_mean': 0.06946934422012419,
+        'p_min': 0.06944257915893104,
+        'p_max': 0.0694961169938324,
+        'T_mean': 0.00024360297510384044,
+        'T_min': 0.0003801870956294806,
+        'T_max': 0.000152587890625,
+        'Ux_mean': 1.0499022938814662e-06,
+        'Uy_mean': 3.5857536569809667e-06,
+        'U_max': 5.1588284853196714e-06,
+        'Yv_mean': 5.290523066269536e-13,
+        'Yv_max': 7.822475096755361e-13,
+        'xx_mean': 5.762551547050521e-10,
+        'ux_mean': 3.827741745787705e-08,
+        'xy_mean': 3.039599044685204e-09,
+        'uy_mean': 2.223532646894455e-07,
+        'xz_mean': 2.2351741638115818e-10,
+        'uz_mean': 5.418474452760155e-11,
+        'd_mean': 5.181557331639108e-12,
+        'Tp_mean': 0.00024333220710559544,
+    },    'LTSReactingParcelFoam': {
+        'p_mean': 0.5149058414244791,
+        'p_min': 0.5149058415991021,
+        'p_max': 0.5149058412498562,
+        'T_mean': 0.05885363869742832,
+        'T_min': 7.193025758559827,
+        'T_max': 15.488950342882674,
+        'Ux_mean': 0.0001313646667995273,
+        'Uy_mean': 0.00021053188436326306,
+        'U_max': 0.022313172087179076,
+        'Yv_mean': 3.7263371581353285e-11,
+        'Yv_max': 1.1714691016958936e-08,
+        'xx_mean': 3.428140189498663e-07,
+        'ux_mean': 0.00012899272503773493,
+        'xy_mean': 1.9287544384405386e-06,
+        'uy_mean': 0.00031124481770480883,
+        'xz_mean': 2.2351741638115818e-10,
+        'uz_mean': 5.6831157123772135e-11,
+        'd_mean': 1.484221580681051e-10,
+        'Tp_mean': 0.0215606689453125,
+    },    'porousExplicitSourceReactingParcelFoam': {
+        'p_mean': 0.06946934422012419,
+        'p_min': 0.06944257915893104,
+        'p_max': 0.0694961169938324,
+        'T_mean': 0.00024360297510384044,
+        'T_min': 0.0003801870956294806,
+        'T_max': 0.000152587890625,
+        'Ux_mean': 1.0499022938814662e-06,
+        'Uy_mean': 3.5857536569809667e-06,
+        'U_max': 5.1588284853196714e-06,
+        'Yv_mean': 5.290523066269536e-13,
+        'Yv_max': 7.822475096755361e-13,
+        'xx_mean': 5.762551547050521e-10,
+        'ux_mean': 3.827741745787705e-08,
+        'xy_mean': 3.039599044685204e-09,
+        'uy_mean': 2.223532646894455e-07,
+        'xz_mean': 2.2351741638115818e-10,
+        'uz_mean': 5.418474452760155e-11,
+        'd_mean': 5.181557331639108e-12,
+        'Tp_mean': 0.00024333220710559544,
+    },    'coalChemistryFoam': {
+        'p_mean': 0.03125026889028959,
+        'p_min': 0.031250268875737675,
+        'p_max': 0.031250268904841505,
+        'T_mean': 0.0002422343927150905,
+        'T_min': 0.00033569388085652463,
+        'T_max': 0.00018310546875,
+        'Ux_mean': 9.504748046951228e-07,
+        'Uy_mean': 3.5527586622618985e-08,
+        'U_max': 4.896958579240136e-06,
+        'Yv_mean': 1.936942196500906e-14,
+        'Yv_max': 3.8738843929990015e-14,
+        'xx_mean': 7.217750147558988e-10,
+        'ux_mean': 2.598208330775731e-08,
+        'xy_mean': 9.022187441587448e-10,
+        'uy_mean': 1.4901161193847656e-08,
+        'xz_mean': 2.2351741638115818e-10,
+        'uz_mean': 2.5976161136366874e-11,
+        'd_mean': 2.526212488436659e-12,
+        'Tp_mean': 0.00020083876199805673,
+        'yvol_mean': 6.535684493602645e-09,
+    },    'sprayFoam': {
+        'p_mean': 0.06062364057288505,
+        'p_min': 0.04962386809347663,
+        'p_max': 0.04779589411919005,
+        'T_mean': 0.00020759109338541748,
+        'T_min': 0.005298332610834677,
+        'T_max': 0.00013208021965738226,
+        'Ux_mean': 1.5013718640337925e-06,
+        'Uy_mean': 0.00038036867180526253,
+        'U_max': 0.07309430709754688,
+        'Yv_mean': 1.9356725784608963e-08,
+        'Yv_max': 1.464148325074189e-06,
+        'xx_mean': 0.0006087294124944298,
+        'ux_mean': 0.16621983783587763,
+        'xy_mean': 0.0009279712282612013,
+        'uy_mean': 1.267257557413323,
+        'xz_mean': 1.3548256315303996e-05,
+        'uz_mean': 0.17410483139894545,
+        'd_mean': 1.0622995822215901e-06,
+        'Tp_mean': 1.6566685246743873e-05,
+    },    'reactingParcelFilmFoam': {
+        'p_mean': 0.06946934422012419,
+        'p_min': 0.06944257915893104,
+        'p_max': 0.0694961169938324,
+        'T_mean': 0.00024360297510384044,
+        'T_min': 0.0003801870956294806,
+        'T_max': 0.000152587890625,
+        'Ux_mean': 1.0499022938814662e-06,
+        'Uy_mean': 3.5857536569809667e-06,
+        'U_max': 5.1588284853196714e-06,
+        'Yv_mean': 5.290523066269536e-13,
+        'Yv_max': 7.822475096755361e-13,
+        'xx_mean': 5.762551547050521e-10,
+        'ux_mean': 3.827741745787705e-08,
+        'xy_mean': 3.039599044685204e-09,
+        'uy_mean': 2.223532646894455e-07,
+        'xz_mean': 2.2351741638115818e-10,
+        'uz_mean': 5.418474452760155e-11,
+        'd_mean': 5.181557331639108e-12,
+        'Tp_mean': 0.00024333220710559544,
+        'film_delta_sum': 0.0,
+    },    'sprayEngineFoam': {
+        'p_mean': 16.643102320667822,
+        'p_min': 21.781456441851333,
+        'p_max': 15.345675766497152,
+        'T_mean': 0.009608806577489304,
+        'T_min': 0.11037538041125572,
+        'T_max': 0.00985949928235641,
+        'Ux_mean': 8.356234643356655e-05,
+        'Uy_mean': 9.435793128995812e-05,
+        'U_max': 0.0005933006280559872,
+        'Yv_mean': 1.363272986244348e-07,
+        'Yv_max': 0.0005161045507612008,
+        'xx_mean': 1.1526048183441162e-05,
+        'ux_mean': 0.0028206227561215214,
+        'xy_mean': 0.00011186596892128614,
+        'uy_mean': 0.015568197432595854,
+        'xz_mean': 4.940591015013124e-06,
+        'uz_mean': 0.0033690065606067354,
+        'd_mean': 2.630625268918273e-08,
+        'Tp_mean': 0.07471258081210408,
+    },    'mdFoam': {
+        'md_T': 0.0008501505386107056,
+        'md_E': 7.150613090230145e-25,
+    },    'mdEquilibrationFoam': {
+        'md_T': 0.0016027687267978763,
+    },    'icoUncoupledKinematicParcelFoam': {
+        'xx_mean': 5.587935447692871e-09,
+        'ux_mean': 1.0730708856210303e-10,
+        'xy_mean': 9.653815008503486e-08,
+        'uy_mean': 4.5534389347956505e-07,
+        'xz_mean': 5.587935447692871e-09,
+        'uz_mean': 4.4517161007853745e-11,
+        'd_mean': 5.052424976873318e-12,
+        'Tp_mean': 0.0,
+    },    'uncoupledKinematicParcelFoam': {
+        'xx_mean': 5.587935447692871e-09,
+        'ux_mean': 1.0730708856210303e-10,
+        'xy_mean': 9.653815008503486e-08,
+        'uy_mean': 4.5534389347956505e-07,
+        'xz_mean': 5.587935447692871e-09,
+        'uz_mean': 4.4517161007853745e-11,
+        'd_mean': 5.052424976873318e-12,
+        'Tp_mean': 0.0,
+    },    'reactingParcelFoam': {
+        'p_mean': 0.06946934422012419,
+        'p_min': 0.06944257915893104,
+        'p_max': 0.0694961169938324,
+        'T_mean': 0.00024360297510384044,
+        'T_min': 0.0003801870956294806,
+        'T_max': 0.000152587890625,
+        'Ux_mean': 1.0499022938814662e-06,
+        'Uy_mean': 3.5857536569809667e-06,
+        'U_max': 5.1588284853196714e-06,
+        'Yv_mean': 5.290523066269536e-13,
+        'Yv_max': 7.822475096755361e-13,
+        'xx_mean': 5.762551547050521e-10,
+        'ux_mean': 3.827741745787705e-08,
+        'xy_mean': 3.039599044685204e-09,
+        'uy_mean': 2.223532646894455e-07,
+        'xz_mean': 2.2351741638115818e-10,
+        'uz_mean': 5.418474452760155e-11,
+        'd_mean': 5.181557331639108e-12,
+        'Tp_mean': 0.00024333220710559544,
+    },    'LTSReactingParcelFoam': {
+        'p_mean': 0.053844240290345624,
+        'p_min': 0.05384223825240042,
+        'p_max': 0.05384624232829083,
+        'T_mean': 0.00030606837776758766,
+        'T_min': 0.0006371654417876016,
+        'T_max': 9.1552734375e-05,
+        'Ux_mean': 3.655002763227558e-07,
+        'Uy_mean': 3.3148093477042284e-07,
+        'U_max': 7.999892906268617e-07,
+        'Yv_mean': 6.292794535917067e-13,
+        'Yv_max': 1.7289255119476871e-12,
+        'xx_mean': 7.217747510779304e-10,
+        'ux_mean': 1.9518990519944416e-08,
+        'xy_mean': 7.74538290448934e-09,
+        'uy_mean': 3.050081431865692e-08,
+        'xz_mean': 2.2351741638115818e-10,
+        'uz_mean': 5.454001215498411e-11,
+        'd_mean': 6.0055881302050265e-12,
+        'Tp_mean': 0.000274658203125,
+    },    'porousExplicitSourceReactingParcelFoam': {
+        'p_mean': 0.06946934422012419,
+        'p_min': 0.06944257915893104,
+        'p_max': 0.0694961169938324,
+        'T_mean': 0.00024360297510384044,
+        'T_min': 0.0003801870956294806,
+        'T_max': 0.000152587890625,
+        'Ux_mean': 1.0499022938814662e-06,
+        'Uy_mean': 3.5857536569809667e-06,
+        'U_max': 5.1588284853196714e-06,
+        'Yv_mean': 5.290523066269536e-13,
+        'Yv_max': 7.822475096755361e-13,
+        'xx_mean': 5.762551547050521e-10,
+        'ux_mean': 3.827741745787705e-08,
+        'xy_mean': 3.039599044685204e-09,
+        'uy_mean': 2.223532646894455e-07,
+        'xz_mean': 2.2351741638115818e-10,
+        'uz_mean': 5.418474452760155e-11,
+        'd_mean': 5.181557331639108e-12,
+        'Tp_mean': 0.00024333220710559544,
+    },    'coalChemistryFoam': {
+        'p_mean': 0.03125026889028959,
+        'p_min': 0.031250268875737675,
+        'p_max': 0.031250268904841505,
+        'T_mean': 0.0002422343927150905,
+        'T_min': 0.00033569388085652463,
+        'T_max': 0.00018310546875,
+        'Ux_mean': 9.504748046951228e-07,
+        'Uy_mean': 3.5527586622618985e-08,
+        'U_max': 4.896958579240136e-06,
+        'Yv_mean': 1.936942196500906e-14,
+        'Yv_max': 3.8738843929990015e-14,
+        'xx_mean': 7.217750147558988e-10,
+        'ux_mean': 2.598208330775731e-08,
+        'xy_mean': 9.022187441587448e-10,
+        'uy_mean': 1.4901161193847656e-08,
+        'xz_mean': 2.2351741638115818e-10,
+        'uz_mean': 2.5976161136366874e-11,
+        'd_mean': 2.526212488436659e-12,
+        'Tp_mean': 0.00020083876199805673,
+        'yvol_mean': 6.535684493602645e-09,
+    },    'sprayFoam': {
+        'p_mean': 0.06062364057288505,
+        'p_min': 0.04962386809347663,
+        'p_max': 0.04779589411919005,
+        'T_mean': 0.00020759109338541748,
+        'T_min': 0.005298332610834677,
+        'T_max': 0.00013208021965738226,
+        'Ux_mean': 1.5013718640337925e-06,
+        'Uy_mean': 0.00038036867180526253,
+        'U_max': 0.07309430709754688,
+        'Yv_mean': 1.9356725784608963e-08,
+        'Yv_max': 1.464148325074189e-06,
+        'xx_mean': 0.0006087294124944298,
+        'ux_mean': 0.16621983783587763,
+        'xy_mean': 0.0009279712282612013,
+        'uy_mean': 1.267257557413323,
+        'xz_mean': 1.3548256315303996e-05,
+        'uz_mean': 0.17410483139894545,
+        'd_mean': 1.0622995822215901e-06,
+        'Tp_mean': 1.6566685246743873e-05,
+    },    'reactingParcelFilmFoam': {
+        'p_mean': 0.06946934422012419,
+        'p_min': 0.06944257915893104,
+        'p_max': 0.0694961169938324,
+        'T_mean': 0.00024360297510384044,
+        'T_min': 0.0003801870956294806,
+        'T_max': 0.000152587890625,
+        'Ux_mean': 1.0499022938814662e-06,
+        'Uy_mean': 3.5857536569809667e-06,
+        'U_max': 5.1588284853196714e-06,
+        'Yv_mean': 5.290523066269536e-13,
+        'Yv_max': 7.822475096755361e-13,
+        'xx_mean': 5.762551547050521e-10,
+        'ux_mean': 3.827741745787705e-08,
+        'xy_mean': 3.039599044685204e-09,
+        'uy_mean': 2.223532646894455e-07,
+        'xz_mean': 2.2351741638115818e-10,
+        'uz_mean': 5.418474452760155e-11,
+        'd_mean': 5.181557331639108e-12,
+        'Tp_mean': 0.00024333220710559544,
+        'film_delta_sum': 0.0,
+    },    'sprayEngineFoam': {
+        'p_mean': 16.643102320667822,
+        'p_min': 21.781456441851333,
+        'p_max': 15.345675766497152,
+        'T_mean': 0.009608806577489304,
+        'T_min': 0.11037538041125572,
+        'T_max': 0.00985949928235641,
+        'Ux_mean': 8.356234643356655e-05,
+        'Uy_mean': 9.435793128995812e-05,
+        'U_max': 0.0005933006280559872,
+        'Yv_mean': 1.363272986244348e-07,
+        'Yv_max': 0.0005161045507612008,
+        'xx_mean': 1.1526048183441162e-05,
+        'ux_mean': 0.0028206227561215214,
+        'xy_mean': 0.00011186596892128614,
+        'uy_mean': 0.015568197432595854,
+        'xz_mean': 4.940591015013124e-06,
+        'uz_mean': 0.0033690065606067354,
+        'd_mean': 2.630625268918273e-08,
+        'Tp_mean': 0.07471258081210408,
+    },    'mdFoam': {
+        'md_T': 0.0008501505386107056,
+        'md_E': 7.150613090230145e-25,
+    },    'mdEquilibrationFoam': {
+        'md_T': 0.0016027687267978763,
+    },    'icoUncoupledKinematicParcelFoam': {
+        'xx_mean': 5.587935447692871e-09,
+        'ux_mean': 1.4194654322395237e-10,
+        'xy_mean': 9.653815008503486e-08,
+        'uy_mean': 4.5534389347956505e-07,
+        'xz_mean': 5.587935447692871e-09,
+        'uz_mean': 1.4958707287172218e-10,
+        'd_mean': 5.052424976873318e-12,
+        'Tp_mean': 0.0,
+    },    'uncoupledKinematicParcelFoam': {
+        'xx_mean': 5.587935447692871e-09,
+        'ux_mean': 1.4194654322395237e-10,
+        'xy_mean': 9.653815008503486e-08,
+        'uy_mean': 4.5534389347956505e-07,
+        'xz_mean': 5.587935447692871e-09,
+        'uz_mean': 1.4958707287172218e-10,
+        'd_mean': 5.052424976873318e-12,
+        'Tp_mean': 0.0,
+    },    'reactingParcelFoam': {
+        'p_mean': 0.06946934422012419,
+        'p_min': 0.06944257915893104,
+        'p_max': 0.0694961169938324,
+        'T_mean': 0.00024360297510384044,
+        'T_min': 0.0003801870956294806,
+        'T_max': 0.000152587890625,
+        'Ux_mean': 1.3806846150821173e-06,
+        'Uy_mean': 3.8999385979336665e-06,
+        'U_max': 5.1588284853196714e-06,
+        'Yv_mean': 5.290523066269536e-13,
+        'Yv_max': 1.2505552149377763e-12,
+        'xx_mean': 5.762551547050521e-10,
+        'ux_mean': 1.7352155897570887e-07,
+        'xy_mean': 3.039599044685204e-09,
+        'uy_mean': 2.684537321329117e-07,
+        'xz_mean': 2.2351741638115818e-10,
+        'uz_mean': 3.013953593536227e-10,
+        'd_mean': 5.181557331639108e-12,
+        'Tp_mean': 0.00033473968505859375,
+    },    'LTSReactingParcelFoam': {
+        'p_mean': 0.053844240290345624,
+        'p_min': 0.05384223825240042,
+        'p_max': 0.05384624232829083,
+        'T_mean': 0.00030606837776758766,
+        'T_min': 0.0006371654417876016,
+        'T_max': 9.1552734375e-05,
+        'Ux_mean': 5.076736971849124e-07,
+        'Uy_mean': 4.967821236184777e-07,
+        'U_max': 9.763682618105598e-07,
+        'Yv_mean': 6.292794535917067e-13,
+        'Yv_max': 1.7289255119476871e-12,
+        'xx_mean': 7.217747510779304e-10,
+        'ux_mean': 4.656806645506051e-08,
+        'xy_mean': 7.74538290448934e-09,
+        'uy_mean': 3.050081431865692e-08,
+        'xz_mean': 2.2351741638115818e-10,
+        'uz_mean': 2.9787622824080373e-10,
+        'd_mean': 6.0055881302050265e-12,
+        'Tp_mean': 0.0005159378051757812,
+    },    'porousExplicitSourceReactingParcelFoam': {
+        'p_mean': 0.06946934422012419,
+        'p_min': 0.06944257915893104,
+        'p_max': 0.0694961169938324,
+        'T_mean': 0.00024360297510384044,
+        'T_min': 0.0003801870956294806,
+        'T_max': 0.000152587890625,
+        'Ux_mean': 1.3806846150821173e-06,
+        'Uy_mean': 3.8999385979336665e-06,
+        'U_max': 5.1588284853196714e-06,
+        'Yv_mean': 5.290523066269536e-13,
+        'Yv_max': 1.2505552149377763e-12,
+        'xx_mean': 5.762551547050521e-10,
+        'ux_mean': 1.7352155897570887e-07,
+        'xy_mean': 3.039599044685204e-09,
+        'uy_mean': 2.684537321329117e-07,
+        'xz_mean': 2.2351741638115818e-10,
+        'uz_mean': 3.013953593536227e-10,
+        'd_mean': 5.181557331639108e-12,
+        'Tp_mean': 0.00033473968505859375,
+    },    'coalChemistryFoam': {
+        'p_mean': 0.03125026889028959,
+        'p_min': 0.031250268875737675,
+        'p_max': 0.031250268904841505,
+        'T_mean': 0.0002422343927150905,
+        'T_min': 0.00033569388085652463,
+        'T_max': 0.00018310546875,
+        'Ux_mean': 1.278649638392082e-06,
+        'Uy_mean': 2.31717700439546e-06,
+        'U_max': 4.896958579240136e-06,
+        'Yv_mean': 1.936942196500906e-14,
+        'Yv_max': 3.8738843929990015e-14,
+        'xx_mean': 7.217750147558988e-10,
+        'ux_mean': 4.93096436425533e-08,
+        'xy_mean': 9.022187441587448e-10,
+        'uy_mean': 7.729977369308472e-08,
+        'xz_mean': 2.2351741638115818e-10,
+        'uz_mean': 1.4456084070822934e-10,
+        'd_mean': 2.526212488436659e-12,
+        'Tp_mean': 0.00020083876199805673,
+        'yvol_mean': 6.535684493602645e-09,
+    },    'sprayFoam': {
+        'p_mean': 0.06062364057288505,
+        'p_min': 0.04962386809347663,
+        'p_max': 0.04779589411919005,
+        'T_mean': 0.00020759109338541748,
+        'T_min': 0.005298332610834677,
+        'T_max': 0.00013208021965738226,
+        'Ux_mean': 2.1343307602765086e-06,
+        'Uy_mean': 0.00038036867180526253,
+        'U_max': 0.07309430709754688,
+        'Yv_mean': 1.9356725784608963e-08,
+        'Yv_max': 1.464148325074189e-06,
+        'xx_mean': 0.0006087294124944298,
+        'ux_mean': 0.16621983783587763,
+        'xy_mean': 0.0009279712282612013,
+        'uy_mean': 1.267257557413323,
+        'xz_mean': 1.3548256315303996e-05,
+        'uz_mean': 0.17410483139894545,
+        'd_mean': 1.0622995822215901e-06,
+        'Tp_mean': 4.2724609386368684e-05,
+    },    'reactingParcelFilmFoam': {
+        'p_mean': 0.06946934422012419,
+        'p_min': 0.06944257915893104,
+        'p_max': 0.0694961169938324,
+        'T_mean': 0.00024360297510384044,
+        'T_min': 0.0003801870956294806,
+        'T_max': 0.000152587890625,
+        'Ux_mean': 1.3806846150821173e-06,
+        'Uy_mean': 3.8999385979336665e-06,
+        'U_max': 5.1588284853196714e-06,
+        'Yv_mean': 5.290523066269536e-13,
+        'Yv_max': 1.2505552149377763e-12,
+        'xx_mean': 5.762551547050521e-10,
+        'ux_mean': 1.7352155897570887e-07,
+        'xy_mean': 3.039599044685204e-09,
+        'uy_mean': 2.684537321329117e-07,
+        'xz_mean': 2.2351741638115818e-10,
+        'uz_mean': 3.013953593536227e-10,
+        'd_mean': 5.181557331639108e-12,
+        'Tp_mean': 0.00033473968505859375,
+        'film_delta_sum': 0.0,
+    },    'sprayEngineFoam': {
+        'p_mean': 23.222371419265983,
+        'p_min': 23.34375,
+        'p_max': 23.2421875,
+        'T_mean': 0.017819245656312432,
+        'T_min': 0.11037538041125572,
+        'T_max': 0.01776123046875,
+        'Ux_mean': 0.00025898857881460446,
+        'Uy_mean': 0.0002292557413359833,
+        'U_max': 0.0006402576968457113,
+        'Yv_mean': 2.8893963211747974e-07,
+        'Yv_max': 0.0005161045726745923,
+        'xx_mean': 1.1526048183441162e-05,
+        'ux_mean': 0.0028206227561215214,
+        'xy_mean': 0.00011186596892128614,
+        'uy_mean': 0.015568197432595854,
+        'xz_mean': 4.940591015013124e-06,
+        'uz_mean': 0.0033690106269602116,
+        'd_mean': 2.630625268918273e-08,
+        'Tp_mean': 0.07471827706422118,
+    },    'mdFoam': {
+        'md_T': 0.0008501505386107056,
+        'md_E': 7.150613090230145e-25,
+    },    'mdEquilibrationFoam': {
+        'md_T': 0.0016027687267978763,
+    },
+}
+
+
+def lag_golden_errs(name, got):
+    """{key: (error, tolerance)} of a run's summary against its golden:
+    the step count, finiteness and the active parcel count exactly where
+    the golden's spread leaves it unmoved, the rest within LAG_TOL_SPREAD
+    times the spread, at least LAG_TOL_FLOOR of the golden or of its
+    field's size (a signed mean near zero sits at round-off)."""
+    gold, spread = LAG_GOLDEN.get(name, {}), LAG_SPREAD.get(name, {})
+
+    def field_scale(k):
+        if k in ("Ux_mean", "Uy_mean"):
+            return abs(gold.get("U_max", 0.0))
+        if k[0] in "xu" and k.endswith("_mean") and len(k) == 7:
+            return max(abs(gold.get(f"{k[0]}{c}_mean", 0.0)) for c in "xyz")
+        f = k.rsplit("_", 1)[0]
+        return max(abs(gold.get(f"{f}_{x}", 0.0))
+                   for x in ("mean", "min", "max"))
+
+    out = {}
+    for k, g in gold.items():
+        if k not in got:
+            out[k] = (float("inf"), 0.0)
+        elif k in LAG_EXACT or isinstance(g, bool):
+            out[k] = (0.0 if got[k] == g else float("inf"), 0.0)
+        else:
+            tol = max(LAG_TOL_SPREAD * spread.get(k, 0.0),
+                      LAG_TOL_FLOOR * max(abs(g), field_scale(k)))
+            out[k] = (abs(got[k] - g), tol)
+    return out
+
+
+def stokes_terminal(rho_p, d, rho_f, mu, g=9.81):
+    """The settling speed with the Schiller-Naumann drag the parcels use
+    (tests/test_lagrangian.py's fixed point)."""
+    tau = rho_p * d ** 2 / (18 * mu)
+    g_eff = (1 - rho_f / rho_p) * g
+    ut = g_eff * tau
+    for _ in range(100):
+        ut = g_eff * tau / (1 + 0.15 * (rho_f * ut * d / mu) ** 0.687)
+    return ut
+
+
+def fall_replay(dt, steps, rho_p=2500.0, d=2e-4, rho_f=1.2, mu=1.8e-5,
+                g=9.81):
+    """The settling speed after `steps` of the parcels' own semi-implicit
+    Schiller-Naumann update from rest in still air (lagrangian/
+    __init__.py::_drag_update, in float64): fallingCloud's parcels all
+    follow it until they meet a wall."""
+    u, g_eff = 0.0, (1.0 - rho_f / rho_p) * g
+    for _ in range(steps):
+        Re = max(rho_f * u * d / mu, 1e-10)
+        cd_re = 0.424 * Re if Re > 1000.0 else 24.0 * (1 + 0.15 * Re ** 0.687)
+        tau_inv = 18.0 * mu / (rho_p * d * d) * cd_re / 24.0
+        u = (u + dt * g_eff) / (1.0 + dt * tau_inv)
+    return u
+
+
+def lag_oracles(name, rec, log_text):
+    """What each tutorial's run must show beside its golden: finite
+    fields and the step count; the kinematic clouds' 16 parcels falling at
+    the speed of their drag law's own integration (fall_replay, 1e-4), which
+    settles at the Schiller-Naumann terminal velocity (1e-6 after 1,000
+    steps); the parcel applications' Yvapour in [0, 1]; dsmcBox's particle
+    count conserved every step, its gas temperature the initial 300 K (5%)
+    and its number density the initialised 1e20 (5%) (tests/
+    test_discretemethods.py); nveBox's total energy drift under 1% of the
+    kinetic energy, periodicBox at its 120 K target (12 K)."""
+    s = rec["summary"]
+    c = {"finite": s["finite"], "steps": s["steps"] == LAG_RUNS[name]}
+    if "Kinematic" in name:
+        ut = stokes_terminal(2500.0, 2e-4, 1.2, 1.5e-5 * 1.2)
+        u = fall_replay(0.005, LAG_RUNS[name])
+        c.update({"16 parcels": s["n_active"] == 16,
+                  "the drag law's fall 1e-4": abs(-s["uy_mean"] - u) / u
+                  < 1e-4,
+                  "it settles at the terminal velocity":
+                  abs(fall_replay(0.005, 1000) - ut) / ut < 1e-6})
+    elif name == "dsmcFoam":
+        n = [int(x) for x in re.findall(
+            r"Number of dsmc particles = (\d+)", log_text)]
+        n0 = re.search(r"dsmcFoam, (\d+) parcels", log_text)
+        c.update({"count conserved": bool(n0) and n == [int(n0.group(1))]
+                  * LAG_RUNS[name],
+                  "T near 300 K": abs(s["dsmc_T_gas"] - 300.0) < 15.0,
+                  "number density 1e20": abs(s["rhoN_mean"] - 1e20)
+                  < 0.05e20})
+    elif name == "mdFoam":
+        T = [float(x) for x in re.findall(r"temperature = (\S+) K",
+                                          log_text)]
+        E = [float(x) for x in re.findall(r"total energy = (\S+) J",
+                                          log_text)]
+        n = int(re.search(r"mdFoam, (\d+) molecules", log_text).group(1))
+        ke0 = 1.5 * n * 1.380649e-23 * T[0]
+        c["energy drift < 1% of KE"] = abs(E[-1] - E[0]) < 0.01 * ke0
+    elif name == "mdEquilibrationFoam":
+        c["at 120 K"] = abs(s["md_T"] - 120.0) < 12.0
+    else:
+        c["Yvapour in [0, 1]"] = (s.get("Yv_max", 0.0) <= 1.0
+                                  and s.get("Yv_mean", 0.0) >= 0.0)
+    return c
+
+
+def lag_unit_oracles(device="cuda"):
+    """tests/test_lagrangian.py's, tests/test_reactingcloud.py's and
+    tests/test_discretemethods.py's oracles on their own small setups, on
+    `device`: the ballistic parabola with the tracked cell holding the
+    parcel, the Stokes terminal velocity (2%), the d^2 law (d^2 falls by
+    K dt a step; the lost mass is the vapour source), DSMC's collisions
+    (momentum and kinetic energy of 20 collision steps to round-off, the
+    anisotropy relaxing), the NVE Lennard-Jones energy drift (1% of the
+    kinetic energy over 200 steps) and the equilibration to 120 K. (rec,
+    checks)."""
+    from foamtpu_torch import lagrangian as lag
+    from foamtpu_torch.core.dictionary import parse_string
+    from foamtpu_torch.lagrangian import dsmc, md, reactingcloud as rc
+    from foamtpu_torch.mesh import blockmesh, to_device
+
+    def box(n, walls_only=False):
+        text = (ORACLE_WALL_BOX if walls_only else ORACLE_LAG_BOX).replace(
+            "(10 10 10)", f"({n} {n} {n})")
+        return to_device(blockmesh.generate(parse_string(text)),
+                         device=device)
+
+    rec, ck = {}, {}
+    mesh = box(10)
+    dt_ = mesh.v.dtype
+    bt = torch.tensor(lag.face_boundary_types(mesh), device=device)
+    zeros = torch.zeros((mesh.n_cells, 3), dtype=dt_, device=device)
+
+    def t(v):
+        return torch.tensor(v, dtype=dt_, device=device)
+
+    # the ballistic parabola
+    cfg = lag.CloudConfig(drag=False, g=(0.0, -1.0, 0.0))
+    c = lag.make_cloud(mesh, [[0.15, 0.85, 0.5]], [0.5, 0.0, 0.0], 1e-3,
+                       1000.0)
+    cc = mesh.c.double().cpu().numpy()
+    err, inside = 0.0, True
+    for i in range(10):
+        c = lag.evolve(mesh, c, zeros, t(0.05), bt, cfg)
+        k, tt = i + 1, 0.05 * (i + 1)
+        x = c.x[0].double().cpu().numpy()
+        err = max(err, abs(x[0] - (0.15 + 0.5 * tt)),
+                  abs(x[1] - (0.85 - 0.05 * 0.05 * k * (k + 1) / 2)))
+        inside &= bool(np.max(np.abs(x - cc[int(c.cell[0])])) < 0.051)
+    rec["ballistic_err"] = err
+    ck.update({"ballistic parabola 1e-5": err < 1e-5,
+               "tracked cell holds the parcel": inside})
+    # the Stokes terminal velocity
+    rho_p, d, mu = 2000.0, 50e-6, 1.8e-5
+    tau = rho_p * d ** 2 / (18 * mu)
+    cfg = lag.CloudConfig(rho_f=1.2, mu_f=mu, g=(0.0, -9.81, 0.0))
+    c = lag.make_cloud(mesh, [[0.5, 0.9, 0.5]], [0.0, 0.0, 0.0], d, rho_p)
+    for _ in range(60):
+        c = lag.evolve(mesh, c, zeros, t(tau / 4), bt, cfg)
+    ut = stokes_terminal(rho_p, d, 1.2, mu)
+    rec["stokes_rel_err"] = abs(-float(c.u[0, 1]) - ut) / ut
+    ck["Stokes terminal velocity 2%"] = rec["stokes_rel_err"] < 0.02
+    # the d^2 law
+    small = box(4, walls_only=True)
+    rng = np.random.default_rng(0)
+    c = lag.make_cloud(small, 0.2 + 0.6 * rng.random((20, 3)),
+                       [0.0, 0.0, 0.0], 1e-4, 1000.0)
+    cfg = lag.CloudConfig(rho_f=1.0, mu_f=1.8e-5)
+    ecfg = rc.EvapConfig(K_evap=1e-8)
+    u_f = torch.zeros((small.n_cells, 3), dtype=dt_, device=device)
+    T_f = torch.full((small.n_cells,), 400.0, dtype=dt_, device=device)
+
+    def mass(cl):
+        return float(torch.sum(torch.where(
+            cl.active, cl.rho * torch.pi / 6 * cl.d ** 3,
+            torch.zeros_like(cl.d))).double())
+
+    m0, d2_0, vap = mass(c), float(c.d[0].double()) ** 2, 0.0
+    for _ in range(10):
+        c, v, _ = rc.evaporate(c, u_f, T_f, t(1e-2), cfg, ecfg,
+                               small.n_cells)
+        vap += float(v.double().sum())
+    d2 = float(c.d[0].double()) ** 2
+    rec.update(d2_err=abs(d2 - (d2_0 - 10 * 1e-2 * 1e-8)),
+               mass_gap=abs((m0 - mass(c)) - vap) / m0)
+    ck.update({"d^2 law": rec["d2_err"] < 1e-12 + 1e-6 * d2_0,
+               "evaporated mass is the vapour source":
+               rec["mass_gap"] < 1e-5 and vap > 0})
+    # DSMC: 20 collision steps of the anisotropic gas
+    mesh6 = box(6, walls_only=True)
+    ar = dsmc.Species(*(torch.tensor([x], dtype=dt_, device=device)
+                        for x in (6.63e-26, 4.17e-10, 0.81)), T_ref=273.0)
+    nd = 1e20
+    vc = float(mesh6.v[0])
+    fn = nd * vc / 20.0
+    cl = dsmc.initialise(mesh6, ar, nd, 600.0, (0.0, 0.0, 0.0), fn, seed=3)
+    n = cl.active.shape[0]
+    m = 6.63e-26
+    rng = np.random.default_rng(4)
+    sx, syz = (np.sqrt(dsmc.K_BOLTZ * T / m) for T in (600.0, 150.0))
+    u = np.stack([sx * rng.standard_normal(n), syz * rng.standard_normal(n),
+                  syz * rng.standard_normal(n)], axis=1)
+    cl = cl._replace(u=torch.tensor(u, dtype=dt_, device=device))
+    act = cl.active
+
+    def moments(cl):
+        uu = cl.u[act].double()
+        cm = uu - uu.mean(0)
+        return (uu.sum(0).cpu().numpy(), float((uu * uu).sum()),
+                (m * (cm * cm).mean(0) / dsmc.K_BOLTZ).cpu().numpy())
+
+    p0, e0, T0 = moments(cl)
+    cfg6 = dsmc.DsmcConfig(nEquivalentParticles=fn, n_rounds=8)
+    dp = de = 0.0
+    for _ in range(20):
+        cl = dsmc._collide(mesh6, cl, t(5e-6), cfg6, ar)
+        p1, e1, T1 = moments(cl)
+        dp = max(dp, float(np.abs(p1 - p0).max()) / np.sqrt(e0))
+        de = max(de, abs(e1 - e0) / e0)
+    rec.update(dsmc_momentum=dp, dsmc_energy=de, dsmc_T0=T0.tolist(),
+               dsmc_T20=T1.tolist())
+    ck.update({"DSMC momentum to round-off": dp < 1e-5,
+               "DSMC energy to round-off": de < 1e-5,
+               "DSMC anisotropy relaxes": (T1.max() - T1.min())
+               < 0.8 * (T0.max() - T0.min())})
+    # MD: NVE in reduced units, then the equilibration
+    mcfg = md.MdConfig(epsilon=1.0, sigma=1.0, mass=1.0, box=(6.3,) * 3,
+                       r_cut=2.5)
+    x, u = md.lattice_fill(mcfg.box, 5, mass=1.0, T0=0.8 / md.K_BOLTZ,
+                           seed=1)
+    s = md.make_state(x, u, mcfg, dtype=dt_, device=device)
+    _, pot0 = md._pair_forces(s.x, mcfg)
+    ke0 = float(md.kinetic_energy(s, mcfg))
+    e0 = ke0 + float(pot0)
+    for _ in range(200):
+        s, pot = md.verlet_step(s, 0.005, mcfg)
+    rec["md_drift"] = abs(float(md.kinetic_energy(s, mcfg)) + float(pot)
+                          - e0) / ke0
+    ck["MD energy drift < 1% of KE"] = rec["md_drift"] < 0.01
+    ecfg = md.MdConfig(epsilon=1.656e-21, sigma=3.4e-10, mass=6.63e-26,
+                       box=(2.14e-9,) * 3, r_cut=8.5e-10)
+    x, u = md.lattice_fill(ecfg.box, 5, mass=ecfg.mass, T0=60.0, seed=2)
+    s = md.make_state(x, u, ecfg, dtype=dt_, device=device)
+    for _ in range(300):
+        s, _ = md.equilibrate_step(s, 1e-14, ecfg, 120.0, relax=0.1)
+    rec["md_T"] = float(md.temperature(s, ecfg))
+    ck["MD equilibrates to 120 K"] = abs(rec["md_T"] - 120.0) < 12.0
+    return rec, ck
+
+
+ORACLE_LAG_BOX = """
+convertToMeters 1;
+vertices
+(
+    (0 0 0) (1 0 0) (1 1 0) (0 1 0)
+    (0 0 1) (1 0 1) (1 1 1) (0 1 1)
+);
+blocks ( hex (0 1 2 3 4 5 6 7) (10 10 10) simpleGrading (1 1 1) );
+boundary
+(
+    outlet { type patch; faces ((2 6 5 1)); }
+    walls { type wall; faces ((0 4 7 3) (1 5 4 0) (3 7 6 2)
+                              (0 3 2 1) (4 5 6 7)); }
+);
+"""
+
+
+# tests/test_reactingcloud.py's and tests/test_discretemethods.py's box
+ORACLE_WALL_BOX = ORACLE_LAG_BOX.replace(
+    "    outlet { type patch; faces ((2 6 5 1)); }\n", "").replace(
+    "walls { type wall; faces ((0 4 7 3)",
+    "walls { type wall; faces ((2 6 5 1) (0 4 7 3)")
+
+
+def phase_lagrangian(spmv, here, root, device=()):
+    """The twelve tutorials of the Lagrangian slice as shipped, each
+    through `python -m foamtpu_torch run -case <copy> -steps N` (LAG_RUNS,
+    TOPO_RUNNER with lagrangian_case_summary), one process each, all at
+    once (`device` ("-device", "cpu") rehearses on the CPU): their
+    summaries against LAG_GOLDEN (the JAX package's; DSMC's random stream
+    differs, so it is held to oracles), lag_oracles, their SpMV launches;
+    then lag_unit_oracles in this process."""
+    from foamtpu_torch.apps.cli import main as cli
+
+    top = os.path.join(root, "lagrangian")
+    os.makedirs(top)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               CHIP_SMOKE_SUMMARY="lagrangian_case_summary")
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for name, steps in LAG_RUNS.items():
+            d = slice17_case(here, os.path.join(top, name), name, cli,
+                             edits=LAG_EDITS.get(name, ()))
+            out = os.path.join(top, name + ".json")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-c", TOPO_RUNNER, here, d, str(steps),
+                 out, *device], cwd=here, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True), out)
+        runs = {}
+        for name, (proc, out) in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            check(proc.returncode == 0 and os.path.exists(out),
+                  f"lagrangian {name}: exit {proc.returncode}: "
+                  f"{stderr[-2000:]}")
+            with open(out) as f:
+                runs[name] = dict(json.load(f), log=stdout)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    checks, worst = {}, {}
+    for name, rec in runs.items():
+        check("summary" in rec, f"lagrangian {name}: no summary")
+        for k, ok in lag_oracles(name, rec, rec["log"]).items():
+            checks[f"{name}: {k}"] = bool(ok)
+        checks[f"{name}: spmv launched"] = (rec["launches"] > 0) == (
+            name in PARCEL_APPS)
+        if name in LAG_RANDOM:
+            continue
+        errs = lag_golden_errs(name, rec["summary"])
+        checks[f"{name}: goldens"] = bool(LAG_GOLDEN.get(name)) and all(
+            e <= t for e, t in errs.values())
+        worst[name] = max(((e / t if t else (0.0 if e == 0 else
+                                              float("inf")), k)
+                           for k, (e, t) in errs.items()), default=None)
+    t1 = time.perf_counter()
+    unit, ck = lag_unit_oracles("cpu" if "cpu" in device else "cuda")
+    checks.update({f"oracle: {k}": bool(v) for k, v in ck.items()})
+    out = {"phase": "lagrangian", "wall_s": wall,
+           "unit_oracles_s": time.perf_counter() - t1,
+           "runs": {n: {"steps": LAG_RUNS[n], "summary": r["summary"],
+                        "launches": r["launches"],
+                        "fb_launches": r["fb_launches"],
+                        "worst_golden_share": worst.get(n)}
+                    for n, r in runs.items()},
+           "unit_oracles": unit,
+           "spmv_launches_total": sum(r["launches"] for r in runs.values()),
+           "spmv_fb_launches_total": sum(r["fb_launches"]
+                                         for r in runs.values()),
+           "checks": checks}
+    emit(out)
+    for k, ok in checks.items():
+        check(ok, f"lagrangian check {k}: {out}")
+    return out
+
+
+# lagrangian_headline: the paths at a size users run
+LAG_HEAD_RPF = 512            # evaporationBox 512 x 512 = 262,144 cells
+LAG_HEAD_RPF_STEPS = (2, 3, 1)   # warm-up, timed, profiled
+LAG_HEAD_FALL = (64, 128, 64)    # fallingCloud: 524,288 cells
+LAG_HEAD_FALL_PARCELS = 1 << 20
+# 1.4 m/s at the terminal velocity is 7.2 cells of 7.8 mm in a step of
+# 0.04 s: within the walk's 8 hops; 10 steps (0.4 s) are 2.7 settling times
+LAG_HEAD_FALL_DT = 0.04
+LAG_HEAD_FALL_STEPS = (2, 7, 1)
+LAG_HEAD_DSMC = 64            # dsmcBox 64^3 = 262,144 cells
+LAG_HEAD_DSMC_PER_CELL = 20   # ~5.2 million particles
+LAG_HEAD_DSMC_STEPS = (1, 3, 1)
+LAG_HEAD_MD_NSIDE = 32        # 32,768 molecules
+LAG_HEAD_MD_STEPS = (2, 17, 1)
+LAG_HEAD_SEED = 17
+
+
+def rpf_big_case(here, dst, seed=LAG_HEAD_SEED):
+    """evaporationBox at LAG_HEAD_RPF^2 (2D as shipped) with one parcel a
+    cell, jittered within its cell from numpy's generator, in
+    constant/reactingCloudPositions (the application sizes the cloud from
+    it); the tutorial's constants. Not meshed. Returns dst."""
+    n = LAG_HEAD_RPF
+    slice17_case(here, dst, "reactingParcelFoam", None, blocks=(n, n, 1))
+    rng = np.random.default_rng(seed)
+    h = 0.2 / n
+    i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    pos = np.stack([(i.ravel() + 0.5 + 0.8 * (rng.random(n * n) - 0.5)) * h,
+                    (j.ravel() + 0.5 + 0.8 * (rng.random(n * n) - 0.5)) * h,
+                    np.full(n * n, 0.01)], axis=1)
+    write_positions(os.path.join(dst, "constant", "reactingCloudPositions"),
+                    pos)
+    return dst
+
+
+def rpf_mesh_case(here, dst):
+    """rpf_big_case's mesh alone (its blockMeshDict), for the premesh
+    process."""
+    return slice17_case(here, dst, "reactingParcelFoam", None,
+                        blocks=(LAG_HEAD_RPF, LAG_HEAD_RPF, 1))
+
+
+def fall_mesh_case(here, dst):
+    """fall_big_case's mesh alone, for the premesh process."""
+    return slice17_case(here, dst, "icoUncoupledKinematicParcelFoam", None,
+                        blocks=LAG_HEAD_FALL)
+
+
+def write_positions(path, pos):
+    with open(path, "w") as f:
+        f.write(_foam_header("vectorField", os.path.basename(path)))
+        f.write(f"{len(pos)}\n(\n")
+        np.savetxt(f, pos, fmt="(%.9g %.9g %.9g)")
+        f.write(")\n")
+
+
+def fall_big_case(here, dst, seed=LAG_HEAD_SEED):
+    """fallingCloud at LAG_HEAD_FALL with LAG_HEAD_FALL_PARCELS parcels
+    spread uniformly over the box above y = 0.6 m (they fall 0.35 m in
+    the headline's 10 steps), deltaT LAG_HEAD_FALL_DT.
+    Not meshed. Returns dst."""
+    slice17_case(here, dst, "icoUncoupledKinematicParcelFoam", None,
+                 blocks=LAG_HEAD_FALL,
+                 edits=(("system/controlDict", r"deltaT 0\.005;",
+                         f"deltaT {LAG_HEAD_FALL_DT!r};"),))
+    rng = np.random.default_rng(seed)
+    n = LAG_HEAD_FALL_PARCELS
+    lo, hi = np.array([0.02, 0.6, 0.02]), np.array([0.48, 0.95, 0.48])
+    write_positions(os.path.join(dst, "constant", "kinematicCloudPositions"),
+                    lo + (hi - lo) * rng.random((n, 3)))
+    return dst
+
+
+def dsmc_big_case(here, dst):
+    """dsmcBox at LAG_HEAD_DSMC^3 with nEquivalentParticles for
+    LAG_HEAD_DSMC_PER_CELL particles a cell. Not meshed. Returns dst."""
+    n = LAG_HEAD_DSMC
+    fn = 1e20 / n ** 3 / LAG_HEAD_DSMC_PER_CELL
+    return slice17_case(here, dst, "dsmcFoam", None, blocks=(n, n, n),
+                        edits=(("constant/dsmcProperties",
+                                r"nEquivalentParticles\s+[^;]+;",
+                                f"nEquivalentParticles {fn!r};"),))
+
+
+def md_big_case(here, dst):
+    """nveBox with nSide LAG_HEAD_MD_NSIDE, the box scaled by nSide/5 to
+    keep the tutorial's density. Returns dst (meshed by `cli` None: the
+    caller's blockMesh)."""
+    k = LAG_HEAD_MD_NSIDE
+    return slice17_case(here, dst, "mdFoam", None, edits=(
+        ("constant/polyMesh/blockMeshDict", r"convertToMeters\s+[^;]+;",
+         f"convertToMeters {2.14e-9 * k / 5!r};"),
+        ("system/mdInitialiseDict", r"nSide\s+5;", f"nSide {k};")))
+
+
+class StepClock:
+    """Times a run(case) from the inside: the set-up (run's start to its
+    time loop's first step), each step from the loop's yield to the
+    step's `Time = ` log line (after that step's host read), the SpMV
+    launches per step, and one step under torch.profiler; `timed` names
+    module attributes (module, name, key) whose calls are timed as set-up
+    parts, their last results kept by name in `outputs`; every solve's
+    iteration count is kept, and with `keep_matrices` the first step's
+    matrices (dims, solver, matrix) in order; the log lines of MD's total
+    energy in `energies`."""
+
+    def __init__(self, spmv, case, profile_step, timed=(),
+                 keep_matrices=False):
+        self.spmv, self.case, self.profile_step = spmv, case, profile_step
+        self.timed, self.keep = timed, keep_matrices
+        self.starts, self.ends, self.parts, self.outputs = [], [], {}, {}
+        self.matrices, self.solves, self.energies = [], [], []
+        self.prof = None
+
+    def __enter__(self):
+        from foamtpu_torch.solvers import linear
+        from foamtpu_torch.utils import logging as flog
+
+        self._saved = [(flog, "info", flog.info),
+                       (linear, "solve", linear.solve),
+                       (self.case.time, "loop", self.case.time.loop)]
+        for mod, name, key in self.timed:
+            self._saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, self._timer(getattr(mod, name), name, key))
+        orig_info, orig_solve = flog.info, linear.solve
+        orig_loop = self.case.time.loop
+
+        def info(msg, *a, **k):
+            if isinstance(msg, str) and "total energy" in msg:
+                self.energies.append(msg)
+            if isinstance(msg, str) and msg.startswith("Time = ") and \
+                    len(self.ends) < len(self.starts):
+                torch.cuda.synchronize()
+                self.ends.append((time.perf_counter(), self.spmv.LAUNCHES))
+                if self.prof is not None and len(self.ends) == \
+                        self.profile_step + 1:
+                    self.prof.__exit__(None, None, None)
+            return orig_info(msg, *a, **k)
+
+        def solve(mesh, mat, psi, controls):
+            data, perf = orig_solve(mesh, mat, psi, controls)
+            if self.keep and len(self.starts) == 1:
+                self.matrices.append((str(mat.dims),
+                                      str(controls.get("solver")), mat))
+            self.solves.append((len(self.starts), str(mat.dims),
+                                perf.n_iterations))
+            return data, perf
+
+        def loop():
+            from torch.profiler import ProfilerActivity, profile
+
+            for t in orig_loop():
+                torch.cuda.synchronize()
+                self.starts.append((time.perf_counter(), self.spmv.LAUNCHES))
+                if len(self.starts) == self.profile_step + 1:
+                    self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA])
+                    self.prof.__enter__()
+                yield t
+
+        flog.info, linear.solve, self.case.time.loop = info, solve, loop
+        self.t0 = time.perf_counter()
+        return self
+
+    def _timer(self, fn, name, key):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            self.parts[key] = self.parts.get(key, 0.0) + (
+                time.perf_counter() - t0)
+            self.outputs[name] = out
+            return out
+        return wrapped
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.t1 = time.perf_counter()
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+
+    def record(self, warmup, n_parcels):
+        """s/step of the timed steps (after `warmup`, before the
+        profiled one), parcels per second, the set-up split, SpMV
+        launches per step, and the profiled step's kernel launches,
+        device ms and busy share."""
+        secs = [e[0] - s[0] for s, e in zip(self.starts, self.ends)]
+        lau = [e[1] - s[1] for s, e in zip(self.starts, self.ends)]
+        timed = secs[warmup:self.profile_step]
+        sps = float(np.median(timed))
+        rec = {"steps": len(secs), "timed_steps": len(timed),
+               "sec_per_step": sps,
+               "sec_per_step_each": secs,
+               "parcels_per_s": n_parcels / sps,
+               "setup_s": self.starts[0][0] - self.t0,
+               "setup_parts_s": dict(self.parts),
+               "after_loop_s": self.t1 - self.ends[-1][0],
+               "spmv_launches_per_step": lau,
+               "krylov": {}}
+        for i, dims, n in self.solves:
+            rec["krylov"].setdefault(dims, []).append(int(n))
+        if self.prof is not None:
+            raw = RawProfile(self.prof)
+            dev_ms, top, launches = raw.device_ms(), raw.top(8), raw.launches
+            rec.update(profiled_step_s=secs[self.profile_step],
+                       device_ms_per_step=dev_ms,
+                       kernel_launches_per_step=launches,
+                       busy_share=dev_ms / 1e3 / sps,
+                       top_kernels_ms=top)
+        return rec
+
+
+def phase_lagrangian_headline(spmv, here, root, flush):
+    """The Lagrangian paths at a size users run, each through run(case)
+    (StepClock: warm-up, timed and one profiled step): reactingParcelFoam
+    on evaporationBox at 512^2 with 262,144 parcels (the SpMV held to its
+    plain version and timed at its p and its non-symmetric Yvapour
+    operator), icoUncoupledKinematicParcelFoam on fallingCloud at
+    64 x 128 x 64 with 1,048,576 parcels (held to the terminal velocity),
+    dsmcFoam on dsmcBox at 64^3 with ~5.2 million particles (the DSMC
+    oracles) and mdFoam with 32,768 molecules (the NVE drift). Meshes
+    from the background process."""
+    from foamtpu_torch import lagrangian as lag
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.core.dimensions import DimensionSet
+    from foamtpu_torch.lagrangian import dsmc as ldsmc, md as lmd
+    from foamtpu_torch.solvers import parcels
+    from foamtpu_torch.solvers.apps import run
+
+    top = os.path.join(root, "lag_head")
+    runs, checks, cases = {}, {}, []
+    max_err, timings = 0.0, []
+    launches_total = fb_total = 0
+    plan = (("reactingParcelFoam", rpf_big_case, LAG_HEAD_RPF_STEPS),
+            ("icoUncoupledKinematicParcelFoam", fall_big_case,
+             LAG_HEAD_FALL_STEPS),
+            ("dsmcFoam", dsmc_big_case, LAG_HEAD_DSMC_STEPS),
+            ("mdFoam", md_big_case, LAG_HEAD_MD_STEPS))
+    for name, make_case, (warm, n_timed, n_prof) in plan:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dst = make_case(here, os.path.join(top, name))
+        t1 = time.perf_counter()
+        case = Case(dst, device="cuda")
+        got = premeshed(dict_key(blockmesh_dict(dst)))
+        if got:
+            case._poly, mesh_secs = got
+        else:
+            memory_mesh(case)
+            mesh_secs = {}
+        t2 = time.perf_counter()
+        mesh = case.mesh
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        steps = warm + n_timed + n_prof
+        clock = StepClock(spmv, case, warm + n_timed, keep_matrices=(
+            name == "reactingParcelFoam"), timed=(
+            (parcels, "_read_positions", "positions_parse_s"),
+            (lag, "make_cloud", "cloud_init_s"),
+            (ldsmc, "initialise", "cloud_init_s"),
+            (lmd, "make_state", "cloud_init_s")))
+        spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
+        progress("lagrangian_headline", f"{name}: files {t1 - t0:.1f} s, "
+                 f"mesh {t2 - t1:.1f} s, to_device {t3 - t2:.1f} s")
+        with quiet(), clock:
+            run(case, max_steps=steps)
+        progress("lagrangian_headline", f"{name}: run {clock.t1 - clock.t0:.1f}"
+                 " s")
+        launches_total += spmv.LAUNCHES
+        fb_total += spmv.FB_LAUNCHES
+        st = case.final_state
+        host = (lambda t: t.detach().double().cpu().numpy()
+                if isinstance(t, torch.Tensor) else t)
+        summ = lagrangian_summary(st, mesh.v.double().cpu(), host)
+        if name == "mdFoam":
+            n_par = st["state"].x.shape[0]
+        elif name == "dsmcFoam":
+            c0 = clock.outputs["initialise"]
+            n_par = int(c0.n_active)
+        else:
+            n_par = int(st["cloud"].active.shape[0])
+        t4 = time.perf_counter()
+        rec = clock.record(warm, n_par)
+        progress("lagrangian_headline", f"{name}: summary "
+                 f"{t4 - clock.t1:.1f} s, record {time.perf_counter() - t4:.1f} s")
+        rec.update(n_cells=mesh.n_cells, n_parcels=n_par, summary=summ,
+                   spmv_launches=spmv.LAUNCHES,
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        rec["setup_parts_s"].update(mesh_secs, case_files_s=t1 - t0,
+                                    mesh_s=t2 - t1, to_device_s=t3 - t2)
+        ck = {"finite": summ["finite"], "steps": case.time.index == steps}
+        if name == "reactingParcelFoam":
+            ck.update({"262,144 parcels": n_par == LAG_HEAD_RPF ** 2,
+                       "parcels alive": summ["n_active"] == n_par,
+                       "Yvapour in (0, 1]": 0.0 < summ["Yv_max"] <= 1.0,
+                       "latent heat cools the gas": summ["T_mean"] < 400.0,
+                       "spmv launched": rec["spmv_launches"] > 0})
+            # the first step's solves: p's PCG ones (the pressure matrix's
+            # dimensions, kg/s, are Yvapour's too) and last Yvapour's
+            mass = str(DimensionSet.of(1, 0, -1))
+            mats = clock.matrices
+            p_mat = next((m for d, sv, m in mats
+                          if d == mass and sv == "PCG"), None)
+            yv_mat = mats[-1][2] if mats and mats[-1][0] == mass else None
+            ck["p and Yvapour matrices kept"] = (
+                p_mat is not None and yv_mat is not None)
+            check(ck["p and Yvapour matrices kept"],
+                  f"rpf matrices: {[(d, sv) for d, sv, _ in mats]}")
+            ops = [mat_operand(mesh, p_mat, "rpf_p"),
+                   mat_operand(mesh, yv_mat, "rpf_Yv")]
+            deltas = tuple(mesh.st_deltas)
+            for dtype in (torch.float32, torch.float64):
+                err = check_operands(spmv, ops, mesh, deltas, dtype,
+                                     np.random.default_rng(171), cases)
+                if dtype == torch.float32:
+                    max_err = max(max_err, err)
+            for i, (opname, soff, diag, sfb) in enumerate(ops):
+                timings += time_shape(
+                    spmv, opname, diag.contiguous(),
+                    operand_x(diag, 172 + i), soff.contiguous(), deltas,
+                    flush, fb=mesh_remainder(spmv, mesh, sfb, diag.dtype)
+                    if mesh.fb_cells.shape[0] else None)
+            ck["Yvapour operator non-symmetric"] = not yv_mat.symmetric
+            ck["p operator symmetric"] = p_mat.symmetric
+        elif name == "icoUncoupledKinematicParcelFoam":
+            ut = stokes_terminal(2500.0, 2e-4, 1.2, 1.5e-5 * 1.2)
+            ur = fall_replay(LAG_HEAD_FALL_DT, steps)
+            u = st["cloud"].u[:, 1].double()
+            rec["terminal"] = {"ut": ut, "replay": ur,
+                               "share_of_ut": ur / ut,
+                               "uy_mean": float(u.mean()),
+                               "uy_min": float(u.min()),
+                               "uy_max": float(u.max())}
+            ck.update({"all parcels in": summ["n_active"] == n_par
+                       == LAG_HEAD_FALL_PARCELS,
+                       "every parcel at its drag law's fall 1e-4": float(
+                           (u + ur).abs().max()) < 1e-4 * ur,
+                       "it settles at the terminal velocity":
+                       abs(fall_replay(LAG_HEAD_FALL_DT, 1000) - ut) / ut
+                       < 1e-6})
+        elif name == "dsmcFoam":
+            ke0 = float((c0.u[c0.active].double() ** 2).sum())
+            n_log = case.final_state["cloud"].n_active
+            rec["ke_rel_change"] = abs(summ["ke_sum"] - ke0) / ke0
+            ck.update({"count conserved": int(n_log) == n_par,
+                       "~20 particles a cell": abs(n_par / mesh.n_cells
+                                                   - 20.0) < 1.0,
+                       "energy conserved 1e-4": rec["ke_rel_change"] < 1e-4,
+                       "T near 300 K": abs(summ["dsmc_T_gas"] - 300.0)
+                       < 15.0})
+        else:
+            E = [float(x) for x in re.findall(r"total energy = (\S+) J",
+                                              "".join(clock.energies))]
+            T = [float(x) for x in re.findall(r"temperature = (\S+) K",
+                                              "".join(clock.energies))]
+            ke0 = 1.5 * n_par * lmd.K_BOLTZ * T[0]
+            rec["energy_drift_of_ke"] = abs(E[-1] - E[0]) / ke0
+            ck.update({"32,768 molecules": n_par == LAG_HEAD_MD_NSIDE ** 3,
+                       "energy drift < 1% of KE":
+                       rec["energy_drift_of_ke"] < 0.01})
+        runs[name] = rec
+        checks.update({f"{name}: {k}": bool(v) for k, v in ck.items()})
+        progress("lagrangian_headline", f"{name}: {rec['sec_per_step']:.4f}"
+                 f" s/step, {n_par} parcels, set-up {rec['setup_s']:.1f} s")
+        del case, st, mesh
+    out = {"phase": "lagrangian_headline", "runs": runs,
+           "kernel_cases": cases, "max_abs_err_f32": max_err,
+           "timings": timings, "spmv_launches_total": launches_total,
+           "spmv_fb_launches_total": fb_total, "checks": checks}
+    emit(out)
+    for k, ok in checks.items():
+        check(ok, f"lagrangian_headline check {k}: {out}")
+    return out, max_err, timings
+
+
 T_START = time.perf_counter()
 TIMELINE = {}
 
@@ -13227,6 +15142,11 @@ def main() -> int:
         stamp("topo")
         amrh, err_amr, t_amr = phase_amr_headline(spmv, here, root, flush)
         stamp("amr_headline")
+        lagr = phase_lagrangian(spmv, here, root)
+        stamp("lagrangian")
+        lagh, err_lag, t_lag = phase_lagrangian_headline(spmv, here, root,
+                                                         flush)
+        stamp("lagrangian_headline")
     finally:
         stop_premesh()
         shutil.rmtree(root, ignore_errors=True)
@@ -13245,7 +15165,7 @@ def main() -> int:
     paths = (head, pitz, duct, ras, pras, phead, dam, basic, cross, heated,
              rot, mrf, turb, les, turb2, dsh, thermal, bouss, dym, dymh, surf, comp,
              chead, rch, small, mhdh, snc, snh, chth, mph, mphh, comb, fire,
-             topo, amrh)
+             topo, amrh, lagr, lagh)
     emit({"kernels": [{
         "name": "spmv_stencil", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
@@ -13255,7 +15175,7 @@ def main() -> int:
                            err_les, err_t2, err_dsh, err_bh, err_dh, err_comp, err_ch,
                            err_small, err_mhd, err_snc, err_snh,
                            err_chth, err_mph, err_mphh, err_comb, err_fire,
-                           err_amr),
+                           err_amr, err_lag),
         "ms": main_shape["kernel_ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
@@ -13271,7 +15191,8 @@ def main() -> int:
             "bound_ms", "bound_by", "bound_share")}
             for t in timings + t_duct + t_dam + t_heat + t_mrf + t_les
             + t_t2 + t_dsh + t_bh + t_dh + t_comp + t_ch + t_small + t_mhd + t_snc
-            + t_snh + t_chth + t_mph + t_mphh + t_comb + t_fire + t_amr]}]})
+            + t_snh + t_chth + t_mph + t_mphh + t_comb + t_fire + t_amr
+            + t_lag]}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

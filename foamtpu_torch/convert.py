@@ -1,4 +1,5 @@
-"""Carry the JAX package's mesh, GAMG levels and state into the port.
+"""Carry the JAX package's mesh, GAMG levels, state and clouds into the
+port.
 
 The JAX package's arrays arrive as anything numpy can read
 (`np.asarray` of a jax array is a numpy array), so this module never
@@ -210,6 +211,43 @@ def state_from_numpy(state, device=DEFAULT_DEVICE) -> Dict[str, Any]:
             f"state entries {sorted(unknown)} are not ported to "
             "foamtpu_torch yet")
     return out
+
+
+def cloud_from_numpy(cloud, device=DEFAULT_DEVICE):
+    """The port's lagrangian Cloud from the reference's (x, u, d, rho,
+    cell, active and T when it has one)."""
+    from .lagrangian import Cloud
+
+    T = _get(cloud, "T")
+    return Cloud(**{k: tensor(_get(cloud, k), device)
+                    for k in ("x", "u", "d", "rho", "cell", "active")},
+                 T=None if T is None else tensor(T, device))
+
+
+def coal_from_numpy(coal, device=DEFAULT_DEVICE):
+    """The port's CoalCloud (a Cloud and yvol) from the reference's."""
+    from .lagrangian.reactingcloud import CoalCloud
+
+    return CoalCloud(base=cloud_from_numpy(_get(coal, "base"), device),
+                     yvol=tensor(_get(coal, "yvol"), device))
+
+
+def dsmc_from_numpy(cloud, draws, device=DEFAULT_DEVICE):
+    """The port's DsmcCloud from the reference's; `draws` is the random
+    source that takes the place of the reference's PRNG key."""
+    from .lagrangian.dsmc import DsmcCloud
+
+    return DsmcCloud(**{k: tensor(_get(cloud, k), device)
+                        for k in ("x", "u", "typ", "cell", "active",
+                                  "sigma_cr_max")}, draws=draws)
+
+
+def md_state_from_numpy(state, device=DEFAULT_DEVICE):
+    """The port's MdState (x, u, f) from the reference's."""
+    from .lagrangian.md import MdState
+
+    return MdState(**{k: tensor(_get(state, k), device)
+                      for k in ("x", "u", "f")})
 
 
 def config_from_reference(cls, cfg, **overrides):

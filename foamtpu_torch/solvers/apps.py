@@ -27,9 +27,15 @@ settlingFoam, cavitatingFoam and sonicLiquidFoam, twoPhaseEulerFoam and
 bubbleFoam, multiphaseEulerFoam, and the combustion family: chemFoam,
 reactingFoam and rhoReactingFoam, XiFoam and PDRFoam, fireFoam (with
 P1/fvDOM radiation and the pyrolysis and film regions; buoyantSimpleFoam
-and buoyantPimpleFoam take constant/radiationProperties too); `run(case)`
-picks among them by
-controlDict's `application`. The turbulence model
+and buoyantPimpleFoam take constant/radiationProperties too), the engine
+family (coldEngineFoam, engineFoam, sonicDyMFoam and sprayEngineFoam),
+and from solvers/parcels.py the Lagrangian family
+(icoUncoupledKinematicParcelFoam, uncoupledKinematicParcelFoam,
+reactingParcelFoam, LTSReactingParcelFoam,
+porousExplicitSourceReactingParcelFoam, coalChemistryFoam, sprayFoam,
+reactingParcelFilmFoam) and the discrete methods (dsmcFoam, mdFoam,
+mdEquilibrationFoam): every application the reference registers.
+`run(case)` picks among them by controlDict's `application`. The turbulence model
 comes from constant/RASProperties or constant/LESProperties (the
 compressible applications take the models of compressible.py where the
 case ships 0/mut).
@@ -62,6 +68,7 @@ import torch
 from ..core.dictionary import FoamDict, dimensioned_scalar, parse_file
 from ..models.turbulence import base as turb_mod
 from ..utils import logging as log
+from . import parcels
 from . import piso as piso_mod
 from . import simple as simple_mod
 from .linear.krylov import SolverPerf
@@ -3338,8 +3345,70 @@ def fire_foam(case, max_steps: Optional[int] = None) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _engine_extra_fields(mesh, state, spray):
+    """sprayEngineFoam's Yvapour, written beside U, p and T."""
+    if not spray:
+        return []
+    from ..core.fields import vol_scalar
+
+    return [vol_scalar(mesh, 0.0, name="Yvapour").with_data(state["Yv"])]
+
+
+def _spray_config(case, mesh, geom, p, T, th):
+    """sprayEngineFoam's SprayConfig and its empty cloud, from
+    constant/sprayCloudProperties (or reactingCloud1Properties): the cone
+    injection (by default at the head's end of the axis, pointing down
+    it), maxParcels slots, the evaporation and breakup settings."""
+    from .. import lagrangian as lag
+    from ..lagrangian import reactingcloud as rcloud
+    from . import engine as engine_solver
+
+    try:
+        props = case.properties("sprayCloudProperties")
+    except Exception:
+        try:
+            props = case.properties("reactingCloud1Properties")
+        except Exception:
+            props = FoamDict()
+    cp = props.get("constantProperties", FoamDict())
+    rho0p = _dim_scalar_of(cp, "rho0", 700.0)
+    d0 = _dim_scalar_of(cp, "d0", 50e-6)
+    T0p = _dim_scalar_of(cp, "T0", 320.0)
+    rho_f0 = float(_host(p.data).mean()) / (th.R * float(_host(T.data).mean()))
+    lcfg = lag.CloudConfig(rho_f=rho_f0, mu_f=th.mu, g=_read_gravity(case),
+                           solve_T=True,
+                           cp_p=_dim_scalar_of(cp, "Cp0", 2000.0))
+    inj_d = props.get("injection", FoamDict())
+    c = _host(mesh.c)
+    apex_default = list(c.mean(axis=0))
+    apex_default[geom.axis] = float(c[:, geom.axis].max())
+    apex = inj_d.get("position", apex_default)
+    direc_default = [0.0, 0.0, 0.0]
+    direc_default[geom.axis] = -1.0
+    direc = inj_d.get("direction", direc_default)
+    inj = lag.cone_injection(
+        mesh, [float(x) for x in np.asarray(apex, float).reshape(-1)[-3:]],
+        [float(x) for x in np.asarray(direc, float).reshape(-1)[-3:]],
+        half_angle_deg=_dim_scalar_of(inj_d, "coneAngle", 10.0),
+        u_mag=_dim_scalar_of(inj_d, "Umag", 100.0), d0=d0, rho0=rho0p,
+        rate=_dim_scalar_of(inj_d, "parcelsPerSecond", 20000.0))
+    n_slots = int(_dim_scalar_of(props, "maxParcels", 512))
+    cloud = lag.make_cloud(mesh, np.asarray(apex, float).reshape(1, 3),
+                           [0.0, 0.0, 0.0], d0, rho0p, n_slots=n_slots,
+                           T0=T0p)
+    # the seed parcel is a placeholder slot
+    cloud = cloud._replace(active=torch.zeros_like(cloud.active))
+    spray_cfg = engine_solver.SprayConfig(
+        lcfg=lcfg,
+        ecfg=rcloud.EvapConfig(K_evap=_dim_scalar_of(props, "Kevap", 1e-7),
+                               L_vap=_dim_scalar_of(cp, "Lvap", 3.5e5)),
+        bcfg=rcloud.BreakupConfig(rho_f=rho_f0), inj=inj,
+        bt=torch.tensor(lag.face_boundary_types(mesh), device=mesh.device))
+    return spray_cfg, cloud
+
+
 def _engine_foam(case, max_steps: Optional[int] = None,
-                 combustion: bool = False) -> None:
+                 combustion: bool = False, spray: bool = False) -> None:
     """engineFoam / coldEngineFoam (applications/solvers/combustion/
     {engineFoam,coldEngineFoam}/ with src/engine/): in-cylinder
     compressible flow under the slider-crank piston motion of
@@ -3349,7 +3418,9 @@ def _engine_foam(case, max_steps: Optional[int] = None,
     engineFoam adds the b-Xi heat release, ignited as
     constant/combustionProperties' `ignition` says (start CAD, location,
     diameter). A non-zero engineGeometry `pistonLayers` selects the
-    layerAdditionRemoval motion (_engine_foam_layered)."""
+    layerAdditionRemoval motion (_engine_foam_layered), except with
+    `spray` (sprayEngineFoam: the cloud of _spray_config rides the moving
+    mesh inside the engine step)."""
     from ..core.fields import vol_scalar
     from ..mesh import engine as eng_mod
     from ..models import thermo as thermo_mod
@@ -3357,7 +3428,7 @@ def _engine_foam(case, max_steps: Optional[int] = None,
 
     geom_d = case.properties("engineGeometry")
     geom = eng_mod.from_dict(geom_d)
-    if _dim_scalar_of(geom_d, "pistonLayers", 0.0) > 0.0:
+    if _dim_scalar_of(geom_d, "pistonLayers", 0.0) > 0.0 and not spray:
         _engine_foam_layered(case, max_steps, combustion, geom, geom_d)
         return
     mesh = case.mesh
@@ -3376,9 +3447,12 @@ def _engine_foam(case, max_steps: Optional[int] = None,
                                              z_piston0=z_piston0)
     comb = (case.properties("combustionProperties")
             if combustion else FoamDict())
+    spray_cfg = cloud = None
+    if spray:
+        spray_cfg, cloud = _spray_config(case, mesh, geom, p, T, th)
     cfg = engine_solver.EngineConfig(
         thermo=th, pts_fn=pts_fn, umesh_fn=umesh_fn,
-        s_per_cad=1.0 / eng_mod.deg_per_sec(geom),
+        s_per_cad=1.0 / eng_mod.deg_per_sec(geom), spray=spray_cfg,
         n_correctors=int(case.pimple_controls("PIMPLE").get(
             "nCorrectors", 2)),
         p_ref_value=float(_host(p.data).mean()),
@@ -3395,7 +3469,7 @@ def _engine_foam(case, max_steps: Optional[int] = None,
         except Exception:
             b = vol_scalar(mesh, 1.0, name="b")
     state = engine_solver.initial_state(case.poly_mesh, mesh, U, p, T, th,
-                                        cfg, b=b)
+                                        cfg, b=b, cloud=cloud)
     step = engine_solver.make_step(mesh, cfg)
 
     # the spark (ignitionSite: a one-shot burnt kernel set on the host).
@@ -3410,11 +3484,13 @@ def _engine_foam(case, max_steps: Optional[int] = None,
 
     def fields(state):
         return ([state["U"], state["p"], state["T"]]
-                + ([state["b"]] if combustion else []))
+                + ([state["b"]] if combustion else [])
+                + _engine_extra_fields(mesh, state, spray))
 
-    log.info(f"Starting loop: "
-             f"{'engineFoam' if combustion else 'coldEngineFoam'}, "
-             f"rpm {geom.rpm}, theta0 {geom.theta0} CAD\n")
+    name = ("sprayEngineFoam" if spray else
+            "engineFoam" if combustion else "coldEngineFoam")
+    log.info(f"Starting loop: {name}, rpm {geom.rpm}, "
+             f"theta0 {geom.theta0} CAD\n")
     diag = None
     for t in case.time.loop():
         theta = geom.theta0 + t.value     # the controlDict time is CAD
@@ -3637,6 +3713,15 @@ def engine_foam(case, max_steps: Optional[int] = None) -> None:
     _engine_foam(case, max_steps, combustion=True)
 
 
+def spray_engine_foam(case, max_steps: Optional[int] = None) -> None:
+    """sprayEngineFoam (applications/solvers/lagrangian/sprayFoam/
+    sprayEngineFoam/): sprayFoam's spray cloud on the crank-angle engine
+    mesh; the b-Xi heat release engages when constant/combustionProperties
+    exists."""
+    comb = os.path.exists(case.const_path("combustionProperties"))
+    _engine_foam(case, max_steps, combustion=comb, spray=True)
+
+
 def sonic_dym_foam(case, max_steps: Optional[int] = None) -> None:
     """sonicDyMFoam (applications/solvers/compressible/sonicFoam/
     sonicDyMFoam/): transonic pressure-based compressible flow on a
@@ -3779,17 +3864,30 @@ APPLICATIONS = {
     "sonicDyMFoam": sonic_dym_foam,
     "coldEngineFoam": cold_engine_foam,
     "engineFoam": engine_foam,
+    # the Lagrangian family (solvers/parcels.py; uncoupledKinematicParcelFoam
+    # is icoUncoupledKinematicParcelFoam, as the reference registers it) and
+    # sprayEngineFoam, the spray on the engine mesh
+    "icoUncoupledKinematicParcelFoam":
+        parcels.ico_uncoupled_kinematic_parcel_foam,
+    "uncoupledKinematicParcelFoam":
+        parcels.ico_uncoupled_kinematic_parcel_foam,
+    "reactingParcelFoam": parcels.reacting_parcel_foam,
+    "LTSReactingParcelFoam": parcels.lts_reacting_parcel_foam,
+    "porousExplicitSourceReactingParcelFoam":
+        parcels.porous_reacting_parcel_foam,
+    "coalChemistryFoam": parcels.coal_chemistry_foam,
+    "sprayFoam": parcels.spray_foam,
+    "reactingParcelFilmFoam": parcels.reacting_parcel_film_foam,
+    "sprayEngineFoam": spray_engine_foam,
+    # the discrete methods
+    "dsmcFoam": parcels.dsmc_foam,
+    "mdFoam": parcels.md_foam,
+    "mdEquilibrationFoam": parcels.md_equilibration_foam,
 }
 
-# the applications the reference registers that the port has not ported
-# yet: the parcel solvers (Queue 1 item 4; sprayEngineFoam rides the
-# engine mesh with them) and the discrete methods (item 5)
-REFERENCE_ONLY = (
-    "icoUncoupledKinematicParcelFoam", "uncoupledKinematicParcelFoam",
-    "reactingParcelFoam", "LTSReactingParcelFoam",
-    "porousExplicitSourceReactingParcelFoam", "coalChemistryFoam",
-    "sprayFoam", "reactingParcelFilmFoam", "sprayEngineFoam",
-    "dsmcFoam", "mdFoam", "mdEquilibrationFoam")
+# the applications the reference registers that the port has not ported:
+# none, since the Lagrangian family and the discrete methods
+REFERENCE_ONLY = ()
 
 
 def run(case, max_steps: Optional[int] = None):

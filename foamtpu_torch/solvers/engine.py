@@ -25,9 +25,12 @@ adiabatic cylinder follows p V^gamma = const. `transonic` (sonicDyMFoam)
 carries the convective mass flux implicitly as div(phid, p), a
 non-symmetric pressure matrix. engineFoam adds the b-Xi heat release with
 a fixed Xi after the flow step, ignited at a spark crank angle (by the
-application, solvers/apps.py). The reference's sprayEngineFoam coupling
-(SprayConfig, the mom_src and q_src state hooks) comes with the parcels.
-Every solve goes through linear.solve, so the SpMV kernel.
+application, solvers/apps.py). sprayEngineFoam (`SprayConfig`) evolves
+an injected evaporating cloud inside the step on the moved geometry; its
+drag momentum and latent heat enter the NEXT step's UEqn and TEqn through
+the state's `mom_src` and `q_src` (explicit, lagged), and its vapour is
+carried explicitly as Yv. Every solve goes through linear.solve, so the
+SpMV kernel.
 """
 
 from __future__ import annotations
@@ -53,6 +56,16 @@ _SP = DimensionSet.of(1, -3, -1)
 _WALL_TYPES = ("wall", "empty", "symmetry", "symmetryPlane", "wedge")
 
 
+class SprayConfig(NamedTuple):
+    """sprayEngineFoam (applications/solvers/lagrangian/sprayFoam/
+    sprayEngineFoam/): the spray cloud of lagrangian/ on the engine mesh."""
+    lcfg: Any                    # lagrangian CloudConfig
+    ecfg: Any                    # reactingcloud EvapConfig
+    bcfg: Any                    # reactingcloud BreakupConfig
+    inj: Any = None              # InjectionConfig or None
+    bt: Any = None               # [nF] face boundary types (a tensor)
+
+
 class EngineConfig(NamedTuple):
     thermo: Any
     pts_fn: Callable             # (points0, t_seconds) -> points
@@ -66,6 +79,7 @@ class EngineConfig(NamedTuple):
     rho_min: float = 0.01
     # sonicDyMFoam: the implicit div(phid, p) convective mass flux
     transonic: bool = False
+    spray: Optional[SprayConfig] = None
     # combustion (engineFoam; Su0 <= 0 disables it: coldEngineFoam)
     Su0: float = 0.0
     Xi: float = 2.0              # fixed wrinkling (no turbulence model)
@@ -171,6 +185,10 @@ def engine_step(mesh, state: Dict, dt_cad: Any, cfg: EngineConfig,
                             corrected=False, gamma_dims=_DYN_VISC,
                             gamma_slot=mu_slot)
             - fvm.Sp(mesh_t, mass_imb, U, sp_dims=_SP))
+    # the spray's two-way coupling: its momentum source density [N/m^3]
+    # lives inside UEqn, so it also enters H in the pressure corrector
+    if "mom_src" in state:
+        UEqn = UEqn.add_source(state["mom_src"], mesh_t)
     grad_p = fvc.grad_of(mesh_t, p, "Gauss linear")
     Udata, uperf = linear.solve(mesh_t, UEqn.add_source(-grad_p, mesh_t),
                                 U.data, u_ctrl)
@@ -299,6 +317,9 @@ def engine_step(mesh, state: Dict, dt_cad: Any, cfg: EngineConfig,
     dpdt = (p.data - state.get("p_solved0", p0)) * rdt
     cp_c = th.Cp_of(T.data)
     TEqn = TEqn.add_source((dpdt - dKdt - div_phiK) / cp_c, mesh_t)
+    if "q_src" in state:
+        # the parcels' heat exchange [W/m^3] (the latent sink)
+        TEqn = TEqn.add_source(state["q_src"] / cp_c, mesh_t)
     Tdata, tperf = linear.solve(mesh_t, TEqn, T.data, u_ctrl)
     T = T.with_data(torch.clamp(Tdata, min=1.0))
     T = T.correct_boundary_conditions(mesh_t)
@@ -339,6 +360,11 @@ def engine_step(mesh, state: Dict, dt_cad: Any, cfg: EngineConfig,
         diag["b_min"] = torch.min(bdata)
         rho_star = torch.clamp(th.rho(p.data, T.data), min=cfg.rho_min)
 
+    # -- the spray cloud (sprayEngineFoam) -----------------------------------
+    if cfg.spray is not None:
+        state = _spray_step(mesh_t, state, cfg.spray, U, T, dt, v0,
+                            phi_slot, rho_star, diag)
+
     # diagnostics: the ALE continuity
     div_phi = slot_mod.surface_sum(mesh_t, phi_slot)
     cont = ((mesh_t.v * rho_star - v0 * rho0) * rdt + div_phi) / mesh_t.v
@@ -356,9 +382,56 @@ def engine_step(mesh, state: Dict, dt_cad: Any, cfg: EngineConfig,
     return new_state, diag
 
 
+def _spray_step(mesh_t, state, sp: SprayConfig, U, T, dt, v0, phi_slot,
+                rho_star, diag) -> Dict:
+    """Inject, evolve, break up and evaporate the cloud on the current
+    (moved) geometry; the sources it leaves act in the next step."""
+    from .. import lagrangian as lag
+    from ..lagrangian import reactingcloud as rcloud
+
+    carry, counter = state["inj_carry"], state["inj_counter"]
+    c0 = state["cloud"]
+    if sp.inj is not None:
+        c0, carry, counter = lag.inject(c0, sp.inj, carry, counter, dt)
+    c1 = lag.evolve(mesh_t, c0, U.data, dt, sp.bt, sp.lcfg, T_cell=T.data)
+    c1 = rcloud.reitz_diwakar_breakup(c1, U.data, dt, sp.bcfg)
+    mom = lag.momentum_source(mesh_t, c0, c1, 1.0, dt, sp.lcfg)
+    c1, vap, hsink = rcloud.evaporate(c1, U.data, T.data, dt, sp.lcfg,
+                                      sp.ecfg, mesh_t.n_cells)
+    # the next step's sources (gravity does not react back:
+    # momentum_source takes it off)
+    mom_src = mom / mesh_t.v[:, None]          # N/m^3
+    q_src = -hsink / mesh_t.v                  # W/m^3 (latent sink)
+    # the fuel-vapour fraction: explicit upwind advection by the relative
+    # mass flux and the evaporation source, conservative against the ALE
+    # density update
+    Yv = state["Yv"]
+    nbY = slot_mod.nbr_values(mesh_t, Yv)
+    up_sv = torch.where(phi_slot.sv >= 0.0, Yv[:, None], nbY)
+    if mesh_t.fb_cells.shape[0]:
+        up_fb = torch.where(phi_slot.fb >= 0.0, Yv[mesh_t.fb_cells],
+                            Yv[mesh_t.fb_nbrs])
+    else:
+        up_fb = phi_slot.fb
+    divY = slot_mod.surface_sum(
+        mesh_t, slot_mod.SlotFace(phi_slot.sv * up_sv, phi_slot.fb * up_fb,
+                                  phi_slot.bv
+                                  * surface.owner_to_b(mesh_t, Yv)))
+    Yv = torch.clamp((state["rho0"] * v0 * Yv - dt * divY + vap)
+                     / torch.clamp(rho_star * mesh_t.v, min=1e-30),
+                     0.0, 1.0)
+    state = dict(state)
+    state.update(cloud=c1, inj_carry=carry, inj_counter=counter,
+                 mom_src=mom_src, q_src=q_src, Yv=Yv)
+    diag["n_parcels"] = torch.sum(c1.active.to(torch.int64))
+    diag["Yv_mean"] = (torch.sum(Yv * rho_star * mesh_t.v)
+                       / torch.sum(rho_star * mesh_t.v))
+    return state
+
+
 def initial_state(pm, mesh, U: VolField, p: VolField, T: VolField,
                   thermo, cfg: EngineConfig,
-                  b: Optional[VolField] = None) -> Dict:
+                  b: Optional[VolField] = None, cloud: Any = None) -> Dict:
     """pm: the host PolyMesh. The initial relative flux from U and the
     mesh velocity at t = 0."""
     dtype, dev = mesh.v.dtype, mesh.device
@@ -380,6 +453,16 @@ def initial_state(pm, mesh, U: VolField, p: VolField, T: VolField,
     if b is not None:
         st["b"] = b
         st["b0"] = b.data
+    if cfg.spray is not None:
+        if cloud is None:
+            raise ValueError("EngineConfig.spray set but no cloud passed "
+                             "to initial_state")
+        st.update(cloud=cloud, inj_carry=zero,
+                  inj_counter=torch.zeros((), dtype=torch.int64, device=dev),
+                  mom_src=torch.zeros((mesh.n_cells, 3), dtype=dtype,
+                                      device=dev),
+                  q_src=torch.zeros(mesh.n_cells, dtype=dtype, device=dev),
+                  Yv=torch.zeros(mesh.n_cells, dtype=dtype, device=dev))
     return st
 
 

@@ -72,6 +72,12 @@ def pimple_step(mesh, state: Dict, dt: Any, cfg: PimpleConfig
                 ) -> Tuple[Dict, Dict]:
     """One PIMPLE time step. state: {"U","p","phi","U0"(,"turb")}."""
     check_supported(mesh, state, cfg)
+    if "mom_src" in state:
+        # the reference's PIMPLE never reads mom_src and so would drop the
+        # source silently (ROADMAP Queue 3: a departure kept on purpose)
+        raise NotImplementedError(
+            "a lagrangian momentum source (state['mom_src']) in PIMPLE: the "
+            "reference's pimple_step ignores it; use PISO")
     p_ctrl = cfg.p_controls or {"solver": "PCG", "preconditioner": "diagonal",
                                 "tolerance": 1e-6, "relTol": 0.0,
                                 "maxIter": 1000}

@@ -115,8 +115,6 @@ def check_supported(mesh, state: Dict, cfg) -> None:
 
     if cfg.corrected and not getattr(mesh, "orthogonal", False):
         no("corrected=True on a non-orthogonal mesh")
-    if "mom_src" in state:
-        no("a lagrangian momentum source (state['mom_src'])")
 
 
 def needs_reference(p: VolField, mesh) -> bool:
@@ -168,12 +166,16 @@ def add_viscous(mesh, UEqn, U: VolField, turb_state, cfg):
         gamma_dims=dimViscosity, limit=cfg.corr_limit)
 
 
-def add_sources(mesh, UEqn, U: VolField, fvopt_state, cfg):
-    """UEqn plus the fvOptions' sources (fvOptions(U)) and the MRF zones'
-    Coriolis term (mrfZones.addCoriolis(UEqn)), in the reference's order."""
+def add_sources(mesh, UEqn, U: VolField, fvopt_state, cfg, mom_src=None):
+    """UEqn plus the fvOptions' sources (fvOptions(U)), a Lagrangian
+    momentum source (KinematicCloud::SU(U): `mom_src`, [nC, 3] force over
+    the carrier's density, m^4/s^2 per cell) and the MRF zones' Coriolis
+    term (mrfZones.addCoriolis(UEqn)), in the reference's order."""
     if cfg.fv_options:
         UEqn = cfg.fv_options.add_to(mesh, UEqn, "U", U, U=U,
                                      fvopt_state=fvopt_state)
+    if mom_src is not None:
+        UEqn = UEqn.add_source(mom_src / mesh.v[:, None], mesh)
     if cfg.mrf:
         UEqn = cfg.mrf.add_coriolis(mesh, UEqn, U)
     return UEqn
@@ -211,7 +213,8 @@ def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
     UEqn = (ddt_matrix(mesh, U, state, rdt, cfg.ddt_scheme)
             + fvm.div(mesh, phi, U, phi_slot=phi_slot, slot_weights=w_slot))
     UEqn = add_viscous(mesh, UEqn, U, state.get("turb"), cfg)
-    UEqn = add_sources(mesh, UEqn, U, state.get("fvopt"), cfg)
+    UEqn = add_sources(mesh, UEqn, U, state.get("fvopt"), cfg,
+                       mom_src=state.get("mom_src"))
     grad_p = fvc.grad_of(mesh, p, cfg.grad_scheme)
     if cfg.momentum_predictor:
         Umat = UEqn.add_source(-grad_p, mesh)

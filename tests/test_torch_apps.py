@@ -22,7 +22,7 @@ Then the application layer itself: `Time.loop` / `adjust_delta_t` /
 `write_time` / `register_write` (purgeWrite) against the reference's Time
 on the same controlDict, the log lines against the reference's
 formatters, and the cases that must raise: an unknown application,
-XiFoam and sprayEngineFoam (outside the ported slices), a
+an unported BC kind (noSlip), a
 codedSource snippet that uses a jnp name outside the port's subset
 (utils/tnp.py).
 """
@@ -362,11 +362,14 @@ def test_run_rejects_an_unknown_application(cavity):
     # MRFZones and fvOptions are read since the rotating-frame slice
     # (tests/test_torch_mrf.py), and the compressible MRF family runs since
     # the compressible slice (tests/test_torch_rhopimple.py), sonicDyMFoam
-    # since the topology-change slice (tests/test_torch_engine.py);
-    # sprayEngineFoam (the parcels on the engine mesh) is not, nor a coded
+    # since the topology-change slice (tests/test_torch_engine.py), and
+    # sprayEngineFoam since the Lagrangian slice
+    # (tests/test_torch_reactingcloud.py); a BC kind of the reference's
+    # derived batches (noSlip: ROADMAP Queue 1 item 6) is not, nor a coded
     # snippet that uses a jnp name outside the port's subset
-    (("system", "controlDict"), "\napplication sprayEngineFoam;\n",
-     "sprayEngineFoam"),
+    (("0", "U"), "\nboundaryField { movingWall { type noSlip; }\n"
+     "fixedWalls { type noSlip; } frontAndBack { type empty; } }\n",
+     "noSlip"),
     (("system", "fvOptions"),
      "src { type vectorCodedSource; selectionMode all; fields (U);\n"
      "codeAddSup #{\nsource = jnp.cumsum(jnp.zeros((V.shape[0], 3)))\n"

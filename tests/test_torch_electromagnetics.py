@@ -154,8 +154,9 @@ def test_applications_are_registered():
     # twelve of the multiphase family since the multiphase slice, the six
     # of the combustion family since the combustion slice, sonicDyMFoam,
     # coldEngineFoam and engineFoam since the topology-change slice
-    # (tests/test_torch_engine.py)
-    assert len(tapps.APPLICATIONS) == 70
+    # (tests/test_torch_engine.py), the Lagrangian family's nine and the
+    # discrete methods' three since the Lagrangian slice
+    assert len(tapps.APPLICATIONS) == 82
 
 
 def test_magnets_are_selected_by_box(tmp_path):

@@ -330,13 +330,14 @@ def meshed_cavity(tmp_path_factory):
 # first step: (application, constant/<file>, its text, the word raised).
 # sixDoFRigidBodyMotion, attachDetach and dynamicRefineFvMesh are ported
 # since the topology-change slice (tests/test_torch_sixdof.py,
-# tests/test_torch_topo.py, tests/test_torch_amr.py); sprayEngineFoam, the
-# parcels on its engine mesh, is not
+# tests/test_torch_topo.py, tests/test_torch_amr.py), and sprayEngineFoam,
+# the parcels on its engine mesh, since the Lagrangian slice
+# (tests/test_torch_reactingcloud.py); an LES delta other than
+# cubeRootVol is not (the reference reads none)
 REFUSED = {
-    "sprayEngineFoam": (
-        "sprayEngineFoam", "engineGeometry",
-        "rpm rpm [0 0 -1 0 0 0 0] 60;\ntheta0 -180;\naxis 1;\n",
-        "sprayEngineFoam"),
+    "smoothDelta": (
+        "pisoFoam", "LESProperties",
+        "LESModel Smagorinsky;\ndelta smooth;\n", "smooth"),
     "vanDriest": (
         "pisoFoam", "LESProperties",
         "LESModel Smagorinsky;\ndelta vanDriest;\n", "vanDriest"),

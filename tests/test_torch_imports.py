@@ -53,6 +53,24 @@ TOPOCHANGE = ("mesh.topo", "mesh.refine", "mesh.motionsolver",
               "mesh.engine", "models.sixdof", "solvers.floating",
               "solvers.engine", "__main__")
 TOPOCHANGE_APPS = ("sonicDyMFoam", "coldEngineFoam", "engineFoam")
+# the Lagrangian slice's modules and applications
+LAGRANGIAN = ("lagrangian", "lagrangian.reactingcloud", "lagrangian.dsmc",
+              "lagrangian.md", "models.liquids", "solvers.parcels")
+LAGRANGIAN_APPS = ("icoUncoupledKinematicParcelFoam",
+                   "uncoupledKinematicParcelFoam", "reactingParcelFoam",
+                   "LTSReactingParcelFoam",
+                   "porousExplicitSourceReactingParcelFoam",
+                   "coalChemistryFoam", "sprayFoam",
+                   "reactingParcelFilmFoam", "sprayEngineFoam", "dsmcFoam",
+                   "mdFoam", "mdEquilibrationFoam")
+
+
+def _module_file(m):
+    """foamtpu_torch/<m>.py, or its package's __init__.py."""
+    rel = m.replace(".", "/")
+    if os.path.isdir(os.path.join(REPO, "foamtpu_torch", rel)):
+        rel += "/__init__"
+    return f"foamtpu_torch/{rel}.py"
 
 
 def test_no_source_imports_jax_or_the_reference():
@@ -102,7 +120,8 @@ def test_no_source_imports_jax_or_the_reference():
                                     m.replace(".", "/")) + ".py"
                 for m in COMBUSTION} | {
                 "foamtpu_torch/" + m.replace(".", "/") + ".py"
-                for m in TOPOCHANGE} <= sources
+                for m in TOPOCHANGE} | {
+                _module_file(m) for m in LAGRANGIAN} <= sources
     # the pattern does catch the imports it is there for
     assert IMPORT.search("import jax.numpy as jnp")
     assert IMPORT.search("    from foamtpu.ops import fvc")
@@ -121,6 +140,7 @@ names = [m.name for m in pkgutil.walk_packages(foamtpu_torch.__path__,
 MULTIPHASE = {MULTIPHASE!r}
 COMBUSTION = {COMBUSTION!r}
 TOPOCHANGE = {TOPOCHANGE!r}
+LAGRANGIAN = {LAGRANGIAN!r}
 assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf",
         "foamtpu_torch.models.turbulence.les",
         "foamtpu_torch.models.turbulence.les2",
@@ -143,7 +163,8 @@ assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf",
         "foamtpu_torch.solvers.chtmultiregion"} | {
             f"foamtpu_torch.solvers.{m}" for m in MULTIPHASE} | {
             f"foamtpu_torch.{m}" for m in COMBUSTION} | {
-            f"foamtpu_torch.{m}" for m in TOPOCHANGE} <= set(names), \
+            f"foamtpu_torch.{m}" for m in TOPOCHANGE} | {
+            f"foamtpu_torch.{m}" for m in LAGRANGIAN} <= set(names), \
     names
 for name in names:
     importlib.import_module(name)
@@ -159,7 +180,8 @@ def test_every_port_module_imports_without_jax():
     env.pop("PYTHONPATH", None)
     body = BODY.replace("{MULTIPHASE!r}", repr(MULTIPHASE)).replace(
         "{COMBUSTION!r}", repr(COMBUSTION)).replace(
-        "{TOPOCHANGE!r}", repr(TOPOCHANGE))
+        "{TOPOCHANGE!r}", repr(TOPOCHANGE)).replace(
+        "{LAGRANGIAN!r}", repr(LAGRANGIAN))
     r = subprocess.run([sys.executable, "-c", body], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr[-2000:]
@@ -175,7 +197,9 @@ def test_entry_points_default_to_the_card():
     host, with no device at all. The combustion slice's constructors
     (the mechanism, the film mesh, the pyrolysis columns) default to the
     card, and its steps and applications name no host device; the port
-    registers 70 applications."""
+    registers 82 applications, every one the reference registers. The
+    Lagrangian slice's clouds, liquids and MD state are made on the
+    mesh's device, or convert.py's on `device`."""
     import inspect
 
     from foamtpu_torch import convert
@@ -187,7 +211,8 @@ def test_entry_points_default_to_the_card():
     assert DEFAULT_DEVICE == "cuda"
     fns = [getattr(convert, n) for n in (
         "tensor", "mesh_from_numpy", "levels_from_numpy", "field_from_numpy",
-        "matrix_from_numpy", "state_from_numpy")]
+        "matrix_from_numpy", "state_from_numpy", "cloud_from_numpy",
+        "coal_from_numpy", "dsmc_from_numpy", "md_state_from_numpy")]
     fns += [Case.__init__, to_device, cases.make_cavity]
     for fn in fns:
         dev = inspect.signature(fn).parameters["device"].default
@@ -216,7 +241,8 @@ def test_entry_points_default_to_the_card():
         step = inspect.signature(mod.make_step)
         assert list(step.parameters)[0] == "mesh" and "device" not in \
             step.parameters, m
-    for name in MULTIPHASE_APPS + COMBUSTION_APPS + TOPOCHANGE_APPS:
+    for name in (MULTIPHASE_APPS + COMBUSTION_APPS + TOPOCHANGE_APPS
+                 + LAGRANGIAN_APPS):
         fn = apps.APPLICATIONS[name]
         assert list(inspect.signature(fn).parameters)[0] == "case", name
         src = inspect.getsource(fn)
@@ -245,4 +271,11 @@ def test_entry_points_default_to_the_card():
               "mesh.engine"):
         mod = importlib.import_module(f"foamtpu_torch.{m}")
         assert '"cpu"' not in inspect.getsource(mod), m
-    assert len(apps.APPLICATIONS) == 70
+    assert len(apps.APPLICATIONS) == 82 and apps.REFERENCE_ONLY == ()
+    from foamtpu_torch.lagrangian import md
+
+    assert inspect.signature(md.make_state).parameters["device"].default \
+        == DEFAULT_DEVICE
+    for m in LAGRANGIAN:
+        assert '"cpu"' not in inspect.getsource(
+            importlib.import_module(f"foamtpu_torch.{m}")), m

@@ -96,10 +96,19 @@ def test_port_rejects_features_outside_slice():
         new, _ = piso.piso_step(mesh, state, 0.005,
                                 cfg._replace(**{name: value}))
         assert bool(torch.isfinite(new["U"].data).all()), name
-    # these are not
-    for bad, word in ((dict(state, mom_src=state["U"].data), "mom_src"),):
-        with pytest.raises(NotImplementedError, match=word):
-            piso.piso_step(mesh, bad, 0.005, cfg)
+    # a lagrangian momentum source (state["mom_src"]) is taken as the
+    # reference takes it, mom_src / V in UEqn (its f64 parity:
+    # tests/test_torch_lagrangian.py)
+    # (a shear force, f_x growing with y: no pressure gradient balances it)
+    y = mesh.c[:, 1] - mesh.c[:, 1].mean()
+    src = torch.zeros_like(state["U"].data)
+    src[:, 0] = 10.0 * y * mesh.v
+    new, _ = piso.piso_step(mesh, dict(state, mom_src=src), 0.005, cfg)
+    ref, _ = piso.piso_step(mesh, state, 0.005, cfg)
+    assert bool(torch.isfinite(new["U"].data).all())
+    gain = new["U"].data[:, 0] - ref["U"].data[:, 0]
+    assert float((gain * y).sum()) > 0.0
+    assert float(gain.abs().max()) < 10.0 * float(y.abs().max()) * 0.005
     # the second-order time schemes are ported; a scheme that is not a
     # ddtScheme is refused as the reference refuses it
     with pytest.raises(ValueError, match="ddtScheme"):

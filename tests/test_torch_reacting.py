@@ -136,8 +136,9 @@ def test_combustion_applications_are_registered():
     assert tapps.APPLICATIONS["XiFoam"] is tapps.xi_foam
     assert tapps.APPLICATIONS["PDRFoam"] is tapps.xi_foam
     # (and sonicDyMFoam, coldEngineFoam, engineFoam since the
-    # topology-change slice, tests/test_torch_engine.py)
-    assert len(tapps.APPLICATIONS) == 70
+    # topology-change slice, tests/test_torch_engine.py, and the twelve of
+    # the Lagrangian slice, tests/test_torch_reactingcloud.py)
+    assert len(tapps.APPLICATIONS) == 82
 
 
 def reference_goldens15(root, names=None, perturb=0.0, port=False):

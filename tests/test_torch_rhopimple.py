@@ -281,9 +281,10 @@ def test_applications_are_registered_as_the_reference():
     # windSimpleFoam, chtMultiRegionFoam and chtMultiRegionSimpleFoam
     # (tests/test_torch_snappy.py, tests/test_torch_cht.py) and the
     # multiphase slice's twelve (tests/test_torch_settling_cavitating.py) and
-    # the combustion slice's six (tests/test_torch_reacting.py) and the
-    # topology-change slice's three (tests/test_torch_engine.py)
-    assert len(reg) == 70
+    # the combustion slice's six (tests/test_torch_reacting.py), the
+    # topology-change slice's three (tests/test_torch_engine.py) and the
+    # Lagrangian slice's twelve (tests/test_torch_reactingcloud.py)
+    assert len(reg) == 82
 
 
 # -- the goldens of chip_smoke.py's compressible phase -------------------------

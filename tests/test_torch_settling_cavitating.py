@@ -152,15 +152,16 @@ REGISTERED = {
 def test_applications_are_registered_as_the_reference():
     """The twelve names of the slice, mapped as
     openfoam-2.2.x_tpu/solvers/apps.py registers them (sonicLiquidFoam:
-    cavitating_foam with sonic_liquid=True); 70 names in all since the
-    combustion slice's six and the topology-change slice's three."""
+    cavitating_foam with sonic_liquid=True); 82 names in all since the
+    combustion slice's six, the topology-change slice's three and the
+    Lagrangian slice's twelve."""
     import inspect
 
     for name, fn in REGISTERED.items():
         assert tapps.APPLICATIONS[name] is getattr(tapps, fn), name
     sonic = tapps.APPLICATIONS["sonicLiquidFoam"]
     assert "sonic_liquid=True" in inspect.getsource(sonic)
-    assert len(tapps.APPLICATIONS) == 70
+    assert len(tapps.APPLICATIONS) == 82
 
 
 def _ref_field(data, kind="zeroGradient"):
