@@ -223,6 +223,29 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
      controls and correctPhi; the SpMV held and timed at the refined
      mesh's p_rgh (its hanging faces in the remainder); one step to settle
      the last event, then one profiled step.
+ 41. lagrangian, lagrangian_headline: the Lagrangian and discrete-method
+     tutorials, one process each, and their paths at width.
+ 42. bc_utilities (after dambreak): the boundary-condition layer and
+     the utilities as a user runs them, three processes at once, each
+     command through `python -m foamtpu_torch` (bcu_case, bcu_chains):
+     pitzDaily with a uniformFixedValue inlet (a k table) and partialSlip
+     walls (checkMesh, 10 SIMPLE iterations, yPlusRAS, wallShearStress),
+     the cavity with a timeVaryingMappedFixedValue lid from seeded
+     boundaryData (20 steps, postProcess, vorticity, Q, Lambda2, sample,
+     foamToVTK), damBreak with a 45-degree contact angle and
+     fixedFluxPressure walls (checkMesh, mapFields onto 92^2, 20 steps,
+     vorticity); every summary (foamLog of each run's log among it) held
+     to goldens from the JAX package.
+ 43. utilities_headline (last): bench.py's duct renumbered by reverse
+     Cuthill-McKee in process (its host seconds, bandwidth, COO fraction
+     and checkMesh; its GAMG hierarchy, minutes of host numpy, built by a
+     background process from the same renumbering), its first 5
+     iterations beside the duct's (GAMG cycles, s/iter, the fields mapped
+     back held to the duct's), its p operand held to the plain version
+     and timed; the vorticity, Q and Lambda2
+     fields on its state (device ms each); damBreak at 736^2 with the
+     contact angle: a warm-up, a timed chunk, one profiled chunk, alpha's
+     bounds, the water volume and the normals at the contact line.
 Every timed SpMV shape (kernel, plain version, one CSR product from
 torch.sparse as the library yardstick) gets its device time per call
 from torch.profiler, back to back with the operands warm in L2 and
@@ -666,14 +689,14 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def duct_setup(nx, ny, nz, device="cuda", pm=None):
+def duct_setup(nx, ny, nz, device="cuda", pm=None, levels=None):
     """bench.py's unstructured row (bench.py:417-486) through the port:
     the 6-tet split of an nx*ny*nz box of size 4x1x1, U=1 inlet with
     inletOutlet outlet and no-slip walls, simpleFoam + kOmegaSST with
     omegaWallFunction/kqRWallFunction/nutkWallFunction, GAMG p with the
-    polynomial preconditioner. Returns (mesh, cfg, state,
-    seconds) with the set-up time split into mesh build, to_device,
-    wall distance and GAMG hierarchy."""
+    polynomial preconditioner (its hierarchy `levels` where given).
+    Returns (mesh, cfg, state, seconds) with the set-up time split into
+    mesh build, to_device, wall distance and GAMG hierarchy."""
     from foamtpu_torch.bc import patchfields as pf
     from foamtpu_torch.core.dictionary import FoamDict, Word
     from foamtpu_torch.core.dimensions import (DimensionSet, dimVelocity,
@@ -742,7 +765,7 @@ def duct_setup(nx, ny, nz, device="cuda", pm=None):
     seconds["wall_distance"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    gamg = GAMG(mesh)
+    gamg = GAMG(mesh, levels=levels)
     _sync(device)
     seconds["gamg_hierarchy"] = time.perf_counter() - t0
 
@@ -1078,7 +1101,7 @@ THREE_RUN_SHAPES = frozenset((
 # plain and cuSPARSE, no warm or graph timings): the duct's p, which the
 # kernels line reads, since the Lagrangian slice, and that slice's two
 # new operands (reactingParcelFoam's p and Yvapour at 512 x 512)
-CSR_FLUSHED_SHAPES = frozenset(("duct_p", "rpf_p", "rpf_Yv"))
+CSR_FLUSHED_SHAPES = frozenset(("duct_p", "rpf_p", "rpf_Yv", "duct_rcm_p"))
 
 
 def time_shape(spmv, name, diag, x, soff, deltas, flush, fb=None):
@@ -1608,6 +1631,13 @@ def iteration_record(diag):
             "continuity": float(diag["continuity"])}
 
 
+def duct_fields(state):
+    """Copies of the duct state's U, p, k, omega and nut."""
+    turb = state["turb"]
+    return {"U": state["U"].data.clone(), "p": state["p"].data.clone(),
+            **{k: turb[k].data.clone() for k in ("k", "omega", "nut")}}
+
+
 def phase_duct(spmv, chunk=DUCT_CHUNK, trials=DUCT_TRIALS):
     """bench.py's unstructured row through the port on the card."""
     from foamtpu_torch.mesh.tetmesh import coo_fraction
@@ -1615,15 +1645,22 @@ def phase_duct(spmv, chunk=DUCT_CHUNK, trials=DUCT_TRIALS):
 
     torch.cuda.reset_peak_memory_stats()
     spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
+    from foamtpu_torch.mesh.tetmesh import tet_box
+
     t0 = time.perf_counter()
     pre = premeshed("duct")
-    mesh, cfg, state, setup = duct_setup(*DUCT, device="cuda",
-                                         pm=pre[0] if pre else None)
+    pm = pre[0] if pre else tet_box(*DUCT, size=(4.0, 1.0, 1.0))
+    build_s = time.perf_counter() - t0
+    mesh, cfg, state, setup = duct_setup(*DUCT, device="cuda", pm=pm)
     setup_s = time.perf_counter() - t0
     if pre:
         # the tets were built beside the earlier phases
         setup.update(mesh_build=pre[1]["mesh_s"],
                      premesh_wait=pre[1]["premesh_wait_s"])
+    else:
+        setup.update(mesh_build=build_s)
+    # the host mesh, for utilities_headline's renumbering
+    HEAD_KEEP["duct_pm"] = pm
     step = simple.make_step(mesh, cfg)
     p_max_iter = cfg.p_controls["maxIter"]
     # warm-up chunk; its first iteration hands its matrices to SolveLog
@@ -1645,6 +1682,9 @@ def phase_duct(spmv, chunk=DUCT_CHUNK, trials=DUCT_TRIALS):
         records += [iteration_record(d) for d in diags]
     launches, fb_launches = spmv.LAUNCHES, spmv.FB_LAUNCHES
     sec = statistics.median(times)
+    # the fields after every iteration, for utilities_headline's
+    # renumbered duct over the same iterations
+    HEAD_KEEP["duct_fields"] = duct_fields(state)
     turb = state["turb"]
     u, k = state["U"].data, turb["k"].data
     om, nut = turb["omega"].data, turb["nut"].data
@@ -2090,6 +2130,12 @@ def phase_pimple_headline(spmv, n=400, nsteps=10, trials=2, n_profile=5):
     return out
 
 
+def max_iter(controls):
+    """A solve's iteration cap: its controls' maxIter, or the linear
+    solvers' default (foamtpu_torch/solvers/linear/__init__.py)."""
+    return int((controls or {}).get("maxIter", 1000))
+
+
 def dambreak_scalars(v, alpha, U, p_rgh):
     """The golden scalars of a 46x46 damBreak state (numpy arrays): the
     water volume sum(alpha V), max |U|, alpha's extrema and p_rgh at
@@ -2222,6 +2268,8 @@ def dambreak_big(spmv, here, root, n=DAMBREAK_BIG_N, trials=2):
         case = Case(dst, device="cuda")
     mesh = case.mesh
     check(mesh.n_cells == n * n, mesh.n_cells)
+    # the mesh and the setFields start, for utilities_headline's angle
+    HEAD_KEEP.update(dambreak_dir=dst, dambreak_pm=case.poly_mesh)
     alpha0 = case.read_field("alpha1").data.clone()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -2257,6 +2305,12 @@ def dambreak_big(spmv, here, root, n=DAMBREAK_BIG_N, trials=2):
     sec = statistics.median(times)
     diag = diags[-1]
     p_iters = [int(i) for i in log.iterations["p"]]
+    if n == DAMBREAK_BIG_N:
+        # the left column's fill after the warm-up and the trials, for
+        # utilities_headline's run with the contact angle
+        HEAD_KEEP["dambreak_fill"] = (
+            DAMBREAK_BIG_WARMUP + DAMBREAK_BIG_CHUNK * trials,
+            dambreak_invariants(mesh, alpha0, state)[0]["left_column_fill"])
     n_profile = 3
 
     def profiled(state):
@@ -2278,6 +2332,8 @@ def dambreak_big(spmv, here, root, n=DAMBREAK_BIG_N, trials=2):
            / (DAMBREAK_BIG_CHUNK * trials),
            "p_rgh_iterations_per_solve": statistics.mean(p_iters),
            "p_rgh_iterations_max": max(p_iters),
+           "p_rgh_solves_at_max_iter": sum(
+               i >= max_iter(cfg.p_controls) for i in p_iters),
            "u_iterations": int(diag["Ux"].n_iterations),
            "courant_max": float(diag["courant_max"]),
            "continuity": float(diag["continuity"]),
@@ -3183,7 +3239,9 @@ def phase_mrf_headline(spmv, here, root, flush, trials=2):
 # ---------------------------------------------------------------------------
 
 RAS_CHANNEL_NU = 1e-4         # tests/test_turbulence.py: U 1, H 0.1
-RAS_CHANNEL_STEPS = 20
+# 10 steps (20 until the utilities slice cut it for the script's time
+# limit; RAS_GOLDEN regenerated)
+RAS_CHANNEL_STEPS = 10
 RAS_CHANNEL_DT = 0.02
 # model: (its second transported field, the nut wall BC it is run with;
 # the BCs ported with the models are spread over them)
@@ -3250,85 +3308,86 @@ functions
 RAS_CHANNEL_CARD_P = ("solver GAMG; smoother GaussSeidel; tolerance 1e-07; "
                       "relTol 0;")
 RAS_GOLDEN = {
-    "RNGkEpsilon": {
-        "ke": 0.5117349624633789,
-        "ux_centre_out": 0.6911367177963257,
-        "ux_centre_row": 0.9999898076057434,
-        "ux_wall_row": 0.9979970455169678,
-        "k_max": 0.06511867791414261,
-        "k_mean": 0.013255964033305645,
-        "epsilon_max": 1.290569543838501,
-        "epsilon_mean": 0.17046071588993073,
-        "nut_max": 0.0006952379480935633,
-        "nut_mean": 0.00014770447160117328,
+    'RNGkEpsilon': {
+        'ke': 0.504836916923523,
+        'ux_centre_out': 0.7992271184921265,
+        'ux_centre_row': 1.0000249147415161,
+        'ux_wall_row': 0.9979389309883118,
+        'k_max': 0.06814098358154297,
+        'k_mean': 0.013465684838593006,
+        'epsilon_max': 1.3119637966156006,
+        'epsilon_mean': 0.16698546707630157,
+        'nut_max': 0.0008736493182368577,
+        'nut_mean': 0.0001904910895973444,
     },
-    "realizableKE": {
-        "ke": 0.5120605826377869,
-        "ux_centre_out": 0.6822383403778076,
-        "ux_centre_row": 0.9999914169311523,
-        "ux_wall_row": 0.9980455636978149,
-        "k_max": 0.06353656202554703,
-        "k_mean": 0.012216247618198395,
-        "epsilon_max": 1.3067792654037476,
-        "epsilon_mean": 0.17540423572063446,
-        "nut_max": 0.001672248705290258,
-        "nut_mean": 0.00021801720140501857,
+    'realizableKE': {
+        'ke': 0.5050485134124756,
+        'ux_centre_out': 0.7950829267501831,
+        'ux_centre_row': 1.0000333786010742,
+        'ux_wall_row': 0.9980272054672241,
+        'k_max': 0.06780942529439926,
+        'k_mean': 0.013230474665760994,
+        'epsilon_max': 1.3773481845855713,
+        'epsilon_mean': 0.17551164329051971,
+        'nut_max': 0.002476600930094719,
+        'nut_mean': 0.00036841005203314126,
     },
-    "LaunderSharmaKE": {
-        "ke": 0.5031536817550659,
-        "ux_centre_out": 0.8681450486183167,
-        "ux_centre_row": 0.999984085559845,
-        "ux_wall_row": 0.9977340698242188,
-        "k_max": 1.5880703926086426,
-        "k_mean": 0.27780407667160034,
-        "epsilon_max": 31.056989669799805,
-        "epsilon_mean": 4.47457218170166,
-        "nut_max": 0.007225287612527609,
-        "nut_mean": 0.0015147405210882425,
+    'LaunderSharmaKE': {
+        'ke': 0.5022549033164978,
+        'ux_centre_out': 0.8775296211242676,
+        'ux_centre_row': 0.9999940395355225,
+        'ux_wall_row': 0.9979272484779358,
+        'k_max': 1.0847196578979492,
+        'k_mean': 0.21144264936447144,
+        'epsilon_max': 21.803876876831055,
+        'epsilon_mean': 3.7717158794403076,
+        'nut_max': 0.004739429336041212,
+        'nut_mean': 0.000970332941506058,
     },
-    "kOmega": {
-        "ke": 0.5152373313903809,
-        "ux_centre_out": 0.6366223096847534,
-        "ux_centre_row": 0.9999997019767761,
-        "ux_wall_row": 0.9977685213088989,
-        "k_max": 0.0205377284437418,
-        "k_mean": 0.00589545164257288,
-        "omega_max": 357.65509033203125,
-        "omega_mean": 97.27107238769531,
-        "nut_max": 0.00033390987664461136,
-        "nut_mean": 0.00014952787023503333,
+    'kOmega': {
+        'ke': 0.5063043832778931,
+        'ux_centre_out': 0.7696352005004883,
+        'ux_centre_row': 1.000041127204895,
+        'ux_wall_row': 0.9977454543113708,
+        'k_max': 0.025976920500397682,
+        'k_mean': 0.006718837656080723,
+        'omega_max': 362.7242126464844,
+        'omega_mean': 92.9617691040039,
+        'nut_max': 0.000332593364873901,
+        'nut_mean': 0.00018276437185704708,
     },
-    "SpalartAllmaras": {
-        "ke": 0.5178470611572266,
-        "ux_centre_out": 0.603295624256134,
-        "ux_centre_row": 1.0000011920928955,
-        "ux_wall_row": 0.997714102268219,
-        "nuTilda_max": 0.000882750260643661,
-        "nuTilda_mean": 0.00021032535005360842,
-        "nut_max": 0.0005806386470794678,
-        "nut_mean": 1.5108962543308735e-05,
+    'SpalartAllmaras': {
+        'ke': 0.5071530342102051,
+        'ux_centre_out': 0.7542719841003418,
+        'ux_centre_row': 1.0000611543655396,
+        'ux_wall_row': 0.9976623058319092,
+        'nuTilda_max': 0.0009350361651740968,
+        'nuTilda_mean': 0.00024548821966163814,
+        'nut_max': 0.0006503178155981004,
+        'nut_mean': 2.17989509110339e-05,
     },
-    "SpalartAllmarasDES": {
-        "ke": 0.516796350479126,
-        "ux_centre_out": 0.6144410371780396,
-        "ux_centre_row": 0.9999955296516418,
-        "ux_wall_row": 0.9978774189949036,
-        "nuTilda_max": 0.0002611975069157779,
-        "nuTilda_mean": 9.415410022484139e-05,
-        "nut_max": 1.238793720403919e-05,
-        "nut_mean": 7.031513860056293e-07,
+    'SpalartAllmarasDES': {
+        'ke': 0.5065832138061523,
+        'ux_centre_out': 0.764504611492157,
+        'ux_centre_row': 1.0000600814819336,
+        'ux_wall_row': 0.9978342652320862,
+        'nuTilda_max': 0.00026099217939190567,
+        'nuTilda_mean': 0.00011446862481534481,
+        'nut_max': 1.235041236213874e-05,
+        'nut_mean': 9.032108323481225e-07,
     },
-    "SpalartAllmarasDDES": {
-        "ke": 0.5178471207618713,
-        "ux_centre_out": 0.6032971739768982,
-        "ux_centre_row": 1.0000011920928955,
-        "ux_wall_row": 0.9977139830589294,
-        "nuTilda_max": 0.0008827500860206783,
-        "nuTilda_mean": 0.0002103253937093541,
-        "nut_max": 0.000580638472456485,
-        "nut_mean": 1.5108962543308735e-05,
+    'SpalartAllmarasDDES': {
+        'ke': 0.5071516633033752,
+        'ux_centre_out': 0.754269540309906,
+        'ux_centre_row': 1.0000592470169067,
+        'ux_wall_row': 0.9976624250411987,
+        'nuTilda_max': 0.0009350363397970796,
+        'nuTilda_mean': 0.0002454882487654686,
+        'nut_max': 0.0006503180484287441,
+        'nut_mean': 2.179895636800211e-05,
     },
 }
+
 LES_GOLDEN = {
     "Smagorinsky": {
         "ke": 0.009157366119325161,
@@ -9682,6 +9741,8 @@ def premesh_main(jobs_file, out_dir):
                 res = snapped_bluff(here_of(jobs_file), root, tuple(arg))
             elif kind == "amr":
                 res = amr_premesh(arg)
+            elif kind == "rcm":
+                res = duct_rcm_premesh(arg)
             else:
                 res = (cht_slabs(blockmesh, parse_string, tuple(arg)), {})
             res[1]["mesh_s"] = time.perf_counter() - t0
@@ -9739,22 +9800,30 @@ def start_premesh(here, root):
         json.dump(jobs, f)
     with open(os.path.join(top, "here"), "w") as f:
         f.write(here)
+    # the renumbered duct's GAMG hierarchy (minutes of host numpy) in a
+    # second process
+    rcm_file = os.path.join(top, "jobs_rcm.json")
+    with open(rcm_file, "w") as f:
+        json.dump([["duct_rcm", "rcm", list(DUCT)]], f)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
-    code = (f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
-            f"chip_smoke.premesh_main({jobs_file!r}, {out_dir!r})")
-    # its output goes to stderr: stdout keeps one JSON line per phase
-    PREMESH.update(proc=subprocess.Popen([sys.executable, "-c", code],
-                                         cwd=here, env=env,
-                                         stdout=sys.stderr),
-                   keys={k for k, _, _ in jobs}, out_dir=out_dir,
+    procs = {}
+    for jf, keys in ((jobs_file, [k for k, _, _ in jobs]),
+                     (rcm_file, ["duct_rcm"])):
+        code = (f"import sys; sys.path.insert(0, {here!r}); import "
+                f"chip_smoke; chip_smoke.premesh_main({jf!r}, {out_dir!r})")
+        # its output goes to stderr: stdout keeps one JSON line per phase
+        proc = subprocess.Popen([sys.executable, "-c", code], cwd=here,
+                                env=env, stdout=sys.stderr)
+        procs.update(dict.fromkeys(keys, proc))
+    PREMESH.update(procs=procs, keys=set(procs), out_dir=out_dir,
                    started=time.perf_counter(), waits={})
 
 
 def stop_premesh():
-    proc = PREMESH.get("proc")
-    if proc is not None and proc.poll() is None:
-        proc.kill()
-        proc.wait()
+    for proc in set(PREMESH.get("procs", {}).values()):
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def premeshed(key):
@@ -9767,7 +9836,7 @@ def premeshed(key):
     path = os.path.join(PREMESH["out_dir"], key + ".pkl")
     t0 = time.perf_counter()
     while not os.path.exists(path):
-        rc = PREMESH["proc"].poll()
+        rc = PREMESH["procs"][key].poll()
         check(rc is None or os.path.exists(path),
               f"the premesh process exited with {rc} before {key}")
         time.sleep(0.05)
@@ -15008,6 +15077,979 @@ def phase_lagrangian_headline(spmv, here, root, flush):
     return out, max_err, timings
 
 
+# ---------------------------------------------------------------------------
+# the boundary-condition layer and the solver-side utilities
+# ---------------------------------------------------------------------------
+
+BCU_TUTORIALS = {
+    "pitz": PITZ_CASE,
+    "cavity": os.path.join("tutorials", "incompressible", "icoFoam",
+                           "cavity"),
+    "dam": DAMBREAK_CASE,
+    "dam_fine": DAMBREAK_CASE,
+}
+# pitzDaily's SIMPLE iterations from rest spread by 3.6% after 10
+# between float32 and float64 (U_max); after 400 most of its scalars
+# spread by well under 1%, p's by 1-2%: its run takes 400
+BCU_STEPS = {"pitz": 400, "cavity": 20, "dam_fine": 20}
+BCU_THETA0 = 45.0            # degrees, on damBreak's three walls
+BCU_FINE_N = 92              # mapFields' target: damBreak at 92 x 92
+BCU_FINE_DT = 0.0005         # its deltaT: the tutorial's Courant number
+BCU_SEED = 18
+_BCU_WALLS = r"(leftWall|rightWall|lowerWall)(\s*\{\s*type\s+)"
+
+
+def bcu_contact_angle(d, p_rgh=False):
+    """damBreak's three walls: constantAlphaContactAngle at BCU_THETA0 on
+    0/alpha1 over their zeroGradient (or over the kind name the JAX
+    package's writer leaves there: its setFields and mapFields write
+    `alphaContactAngle` without its angle, ROADMAP Queue 3), and with
+    `p_rgh` fixedFluxPressure on 0/p_rgh."""
+    _edit(os.path.join(d, "0", "alpha1"),
+          _BCU_WALLS + r"(zeroGradient|alphaContactAngle);",
+          r"\1\2constantAlphaContactAngle; theta0 %r; limit gradient; "
+          r"value uniform 0;" % BCU_THETA0)
+    if p_rgh:
+        _edit(os.path.join(d, "0", "p_rgh"), _BCU_WALLS + r"zeroGradient;",
+              r"\1\2fixedFluxPressure; value uniform 0;")
+
+
+def bcu_boundary_data(d, seed=BCU_SEED):
+    """constant/boundaryData/movingWall of the cavity: its face centres as
+    the sample points (read from the case's polyMesh on the host) and two
+    rows of U, at 0 and 1 s, near (1 0 0), drawn from `seed`."""
+    from foamtpu_torch.io import polymesh as mesh_io
+
+    pm = mesh_io.read(os.path.join(d, "constant", "polyMesh"))
+    wall = next(p for p in pm.patches if p.name == "movingWall")
+    cf = pm.cf[wall.start:wall.start + wall.size]
+    root = os.path.join(d, "constant", "boundaryData", "movingWall")
+    rng = np.random.default_rng(seed)
+    for tname, base in (("0", 1.0), ("1", 1.5)):
+        os.makedirs(os.path.join(root, tname))
+        vals = np.stack([base + 0.1 * rng.standard_normal(wall.size),
+                         0.05 * rng.standard_normal(wall.size),
+                         np.zeros(wall.size)], axis=1)
+        with open(os.path.join(root, tname, "U"), "w") as f:
+            f.write(f"{wall.size}\n(" + "\n".join(
+                "(%r %r %r)" % tuple(map(float, v)) for v in vals) + ")\n")
+    with open(os.path.join(root, "points"), "w") as f:
+        f.write(f"{wall.size}\n(" + "\n".join(
+            "(%r %r %r)" % tuple(map(float, p)) for p in cf) + ")\n")
+
+
+def bcu_case(here, d, name, cli, device=()):
+    """The cases of the `bc_utilities` phase, written to d and meshed by
+    `cli` (the port's command line or the JAX package's), the same for
+    the card and for the goldens:
+    - pitz: simpleFoam's pitzDaily with the derived2 kinds: a
+      uniformFixedValue inlet (U `constant`, k a `table`) and partialSlip
+      walls;
+    - cavity: icoFoam's cavity with a timeVaryingMappedFixedValue lid
+      (bcu_boundary_data), a fieldMinMax function and a sampleDict;
+    - dam: interFoam's damBreak (setFields) with the contact angle and
+      fixedFluxPressure walls (bcu_contact_angle);
+    - dam_fine: damBreak at BCU_FINE_N^2, its walls as dam's, the target
+      of mapFields."""
+    shutil.copytree(os.path.join(here, BCU_TUTORIALS[name]), d)
+    if name == "pitz":
+        _edit(os.path.join(d, "0", "U"),
+              r"inlet\s*\{[^}]*\}", "inlet { type uniformFixedValue; "
+              "uniformValue constant (10 0 0); }")
+        _edit(os.path.join(d, "0", "U"), r"(upperWall|lowerWall)\s*\{[^}]*\}",
+              r"\1 { type partialSlip; valueFraction uniform 0.5; }")
+        _edit(os.path.join(d, "0", "k"), r"inlet\s*\{[^}]*\}",
+              "inlet { type uniformFixedValue; uniformValue table "
+              "((0 0.375) (2000 0.5)); }")
+    if name == "cavity":
+        _edit(os.path.join(d, "0", "U"), r"movingWall\s*\{[^}]*\}",
+              "movingWall { type timeVaryingMappedFixedValue; "
+              "value uniform (1 0 0); }")
+        _edit(os.path.join(d, "system", "controlDict"),
+              r"writeInterval\s+[^;]+;", "writeInterval 10;")
+        with open(os.path.join(d, "system", "controlDict"), "a") as f:
+            f.write("\nfunctions { minmax { type fieldMinMax; "
+                    "fields (U p); } }\n")
+        with open(os.path.join(d, "system", "sampleDict"), "w") as f:
+            f.write("FoamFile { version 2.0; format ascii; class "
+                    "dictionary; object sampleDict; }\nfields (U p);\n"
+                    "sets\n(\n    centreline { type uniform; axis "
+                    "distance; start (0.0025 0.0525 0.005); end (0.0975 "
+                    "0.0525 0.005); nPoints 20; }\n);\n")
+    if name == "dam_fine":
+        _edit(os.path.join(d, "constant", "polyMesh", "blockMeshDict"),
+              r"\(46 46 1\)", f"({BCU_FINE_N} {BCU_FINE_N} 1)")
+        _edit(os.path.join(d, "system", "controlDict"),
+              r"deltaT\s+[^;]+;", f"deltaT {BCU_FINE_DT!r};")
+    with quiet():
+        check(cli(["blockMesh", "-case", d]) == 0, f"{name}: blockMesh")
+        if name == "dam":
+            check(cli(["setFields", "-case", d, *device]) == 0,
+                  f"{name}: setFields")
+    if name == "cavity":
+        bcu_boundary_data(d)
+    if name in ("dam", "dam_fine"):
+        bcu_contact_angle(d, p_rgh=True)
+    return d
+
+
+def bcu_chains(dirs):
+    """The commands of each process, each a `python -m foamtpu_torch`
+    command line, in the order a user runs them: checkMesh, the run, the
+    post-processing; for damBreak checkMesh, mapFields onto the finer
+    case (which writes its walls' angle back), its run and vorticity."""
+    p, c, d, f = (dirs[k] for k in ("pitz", "cavity", "dam", "dam_fine"))
+    return {
+        "pitz": [["checkMesh", "-case", p],
+                 ["run", "-case", p, "-steps", str(BCU_STEPS["pitz"])],
+                 ["yPlusRAS", "-case", p], ["wallShearStress", "-case", p]],
+        "cavity": [["run", "-case", c, "-steps", str(BCU_STEPS["cavity"])],
+                   ["postProcess", "-case", c], ["vorticity", "-case", c],
+                   ["Q", "-case", c], ["Lambda2", "-case", c],
+                   ["sample", "-case", c], ["foamToVTK", "-case", c]],
+        "dam": [["checkMesh", "-case", d],
+                ["mapFields", d, "-case", f, "-sourceTime", "0"],
+                ["run", "-case", f, "-steps", str(BCU_STEPS["dam_fine"])],
+                ["vorticity", "-case", f]]}
+
+
+# one case's chain in a process of its own, each command as `python -m
+# foamtpu_torch <command>` runs it (runpy, as -m does) with its stdout
+# kept; then the chain's summary (bcu_summary) and the SpMV launches
+BCU_RUNNER = r"""
+import contextlib, io, json, runpy, sys
+here, name, chain_file, out = sys.argv[1:5]
+device = sys.argv[5:]
+sys.path.insert(0, here)
+import chip_smoke
+from foamtpu_torch.ops import spmv
+with open(chain_file) as f:
+    dirs, chain = json.load(f)
+logs, rcs = [], []
+for step in chain:
+    buf = io.StringIO()
+    sys.argv = ["foamtpu_torch", *step, *device]
+    with contextlib.redirect_stdout(buf):
+        try:
+            runpy.run_module("foamtpu_torch", run_name="__main__",
+                             alter_sys=True)
+            rc = 0
+        except SystemExit as e:
+            rc = e.code or 0
+    logs.append(buf.getvalue())
+    rcs.append(rc)
+rec = {"rcs": rcs, "summary": chip_smoke.bcu_summary(name, dirs, logs),
+       "launches": spmv.LAUNCHES, "fb_launches": spmv.FB_LAUNCHES,
+       "log_tail": logs[-1][-2000:]}
+with open(out, "w") as f:
+    json.dump(rec, f)
+"""
+
+
+def _bcu_internal(path, n):
+    """A written field's internal values as float64 numpy ([n] or [n, 3]),
+    read on the host by the port's dictionary parser (whatever its
+    boundary kinds)."""
+    from foamtpu_torch.io.fields import load_field_dict
+
+    entry = load_field_dict(path)["internalField"]
+    items = entry if isinstance(entry, list) else [entry]
+    a = np.asarray([x for x in items if isinstance(
+        x, (int, float, np.ndarray))][-1], dtype=np.float64)
+    if any(str(x) == "uniform" for x in items):
+        a = np.broadcast_to(a, (n,) + a.shape)
+    return a
+
+
+def _bcu_field_stats(out, d, t, name, v, tag=None):
+    """min, max and volume-weighted mean of a written field (its
+    magnitude for a vector, and its x mean)."""
+    path = os.path.join(d, t, name)
+    a = _bcu_internal(path, v.shape[0])
+    tag = tag or name
+    if a.ndim == 2:
+        out[f"{tag}_xmean"] = float((a[:, 0] * v).sum() / v.sum())
+        a = np.linalg.norm(a, axis=1)
+    out[f"{tag}_min"] = float(a.min())
+    out[f"{tag}_max"] = float(a.max())
+    out[f"{tag}_mean"] = float((a * v).sum() / v.sum())
+
+
+def _bcu_latest(d):
+    times = [x for x in os.listdir(d)
+             if re.fullmatch(r"[0-9.eE+-]+", x) and os.path.isdir(
+                 os.path.join(d, x))]
+    return max(times, key=float)
+
+
+def _bcu_check_stats(out, log, tag):
+    for key in ("nCells", "totalVolume", "maxNonOrtho", "maxSkewness"):
+        m = re.search(rf"^\s+{key}: (\S+)", log, re.M)
+        if m:
+            out[f"{tag}_{key}"] = float(m.group(1))
+    out[f"{tag}_ok"] = "Mesh OK." in log
+
+
+def _bcu_log_stats(out, log):
+    """foamLog (utils/foamlog.py) on the run's log: the number of series
+    and the last initial residual of p (or p_rgh) and Ux."""
+    from foamtpu_torch.utils import foamlog
+
+    series = foamlog.parse(log)
+    out["foamlog_series"] = len(series)
+    for key in ("p", "p_rgh", "Ux"):
+        if key in series:
+            out[f"foamlog_{key}_last"] = float(series[key][-1][1])
+
+
+def bcu_summary(name, dirs, logs):
+    """The host scalars of a chain (bcu_chains) from what it wrote and
+    printed: checkMesh's statistics, the run's final fields, each derived
+    field's statistics, fieldMinMax's and sample's numbers, foamToVTK's
+    fields and foamLog's series. The same for both packages' files."""
+    from foamtpu_torch.io import polymesh as mesh_io
+
+    out = {}
+    if name == "pitz":
+        d = dirs["pitz"]
+        v = mesh_io.read(os.path.join(d, "constant", "polyMesh")).v
+        _bcu_check_stats(out, logs[0], "checkMesh")
+        t = _bcu_latest(d)
+        out["time"] = float(t)
+        for f in ("U", "p", "k", "nut", "yPlus", "wallShearStress"):
+            _bcu_field_stats(out, d, t, f, v)
+        _bcu_log_stats(out, logs[1])
+    elif name == "cavity":
+        d = dirs["cavity"]
+        v = mesh_io.read(os.path.join(d, "constant", "polyMesh")).v
+        t = _bcu_latest(d)
+        out["time"] = float(t)
+        for f in ("U", "p", "vorticity", "Q", "Lambda2"):
+            _bcu_field_stats(out, d, t, f, v)
+        rows = np.loadtxt(os.path.join(d, "postProcessing", "minmax",
+                                       "fieldMinMax.dat"),
+                          usecols=(0, 2, 3), ndmin=2)
+        out["minmax_rows"] = int(rows.shape[0])
+        out["minmax_last_sum"] = float(np.abs(rows[-4:, 1:]).sum())
+        xy = os.path.join(d, "postProcessing", "sample", t,
+                          "centreline_U_p.xy")
+        s = np.loadtxt(xy, ndmin=2)
+        out["sample_rows"] = int(s.shape[0])
+        for j, k in enumerate(("Ux", "Uy", "p"), start=1):
+            col = s[:, j] if k != "p" else s[:, -1]
+            out[f"sample_{k}_sum"] = float(col.sum())
+            out[f"sample_{k}_absmax"] = float(np.abs(col).max())
+        with open(os.path.join(d, "VTK", f"cavity_{t}.vtk")) as fh:
+            vtk = fh.read()
+        names = re.findall(r"^(?:SCALARS|VECTORS) (\S+)", vtk, re.M)
+        out["vtk_fields"] = " ".join(names)
+        data = [ln for ln in vtk.split("CELL_DATA", 1)[1].splitlines()[1:]
+                if ln and not ln[0].isalpha()]
+        out["vtk_sum"] = float(np.abs(np.array(
+            " ".join(data).split(), dtype=float)).sum())
+        _bcu_log_stats(out, logs[0])
+    else:
+        d, f = dirs["dam"], dirs["dam_fine"]
+        v = mesh_io.read(os.path.join(f, "constant", "polyMesh")).v
+        _bcu_check_stats(out, logs[0], "checkMesh")
+        for fld in ("alpha1", "U", "p_rgh"):
+            _bcu_field_stats(out, f, "0", fld, v, f"mapped_{fld}")
+        out["mapped_water"] = float((_bcu_internal(
+            os.path.join(f, "0", "alpha1"), v.shape[0]) * v).sum())
+        t = _bcu_latest(f)
+        out["time"] = float(t)
+        for fld in ("alpha1", "U", "p_rgh", "vorticity"):
+            _bcu_field_stats(out, f, t, fld, v)
+        out["water"] = float((_bcu_internal(
+            os.path.join(f, t, "alpha1"), v.shape[0]) * v).sum())
+        _bcu_log_stats(out, logs[2])
+    return out
+
+
+def bcu_perturb(d, seed=BCU_SEED, rel=1e-7, fields=("U", "p", "p_rgh")):
+    """perturb_case's start for the 2D cases: `fields` of 0/ times (1 +
+    rel n), plus rel^1.3 n' absolute, U's x and y only (a z component on
+    a 2D mesh is not damped)."""
+    from foamtpu_torch.core.case import Case
+
+    case = Case(d, device="cpu")
+    rng = np.random.default_rng(seed)
+    for name in fields:
+        if os.path.exists(os.path.join(d, "0", name)):
+            f = case.read_field(name).data.double().numpy()
+            g = f * (1.0 + rel * rng.standard_normal(f.shape)) \
+                + rel ** 1.3 * rng.standard_normal(f.shape)
+            if g.ndim == 2:
+                g[:, 2] = f[:, 2]
+            set_internal(d, name, g)
+
+
+BCU_EXACT = ("time", "checkMesh_nCells", "checkMesh_ok", "foamlog_series",
+             "minmax_rows", "sample_rows", "vtk_fields")
+BCU_TOL_SPREAD = 10.0
+BCU_TOL_FLOOR = 1e-4          # of the golden, or of its field's size
+# a key whose tolerance passes this share of its field's size would let
+# a fault of that size through: it is reported, and not held
+BCU_HELD_SHARE = 0.05
+
+
+def bcu_golden_errs(name, got):
+    """({key: (error, tolerance)}, [keys reported and not held]) of a
+    chain's summary against BCU_GOLDEN: the exact keys exactly, the rest
+    within BCU_TOL_SPREAD times the JAX package's spread (BCU_SPREAD), at
+    least BCU_TOL_FLOOR of the golden or of its field's largest value;
+    a key whose tolerance is above BCU_HELD_SHARE of that (a field that
+    is not zero) goes to the second list instead."""
+    gold, spread = BCU_GOLDEN.get(name, {}), BCU_SPREAD.get(name, {})
+
+    def field_scale(k):
+        f = k.rsplit("_", 1)[0]
+        return max((abs(gold.get(f"{f}_{x}", 0.0))
+                    for x in ("min", "max", "mean")), default=0.0)
+
+    out, loose = {}, []
+    for k, g in gold.items():
+        if k not in got:
+            out[k] = (float("inf"), 0.0)
+        elif k in BCU_EXACT or isinstance(g, (bool, str)):
+            out[k] = (0.0 if got[k] == g else float("inf"), 0.0)
+        else:
+            size = max(abs(g), field_scale(k))
+            tol = max(BCU_TOL_SPREAD * spread.get(k, 0.0),
+                      BCU_TOL_FLOOR * size)
+            if size > 0 and tol > BCU_HELD_SHARE * size:
+                loose.append(k)
+            else:
+                out[k] = (abs(got[k] - g), tol)
+    return out, loose
+
+
+# goldens from the JAX package on the CPU (float32) of bcu_chains, and
+# their spread under round-off (the larger of |float32 - float64| and
+# |float32 from bcu_perturb's start - float32|): `PYTHONPATH=. python
+# tests/test_torch_bc_derived.py goldens [--perturb]` (with FOAMTPU_X64=1
+# JAX_ENABLE_X64=1 for float64), then `... spread f32.json f64.json
+# perturbed.json`
+BCU_GOLDEN = {
+    'pitz': {
+        'checkMesh_nCells': 4160.0,
+        'checkMesh_totalVolume': 1.4700839999999998e-05,
+        'checkMesh_maxNonOrtho': 5.75269297198271,
+        'checkMesh_maxSkewness': 0.1005860461368241,
+        'checkMesh_ok': True,
+        'time': 400.0,
+        'U_xmean': 5.3669443369318355,
+        'U_min': 0.10417872749501414,
+        'U_max': 11.007641955857048,
+        'U_mean': 5.893179989941084,
+        'p_min': -23.74430274963379,
+        'p_max': 11.055577278137207,
+        'p_mean': -4.409927571798231,
+        'k_min': 0.0428609624505043,
+        'k_max': 9.588323593139648,
+        'k_mean': 1.6178841016114485,
+        'nut_min': 3.486941568553448e-05,
+        'nut_max': 0.007471128366887569,
+        'nut_mean': 0.0017342880894922062,
+        'yPlus_min': 0.0,
+        'yPlus_max': 99.68775939941406,
+        'yPlus_mean': 4.7740689202344555,
+        'wallShearStress_xmean': 0.024329485125238512,
+        'wallShearStress_min': 0.0,
+        'wallShearStress_max': 1.4740411660790609,
+        'wallShearStress_mean': 0.042159289319195645,
+        'foamlog_series': 20,
+        'foamlog_p_last': 0.0353329,
+        'foamlog_Ux_last': 0.00124108,
+    },
+    'cavity': {
+        'time': 0.1,
+        'U_xmean': 0.0014125749972572004,
+        'U_min': 0.0001865584608823564,
+        'U_max': 0.9850099515980048,
+        'U_mean': 0.19702422346027487,
+        'p_min': -4.247920989990234,
+        'p_max': 5.255427360534668,
+        'p_mean': 0.02563273243937545,
+        'vorticity_xmean': 0.0,
+        'vorticity_min': 0.022891998291015625,
+        'vorticity_max': 171.9424591064453,
+        'vorticity_mean': 18.539212966514746,
+        'Q_min': -8493.783203125,
+        'Q_max': 644.4951171875,
+        'Q_mean': -25.93608398714219,
+        'Lambda2_min': -409.4146728515625,
+        'Lambda2_max': 4917.82958984375,
+        'Lambda2_mean': 9.408224978783101,
+        'minmax_rows': 46,
+        'minmax_last_sum': 20.97612288626,
+        'sample_rows': 20,
+        'sample_Ux_sum': -2.5245239810999998,
+        'sample_Ux_absmax': 0.21670039,
+        'sample_Uy_sum': -0.000222448999999951,
+        'sample_Uy_absmax': 0.212129,
+        'sample_p_sum': 0.322060471,
+        'sample_p_absmax': 0.18510962,
+        'vtk_fields': 'Lambda2 Q U p vorticity',
+        'vtk_sum': 84734.7478165899,
+        'foamlog_series': 16,
+        'foamlog_p_last': 0.00050688,
+        'foamlog_Ux_last': 0.000282989,
+    },
+    'dam': {
+        'checkMesh_nCells': 2116.0,
+        'checkMesh_totalVolume': 0.009958835199999998,
+        'checkMesh_maxNonOrtho': 0.0,
+        'checkMesh_maxSkewness': 1.7498352636180094e-14,
+        'checkMesh_ok': True,
+        'mapped_alpha1_min': 0.0,
+        'mapped_alpha1_max': 1.0,
+        'mapped_alpha1_mean': 0.13043478260869568,
+        'mapped_U_xmean': 0.0,
+        'mapped_U_min': 0.0,
+        'mapped_U_max': 0.0,
+        'mapped_U_mean': 0.0,
+        'mapped_p_rgh_min': 0.0,
+        'mapped_p_rgh_max': 0.0,
+        'mapped_p_rgh_mean': 0.0,
+        'mapped_water': 0.001298978504347826,
+        'time': 0.01,
+        'alpha1_min': -1.1005058843382987e-11,
+        'alpha1_max': 1.0000228881835938,
+        'alpha1_mean': 0.13043478319302768,
+        'U_xmean': 0.0036176940678753857,
+        'U_min': 0.00019708276107236033,
+        'U_max': 0.46789611091828803,
+        'U_mean': 0.03680135063658961,
+        'p_rgh_min': -1.1742023229599,
+        'p_rgh_max': 2762.38671875,
+        'p_rgh_mean': 217.95562582397667,
+        'vorticity_xmean': 0.0,
+        'vorticity_min': 0.0,
+        'vorticity_max': 108.5613021850586,
+        'vorticity_mean': 0.4149162066002647,
+        'water': 0.0012989785101670923,
+        'foamlog_series': 3,
+        'foamlog_p_rgh_last': 0.00274512,
+    },
+}
+BCU_SPREAD = {
+    'pitz': {
+        'checkMesh_totalVolume': 0.0,
+        'checkMesh_maxNonOrtho': 0.0,
+        'checkMesh_maxSkewness': 0.0,
+        'U_xmean': 6.90232037303673e-06,
+        'U_min': 0.0027901762369763744,
+        'U_max': 0.02394244985979377,
+        'U_mean': 0.003323846898333649,
+        'p_min': 0.3222989208923721,
+        'p_max': 0.15926003696383617,
+        'p_mean': 0.24982326364119345,
+        'k_min': 0.0007755343994159183,
+        'k_max': 0.035093223877607826,
+        'k_mean': 0.004799652015487821,
+        'nut_min': 3.055902197957039e-10,
+        'nut_max': 2.4307375075207326e-05,
+        'nut_mean': 4.6292901898956854e-06,
+        'yPlus_min': 0.0,
+        'yPlus_max': 0.15442310170230655,
+        'yPlus_mean': 0.0025351232882755426,
+        'wallShearStress_xmean': 2.438162568363378e-05,
+        'wallShearStress_min': 0.0,
+        'wallShearStress_max': 0.00012871499658895225,
+        'wallShearStress_mean': 4.165499404713835e-05,
+        'foamlog_p_last': 0.0008208000000000035,
+        'foamlog_Ux_last': 6.379999999999841e-06,
+    },
+    'cavity': {
+        'U_xmean': 1.9094022676337252e-08,
+        'U_min': 1.4556872314906602e-07,
+        'U_max': 4.0865304251624934e-08,
+        'U_mean': 1.9060938966086738e-08,
+        'p_min': 1.239776611328125e-05,
+        'p_max': 1.2044196409100039e-05,
+        'p_mean': 1.0731113856441571e-05,
+        'vorticity_xmean': 0.0,
+        'vorticity_min': 7.3909759521484375e-06,
+        'vorticity_max': 1.0130112571005156e-06,
+        'vorticity_mean': 7.052875972135553e-07,
+        'Q_min': 0.002088306409859797,
+        'Q_max': 0.00146484375,
+        'Q_mean': 7.08844162389255e-06,
+        'Lambda2_min': 0.0007686869290637333,
+        'Lambda2_max': 0.0010586730995783,
+        'Lambda2_mean': 1.9686130489304787e-05,
+        'minmax_last_sum': 1.748670001688879e-06,
+        'sample_Ux_sum': 7.270000010883848e-07,
+        'sample_Ux_absmax': 7.000000001866624e-08,
+        'sample_Uy_sum': 1.29999999980146e-07,
+        'sample_Uy_absmax': 6.00000000239298e-08,
+        'sample_p_sum': 0.0002185699999999735,
+        'sample_p_absmax': 1.1979999999994773e-05,
+        'vtk_sum': 0.011302315702778287,
+        'foamlog_p_last': 2.386999999999962e-06,
+        'foamlog_Ux_last': 3.299999999997749e-08,
+    },
+    'dam': {
+        'checkMesh_totalVolume': 0.0,
+        'checkMesh_maxNonOrtho': 0.0,
+        'checkMesh_maxSkewness': 0.0,
+        'mapped_alpha1_min': 0.0,
+        'mapped_alpha1_max': 0.0,
+        'mapped_alpha1_mean': 0.0,
+        'mapped_U_xmean': 1.9754053536159073e-11,
+        'mapped_U_min': 9.810848336813713e-12,
+        'mapped_U_max': 3.2626522515562737e-09,
+        'mapped_U_mean': 1.0207170492019927e-09,
+        'mapped_p_rgh_min': 2.4549298149878496e-09,
+        'mapped_p_rgh_max': 2.572163593228538e-09,
+        'mapped_p_rgh_mean': 1.3824675596927825e-11,
+        'mapped_water': 0.0,
+        'alpha1_min': 1.1005058843382772e-11,
+        'alpha1_max': 1.5040423064771602e-06,
+        'alpha1_mean': 5.843320272092001e-10,
+        'U_xmean': 1.0012222740062287e-05,
+        'U_min': 6.236708305370079e-05,
+        'U_max': 1.3321977354208148e-05,
+        'U_mean': 7.639449993365743e-07,
+        'p_rgh_min': 0.001247906595940984,
+        'p_rgh_max': 0.0016284404091493343,
+        'p_rgh_mean': 0.0013809755313900496,
+        'vorticity_xmean': 0.0,
+        'vorticity_min': 6.299111579566308e-11,
+        'vorticity_max': 0.005061203115943158,
+        'vorticity_mean': 0.00021643826882433714,
+        'water': 5.8192665096379326e-12,
+        'foamlog_p_rgh_last': 5.070000000000248e-06,
+    },
+}
+
+
+def phase_bc_utilities(spmv, here, root, device=()):
+    """The boundary-condition layer and the utilities end to end: the
+    cases of bcu_case, each chain of bcu_chains in a process of its own
+    (BCU_RUNNER), all at once on the card (`device` adds its flags to
+    every command: ("-device", "cpu") rehearses the phase on the CPU);
+    each summary against BCU_GOLDEN, every command's exit code, the
+    SpMV launches of the runs."""
+    from foamtpu_torch.apps.cli import main as cli
+
+    top = os.path.join(root, "bcu")
+    os.makedirs(top)
+    dirs = {n: os.path.join(top, n) for n in BCU_TUTORIALS}
+    t0 = time.perf_counter()
+    for n, d in dirs.items():
+        bcu_case(here, d, n, cli, device)
+    setup_s = time.perf_counter() - t0
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for name, chain in bcu_chains(dirs).items():
+            chain_file = os.path.join(top, name + ".chain.json")
+            with open(chain_file, "w") as f:
+                json.dump([dirs, chain], f)
+            out = os.path.join(top, name + ".json")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-c", BCU_RUNNER, here, name, chain_file,
+                 out, *device], cwd=here, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True), out)
+        runs = {}
+        for name, (proc, out) in procs.items():
+            _, stderr = proc.communicate(timeout=600)
+            check(proc.returncode == 0 and os.path.exists(out),
+                  f"bc_utilities {name}: exit {proc.returncode}: "
+                  f"{stderr[-2000:]}")
+            with open(out) as f:
+                runs[name] = json.load(f)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    checks, worst, loose = {}, {}, {}
+    for name, rec in runs.items():
+        checks[f"{name}: every command exits 0"] = all(
+            rc == 0 for rc in rec["rcs"])
+        errs, loose[name] = bcu_golden_errs(name, rec["summary"])
+        checks[f"{name}: goldens"] = bool(BCU_GOLDEN.get(name)) and all(
+            e <= t for e, t in errs.values())
+        checks[f"{name}: spmv launched"] = rec["launches"] > 0
+        worst[name] = max(((e / t if t else (0.0 if e == 0 else
+                                              float("inf")), k)
+                           for k, (e, t) in errs.items()), default=None)
+    out = {"phase": "bc_utilities", "setup_s": setup_s, "wall_s": wall,
+           "runs": {n: {"commands": bcu_chains(dirs)[n],
+                        "rcs": r["rcs"], "summary": r["summary"],
+                        "launches": r["launches"],
+                        "fb_launches": r["fb_launches"],
+                        "worst_golden_share": worst[n],
+                        "reported_not_held": loose[n]}
+                    for n, r in runs.items()},
+           "spmv_launches_total": sum(r["launches"] for r in runs.values()),
+           "spmv_fb_launches_total": sum(r["fb_launches"]
+                                         for r in runs.values()),
+           "checks": checks}
+    emit(out)
+    for k, ok in checks.items():
+        check(ok, f"bc_utilities check {k}: {out}")
+    return out
+
+
+# phase_duct's host mesh and its state after the timed iterations, and
+# phase_dambreak's 736^2 mesh and case directory, kept for
+# utilities_headline
+HEAD_KEEP = {}
+# the renumbered duct's fields against the duct's after the same
+# DUCT_CHUNK * (DUCT_TRIALS + 1) = 20 iterations, relative to each
+# field's largest value: each p solve stops at relTol 0.01 and the two
+# orderings build different GAMG hierarchies (pairwise agglomeration
+# follows the cell order), so the iterates differ by what a p solve
+# leaves, which shrinks as the runs converge. p on an H100 at the full
+# 96 x 32 x 32 x 6: 3.9e-2 after 5 iterations, 5.2e-3 after 20; on the
+# CPU at 48 x 16 x 16 x 6, `python tests/test_torch_utilities.py rcm 48
+# 16 16 20`. A wrong order or mapping moves a field by its own size
+DUCT_RCM_TOL = 1e-2
+DAMBREAK_ANGLE_PROFILE = 2
+DAMBREAK_ANGLE_TRIALS = 2     # phase_dambreak's trials at 736^2
+# the corrected interface normals at the wall faces of the contact line
+# against theta0: the rotation of _correct_contact_angle is exact up to
+# its clip of nHat.n_wall at 1 - 1e-6 and float32 round-off
+DAMBREAK_ANGLE_TOL = 1e-3   # radians
+
+
+def duct_rcm_premesh(dims):
+    """The premesh job "duct_rcm": bench.py's duct renumbered as
+    duct_rcm renumbers it and the GAMG hierarchy of the result (minutes of
+    host numpy: RCM leaves the pairwise agglomeration 24 slowly coarsening
+    levels), built on the host's CPU: ((order, levels), seconds)."""
+    from foamtpu_torch.mesh import renumber, to_device
+    from foamtpu_torch.mesh.tetmesh import tet_box
+    from foamtpu_torch.solvers.linear.gamg import hierarchy_for_mesh
+
+    new, order = renumber.renumber(tet_box(*dims, size=(4.0, 1.0, 1.0)))
+    t0 = time.perf_counter()
+    levels = hierarchy_for_mesh(to_device(new, "cpu"))
+    return (order, levels), {"gamg_hierarchy_s": time.perf_counter() - t0}
+
+
+def duct_rcm(spmv, flush):
+    """(a) bench.py's duct renumbered by reverse Cuthill-McKee in process
+    (mesh/renumber.py::renumber on phase_duct's host mesh), checked
+    (mesh/check.py), through duct_setup and the same iterations as
+    phase_duct; its p operand held to the plain version and timed."""
+    from foamtpu_torch.mesh import renumber
+    from foamtpu_torch.mesh.check import check as check_mesh
+    from foamtpu_torch.mesh.tetmesh import coo_fraction
+    from foamtpu_torch.solvers import simple
+
+    from foamtpu_torch.convert import levels_from_numpy
+
+    pm = HEAD_KEEP.pop("duct_pm")
+    ref = HEAD_KEEP.pop("duct_fields")
+    t0 = time.perf_counter()
+    bw0 = renumber.bandwidth(pm)
+    new, order = renumber.renumber(pm)
+    rcm_s = time.perf_counter() - t0
+    bw1 = renumber.bandwidth(new)
+    t0 = time.perf_counter()
+    stats = check_mesh(new)
+    check_s = time.perf_counter() - t0
+    del pm
+    # the hierarchy of the same renumbering, built in the background
+    # process (or here, without one)
+    pre = premeshed("duct_rcm")
+    levels = None
+    if pre:
+        (order_bg, levels), bg = pre
+        check(np.array_equal(order_bg, order),
+              "the background renumbering differs from the process's")
+        levels = levels_from_numpy(levels, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    launches0, fb0 = spmv.LAUNCHES, spmv.FB_LAUNCHES
+    t0 = time.perf_counter()
+    mesh, cfg, state, setup = duct_setup(*DUCT, device="cuda", pm=new,
+                                         levels=levels)
+    setup_s = time.perf_counter() - t0
+    if pre:
+        setup.update(gamg_hierarchy_background=bg["gamg_hierarchy_s"],
+                     premesh_wait=bg["premesh_wait_s"])
+    step = simple.make_step(mesh, cfg)
+    # phase_duct's iterations: a warm-up chunk whose first iteration goes
+    # to SolveLog, then DUCT_TRIALS timed chunks
+    with SolveLog(state) as log:
+        state, diags = run_iterations(step, state, 1)
+    state, more = run_iterations(step, state, DUCT_CHUNK - 1)
+    diags += more
+    torch.cuda.synchronize()
+    la, fa = spmv.LAUNCHES, spmv.FB_LAUNCHES
+    times = []
+    for _ in range(DUCT_TRIALS):
+        t0 = time.perf_counter()
+        state, more = run_iterations(step, state, DUCT_CHUNK)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / DUCT_CHUNK)
+        diags += more
+    records = [iteration_record(d) for d in diags]
+    n_timed = DUCT_CHUNK * DUCT_TRIALS
+    got = duct_fields(state)
+    o = torch.as_tensor(order, device=mesh.device)
+    errs = {}
+    for k, a in got.items():
+        back = torch.empty_like(a)
+        back[o] = a
+        errs[k] = float(torch.max(torch.abs(back - ref[k]))
+                        / torch.max(torch.abs(ref[k])))
+    del ref
+    # the kernel at the renumbered p operand
+    ops = [op for op in solve_operands(log, mesh, "duct_rcm")
+           if op[0] == "duct_rcm_p"]
+    deltas = tuple(mesh.st_deltas)
+    cases = []
+    max_err = 0.0
+    for dtype in (torch.float32, torch.float64):
+        err = check_operands(spmv, ops, mesh, deltas, dtype,
+                             np.random.default_rng(4), cases)
+        if dtype == torch.float32:
+            max_err = err
+    name, soff, diag, sfb = ops[0]
+    soff, diag = soff.contiguous(), diag.contiguous()
+    timings = time_shape(spmv, name, diag, operand_x(diag, 31), soff,
+                         deltas, flush,
+                         fb=mesh_remainder(spmv, mesh, sfb, diag.dtype))
+    p_iters = [r["iters"]["p"] for r in records]
+    out = {"rcm_s": rcm_s, "bandwidth": [bw0, bw1],
+           "check_s": check_s, "check": stats,
+           "coo_fraction": coo_fraction(mesh),
+           "n_coo": int(mesh.fb_cells.shape[0]),
+           "st_deltas": list(mesh.st_deltas),
+           "gamg_level_sizes": [mesh.n_cells] + [
+               lv.n_coarse for lv in cfg.p_controls["_gamg"].levels],
+           "setup_s": setup_s, "setup_split_s": setup,
+           "sec_per_iter": statistics.median(times),
+           "trial_sec_per_iter": times, "iterations": len(records),
+           "p_gamg_cycles": p_iters,
+           "spmv_launches_per_iter": (spmv.LAUNCHES - la) / n_timed,
+           "spmv_fb_launches_per_iter": (spmv.FB_LAUNCHES - fa) / n_timed,
+           "field_rel_err_vs_duct": errs,
+           "field_tolerance": DUCT_RCM_TOL,
+           "continuity": records[-1]["continuity"],
+           "kernel_cases": cases, "timings": timings,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    checks = {"checkMesh totals": stats["nCells"] == mesh.n_cells
+              and stats["maxCellOpenness"] < 1e-8,
+              "bandwidth falls": bw1 < bw0,
+              "finite": all(bool(torch.isfinite(a).all())
+                            for a in got.values()),
+              "p converged": all(i < cfg.p_controls["maxIter"]
+                                 for i in p_iters),
+              "fields as the duct's (DUCT_RCM_TOL)": all(
+                  e <= DUCT_RCM_TOL for e in errs.values()),
+              "spmv launched": out["spmv_launches_per_iter"] > 0,
+              "remainder fused": out["spmv_fb_launches_per_iter"] > 0}
+    return out, checks, (mesh, cfg, state), max_err, timings, \
+        (spmv.LAUNCHES - launches0, spmv.FB_LAUNCHES - fb0)
+
+
+def postutils_at_width(mesh, state, flush):
+    """(c) the postutils commands' fields (vorticity, Q, Lambda2) on the
+    renumbered duct's U at width: device ms a command (torch.profiler,
+    L2 flushed), checked finite."""
+    from foamtpu_torch.apps import postutils
+    from foamtpu_torch.ops import fvc
+
+    U = state["U"]
+    fns = {"vorticity": lambda: fvc.curl(mesh, U),
+           "Q": lambda: postutils.q_field(mesh, U),
+           "Lambda2": lambda: postutils.lambda2_field(mesh, U)}
+    out = {}
+    for name, fn in fns.items():
+        f = fn()
+        torch.cuda.synchronize()
+        out[name] = {"device_ms": device_ms(fn, flush, reps=5, trials=1),
+                     "finite": bool(torch.isfinite(f).all()),
+                     "absmax": float(torch.max(torch.abs(f)))}
+    return out
+
+
+def dambreak_angle(spmv, here, root):
+    """(b) phase_dambreak's 736^2 case (its mesh and setFields start) with
+    constantAlphaContactAngle at BCU_THETA0 on its walls and nothing else
+    changed, so that phase_dambreak's run is its control: a warm-up
+    through the application, phase_dambreak's timed chunks of its own
+    step and one profiled chunk (the phase's one profile, last); alpha's
+    bounds and the water volume (dambreak_invariants), the left column's
+    fill against the control's after the same steps, and the corrected
+    interface normals at the contact line against theta0."""
+    from foamtpu_torch.core.case import Case
+    from foamtpu_torch.models import interface as iface
+    from foamtpu_torch.ops import fvc, surface
+    from foamtpu_torch.solvers import interfoam
+    from foamtpu_torch.solvers.apps import _inter_config, run
+
+    src, pm = HEAD_KEEP.pop("dambreak_dir"), HEAD_KEEP.pop("dambreak_pm")
+    n = int(round(pm.n_cells ** 0.5))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dst = os.path.join(root, f"damBreakAngle{n}")
+    os.makedirs(os.path.join(dst, "constant"))
+    for sub in ("0", "system"):
+        shutil.copytree(os.path.join(src, sub), os.path.join(dst, sub))
+    for f in os.listdir(os.path.join(src, "constant")):
+        s = os.path.join(src, "constant", f)
+        if f == "polyMesh":
+            os.symlink(s, os.path.join(dst, "constant", f))
+        else:
+            shutil.copy(s, os.path.join(dst, "constant", f))
+    bcu_contact_angle(dst)
+    case = Case(dst, device="cuda")
+    case._poly = pm
+    mesh = case.mesh
+    alpha0 = case.read_field("alpha1").data.clone()
+    kinds = [bc.kind for bc in case.read_field("alpha1").bcs]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    launches0, fb0 = spmv.LAUNCHES, spmv.FB_LAUNCHES
+    t0 = time.perf_counter()
+    with quiet():
+        run(case, max_steps=DAMBREAK_BIG_WARMUP)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    dt = case.time.delta_t
+    cfg = _inter_config(case)
+    step = interfoam.make_step(mesh, cfg)
+    state = case.final_state
+
+    def chunk(state, n_steps):
+        diags = []
+        for _ in range(n_steps):
+            state, diag = step(state, dt)
+            diags.append(diag)
+        return state, diags
+
+    # phase_dambreak's timed chunks, the same steps from the same start
+    la = spmv.LAUNCHES
+    times = []
+    with SolveLog(state) as log:
+        for _ in range(DAMBREAK_ANGLE_TRIALS):
+            t0 = time.perf_counter()
+            state, diags = chunk(state, DAMBREAK_BIG_CHUNK)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) / DAMBREAK_BIG_CHUNK)
+    sec = statistics.median(times)
+    launches_timed = spmv.LAUNCHES - la
+    p_iters = [int(i) for i in log.iterations["p"]]
+    # the left column's fill here and in phase_dambreak's run without the
+    # angle, after the same steps
+    steps_plain, fill_plain = HEAD_KEEP.pop("dambreak_fill")
+    steps = DAMBREAK_BIG_WARMUP + DAMBREAK_BIG_CHUNK * DAMBREAK_ANGLE_TRIALS
+    fill = dambreak_invariants(mesh, alpha0, state)[0]["left_column_fill"]
+
+    def profiled(state):
+        state, diags = chunk(state, DAMBREAK_ANGLE_PROFILE)
+        return state, diags[-1]
+
+    state, prof = profile_chunk(spmv, "dambreak_angle_profile", mesh,
+                                profiled, state, DAMBREAK_ANGLE_PROFILE, sec)
+    inv, checks = dambreak_invariants(mesh, alpha0, state)
+    # the wall faces of the contact line: the corrected normals there
+    alpha = state["alpha"]
+    g = fvc.grad(mesh, alpha)
+    gb = surface.owner_to_b(mesh, g)
+    gf = torch.cat([surface.interpolate_internal(mesh, g), gb], dim=0)
+    nhat = gf / (torch.linalg.vector_norm(gf, dim=1)
+                 + 1e-8 / torch.mean(torch.pow(mesh.v, 1.0 / 3.0)))[:, None]
+    turned = iface._correct_contact_angle(mesh, alpha, nhat)
+    dev, before, faces = [], [], 0
+    # the contact line: wall faces whose cell lies in the interface band
+    # (|grad alpha| above a tenth of its largest value)
+    gn = torch.linalg.vector_norm(g, dim=1)
+    band = gn > 0.1 * gn.max()
+    for p, bc in zip(mesh.patches, alpha.bcs):
+        if bc.kind != "alphaContactAngle":
+            continue
+        sl = p.slice
+        line = band[mesh.owner[sl]]
+        nf = mesh.sf[sl] / mesh.mag_sf[sl][:, None]
+        cos_t = torch.clamp(torch.sum(turned[sl] * nf, dim=1), -1, 1)
+        cos_0 = torch.clamp(torch.sum(nhat[sl] * nf, dim=1), -1, 1)
+        dev.append(torch.abs(torch.arccos(cos_t[line])
+                             - np.radians(BCU_THETA0)))
+        before.append(torch.abs(torch.arccos(cos_0[line])
+                                - np.radians(BCU_THETA0)))
+        faces += int(line.sum())
+    dev, before = torch.cat(dev), torch.cat(before)
+    n_timed = DAMBREAK_BIG_CHUNK * DAMBREAK_ANGLE_TRIALS
+    out = {"n_cells": mesh.n_cells, "setup_s": setup_s, "warmup_s": warm_s,
+           "alpha1_wall_kinds": kinds, "sec_per_step": sec,
+           "trial_sec_per_step": times, "chunk_steps": DAMBREAK_BIG_CHUNK,
+           "spmv_launches_per_step": launches_timed / n_timed,
+           "cuda_launch_kernel_per_step": prof["cuda_launch_kernel_per_iter"],
+           "device_ms_per_step": prof["device_ms_per_iter"],
+           "device_busy_share": prof["device_busy_share_unprofiled"],
+           "p_rgh_iterations": p_iters,
+           "p_rgh_solves_at_max_iter": sum(
+               i >= max_iter(cfg.p_controls) for i in p_iters),
+           "left_column_fill": {"steps": steps, "with_angle": fill,
+                                "without_angle": fill_plain,
+                                "without_angle_steps": steps_plain},
+           "contact_line_faces": faces,
+           "angle_err_max_rad": float(dev.max()) if faces else None,
+           "angle_err_uncorrected_max_rad":
+               float(before.max()) if faces else None,
+           "invariants": inv,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    # a wall at theta0 < 90 degrees wets: the water climbs the left wall,
+    # so the column's first cells fill above the run's without the angle
+    # (90 degrees leaves them as that run does, 135 below it:
+    # tests/test_torch_bc_derived.py::test_contact_angle_moves_the_left_column_fill)
+    del checks["column falls"]
+    checks["the left wall wets (fill above the run's without the angle)"] \
+        = steps == steps_plain and fill > fill_plain
+    checks["the walls carry the angle"] = kinds.count(
+        "alphaContactAngle") == 3
+    checks["contact line found"] = faces > 0
+    checks["normals at theta0 (DAMBREAK_ANGLE_TOL)"] = faces > 0 and \
+        float(dev.max()) <= DAMBREAK_ANGLE_TOL
+    checks["spmv launched"] = out["spmv_launches_per_step"] > 0
+    return out, checks, (spmv.LAUNCHES - launches0,
+                         spmv.FB_LAUNCHES - fb0)
+
+
+def phase_utilities_headline(spmv, here, root, flush, duct):
+    """The utilities at full width: (a) bench.py's duct renumbered
+    (duct_rcm), beside phase_duct's run (`duct`: its record); (c) the
+    postutils fields on its state; (b) damBreak's contact angle at 736^2
+    (dambreak_angle, whose profile comes last)."""
+    spmv.LAUNCHES = spmv.FB_LAUNCHES = 0
+    rcm, checks, (mesh, cfg, state), max_err, timings, _ = duct_rcm(
+        spmv, flush)
+    # the duct over the same iterations: s/iter of its timed chunks
+    rcm["duct"] = {k: duct[k] for k in ("coo_fraction", "n_coo",
+                                        "sec_per_iter",
+                                        "trial_sec_per_iter")}
+    rcm["duct"]["p_gamg_cycles"] = [r["iters"]["p"]
+                                    for r in duct["per_iteration"]]
+    post = postutils_at_width(mesh, state, flush)
+    for name, r in post.items():
+        checks[f"{name} finite"] = r["finite"]
+    del mesh, cfg, state
+    torch.cuda.empty_cache()
+    dam, dam_checks, _ = dambreak_angle(spmv, here, root)
+    checks.update({f"damBreak {k}": v for k, v in dam_checks.items()})
+    out = {"phase": "utilities_headline",
+           "duct_rcm": rcm,
+           "postutils": post, "dambreak_angle": dam,
+           "spmv_launches_total": spmv.LAUNCHES,
+           "spmv_fb_launches_total": spmv.FB_LAUNCHES,
+           "max_abs_err_f32": max_err, "checks": checks}
+    emit(out)
+    for k, ok in checks.items():
+        check(ok, f"utilities_headline check {k}: {out}")
+    return out, max_err, timings
+
+
 T_START = time.perf_counter()
 TIMELINE = {}
 
@@ -15079,6 +16121,8 @@ def main() -> int:
         stamp("pimple_headline")
         dam, err_dam, t_dam = phase_dambreak(spmv, here, root, flush)
         stamp("dambreak")
+        bcu = phase_bc_utilities(spmv, here, root)
+        stamp("bc_utilities")
         basic = phase_basic(spmv, here, root)
         stamp("basic")
         cross = phase_cross_headline(spmv, here, root)
@@ -15147,6 +16191,10 @@ def main() -> int:
         lagh, err_lag, t_lag = phase_lagrangian_headline(spmv, here, root,
                                                          flush)
         stamp("lagrangian_headline")
+        # last: the renumbered duct's hierarchy is built in the background
+        uhead, err_uh, t_uh = phase_utilities_headline(spmv, here, root,
+                                                       flush, duct)
+        stamp("utilities_headline")
     finally:
         stop_premesh()
         shutil.rmtree(root, ignore_errors=True)
@@ -15162,7 +16210,8 @@ def main() -> int:
     # included), the largest call the main path makes; the warm-L2 time
     # apart, and every timed shape beside it
     main_shape = next(t for t in t_duct if t["shape"] == "duct_p_whole")
-    paths = (head, pitz, duct, ras, pras, phead, dam, basic, cross, heated,
+    paths = (head, pitz, duct, ras, pras, phead, dam, bcu, uhead, basic,
+             cross, heated,
              rot, mrf, turb, les, turb2, dsh, thermal, bouss, dym, dymh, surf, comp,
              chead, rch, small, mhdh, snc, snh, chth, mph, mphh, comb, fire,
              topo, amrh, lagr, lagh)
@@ -15171,7 +16220,8 @@ def main() -> int:
         "replaces": KERNEL_REPLACES,
         "launches": sum(p["spmv_launches_total"] for p in paths),
         "fb_launches": sum(p["spmv_fb_launches_total"] for p in paths),
-        "max_abs_err": max(max_err, err_duct, err_dam, err_heat, err_mrf,
+        "max_abs_err": max(max_err, err_duct, err_dam, err_uh, err_heat,
+                           err_mrf,
                            err_les, err_t2, err_dsh, err_bh, err_dh, err_comp, err_ch,
                            err_small, err_mhd, err_snc, err_snh,
                            err_chth, err_mph, err_mphh, err_comb, err_fire,
@@ -15189,7 +16239,7 @@ def main() -> int:
             "plain_ms",
             "plain_ms_l2_warm", "library_ms", "library_ms_l2_warm",
             "bound_ms", "bound_by", "bound_share")}
-            for t in timings + t_duct + t_dam + t_heat + t_mrf + t_les
+            for t in timings + t_duct + t_dam + t_uh + t_heat + t_mrf + t_les
             + t_t2 + t_dsh + t_bh + t_dh + t_comp + t_ch + t_small + t_mhd + t_snc
             + t_snh + t_chth + t_mph + t_mphh + t_comb + t_fire + t_amr
             + t_lag]}]})

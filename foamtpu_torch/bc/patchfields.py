@@ -3,20 +3,26 @@ openfoam-2.2.x_tpu/bc/patchfields.py).
 
 Each BC kind supplies value coefficients (vf = vic*psi_c + vbc); the
 gradient coefficients and evaluation follow from them exactly as in the
-reference module. The ported slice covers the kinds of the icoFoam
-cavity, the simpleFoam pitzDaily case, the kOmegaSST tet duct and the
-interFoam damBreak case: fixedValue, zeroGradient, fixedGradient, empty,
-calculated, mixed, inletOutlet, totalPressure (incompressible form),
-pressureInletOutletVelocity, flowRateInletVelocity (a fixed value), the
-nutk/nutU/nutUSpalding/kqR/epsilon/omega wall functions,
-and slip with the kinds that share its value coefficients
-(symmetryPlane, symmetry, wedge); and the coupled kinds of a cyclicAMI
-pair: cyclicAMI, with the jumpCyclic family fixedJump and fan on a pair
-retained as coincident AMI faces (ami_values, jump_signed, the fan
-curve's update `_up_fan`). Derived kinds re-evaluate their
-mixed triple through the update registry (`update` /
-`register_update`; the turbulence models register their wall-function
-rules). Any other kind raises NotImplementedError naming it.
+reference module. The kinds mapped here are the reference's direct
+ones: fixedValue, zeroGradient, fixedGradient, mixed, calculated, empty,
+noSlip, movingWallVelocity, rotatingWallVelocity,
+surfaceNormalFixedValue, flowRateInletVelocity (a fixed value),
+pressureInletVelocity, pressureDirectedInletVelocity, inletOutlet,
+outletInlet, freestream, totalPressure (incompressible form),
+pressureInletOutletVelocity, the turbulent-inlet family,
+fixedFluxPressure, waveTransmissive, supersonicFreestream,
+variableHeightFlowRate, the nutk/nutU/nutUSpalding/kqR/epsilon/omega/
+kLowRe wall functions, slip with the kinds that share its value
+coefficients (symmetryPlane, symmetry, wedge), and the coupled kinds of
+a cyclicAMI pair: cyclicAMI, with the jumpCyclic family fixedJump and fan
+on a pair retained as coincident AMI faces (ami_values, jump_signed, the
+fan curve's update `_up_fan`). The derived batches (bc/derived2.py,
+derived3.py, derived4.py) register theirs through
+`register_value_coeffs` and `register_update`; the turbulence models
+register their wall-function rules. Derived kinds re-evaluate their
+mixed triple through the update registry (`update`), from the context
+the solvers pass. A kind registered nowhere raises NotImplementedError
+naming it.
 """
 
 from __future__ import annotations
@@ -180,10 +186,32 @@ _VALUE_COEFFS: Dict[str, Callable] = {
     # flux-free
     "nutkWallFunction": _vc_fixed_value,
     "nutUWallFunction": _vc_fixed_value,
-    "nutUSpaldingWallFunction": _vc_fixed_value,
     "kqRWallFunction": _vc_zero_gradient,
     "epsilonWallFunction": _vc_zero_gradient,
     "omegaWallFunction": _vc_zero_gradient,
+    "kLowReWallFunction": _vc_fixed_value,
+    "noSlip": _vc_fixed_value,
+    "outletInlet": _vc_mixed,
+    "surfaceNormalFixedValue": _vc_fixed_value,
+    "freestream": _vc_mixed,
+    "movingWallVelocity": _vc_fixed_value,
+    "turbulentIntensityKineticEnergyInlet": _vc_mixed,
+    "turbulentMixingLengthDissipationRateInlet": _vc_mixed,
+    "turbulentMixingLengthFrequencyInlet": _vc_mixed,
+    # fixedFluxPressure (derived/fixedFluxPressure): a fixedGradient
+    # whose gradient a solver may hand in as `snGradP` (update rule
+    # below); the stored ref_grad stands otherwise
+    "fixedFluxPressure": _vc_fixed_gradient,
+    # waveTransmissive: mixed with the valueFraction its update rule
+    # sets; zeroGradient until phi and dt arrive
+    "waveTransmissive": _vc_mixed,
+    "pressureInletVelocity": _vc_fixed_value,
+    "rotatingWallVelocity": _vc_fixed_value,
+    # supersonicFreestream: inflow fixes the freestream state, outflow
+    # extrapolates (the reference's supersonic-outlet limit)
+    "supersonicFreestream": _vc_mixed,
+    "variableHeightFlowRate": _vc_mixed,
+    "pressureDirectedInletVelocity": _vc_fixed_value,
 }
 
 
@@ -323,11 +351,121 @@ def _up_fan(bc, mesh, patch, internal, *, phi=None, **ctx):
         torch.clamp(jump, min=0.0), like.shape))
 
 
+def _up_outlet_inlet(bc, mesh, patch, internal, *, phi=None, **ctx):
+    """outletInlet: fixedValue(outletValue) on outflow, zeroGradient on
+    inflow."""
+    if phi is None:
+        return bc
+    phib = phi[patch.slice]
+    return bc.replace(vfrac=(phib > 0.0).to(phib.dtype))
+
+
+def _up_freestream(bc, mesh, patch, internal, *, phi=None, **ctx):
+    return _up_inlet_outlet(bc, mesh, patch, internal, phi=phi, **ctx)
+
+
+def _up_fixed_flux_pressure(bc, mesh, patch, internal, *, snGradP=None,
+                            **ctx):
+    """fixedFluxPressure: the solver hands the consistent boundary
+    snGrad; without it the stored gradient stands."""
+    if snGradP is None:
+        return bc
+    return bc.replace(ref_grad=snGradP[patch.slice])
+
+
+def _up_wave_transmissive(bc, mesh, patch, internal, *, phi=None,
+                          dt=None, c_sound=None, **ctx):
+    """waveTransmissive (derived/waveTransmissive on the advective base):
+    the face value follows the outgoing characteristic D(psi)/Dt = 0 at
+    speed |Un| + c, relaxed toward fieldInf over lInf:
+        v_new = (v_old + Co v_c + k v_inf) / (1 + Co + k)
+        Co = (|Un| + c) dt deltaCoeff,   k = (|Un| + c) dt / lInf
+    stored as the mixed triple (vfrac=1, ref_value=v_new)."""
+    if phi is None or dt is None:
+        return bc
+    sl = patch.slice
+    un = torch.abs(phi[sl]) / torch.clamp(mesh.mag_sf[sl], min=1e-30)
+    cs = c_sound[sl] if c_sound is not None else 0.0
+    speed = un + cs
+    co = speed * dt * mesh.delta_coeffs[sl]
+    l_inf = float(bc.opt("lInf", 0.0) or 0.0)
+    v_inf = bc.opt("fieldInf", None)
+    k = speed * dt / l_inf if l_inf > 0 and v_inf is not None else 0.0
+    vi = _patch_internal(mesh, patch, internal)
+    if vi.ndim == 2 and co.ndim == 1:
+        co = co[:, None]
+        k = k[:, None] if torch.is_tensor(k) and k.ndim == 1 else k
+    vinf_t = torch.as_tensor(v_inf, dtype=vi.dtype, device=vi.device) \
+        if v_inf is not None else 0.0
+    v_new = (bc.ref_value + co * vi + k * vinf_t) / (1.0 + co + k)
+    return bc.replace(ref_value=v_new, vfrac=vi.new_ones(patch.size))
+
+
+def _up_pressure_inlet_velocity(bc, mesh, patch, internal, *, phi=None,
+                                **ctx):
+    """pressureInletVelocity: the inlet velocity takes the flux's normal
+    magnitude, U = n phi/|Sf|."""
+    if phi is None:
+        return bc
+    sl = patch.slice
+    mag = torch.clamp(mesh.mag_sf[sl], min=1e-30)
+    n = mesh.sf[sl] / mag[:, None]
+    u = (phi[sl] / mag)[:, None] * n
+    return bc.replace(ref_value=u, vfrac=internal.new_ones(patch.size))
+
+
+def _up_variable_height_flow_rate(bc, mesh, patch, internal, **ctx):
+    """variableHeightFlowRate: a phase-fraction outlet, zeroGradient
+    while the adjacent alpha lies between the bounds, the bound as a
+    fixed value outside them."""
+    lo = float(bc.opt("lowerBound", 0.0))
+    hi = float(bc.opt("upperBound", 1.0))
+    vi = _patch_internal(mesh, patch, internal)
+    below = vi < lo
+    above = vi > hi
+    f = (below | above).to(vi.dtype)
+    rv = torch.where(below, torch.full_like(vi, lo),
+                     torch.where(above, torch.full_like(vi, hi), vi))
+    return bc.replace(ref_value=rv, vfrac=f)
+
+
+def _up_supersonic_freestream(bc, mesh, patch, internal, *, phi=None,
+                              **ctx):
+    if phi is None:
+        return bc
+    return bc.replace(vfrac=(phi[patch.slice] < 0.0).to(internal.dtype))
+
+
+def _up_pressure_directed_inlet_velocity(bc, mesh, patch, internal, *,
+                                         phi=None, **ctx):
+    """pressureDirectedInletVelocity: velocity along the prescribed
+    inletDirection d scaled so that the face flux matches,
+    U = d phi/(Sf.d)."""
+    if phi is None:
+        return bc
+    d = torch.as_tensor(bc.opt("inletDir", (1.0, 0.0, 0.0)),
+                        dtype=internal.dtype, device=internal.device)
+    d = d / torch.clamp(torch.linalg.vector_norm(d), min=1e-30)
+    sl = patch.slice
+    sd = mesh.sf[sl] @ d
+    sfd = torch.clamp(torch.abs(sd), min=1e-30) * torch.sign(sd + 1e-300)
+    u = (phi[sl] / sfd)[:, None] * d[None, :]
+    return bc.replace(ref_value=u, vfrac=internal.new_ones(patch.size))
+
+
 _UPDATE: Dict[str, Callable] = {
     "fan": _up_fan,
     "inletOutlet": _up_inlet_outlet,
+    "outletInlet": _up_outlet_inlet,
     "totalPressure": _up_total_pressure,
     "pressureInletOutletVelocity": _up_pressure_io_velocity,
+    "freestream": _up_freestream,
+    "pressureDirectedInletVelocity": _up_pressure_directed_inlet_velocity,
+    "fixedFluxPressure": _up_fixed_flux_pressure,
+    "waveTransmissive": _up_wave_transmissive,
+    "pressureInletVelocity": _up_pressure_inlet_velocity,
+    "variableHeightFlowRate": _up_variable_height_flow_rate,
+    "supersonicFreestream": _up_supersonic_freestream,
 }
 
 
@@ -341,6 +479,11 @@ def update(bc: PatchField, mesh, patch, internal, **ctx) -> PatchField:
 def register_update(kind: str, fn: Callable) -> None:
     """Extension point for model libraries (e.g. wall functions)."""
     _UPDATE[kind] = fn
+
+
+def register_value_coeffs(kind: str, fn: Callable) -> None:
+    """Extension point for the derived batches (bc/derived{2,3,4}.py)."""
+    _VALUE_COEFFS[kind] = fn
 
 
 # ---------------------------------------------------------------------------
@@ -371,7 +514,7 @@ def mixed(ref_value, ref_grad, vfrac, **opts) -> PatchField:
 def make(kind: str, **kw) -> PatchField:
     opts = {k: v for k, v in kw.items()
             if k not in ("ref_value", "ref_grad", "vfrac")}
-    value_kinds = ("fixedValue", "totalPressure", "calculated")
+    value_kinds = ("fixedValue", "noSlip", "totalPressure", "calculated")
     return PatchField(
         ref_value=kw.get("ref_value", 0.0),
         ref_grad=kw.get("ref_grad", 0.0),

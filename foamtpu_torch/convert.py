@@ -18,6 +18,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from .bc import derived3
 from .bc.patchfields import PatchField
 from .core.dimensions import DimensionSet
 from .core.fields import VolField
@@ -108,14 +109,33 @@ def _dims(d) -> DimensionSet:
                           for f in dataclasses.fields(DimensionSet)])
 
 
+def _opt_from_numpy(key, v, device):
+    """One BC option: the reference's `_Frozen` tables become the port's
+    (timeVaryingMappedFixedValue's rows on `device`); anything else is
+    plain data and stays as it is."""
+    if type(v).__name__ != "_Frozen":
+        return v
+    if key == "tvm":
+        times, values = v.a
+        return derived3.boundary_table(
+            (np.asarray(times), np.asarray(values)), scalar_dtype(), device)
+    return derived3._Frozen(np.asarray(v.a))
+
+
+def patchfield_from_numpy(bc, device=DEFAULT_DEVICE) -> PatchField:
+    """The port's PatchField from the reference's: its per-face data and
+    its options, tables included."""
+    return PatchField(ref_value=tensor(bc.ref_value, device),
+                      ref_grad=tensor(bc.ref_grad, device),
+                      vfrac=tensor(bc.vfrac, device), kind=bc.kind,
+                      opts=tuple((k, _opt_from_numpy(k, v, device))
+                                 for k, v in bc.opts))
+
+
 def field_from_numpy(field, device=DEFAULT_DEVICE) -> VolField:
     """The port's VolField (data and per-patch BC data) from the
     reference's."""
-    bcs = tuple(PatchField(ref_value=tensor(bc.ref_value, device),
-                           ref_grad=tensor(bc.ref_grad, device),
-                           vfrac=tensor(bc.vfrac, device),
-                           kind=bc.kind, opts=tuple(bc.opts))
-                for bc in field.bcs)
+    bcs = tuple(patchfield_from_numpy(bc, device) for bc in field.bcs)
     return VolField(data=tensor(field.data, device), bcs=bcs,
                     name=field.name, dims=_dims(field.dims))
 

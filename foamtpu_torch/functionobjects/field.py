@@ -1,6 +1,7 @@
-"""Field-statistics function objects: fieldMinMax and fieldAverage (port
-of openfoam-2.2.x_tpu/functionobjects/field.py;
-src/postProcessing/functionObjects/field/).
+"""Field-statistics function objects: fieldMinMax and fieldAverage, and
+the derived-field helpers `vorticity` and `q_criterion` (port of
+openfoam-2.2.x_tpu/functionobjects/field.py;
+src/postProcessing/functionObjects/{field,utilities}/).
 
 fieldMinMax reduces on the device and fetches the extrema of all its
 fields at once (one fetch per execute); fieldAverage keeps its running
@@ -13,6 +14,7 @@ import os
 
 import torch
 
+from ..ops import fvc
 from .base import FunctionObject, data_of, field_of, register
 
 
@@ -65,6 +67,24 @@ class FieldAverage(FunctionObject):
                 self.means[name] = d.clone()
             else:
                 self.means[name] = (1 - w) * self.means[name] + w * d
+
+
+def vorticity(mesh, U_field):
+    """curl(U) [nC,3] (functionObjects/utilities/vorticity), on the
+    device."""
+    g = fvc.grad(mesh, U_field)  # g[i,j] = d_i u_j
+    return torch.stack([g[:, 1, 2] - g[:, 2, 1],
+                        g[:, 2, 0] - g[:, 0, 2],
+                        g[:, 0, 1] - g[:, 1, 0]], dim=1)
+
+
+def q_criterion(mesh, U_field):
+    """Q = 0.5(|Omega|^2 - |S|^2) (utilities/Q), on the device."""
+    g = fvc.grad(mesh, U_field)
+    s = 0.5 * (g + torch.transpose(g, 1, 2))
+    w = 0.5 * (g - torch.transpose(g, 1, 2))
+    return 0.5 * (torch.sum(w * w, dim=(1, 2)) - torch.sum(s * s,
+                                                          dim=(1, 2)))
 
 
 register("fieldMinMax", FieldMinMax)

@@ -146,8 +146,9 @@ def read_field(path: str, mesh, name: Optional[str] = None) -> VolField:
         internal = internal[None, :].expand(mesh.n_cells, 3).clone()
 
     bf = d["boundaryField"]
+    case_dir = os.path.dirname(os.path.dirname(os.path.abspath(path)))
     bcs = [factory.from_dict(bf.match(p.name), p, rank, dtype, device,
-                             mesh=mesh)
+                             mesh=mesh, case_dir=case_dir, field_name=name)
            for p in mesh.patches]
     return VolField(data=internal, bcs=normalize_bcs(mesh, tuple(bcs), rank),
                     name=name, dims=dims)
@@ -260,20 +261,18 @@ def write_field(field: VolField, mesh, case_dir: str, time_name: str,
     for p, bc in zip(mesh.patches, field.bcs):
         parts.append(f"    {p.name}\n    {{\n")
         kind = bc.kind
-        out_type = {
-            "fixedValue": "fixedValue",
-            "zeroGradient": "zeroGradient",
-            "empty": "empty",
-            "symmetry": "symmetry",
-            "symmetryPlane": "symmetryPlane",
-            "slip": "slip",
-            "calculated": "calculated",
-            "mixed": "mixed",
-            "fixedGradient": "fixedGradient",
-            "inletOutlet": "inletOutlet",
-        }.get(kind, kind)
+        # a kind built under another name goes back under that name, with
+        # its entries and its value
+        out_type, entries = factory.dictionary_entries(bc)
         parts.append(f"        type            {out_type};\n")
-        if kind in ("fixedValue", "calculated") or kind.endswith("WallFunction"):
+        for key, v in entries:
+            parts.append(f"        {key:<16}")
+            parts.extend([v] if isinstance(v, str) else _fmt_bvalue(
+                np.broadcast_to(_host(v), (p.size,) + data.shape[1:]),
+                binary))
+            parts.append(";\n")
+        if kind in ("fixedValue", "calculated") or out_type != kind \
+                or kind.endswith("WallFunction"):
             vals = _host(pf.evaluate(bc, mesh, p, field.data))
             parts.append("        value           ")
             parts.extend(_fmt_bvalue(vals, binary))

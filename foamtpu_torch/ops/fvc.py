@@ -3,8 +3,8 @@ openfoam-2.2.x_tpu/ops/fvc.py): cell->face interpolation, surface
 integration and divergence, the Gauss linear gradient through the slot
 layout, the least-squares and cell-limited gradients and their fvSchemes
 dispatch, the face-normal gradient, the face flux, the explicit
-laplacian, face->cell averaging and reconstruction, and the domain
-integral. `curl` is outside the ported slice.
+laplacian, face->cell averaging and reconstruction, the domain
+integral and the curl.
 
 Empty-patch faces are masked out via mesh.face_active, which makes 2-D
 extruded meshes exact."""
@@ -258,6 +258,15 @@ def reconstruct(mesh, phi: Any) -> Any:
 
 def ddt(mesh, data: Any, old_data: Any, rdt: Any) -> Any:
     return (data - old_data) * rdt
+
+
+def curl(mesh, field: VolField) -> Any:
+    """fvc::curl(U) [nC,3] from the Gauss gradient: curl_i =
+    eps_ijk d(u_k)/d(x_j) (fvcCurl.C: 2*skew(grad U))."""
+    g = grad(mesh, field)   # g[c,i,j] = d(u_j)/d(x_i)
+    return torch.stack([g[:, 1, 2] - g[:, 2, 1],
+                        g[:, 2, 0] - g[:, 0, 2],
+                        g[:, 0, 1] - g[:, 1, 0]], dim=1)
 
 
 def domain_integrate(mesh, data: Any) -> Any:

@@ -364,12 +364,14 @@ def test_run_rejects_an_unknown_application(cavity):
     # the compressible slice (tests/test_torch_rhopimple.py), sonicDyMFoam
     # since the topology-change slice (tests/test_torch_engine.py), and
     # sprayEngineFoam since the Lagrangian slice
-    # (tests/test_torch_reactingcloud.py); a BC kind of the reference's
-    # derived batches (noSlip: ROADMAP Queue 1 item 6) is not, nor a coded
-    # snippet that uses a jnp name outside the port's subset
-    (("0", "U"), "\nboundaryField { movingWall { type noSlip; }\n"
-     "fixedWalls { type noSlip; } frontAndBack { type empty; } }\n",
-     "noSlip"),
+    # (tests/test_torch_reactingcloud.py), the reference's derived BC
+    # batches since the boundary-condition slice
+    # (tests/test_torch_bc_derived.py); a BC kind the reference does not
+    # map by name is not, nor a coded snippet that uses a jnp name outside
+    # the port's subset
+    (("0", "U"), "\nboundaryField { movingWall { type noSlipWall; }\n"
+     "fixedWalls { type noSlipWall; } frontAndBack { type empty; } }\n",
+     "noSlipWall"),
     (("system", "fvOptions"),
      "src { type vectorCodedSource; selectionMode all; fields (U);\n"
      "codeAddSup #{\nsource = jnp.cumsum(jnp.zeros((V.shape[0], 3)))\n"

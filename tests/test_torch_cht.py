@@ -108,8 +108,14 @@ def test_other_unknown_kinds_still_raise():
         name = "w"
         neighbour_patch = None
 
-    with pytest.raises(NotImplementedError, match="solidWallMixed"):
-        tfac.from_dict(TFD([("type", "solidWallMixedTemperatureCoupled")]),
+    # solidWallMixedTemperatureCoupled is the reference's mixed alias,
+    # built since the boundary-condition slice
+    # (tests/test_torch_bc_derived.py); a name it does not map raises
+    bc = tfac.from_dict(TFD([("type", "solidWallMixedTemperatureCoupled")]),
+                        P, 0, torch.float64)
+    assert bc.kind == "mixed"
+    with pytest.raises(NotImplementedError, match="solidWallMixedT"):
+        tfac.from_dict(TFD([("type", "solidWallMixedTemperature")]),
                        P, 0, torch.float64)
 
 

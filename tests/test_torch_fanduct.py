@@ -429,9 +429,10 @@ def test_commands_are_registered():
 
     assert {"topoSet", "createBaffles", "boxTurb"} <= set(cli.COMMANDS)
     # snappyHexMesh is ported since the snappyHexMesh and cht slice
-    # (tests/test_torch_snappy.py); checkMesh is not
-    assert "snappyHexMesh" in cli.COMMANDS
+    # (tests/test_torch_snappy.py), checkMesh since the utilities slice
+    # (tests/test_torch_utilities.py); decomposePar is not
+    assert "snappyHexMesh" in cli.COMMANDS and "checkMesh" in cli.COMMANDS
     # and run since the topology-change slice (tests/test_torch_case_run.py)
     assert cli.COMMANDS["run"] is cli.run
-    with pytest.raises(NotImplementedError, match="checkMesh"):
-        cli.main(["checkMesh", "-case", "."])
+    with pytest.raises(NotImplementedError, match="decomposePar"):
+        cli.main(["decomposePar", "-case", "."])

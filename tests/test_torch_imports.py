@@ -64,6 +64,11 @@ LAGRANGIAN_APPS = ("icoUncoupledKinematicParcelFoam",
                    "reactingParcelFilmFoam", "sprayEngineFoam", "dsmcFoam",
                    "mdFoam", "mdEquilibrationFoam")
 
+# the boundary-condition and utilities slice's modules
+BC_UTILITIES = ("bc.derived3", "bc.derived4", "apps.postutils",
+                "mesh.check", "mesh.renumber", "mesh.wave", "io.vtk",
+                "utils.foamlog")
+
 
 def _module_file(m):
     """foamtpu_torch/<m>.py, or its package's __init__.py."""
@@ -121,7 +126,7 @@ def test_no_source_imports_jax_or_the_reference():
                 for m in COMBUSTION} | {
                 "foamtpu_torch/" + m.replace(".", "/") + ".py"
                 for m in TOPOCHANGE} | {
-                _module_file(m) for m in LAGRANGIAN} <= sources
+                _module_file(m) for m in LAGRANGIAN + BC_UTILITIES} <= sources
     # the pattern does catch the imports it is there for
     assert IMPORT.search("import jax.numpy as jnp")
     assert IMPORT.search("    from foamtpu.ops import fvc")
@@ -141,6 +146,7 @@ MULTIPHASE = {MULTIPHASE!r}
 COMBUSTION = {COMBUSTION!r}
 TOPOCHANGE = {TOPOCHANGE!r}
 LAGRANGIAN = {LAGRANGIAN!r}
+BC_UTILITIES = {BC_UTILITIES!r}
 assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf",
         "foamtpu_torch.models.turbulence.les",
         "foamtpu_torch.models.turbulence.les2",
@@ -164,7 +170,8 @@ assert {"foamtpu_torch.models.fvoptions", "foamtpu_torch.models.mrf",
             f"foamtpu_torch.solvers.{m}" for m in MULTIPHASE} | {
             f"foamtpu_torch.{m}" for m in COMBUSTION} | {
             f"foamtpu_torch.{m}" for m in TOPOCHANGE} | {
-            f"foamtpu_torch.{m}" for m in LAGRANGIAN} <= set(names), \
+            f"foamtpu_torch.{m}" for m in LAGRANGIAN + BC_UTILITIES} <= \
+    set(names), \
     names
 for name in names:
     importlib.import_module(name)
@@ -181,7 +188,8 @@ def test_every_port_module_imports_without_jax():
     body = BODY.replace("{MULTIPHASE!r}", repr(MULTIPHASE)).replace(
         "{COMBUSTION!r}", repr(COMBUSTION)).replace(
         "{TOPOCHANGE!r}", repr(TOPOCHANGE)).replace(
-        "{LAGRANGIAN!r}", repr(LAGRANGIAN))
+        "{LAGRANGIAN!r}", repr(LAGRANGIAN)).replace(
+        "{BC_UTILITIES!r}", repr(BC_UTILITIES))
     r = subprocess.run([sys.executable, "-c", body], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr[-2000:]

@@ -251,13 +251,19 @@ def test_interfoam_rejects_features_outside_slice(tmp_path):
     for name in ("U", "p_rgh", "alpha"):
         assert torch.equal(still[name].data, zero[name].data), name
     assert torch.equal(still["phi"], zero["phi"])
-    # a contact-angle wall: the BC kind raises where the file is read and
-    # where the interface normals would use it
+    # a contact-angle wall (ported since the boundary-condition slice,
+    # tests/test_torch_bc_derived.py): the file is read as the kind
+    # alphaContactAngle, which turns the wall normals; an internal kind
+    # name written into the file is still refused by name
     alpha = case.read_field("alpha1")
-    ca = tuple(bc.replace(kind="alphaContactAngle") if p.type == "wall"
-               else bc for p, bc in zip(mesh.patches, alpha.bcs))
-    with pytest.raises(NotImplementedError, match="alphaContactAngle"):
-        tiface.interface_normals(mesh, alpha.replace(bcs=ca))
+    ca = tuple(bc.replace(kind="alphaContactAngle",
+                          opts=(("theta0", 0.25 * np.pi),))
+               if p.type == "wall" else bc
+               for p, bc in zip(mesh.patches, alpha.bcs))
+    plain = tiface.interface_normals(mesh, alpha)
+    turned = tiface.interface_normals(mesh, alpha.replace(bcs=ca))
+    nif = mesh.n_internal_faces
+    assert torch.equal(plain[:nif], turned[:nif])
     path = os.path.join(dst, "0", "alpha1")
     with open(path) as f:
         text = f.read()
@@ -267,7 +273,14 @@ def test_interfoam_rejects_features_outside_slice(tmp_path):
     assert edited != text
     with open(path, "w") as f:
         f.write(edited)
-    with pytest.raises(NotImplementedError, match="AlphaContactAngle"):
+    left = [p.name for p in mesh.patches].index("leftWall")
+    bc = case.read_field("alpha1").bcs[left]
+    assert bc.kind == "alphaContactAngle"
+    assert abs(bc.opt("theta0") - 0.25 * np.pi) < 1e-12
+    with open(path, "w") as f:
+        f.write(edited.replace("constantAlphaContactAngle",
+                               "alphaContactAngle"))
+    with pytest.raises(NotImplementedError, match="alphaContactAngle"):
         case.read_field("alpha1")
 
 

@@ -355,13 +355,17 @@ def test_simple_rejects_features_outside_slice(pitz):
     new, _ = simple.simple_step(
         tm, dict(state, alpha_sink=torch.zeros_like(tm.v)), cfg)
     assert torch.equal(new["U"].data, ref["U"].data)
-    # totalPressure came with the interFoam slice; a kind still outside
-    # the port is refused by name
+    # totalPressure came with the interFoam slice, waveTransmissive with
+    # the boundary-condition slice (tests/test_torch_bc_derived.py); a
+    # kind the reference does not map is refused by name
     bc = factory.from_dict(parse_string("type totalPressure; p0 uniform 0;"),
                            tm.patches[0], 0, torch.float32)
     assert bc.kind == "totalPressure"
-    with pytest.raises(NotImplementedError, match="waveTransmissive"):
-        factory.from_dict(parse_string("type waveTransmissive; gamma 1.4;"),
+    bc = factory.from_dict(parse_string("type waveTransmissive; gamma 1.4;"),
+                           tm.patches[0], 0, torch.float32)
+    assert bc.kind == "waveTransmissive"
+    with pytest.raises(NotImplementedError, match="waveTransmissiveX"):
+        factory.from_dict(parse_string("type waveTransmissiveX; gamma 1.4;"),
                           tm.patches[0], 0, torch.float32)
     # the RAS models of ras.py are ported since the turbulence slice
     # (tests/test_torch_ras_models.py), those of ras2.py since the slice
