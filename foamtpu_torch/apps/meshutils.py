@@ -1,24 +1,27 @@
-"""topoSet: cell and face sets from system/topoSetDict (a host copy of
-openfoam-2.2.x_tpu/apps/meshutils.py's `topo_set`, `read_set`,
-`write_set` and their sources, unchanged in behaviour; importing the
-reference module loads the JAX package).
+"""Mesh and case manipulation on the host: topoSet, createPatch,
+extrudeMesh, refineMesh, changeDictionary and splitMeshRegions (a host
+copy of openfoam-2.2.x_tpu/apps/meshutils.py, unchanged in behaviour;
+the reference module is loaded through the JAX package).
 
-Cell sources: boxToCell, sphereToCell, cylinderToCell, cellToCell; face
-sources: patchToFace, boxToFace; actions new, add, subtract/delete,
-invert; a cellZoneSet (setToCellZone or any cell source) becomes a
-cellZone of the mesh. Sets are written under constant/polyMesh/sets/.
+topoSet's cell sources: boxToCell, sphereToCell, cylinderToCell,
+cellToCell; face sources: patchToFace, boxToFace; actions new, add,
+subtract/delete, invert; a cellZoneSet (setToCellZone or any cell
+source) becomes a cellZone of the mesh. Sets are written under
+constant/polyMesh/sets/. refineMesh refines a cellSet of a uniform box
+background one level through mesh/snappy.py's octree; the level
+transitions carry hanging faces.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..core.dictionary import FoamDict, parse_file
+from ..core.dictionary import FoamDict, parse_file, write_file
 from ..io import polymesh as mesh_io
-from ..mesh.core import PolyMesh
+from ..mesh.core import Patch, PolyMesh
 
 
 def _source_cells(pm: PolyMesh, source: str, info: FoamDict) -> np.ndarray:
@@ -142,3 +145,340 @@ def topo_set(case: str) -> List[str]:
         write_set(case, name, kind, cur)
         done.append(name)
     return done
+
+
+# ---------------------------------------------------------------------------
+# createPatch (reference: .../mesh/manipulation/createPatch/)
+# ---------------------------------------------------------------------------
+
+
+def create_patch(case: str) -> PolyMesh:
+    """Move boundary faces (from a faceSet or matched patches) into new
+    patches; drops emptied patches."""
+    mdir = os.path.join(case, "constant", "polyMesh")
+    pm = mesh_io.read(mdir)
+    d = parse_file(os.path.join(case, "system", "createPatchDict"))
+    specs = d.get("patches", [])
+    items = [x for x in (specs if isinstance(specs, list) else [specs])
+             if isinstance(x, FoamDict)]
+    nif = pm.n_internal_faces
+    assign = np.full(pm.n_faces, -1, dtype=np.int64)  # new patch id
+    new_patches: List[Tuple[str, str]] = []
+    for spec in items:
+        name = str(spec["name"])
+        info = spec.get("patchInfo", FoamDict())
+        ptype = str(info.get("type", "patch"))
+        pid = len(new_patches)
+        new_patches.append((name, ptype))
+        if str(spec.get("constructFrom", "set")) == "set":
+            ids = read_set(case, str(spec["set"]))
+        else:
+            pats = [str(x) for x in spec.get("patches", [])]
+            ids = np.concatenate([
+                np.arange(p.start, p.start + p.size)
+                for p in pm.patches if p.name in pats] or
+                [np.zeros(0, dtype=np.int64)])
+        ids = ids[ids >= nif]
+        assign[ids] = pid
+
+    # rebuild boundary: kept old patches (unassigned faces) then new
+    rows, npts, own = [], [], []
+    patches: List[Patch] = []
+    start = nif
+
+    def emit(idx, name, ptype):
+        nonlocal start
+        if idx.size == 0:
+            return
+        rows.append(pm.face_pts[idx])
+        npts.append(pm.face_npts[idx])
+        own.append(pm.owner[idx])
+        patches.append(Patch(name=name, type=ptype, start=start,
+                             size=idx.size))
+        start += idx.size
+
+    for p in pm.patches:
+        idx = np.arange(p.start, p.start + p.size)
+        emit(idx[assign[idx] < 0], p.name, p.type)
+    for pid, (name, ptype) in enumerate(new_patches):
+        emit(np.nonzero(assign == pid)[0], name, ptype)
+
+    out = PolyMesh(
+        points=pm.points,
+        face_pts=np.concatenate([pm.face_pts[:nif]] + rows, axis=0),
+        face_npts=np.concatenate([pm.face_npts[:nif]] + npts, axis=0),
+        owner=np.concatenate([pm.owner[:nif]] + own, axis=0),
+        neighbour=pm.neighbour,
+        patches=patches)
+    mesh_io.write(out, mdir)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# extrudeMesh (reference: .../mesh/generation/extrudeMesh/ linearNormal)
+# ---------------------------------------------------------------------------
+
+
+def extrude_mesh(case: str) -> PolyMesh:
+    """linearNormal extrusion of a source patch into nLayers of prisms/
+    hexes. Side faces land in one `sides` patch (documented
+    simplification of the reference's per-edge patch mapping)."""
+    mdir = os.path.join(case, "constant", "polyMesh")
+    pm = mesh_io.read(mdir)
+    d = parse_file(os.path.join(case, "system", "extrudeMeshDict"))
+    patch_name = str(d.get("sourcePatch", d.get("sourcePatches")))
+    n_layers = int(d.get("nLayers", 1))
+    coeffs = d.get("linearNormalCoeffs", FoamDict())
+    thickness = float(coeffs.get("thickness", d.get("thickness", 1.0)))
+    p = pm.patch(patch_name)
+
+    fids = np.arange(p.start, p.start + p.size)
+    # local point compaction
+    used: List[int] = []
+    seen = {}
+    loc_rows = []
+    for f in fids:
+        k = pm.face_npts[f]
+        row = []
+        for pt in pm.face_pts[f, :k]:
+            if pt not in seen:
+                seen[pt] = len(used)
+                used.append(pt)
+            row.append(seen[pt])
+        loc_rows.append(row)
+    base_pts = pm.points[np.asarray(used)]
+    n_base = base_pts.shape[0]
+    # extrusion direction: mean outward patch normal
+    n = pm.sf[fids].sum(axis=0)
+    n /= max(np.linalg.norm(n), 1e-300)
+
+    pts = np.concatenate([
+        base_pts + (thickness * l / n_layers) * n
+        for l in range(n_layers + 1)], axis=0)
+
+    nF = p.size
+    rows, npts_l, owner, neighbour = [], [], [], []
+
+    def cell_id(f, l):
+        return l * nF + f
+
+    # horizontal faces between layers (internal) — normal along +n:
+    # owner = lower cell
+    for l in range(1, n_layers):
+        for fi, row in enumerate(loc_rows):
+            rows.append([pt + l * n_base for pt in row])
+            npts_l.append(len(row))
+            owner.append(cell_id(fi, l - 1))
+            neighbour.append(cell_id(fi, l))
+    # vertical (side) faces: for each base-face edge shared by two
+    # faces -> internal; boundary edge -> side patch
+    edge_users: Dict[Tuple[int, int], List[Tuple[int, Tuple[int, int]]]] = {}
+    for fi, row in enumerate(loc_rows):
+        m = len(row)
+        for e in range(m):
+            a, b = row[e], row[(e + 1) % m]
+            edge_users.setdefault((min(a, b), max(a, b)), []).append(
+                (fi, (a, b)))
+    side_rows = []
+    for key, users in edge_users.items():
+        if len(users) == 2:
+            (f0, (a, b)), (f1, _) = users
+            ow, ne = (f0, f1) if f0 < f1 else (f1, f0)
+            if ow != f0:
+                a, b = users[1][1]
+            for l in range(n_layers):
+                rows.append([b + l * n_base, a + l * n_base,
+                             a + (l + 1) * n_base, b + (l + 1) * n_base])
+                npts_l.append(4)
+                owner.append(cell_id(ow, l))
+                neighbour.append(cell_id(ne, l))
+        else:
+            fi, (a, b) = users[0]
+            for l in range(n_layers):
+                side_rows.append((
+                    [b + l * n_base, a + l * n_base,
+                     a + (l + 1) * n_base, b + (l + 1) * n_base],
+                    cell_id(fi, l)))
+
+    # canonical internal ordering
+    order = np.lexsort((np.asarray(neighbour), np.asarray(owner)))
+    rows = [rows[i] for i in order]
+    npts_l = [npts_l[i] for i in order]
+    owner = [owner[i] for i in order]
+    neighbour = [neighbour[i] for i in order]
+    nif = len(rows)
+
+    patches: List[Patch] = []
+    start = nif
+    # bottom (original surface, outward = -n)
+    for fi, row in enumerate(loc_rows):
+        rows.append(list(reversed(row)))
+        npts_l.append(len(row))
+        owner.append(cell_id(fi, 0))
+    patches.append(Patch(name="bottom", type="patch", start=start,
+                         size=nF))
+    start += nF
+    for fi, row in enumerate(loc_rows):
+        rows.append([pt + n_layers * n_base for pt in row])
+        npts_l.append(len(row))
+        owner.append(cell_id(fi, n_layers - 1))
+    patches.append(Patch(name="top", type="patch", start=start, size=nF))
+    start += nF
+    for row, ow in side_rows:
+        rows.append(row)
+        npts_l.append(4)
+        owner.append(ow)
+    patches.append(Patch(name="sides", type="patch", start=start,
+                         size=len(side_rows)))
+
+    maxp = max(npts_l)
+    fp = np.full((len(rows), maxp), -1, dtype=np.int64)
+    for i, r in enumerate(rows):
+        fp[i, :len(r)] = r
+    out = PolyMesh(points=pts, face_pts=fp,
+                   face_npts=np.asarray(npts_l, dtype=np.int64),
+                   owner=np.asarray(owner, dtype=np.int64),
+                   neighbour=np.asarray(neighbour, dtype=np.int64),
+                   patches=patches)
+    # orientation fix for side faces (edge winding depends on which
+    # face owned the edge)
+    dts = np.einsum("fi,fi->f", out.sf, out.cf - out.c[out.owner])
+    flip = dts < 0
+    if flip.any():
+        for i in np.nonzero(flip)[0]:
+            k = out.face_npts[i]
+            out.face_pts[i, :k] = out.face_pts[i, :k][::-1]
+        out.update_geometry()
+    mesh_io.write(out, mdir)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# refineMesh (reference: .../mesh/manipulation/refineMesh/)
+# ---------------------------------------------------------------------------
+
+
+def refine_mesh(case: str, set_name: Optional[str] = None) -> PolyMesh:
+    """One level of 2x2x2 (2x2 in 2D) refinement of a cellSet (or the
+    whole mesh) on uniform box backgrounds, reusing the snappy octree
+    machinery (split faces at level transitions)."""
+    from ..mesh import snappy
+
+    mdir = os.path.join(case, "constant", "polyMesh")
+    pm = mesh_io.read(mdir)
+    box = snappy._background_box(pm)
+    if box is None:
+        raise ValueError("refineMesh: only uniform box background "
+                         "meshes are supported (octree storage)")
+    bb_min, bb_max, base_n, side_patches, two_d = box
+    nx, ny, nz = base_n
+    if set_name is None:
+        dpath = os.path.join(case, "system", "refineMeshDict")
+        if os.path.exists(dpath):
+            d = parse_file(dpath)
+            set_name = str(d.get("set")) if "set" in d else None
+    if set_name:
+        ids = set(int(i) for i in read_set(case, set_name))
+    else:
+        ids = None
+
+    ext = bb_max - bb_min
+    leaves = {}
+    # map each cell to its lattice coords via its centre
+    ijk = np.floor((pm.c - bb_min) / ext
+                   * np.array([nx, ny, nz])).astype(int)
+    ijk = np.clip(ijk, 0, np.array([nx, ny, nz]) - 1)
+    for ci in range(pm.n_cells):
+        i, j, k = (int(x) for x in ijk[ci])
+        if ids is None or ci in ids:
+            kr = (k,) if two_d else (2 * k, 2 * k + 1)
+            for a in (2 * i, 2 * i + 1):
+                for b in (2 * j, 2 * j + 1):
+                    for cc in kr:
+                        leaves[(1, a, b, cc)] = True
+        else:
+            leaves[(0, i, j, k)] = True
+    out = snappy.octree_mesh(bb_min, bb_max, base_n, set(leaves),
+                             side_patches, two_d=two_d)
+    mesh_io.write(out, mdir)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# changeDictionary (reference: .../preProcessing/changeDictionary/)
+# ---------------------------------------------------------------------------
+
+
+def _deep_merge(dst: FoamDict, src: FoamDict) -> None:
+    for k, v in src.items():
+        if isinstance(v, FoamDict) and isinstance(dst.get(k), FoamDict):
+            _deep_merge(dst[k], v)
+        else:
+            dst[k] = v
+
+
+def change_dictionary(case: str, time: str = "0") -> List[str]:
+    """Apply system/changeDictionaryDict replacements to field files
+    (<time>/<name>) and constant dictionaries."""
+    d = parse_file(os.path.join(case, "system", "changeDictionaryDict"))
+    repl = d.get("dictionaryReplacement", d)
+    changed = []
+    for name, sub in repl.items():
+        if not isinstance(sub, FoamDict):
+            continue
+        for cand in (os.path.join(case, time, str(name)),
+                     os.path.join(case, "constant", str(name)),
+                     os.path.join(case, "system", str(name))):
+            if os.path.exists(cand):
+                tgt = parse_file(cand)
+                _deep_merge(tgt, sub)
+                cls = ("volScalarField" if "internalField" in tgt
+                       else "dictionary")
+                write_file(cand, tgt,
+                           foamfile={"class": cls, "object": str(name)})
+                changed.append(cand)
+                break
+    return changed
+
+
+# ---------------------------------------------------------------------------
+# regionSplit / splitMeshRegions (reference: src/meshTools/regionSplit/
+# — the FaceCellWave family's flood fill — and applications/utilities/
+# mesh/manipulation/splitMeshRegions/)
+# ---------------------------------------------------------------------------
+
+
+def region_split(pm: PolyMesh) -> np.ndarray:
+    """Connected-component label per cell across internal faces
+    (union-find; the reference walks a FaceCellWave)."""
+    parent = np.arange(pm.n_cells, dtype=np.int64)
+
+    def find(a):
+        root = a
+        while parent[root] != root:
+            root = parent[root]
+        while parent[a] != root:
+            parent[a], a = root, parent[a]
+        return root
+
+    nif = pm.n_internal_faces
+    for o, n in zip(pm.owner[:nif], pm.neighbour):
+        ro, rn = find(o), find(n)
+        if ro != rn:
+            parent[max(ro, rn)] = min(ro, rn)
+    labels = np.array([find(i) for i in range(pm.n_cells)])
+    _, out = np.unique(labels, return_inverse=True)
+    return out
+
+
+def split_mesh_regions(case: str, write_sets: bool = True) -> int:
+    """Label the disconnected mesh regions; write one cellSet per
+    region (region0, region1, ...). Returns the region count."""
+    pm = mesh_io.read(os.path.join(case, "constant", "polyMesh"))
+    labels = region_split(pm)
+    n = int(labels.max()) + 1
+    if write_sets and n > 1:
+        for r in range(n):
+            write_set(case, f"region{r}", "cellSet",
+                      np.nonzero(labels == r)[0])
+    return n

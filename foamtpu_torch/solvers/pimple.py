@@ -16,8 +16,10 @@ Semantics:
 - turbOnFinalIterOnly (default yes): turbulence corrected after the
   final outer iteration only.
 
-A step is eager torch, like piso.piso_step; a non-Newtonian viscosity
-(nu_fn) enters as in PISO (piso.add_viscous), and so do fvOptions and
+A step is eager torch, like piso.piso_step, and corrects a
+non-orthogonal mesh's pressure laplacian as it does (each
+nNonOrthogonalCorrectors pass, every outer iteration); a non-Newtonian
+viscosity (nu_fn) enters as in PISO (piso.add_viscous), and so do fvOptions and
 MRF zones (piso.add_sources before the relaxation, the relative phiHbyA
 before adjustPhi; fvOptions correct U after each outer iteration's
 correctors: MRFPimpleFoam, SRFPimpleFoam). A fan pair's jump is
@@ -37,7 +39,7 @@ from ..ops import fvc, fvm, schemes, surface
 from ..ops import slot as slot_mod
 from . import linear
 from .piso import (_as_scalar, add_sources, add_viscous,
-                   advance_time_state, boundary_flux, check_supported,
+                   advance_time_state, boundary_flux,
                    ddt_matrix, needs_reference)
 from .simple import adjust_phi
 
@@ -71,7 +73,6 @@ class PimpleConfig(NamedTuple):
 def pimple_step(mesh, state: Dict, dt: Any, cfg: PimpleConfig
                 ) -> Tuple[Dict, Dict]:
     """One PIMPLE time step. state: {"U","p","phi","U0"(,"turb")}."""
-    check_supported(mesh, state, cfg)
     if "mom_src" in state:
         # the reference's PIMPLE never reads mom_src and so would drop the
         # source silently (ROADMAP Queue 3: a departure kept on purpose)
@@ -98,6 +99,7 @@ def pimple_step(mesh, state: Dict, dt: Any, cfg: PimpleConfig
         phi_slot = slot_mod.SlotFace(*state["phi_slot"], bv=phi[nif:])
     else:
         phi_slot = slot_mod.from_flat(mesh, phi)
+    use_corr = cfg.corrected and not getattr(mesh, "orthogonal", False)
 
     # fan jump pairs re-evaluate their curve at the current flow rate
     # before the pressure assembly sees the BCs (fan updateCoeffs)
@@ -157,9 +159,17 @@ def pimple_step(mesh, state: Dict, dt: Any, cfg: PimpleConfig
 
             p_before = p.data
             for nonorth in range(cfg.n_non_orth + 1):
-                pEqn = pEqn0.replace_fields(
-                    source=pEqn0.source
-                    + slot_mod.surface_sum(mesh, phiHbyA))
+                corr_face = None
+                if use_corr:
+                    corr_face, corr_cell = slot_mod.laplacian_correction(
+                        mesh, rAf_slot, p.data, p.boundary_values(mesh),
+                        limit=cfg.corr_limit)
+                    source = (pEqn0.source - corr_cell
+                              + slot_mod.surface_sum(mesh, phiHbyA))
+                else:
+                    source = (pEqn0.source
+                              + slot_mod.surface_sum(mesh, phiHbyA))
+                pEqn = pEqn0.replace_fields(source=source)
                 final = (final_outer and corr == cfg.n_correctors - 1
                          and nonorth == cfg.n_non_orth)
                 ctl = ctl_final_p if final else p_ctrl_p
@@ -172,8 +182,9 @@ def pimple_step(mesh, state: Dict, dt: Any, cfg: PimpleConfig
                     diag["p_iters"] = pperf.n_iterations
                 diag["p_final"] = pperf.final_residual
                 if nonorth == cfg.n_non_orth:
-                    F = slot_mod.laplacian_flux(mesh, rAf_slot, p.data,
-                                                corrected=False)
+                    F = slot_mod.laplacian_flux(
+                        mesh, rAf_slot, p.data, corrected=use_corr,
+                        corr=corr_face)
                     p_bc = surface.owner_to_b(mesh, p.data)
                     F_b = pEqn.ic * p_bc - pEqn.bc
                     phi_slot = slot_mod.SlotFace(

@@ -14,11 +14,13 @@ steps; here a step is eager torch and a chunk is a plain loop. The
 slice covers icoFoam, nonNewtonianIcoFoam (PisoConfig.nu_fn) and
 pisoFoam (a turbulence model in PisoConfig.turb) with the Euler,
 backward, CrankNicolson and steadyState ddt schemes, any ported
-div(phi,U) scheme and an orthogonal (or
-uncorrected) pressure laplacian, with fvOptions in the momentum equation
-(corrected after the correctors) and MRF zones (the Coriolis source and
-the relative phiHbyA). Every other PisoConfig feature raises
-NotImplementedError naming it.
+div(phi,U) scheme and the pressure laplacian orthogonal, uncorrected or
+corrected: on a non-orthogonal mesh with `corrected` each of the
+nNonOrthogonalCorrectors + 1 passes moves the explicit correction of
+the latest p into the source (limited by corr_limit) and the last pass's
+flux carries it. fvOptions enter the momentum equation (corrected after
+the correctors), MRF zones the Coriolis source and the relative
+phiHbyA.
 """
 
 from __future__ import annotations
@@ -107,16 +109,6 @@ def _default_controls():
     )
 
 
-def check_supported(mesh, state: Dict, cfg) -> None:
-    """Raise NotImplementedError for any feature of a PisoConfig or
-    PimpleConfig outside the slice."""
-    def no(what):
-        raise NotImplementedError(f"{what} is not ported to foamtpu_torch yet")
-
-    if cfg.corrected and not getattr(mesh, "orthogonal", False):
-        no("corrected=True on a non-orthogonal mesh")
-
-
 def needs_reference(p: VolField, mesh) -> bool:
     """Pressure needs a reference when no boundary fixes its value
     (setRefCell / findRefCell.C)."""
@@ -185,7 +177,6 @@ def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
               ) -> Tuple[Dict, Dict]:
     """One PISO time step. state: {"U": VolField, "p": VolField,
     "phi": [nF], "U0", "phi_slot"}. Returns (new_state, diagnostics)."""
-    check_supported(mesh, state, cfg)
     p_ctrl = cfg.p_controls or _default_controls()[0]
     u_ctrl = cfg.u_controls or _default_controls()[1]
 
@@ -229,8 +220,10 @@ def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
     rA_b = surface.owner_to_b(mesh, rA)
     rAf_slot = slot_mod.interpolate(mesh, rA, bv=rA_b)
     rAf = slot_mod.to_flat(mesh, rAf_slot)
-    # the pressure-matrix coefficients are the same for every corrector:
-    # assemble once, share one GAMG prep across the solves
+    # the pressure-matrix coefficients are the same for every corrector
+    # and non-orthogonal pass: assemble once, share one GAMG prep across
+    # the solves; only the source and the deferred correction change
+    use_corr = cfg.corrected and not getattr(mesh, "orthogonal", False)
     pEqn0 = fvm.laplacian(
         mesh, rAf, p, corrected=cfg.corrected, gamma_dims=dimTime,
         limit=cfg.corr_limit, defer_correction=True, gamma_slot=rAf_slot,
@@ -255,8 +248,18 @@ def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
             phiHbyA = phiHbyA._replace(bv=phiHbyA_b)
 
         for nonorth in range(cfg.n_non_orth + 1):
-            pEqn = pEqn0.replace_fields(
-                source=pEqn0.source + slot_mod.surface_sum(mesh, phiHbyA))
+            corr_face = None
+            if use_corr:
+                # the explicit non-orthogonal part from the latest p
+                # (fvm::laplacian's deferred correction)
+                corr_face, corr_cell = slot_mod.laplacian_correction(
+                    mesh, rAf_slot, p.data, p.boundary_values(mesh),
+                    limit=cfg.corr_limit)
+                source = (pEqn0.source - corr_cell
+                          + slot_mod.surface_sum(mesh, phiHbyA))
+            else:
+                source = pEqn0.source + slot_mod.surface_sum(mesh, phiHbyA)
+            pEqn = pEqn0.replace_fields(source=source)
             final = (corr == cfg.n_correctors - 1
                      and nonorth == cfg.n_non_orth)
             ctl = ctl_final_p if final else p_ctrl_p
@@ -273,7 +276,8 @@ def piso_step(mesh, state: Dict, dt: Any, cfg: PisoConfig
                 # phi = phiHbyA - pEqn.flux (slot form; the boundary part
                 # stays flat and small)
                 F = slot_mod.laplacian_flux(mesh, rAf_slot, p.data,
-                                            corrected=False)
+                                            corrected=use_corr,
+                                            corr=corr_face)
                 p_bc = surface.owner_to_b(mesh, p.data)
                 F_b = pEqn.ic * p_bc - pEqn.bc
                 phi_slot = slot_mod.SlotFace(

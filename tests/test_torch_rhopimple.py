@@ -362,7 +362,21 @@ def test_port_on_the_cpu_meets_the_card_goldens(tmp_path):
 if __name__ == "__main__":
     # python tests/test_torch_rhopimple.py goldens [--perturb] [name ...]:
     # the JSON of reference_compressible (the environment sets float32 or
-    # float64; --perturb perturbs the start by 1e-7)
+    # float64; --perturb perturbs the start by 1e-7); ... spread f32.json
+    # f64.json perturbed.json: chip_smoke.COMP_SPREAD, each scalar's
+    # largest error from the float32 run's relative to max(|value|,
+    # chip_smoke.COMP_FLOOR)
+    if len(sys.argv) > 1 and sys.argv[1] == "spread":
+        sys.path.insert(0, REPO)
+        import chip_smoke as cs
+
+        runs = []
+        for path in sys.argv[2:]:
+            with open(path) as f:
+                runs.append(json.load(f))
+        print(json.dumps({name: {k: max(cs.golden_rel_err(
+            r[name], gold, cs.COMP_FLOOR)[k] for r in runs[1:])
+            for k in gold} for name, gold in runs[0].items()}))
     if len(sys.argv) > 1 and sys.argv[1] == "goldens":
         args = sys.argv[2:]
         eps = 1e-7 if "--perturb" in args else 0.0

@@ -556,7 +556,7 @@ def test_commands_with_reference_only_are_the_references():
     assert set(tcli.COMMANDS) | set(tcli.REFERENCE_ONLY) == set(
         jcli.COMMANDS)
     assert not set(tcli.COMMANDS) & set(tcli.REFERENCE_ONLY)
-    assert len(tcli.COMMANDS) == 42 and "decomposePar" in \
+    assert len(tcli.COMMANDS) == 75 and "decomposePar" in \
         tcli.REFERENCE_ONLY
 
 
@@ -577,7 +577,9 @@ def test_new_commands_default_to_the_card():
 
     for name in ("foamToVTK", "mapFields", "patchAverage", "foamCalc",
                  "writeCellCentres", "writeCellVolumes", "postProcess",
-                 "sample"):
+                 "sample", "foamToEnsight", "foamFormatConvert",
+                 "deformedGeom", "postChannel", "temporalInterpolate",
+                 "tutorials"):
         src = inspect.getsource(tcli.COMMANDS[name])
         assert "_device(args)" in src, name
     assert "args.device or DEFAULT_DEVICE" in inspect.getsource(tcli._device)
@@ -587,8 +589,23 @@ def test_new_commands_default_to_the_card():
 
     assert inspect.signature(vtk.case_to_vtk).parameters[
         "device"].default == DEFAULT_DEVICE
+    from foamtpu_torch.apps import meshutils3
+
+    for fn in (meshutils3.foam_format_convert, meshutils3.deformed_geom,
+               meshutils3.post_channel, meshutils3.temporal_interpolate):
+        assert inspect.signature(fn).parameters[
+            "device"].default == DEFAULT_DEVICE, fn.__name__
     for name in ("checkMesh", "renumberMesh", "transformPoints",
-                 "foamListTimes"):
+                 "foamListTimes", "createPatch", "extrudeMesh",
+                 "refineMesh", "changeDictionary", "gmshToFoam",
+                 "splitMeshRegions", "mirrorMesh", "subsetMesh",
+                 "mergeMeshes", "flattenMesh", "autoPatch",
+                 "adiabaticFlameT", "mixtureAdiabaticFlameT",
+                 "chemkinToFoam", "surfaceCheck", "surfaceConvert",
+                 "objToVTK", "surfaceTransformPoints", "surfaceSubset",
+                 "fluentMeshToFoam", "setsToZones", "netgenNeutralToFoam",
+                 "writeMeshObj", "foamDebugSwitches", "particleTracks",
+                 "setSet", "stitchMesh"):
         assert "device" not in inspect.getsource(tcli.COMMANDS[name]), name
 
 
